@@ -4,27 +4,53 @@
 // (chiaswarm_tpu/ops/flash_attention.py): softmax(q k^T * scale) v with an
 // online softmax over KV tiles (running max m, running sum l, f32
 // accumulator), so the [Sq, Skv] score matrix never reaches device memory.
-// Scores stay in f32; KV columns past the true length are masked to -1e30
-// (ragged cross-attention lengths such as 77); P is rounded to the input
-// type before P.V, as in the TPU kernel; the output is acc / max(l, 1e-30).
+// Scores stay in f32 with the scale applied in f32; KV columns past the true
+// length are masked to -1e30 (ragged cross-attention lengths such as 77); P
+// is rounded to the input type before P.V, as in the TPU kernel; the output
+// is acc / max(l, 1e-30), written in the [B, S, H, D] layout it came in.
 //
-// What bounds it on an H100: operations. 4*B*H*Sq*Skv*D flops against
-// 989 TFLOP/s of bf16 tensor cores, while q/k/v/o move only a few MB.
-// What the design does about that:
-//   - bf16 with D == 64 (every SDXL UNet attention): one CTA of 4 warps per
-//     (b*h, 64 query rows); each warp owns 16 rows and runs QK^T and P.V on
-//     the tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate).
-//     Q fragments live in registers for the whole KV sweep, P is reused
-//     from the score accumulators as the A operand without touching shared
-//     memory, and V is stored transposed in shared memory so each B
-//     fragment is one 32-bit load. Rows are padded by 8 elements so the
-//     fragment loads are free of bank conflicts.
-//   - every other case (f32 inputs, D == 512 for the VAE mid-block, other
-//     head widths up to 512): an FMA kernel in plain f32, no TF32, so f32
-//     meets the 2e-5 bound of the reference test; 16-byte loads fill the
-//     tiles. It is right, not fast.
-// Loads are synchronous (no cp.async/TMA pipeline yet): a later change can
-// add a multi-stage pipeline and wgmma.
+// What bounds it on an H100: operations, 4*B*H*Sq*Skv*D flops against
+// 989 TFLOP/s of bf16 tensor cores, for every self-attention; the 77-token
+// cross-attention moves more bytes than it computes and is bound by them
+// (and, at a few microseconds, by launch and load latency). At D = 64 the
+// softmax weighs as much as the products: each score costs one exp2 on the
+// SFUs (16 a cycle per SM) and about five more instructions from the warp
+// schedulers, against 128 flops on the tensor cores (4096 a cycle per SM).
+// The design runs the two side by side and keeps the softmax short: on a
+// full tile (no masked column, positive scale) the scale folds into the
+// exponent's FMA and no mask is applied. Three paths:
+//
+//   - bf16, D == 64 (every SDXL UNet attention): `flash_fwd_wgmma64`, warp
+//     specialised. One producer warpgroup (one thread issues TMA loads,
+//     the rest give their registers away with setmaxnreg) and three
+//     consumer warpgroups, each owning 64 of the CTA's 192 query rows, so
+//     every K/V tile feeds 192 rows. K and V tiles of 128 rows move
+//     through a 3-stage ring in shared memory, each stage with a full
+//     barrier for K, one for V and one empty barrier, so copies run two
+//     tiles ahead of the products. The tensor maps cover q, k, v as they
+//     lie (dims {D, H, S, B}, box {64, 1, rows, 1}, 128-byte swizzle); TMA
+//     fills rows past Sq or Skv with zeros, and the -1e30 column mask does
+//     the rest. S = Q.K^T is wgmma (m64n128k16) with both operands K-major
+//     in shared memory; O += P.V is wgmma with P in registers (the S
+//     accumulators, softmaxed and packed to bf16) and V read from shared
+//     memory as an MN-major operand, so V is never transposed. Each consumer
+//     issues S of tile j with P.V of tile j-1 and runs the softmax of tile
+//     j after them; the consumers take turns in a ring to issue, so one's
+//     softmax overlaps the others' products.
+//   - bf16, D == 512 (the VAE mid-block's single head): `flash_fwd_wgmma512`.
+//     A 64x512 f32 accumulator is 256 registers a thread in one warpgroup,
+//     so two consumer warpgroups share 64 query rows and each owns half of
+//     the output width (128 registers). Each computes S over its half of
+//     D (the K-split of Q.K^T), the two halves are summed through shared
+//     memory, and both run the same softmax on the same S, so S is
+//     computed once and P stays in registers for wgmma. Q (64 KB), a K
+//     tile and a V tile (64 KB each, 64 rows loaded as 8 boxes of 64
+//     columns) fill shared memory; K and V have their own barriers, so
+//     K of tile j+1 loads during P.V of tile j and V of tile j+1 during
+//     S of tile j+1.
+//   - every other case (f32 inputs, other bf16 head widths up to 512): an
+//     FMA kernel in plain f32, no TF32, so f32 meets the 2e-5 bound of the
+//     reference test; 16-byte loads fill the tiles. It is right, not fast.
 //
 // C interface (bound with ctypes): fa_forward returns cudaGetLastError()
 // after the launch, 0 on success.
@@ -33,200 +59,493 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kRowBytes = 64 * 2;  // one 64-wide bf16 row of a tile
 
-// ---------------------------------------------------------------------
-// bf16 tensor-core kernel, D == 64 (static shared memory: 27 KB)
-// ---------------------------------------------------------------------
-
-constexpr int kMmaBQ = 64;   // query rows per CTA (4 warps x 16)
-constexpr int kMmaBK = 64;   // KV rows per tile
-constexpr int kPad = 8;      // bf16 elements of row padding
-
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <int D>
-__global__ void __launch_bounds__(128)
-flash_fwd_bf16_mma(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v,
-                   __nv_bfloat16* __restrict__ o,
-                   int Sq, int Skv, int H, float scale_log2) {
-  constexpr int DS = D + kPad;        // sQ / sK row stride
-  constexpr int KS = kMmaBK + kPad;   // sVt row stride
-  constexpr int VEC = D / 8;          // 16-byte vectors per row
-  constexpr int KSTEPS = D / 16;
-  constexpr int NT_S = kMmaBK / 8;    // score n-tiles per warp
-  constexpr int NT_O = D / 8;         // output n-tiles per warp
-
-  __shared__ __align__(16) __nv_bfloat16 sQ[kMmaBQ * DS];
-  __shared__ __align__(16) __nv_bfloat16 sK[kMmaBK * DS];
-  __shared__ __align__(16) __nv_bfloat16 sVt[D * KS];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;   // group id: fragment row
-  const int t = lane & 3;    // thread in group: fragment column pair
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int q0 = blockIdx.x * kMmaBQ;
-  const size_t row_stride = (size_t)H * D;
-  const __nv_bfloat16* qb = q + ((size_t)b * Sq * H + h) * D;
-  const __nv_bfloat16* kb = k + ((size_t)b * Skv * H + h) * D;
-  const __nv_bfloat16* vb = v + ((size_t)b * Skv * H + h) * D;
-  __nv_bfloat16* ob = o + ((size_t)b * Sq * H + h) * D;
-
-  // Q tile -> shared (zeros past Sq), then into registers for the sweep
-  for (int idx = tid; idx < kMmaBQ * VEC; idx += 128) {
-    int r = idx / VEC, cv = idx % VEC;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (q0 + r < Sq)
-      val = *reinterpret_cast<const uint4*>(qb + (size_t)(q0 + r) * row_stride + cv * 8);
-    *reinterpret_cast<uint4*>(&sQ[r * DS + cv * 8]) = val;
-  }
-  __syncthreads();
-  uint32_t qa[KSTEPS][4];
-  {
-    const int r0 = warp * 16 + g;
+// Online-softmax update of one KV tile's scores held as a wgmma
+// accumulator (s[4i..4i+3] = group i of 8 columns, rows g and g+8): scale
+// to the log2 domain in f32, mask columns at or past Skv, fold into the
+// running max (m0, m1) and the per-thread partial sums (l0, l1), and
+// return the rescale factors for the output accumulator.
+//
+// kFull: a tile with no masked column and a positive scale. The row max is
+// then taken over the raw scores (rounding is monotonic, so
+// fl(max(s) * c) == max(fl(s * c)) for c > 0) and the scale folds into the
+// exponent's FMA: p = 2^(s * c - m), with one rounding fewer. This saves
+// the multiply and the mask's compares and selects on every tile but the
+// last; at D = 64 the softmax's instruction count, not the SFU, is what
+// keeps the tensor cores waiting.
+template <bool kFull, int NS>
+__device__ __forceinline__ void online_softmax(float (&s)[NS], int col0, int Skv,
+                                               float scale_log2, float& m0, float& m1,
+                                               float& l0, float& l1, float& alpha0,
+                                               float& alpha1) {
+  const int t = threadIdx.x & 3;
+  float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks) {
-      const int c = ks * 16 + t * 2;
-      qa[ks][0] = *reinterpret_cast<const uint32_t*>(&sQ[r0 * DS + c]);
-      qa[ks][1] = *reinterpret_cast<const uint32_t*>(&sQ[(r0 + 8) * DS + c]);
-      qa[ks][2] = *reinterpret_cast<const uint32_t*>(&sQ[r0 * DS + c + 8]);
-      qa[ks][3] = *reinterpret_cast<const uint32_t*>(&sQ[(r0 + 8) * DS + c + 8]);
-    }
-  }
-
-  float acc[NT_O][4];
-#pragma unroll
-  for (int i = 0; i < NT_O; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf;  // running max, rows g and g+8 (log2 domain)
-  float l0 = 0.f, l1 = 0.f;          // per-thread partial row sums
-
-  for (int j0 = 0; j0 < Skv; j0 += kMmaBK) {
-    __syncthreads();  // previous tile fully consumed
-    for (int idx = tid; idx < kMmaBK * VEC; idx += 128) {
-      int r = idx / VEC, cv = idx % VEC;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (j0 + r < Skv) {
-        kv = *reinterpret_cast<const uint4*>(kb + (size_t)(j0 + r) * row_stride + cv * 8);
-        vv = *reinterpret_cast<const uint4*>(vb + (size_t)(j0 + r) * row_stride + cv * 8);
-      }
-      *reinterpret_cast<uint4*>(&sK[r * DS + cv * 8]) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) sVt[(cv * 8 + e) * KS + r] = ve[e];
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 KV columns
-    float s[NT_S][4];
-#pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* krow = &sK[(nt * 8 + g) * DS];
-#pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks) {
-        uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + ks * 16 + t * 2);
-        uint32_t b1 = *reinterpret_cast<const uint32_t*>(krow + ks * 16 + 8 + t * 2);
-        mma_bf16_16816(s[nt], qa[ks], b0, b1);
-      }
-    }
-
-    // scale (f32, log2 domain), mask the ragged KV edge, row maxima
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
+  for (int i = 0; i < NS / 4; ++i) {
+    if constexpr (!kFull) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = j0 + nt * 8 + t * 2 + (e & 1);
-        float val = s[nt][e] * scale_log2;
-        if (col >= Skv) val = kNegInf;
-        s[nt][e] = val;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffff, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffff, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffff, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffff, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float alpha0 = exp2f(m0 - mn0), alpha1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
-      s[nt][0] = exp2f(s[nt][0] - mn0);
-      s[nt][1] = exp2f(s[nt][1] - mn0);
-      s[nt][2] = exp2f(s[nt][2] - mn1);
-      s[nt][3] = exp2f(s[nt][3] - mn1);
-      rs0 += s[nt][0] + s[nt][1];
-      rs1 += s[nt][2] + s[nt][3];
-    }
-    l0 = l0 * alpha0 + rs0;
-    l1 = l1 * alpha1 + rs1;
-#pragma unroll
-    for (int i = 0; i < NT_O; ++i) {
-      acc[i][0] *= alpha0;
-      acc[i][1] *= alpha0;
-      acc[i][2] *= alpha1;
-      acc[i][3] *= alpha1;
-    }
-
-    // O += P V: P comes straight from the score accumulators (bf16)
-#pragma unroll
-    for (int kk = 0; kk < kMmaBK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dt = 0; dt < NT_O; ++dt) {
-        const __nv_bfloat16* vrow = &sVt[(dt * 8 + g) * KS + kk * 16];
-        uint32_t b0 = *reinterpret_cast<const uint32_t*>(vrow + t * 2);
-        uint32_t b1 = *reinterpret_cast<const uint32_t*>(vrow + 8 + t * 2);
-        mma_bf16_16816(acc[dt], pa, b0, b1);
+        float val = s[4 * i + e] * scale_log2;
+        if (col0 + 8 * i + 2 * t + (e & 1) >= Skv) val = kNegInf;
+        s[4 * i + e] = val;
       }
     }
+    mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
   }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffff, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffff, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffff, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffff, mx1, 2));
+  if constexpr (kFull) {
+    mx0 *= scale_log2;
+    mx1 *= scale_log2;
+  }
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  alpha0 = exp2_ftz(m0 - mn0);
+  alpha1 = exp2_ftz(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  const float c = kFull ? scale_log2 : 1.f;
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < NS / 4; ++i) {
+    s[4 * i] = exp2_ftz(fmaf(s[4 * i], c, -mn0));
+    s[4 * i + 1] = exp2_ftz(fmaf(s[4 * i + 1], c, -mn0));
+    s[4 * i + 2] = exp2_ftz(fmaf(s[4 * i + 2], c, -mn1));
+    s[4 * i + 3] = exp2_ftz(fmaf(s[4 * i + 3], c, -mn1));
+    rs0 += s[4 * i] + s[4 * i + 1];
+    rs1 += s[4 * i + 2] + s[4 * i + 3];
+  }
+  l0 = l0 * alpha0 + rs0;
+  l1 = l1 * alpha1 + rs1;
+}
 
+// the softmax of KV tile j (columns col0 ..): the full-tile form where it applies
+template <int NS>
+__device__ __forceinline__ void softmax_tile(float (&s)[NS], int col0, int Skv,
+                                             float scale_log2, float& m0, float& m1, float& l0,
+                                             float& l1, float& alpha0, float& alpha1) {
+  if (col0 + 2 * NS <= Skv && scale_log2 > 0.f)  // NS / 4 groups of 8 columns
+    online_softmax<true>(s, col0, Skv, scale_log2, m0, m1, l0, l1, alpha0, alpha1);
+  else
+    online_softmax<false>(s, col0, Skv, scale_log2, m0, m1, l0, l1, alpha0, alpha1);
+}
+
+// the output accumulator (32 registers of one 64-column block) times the
+// rescale factors of its two rows
+__device__ __forceinline__ void rescale(float* acc, float alpha0, float alpha1) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    acc[4 * i] *= alpha0;
+    acc[4 * i + 1] *= alpha0;
+    acc[4 * i + 2] *= alpha1;
+    acc[4 * i + 3] *= alpha1;
+  }
+}
+
+// P for k16 slice kk of the scores: the A-operand registers of wgmma
+__device__ __forceinline__ void pack_p(const float* s, int kk, uint32_t (&a)[4]) {
+  a[0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+  a[1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+  a[2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+  a[3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+}
+
+// quad-reduce the row sums and store one 64-column block of the output
+__device__ __forceinline__ void store_block(const float* acc, float inv0, float inv1,
+                                            __nv_bfloat16* ob, size_t row_stride, int r0,
+                                            int Sq, int col0) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int c = col0 + 8 * i + 2 * t;
+    if (r0 < Sq)
+      *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * row_stride + c) =
+          pack_bf16(acc[4 * i] * inv0, acc[4 * i + 1] * inv0);
+    if (r0 + 8 < Sq)
+      *reinterpret_cast<uint32_t*>(ob + (size_t)(r0 + 8) * row_stride + c) =
+          pack_bf16(acc[4 * i + 2] * inv1, acc[4 * i + 3] * inv1);
+  }
+}
+
+__device__ __forceinline__ void row_sums(float& l0, float& l1, float& inv0, float& inv1) {
   l0 += __shfl_xor_sync(0xffffffff, l0, 1);
   l0 += __shfl_xor_sync(0xffffffff, l0, 2);
   l1 += __shfl_xor_sync(0xffffffff, l1, 1);
   l1 += __shfl_xor_sync(0xffffffff, l1, 2);
-  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
-  const int r0 = q0 + warp * 16 + g;
+  inv0 = 1.f / fmaxf(l0, 1e-30f);
+  inv1 = 1.f / fmaxf(l1, 1e-30f);
+}
+
+// ---------------------------------------------------------------------
+// bf16, D == 64
+// ---------------------------------------------------------------------
+
+constexpr int k64BN = 128;  // KV rows per tile
+constexpr int k64Stages = 3;
+constexpr uint32_t k64KvBytes = k64BN * kRowBytes;  // one K or V box: 16 KB
+constexpr uint32_t kTurnBarrier = 1;  // named barriers 1 .. k64Consumers: whose turn it is
+
+// One producer warpgroup and three consumer warpgroups of 64 query rows
+// each. The CTA is launched at 65536 / 512 = 128 registers a thread; the
+// producer keeps 32 and gives the rest to the consumers (160 each).
+constexpr int k64Consumers = 3;
+constexpr int k64Threads = 128 * (k64Consumers + 1);
+constexpr int k64BM = 64 * k64Consumers;  // query rows per CTA
+constexpr uint32_t k64ConsumerThreads = 128 * k64Consumers;
+constexpr uint32_t k64ProducerRegs = 32;
+constexpr uint32_t k64ConsumerRegs = 160;
+static_assert(128 * k64ProducerRegs + k64ConsumerThreads * k64ConsumerRegs <= 65536, "registers");
+
+struct Smem64 {
+  __nv_bfloat16 q[k64BM * 64];
+  __nv_bfloat16 k[k64Stages][k64BN * 64];
+  __nv_bfloat16 v[k64Stages][k64BN * 64];
+  uint64_t q_full, k_full[k64Stages], v_full[k64Stages], empty[k64Stages];
+};
+
+// S = Q K^T for one 128-row K tile
+__device__ __forceinline__ void issue_s64(float (&s)[64], uint32_t q_addr, uint32_t k_addr) {
 #pragma unroll
-  for (int dt = 0; dt < NT_O; ++dt) {
-    const int c = dt * 8 + t * 2;
-    if (r0 < Sq)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * row_stride + c) =
-          pack_bf16(acc[dt][0] * inv0, acc[dt][1] * inv0);
-    if (r0 + 8 < Sq)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)(r0 + 8) * row_stride + c) =
-          pack_bf16(acc[dt][2] * inv1, acc[dt][3] * inv1);
+  for (int ks = 0; ks < 4; ++ks) {
+    wgmma_m64n128k16_ss(s, desc_kmajor(q_addr + ks * 32), desc_kmajor(k_addr + ks * 32), ks > 0);
+  }
+}
+
+// O += P V for one 128-row V tile: P from registers, V MN-major in shared memory
+__device__ __forceinline__ void issue_pv64(float (&acc)[32], const uint32_t (&pa)[8][4],
+                                           uint32_t v_addr) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_m64n64k16_rs(acc, pa[kk], desc_mnmajor(v_addr + kk * 16 * kRowBytes));
+}
+
+// The consumers take turns, in a ring, to issue their products, so one's
+// softmax (SFU) overlaps the others' wgmma (tensor cores); with two this
+// would be the ping-pong of FlashAttention-3. Named barrier kTurnBarrier + c
+// is consumer c's turn: c syncs on it, and its predecessor arrives on it
+// after issuing. Consumer 0 goes first: the last consumer arrives once up
+// front and skips its arrival after its last tile, so the counts match.
+__device__ __forceinline__ void take_turn(int cw) {
+  named_barrier_sync(kTurnBarrier + cw, 256);
+}
+
+__device__ __forceinline__ void pass_turn(int cw, bool more) {
+  if (cw != k64Consumers - 1 || more)
+    named_barrier_arrive(kTurnBarrier + (cw + 1) % k64Consumers, 256);
+}
+
+__global__ void __launch_bounds__(k64Threads, 1)
+flash_fwd_wgmma64(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int Sq,
+                  int Skv, int H, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  Smem64& sm = *reinterpret_cast<Smem64*>(align1024(smem_raw));
+  const int wg = threadIdx.x / 128;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int q0 = blockIdx.x * k64BM;
+  const int n_tiles = (Skv + k64BN - 1) / k64BN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+#pragma unroll
+    for (int s = 0; s < k64Stages; ++s) {
+      mbar_init(&sm.k_full[s], 1);
+      mbar_init(&sm.v_full[s], 1);
+      mbar_init(&sm.empty[s], k64ConsumerThreads);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: one thread keeps the ring full
+    setmaxnreg_dec<k64ProducerRegs>();
+    if (threadIdx.x == 0) {
+      prefetch_tensor_map(&tq);
+      prefetch_tensor_map(&tk);
+      prefetch_tensor_map(&tv);
+      mbar_expect_tx(&sm.q_full, k64BM * kRowBytes);
+      tma_load_4d(sm.q, &tq, &sm.q_full, 0, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % k64Stages;
+        mbar_wait(&sm.empty[s], ((j / k64Stages) & 1) ^ 1);
+        mbar_expect_tx(&sm.k_full[s], k64KvBytes);
+        tma_load_4d(sm.k[s], &tk, &sm.k_full[s], 0, h, j * k64BN, b);
+        mbar_expect_tx(&sm.v_full[s], k64KvBytes);
+        tma_load_4d(sm.v[s], &tv, &sm.v_full[s], 0, h, j * k64BN, b);
+      }
+    }
+  } else {
+    setmaxnreg_inc<k64ConsumerRegs>();
+    const int cw = wg - 1;  // which 64 query rows of the CTA
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5;
+    const int g = (tid & 31) >> 2;
+    const uint32_t q_addr = smem_addr(sm.q) + cw * 64 * kRowBytes;
+
+    float acc[32], s[64];
+    uint32_t pa[8][4];  // P of the previous tile, the A operand of its P.V
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) pa[kk][0] = pa[kk][1] = pa[kk][2] = pa[kk][3] = 0u;
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+    // S of tile j is issued together with P.V of tile j-1, in one turn.
+    // (ptxas places the wait for that P.V above the exponentials, so a
+    // softmax overlaps the other consumers' products, not its own P.V.)
+    // Tile 0 (S only) is peeled off: a wgmma issued under a branch makes
+    // ptxas serialize the products.
+    mbar_wait(&sm.q_full, 0);
+    if (cw == k64Consumers - 1) named_barrier_arrive(kTurnBarrier, 256);
+    {
+      mbar_wait(&sm.k_full[0], 0);
+      take_turn(cw);
+      fence_regs(s, 64);
+      wgmma_fence();
+      issue_s64(s, q_addr, smem_addr(sm.k[0]));
+      wgmma_commit();
+      pass_turn(cw, n_tiles > 1);
+      wgmma_wait<0>();
+      fence_regs(s, 64);
+      float alpha0, alpha1;  // the accumulator is still zero
+      softmax_tile(s, 0, Skv, scale_log2, m0, m1, l0, l1, alpha0, alpha1);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) pack_p(s, kk, pa[kk]);
+    }
+    for (int j = 1; j < n_tiles; ++j) {
+      const int st = j % k64Stages;
+      const int pst = (j - 1) % k64Stages;  // stage of tile j-1
+      mbar_wait(&sm.k_full[st], (j / k64Stages) & 1);
+      mbar_wait(&sm.v_full[pst], ((j - 1) / k64Stages) & 1);
+      // opaque: the descriptors are rebuilt here, not held across the loop
+      const uint32_t qa = opaque(q_addr);
+      const uint32_t ka = opaque(smem_addr(sm.k[st]));
+      const uint32_t va = opaque(smem_addr(sm.v[pst]));
+
+      take_turn(cw);
+      fence_regs(s, 64);
+      fence_regs(acc, 32);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) fence_regs(pa[kk]);
+      wgmma_fence();
+      issue_s64(s, qa, ka);
+      wgmma_commit();
+      issue_pv64(acc, pa, va);
+      wgmma_commit();
+      pass_turn(cw, j + 1 < n_tiles);
+      wgmma_wait<1>();  // S of tile j is in
+      fence_regs(s, 64);
+
+      float alpha0, alpha1;
+      softmax_tile(s, j * k64BN, Skv, scale_log2, m0, m1, l0, l1, alpha0, alpha1);
+      wgmma_wait<0>();
+      fence_regs(acc, 32);
+      mbar_arrive(&sm.empty[pst]);  // K and V of tile j-1 are consumed
+      rescale(acc, alpha0, alpha1);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) pack_p(s, kk, pa[kk]);
+    }
+
+    // P.V of the last tile
+    const int last = (n_tiles - 1) % k64Stages;
+    mbar_wait(&sm.v_full[last], ((n_tiles - 1) / k64Stages) & 1);
+    fence_regs(acc, 32);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) fence_regs(pa[kk]);
+    wgmma_fence();
+    issue_pv64(acc, pa, smem_addr(sm.v[last]));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc, 32);
+    mbar_arrive(&sm.empty[last]);
+
+    float inv0, inv1;
+    row_sums(l0, l1, inv0, inv1);
+    __nv_bfloat16* ob = o + ((size_t)b * Sq * H + h) * 64;
+    store_block(acc, inv0, inv1, ob, (size_t)H * 64, q0 + cw * 64 + warp * 16 + g, Sq, 0);
+  }
+}
+
+// ---------------------------------------------------------------------
+// bf16, D == 512
+// ---------------------------------------------------------------------
+
+// One producer and two consumer warpgroups: launched at 168 registers a
+// thread, the producer keeps 40 and the consumers take 232.
+constexpr int k512Threads = 384;
+constexpr uint32_t k512ProducerRegs = 40;
+constexpr uint32_t k512ConsumerRegs = 232;
+constexpr uint32_t k512ConsumerThreads = 256;
+constexpr int k512BM = 64;  // query rows per CTA, shared by both consumer warpgroups
+constexpr int k512BN = 64;  // KV rows per tile
+constexpr int k512Blocks = 8;  // 64-column blocks of a 512-wide row
+constexpr uint32_t k512BoxBytes = 64 * kRowBytes;  // one 64x64 box: 8 KB
+constexpr uint32_t k512TileBytes = k512Blocks * k512BoxBytes;  // 64 KB
+
+struct Smem512 {
+  __nv_bfloat16 q[k512Blocks][k512BM * 64];
+  __nv_bfloat16 k[k512Blocks][k512BN * 64];
+  __nv_bfloat16 v[k512Blocks][k512BN * 64];
+  float4 red[2][8][128];  // each consumer warpgroup's partial scores, per thread
+  uint64_t q_full, k_full, k_empty, v_full, v_empty;
+};
+
+__global__ void __launch_bounds__(k512Threads, 1)
+flash_fwd_wgmma512(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int Sq,
+                   int Skv, int H, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  Smem512& sm = *reinterpret_cast<Smem512*>(align1024(smem_raw));
+  const int wg = threadIdx.x / 128;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int q0 = blockIdx.x * k512BM;
+  const int n_tiles = (Skv + k512BN - 1) / k512BN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    mbar_init(&sm.k_full, 1);
+    mbar_init(&sm.v_full, 1);
+    mbar_init(&sm.k_empty, k512ConsumerThreads);
+    mbar_init(&sm.v_empty, k512ConsumerThreads);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    setmaxnreg_dec<k512ProducerRegs>();
+    if (threadIdx.x == 0) {
+      prefetch_tensor_map(&tq);
+      prefetch_tensor_map(&tk);
+      prefetch_tensor_map(&tv);
+      mbar_expect_tx(&sm.q_full, k512TileBytes);
+#pragma unroll
+      for (int c = 0; c < k512Blocks; ++c) tma_load_4d(sm.q[c], &tq, &sm.q_full, 64 * c, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const uint32_t phase = j & 1;
+        mbar_wait(&sm.k_empty, phase ^ 1);
+        mbar_expect_tx(&sm.k_full, k512TileBytes);
+#pragma unroll
+        for (int c = 0; c < k512Blocks; ++c)
+          tma_load_4d(sm.k[c], &tk, &sm.k_full, 64 * c, h, j * k512BN, b);
+        mbar_wait(&sm.v_empty, phase ^ 1);
+        mbar_expect_tx(&sm.v_full, k512TileBytes);
+#pragma unroll
+        for (int c = 0; c < k512Blocks; ++c)
+          tma_load_4d(sm.v[c], &tv, &sm.v_full, 64 * c, h, j * k512BN, b);
+      }
+    }
+  } else {
+    setmaxnreg_inc<k512ConsumerRegs>();
+    const int cw = wg - 1;  // which half of D this warpgroup reduces over and owns
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5;
+    const int g = (tid & 31) >> 2;
+    const uint32_t q_addr = smem_addr(sm.q[4 * cw]);
+    const uint32_t k_addr = smem_addr(sm.k[4 * cw]);
+    const uint32_t v_addr = smem_addr(sm.v[4 * cw]);
+
+    float acc[4][32];
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[nb][i] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+    mbar_wait(&sm.q_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const uint32_t phase = j & 1;
+
+      // this warpgroup's half of S = Q K^T: columns 256*cw .. +256 of D,
+      // four 64-column boxes of four k16 slices each
+      mbar_wait(&sm.k_full, phase);
+      float s[32];
+      const uint32_t qa = opaque(q_addr), ka = opaque(k_addr);
+      fence_regs(s, 32);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 16; ++ks) {
+        const uint32_t off = (ks / 4) * k512BoxBytes + (ks % 4) * 32;
+        wgmma_m64n64k16_ss(s, desc_kmajor(qa + off), desc_kmajor(ka + off), ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s, 32);
+      mbar_arrive(&sm.k_empty);
+
+      // sum the two halves: both warpgroups end with the same S
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        sm.red[cw][i][tid] = make_float4(s[4 * i], s[4 * i + 1], s[4 * i + 2], s[4 * i + 3]);
+      named_barrier_sync(1, k512ConsumerThreads);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 other = sm.red[cw ^ 1][i][tid];
+        s[4 * i] += other.x;
+        s[4 * i + 1] += other.y;
+        s[4 * i + 2] += other.z;
+        s[4 * i + 3] += other.w;
+      }
+      named_barrier_sync(2, k512ConsumerThreads);  // both read before the next tile writes
+
+      float alpha0, alpha1;
+      softmax_tile(s, j * k512BN, Skv, scale_log2, m0, m1, l0, l1, alpha0, alpha1);
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) rescale(acc[nb], alpha0, alpha1);
+
+      // O += P V over this warpgroup's four 64-column blocks of V
+      mbar_wait(&sm.v_full, phase);
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        pack_p(s, kk, pa[kk]);
+        fence_regs(pa[kk]);
+      }
+      const uint32_t va = opaque(v_addr);
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) fence_regs(acc[nb], 32);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb)
+          wgmma_m64n64k16_rs(acc[nb], pa[kk],
+                             desc_mnmajor(va + nb * k512BoxBytes + kk * 16 * kRowBytes));
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) fence_regs(acc[nb], 32);
+      mbar_arrive(&sm.v_empty);
+    }
+
+    float inv0, inv1;
+    row_sums(l0, l1, inv0, inv1);
+    __nv_bfloat16* ob = o + ((size_t)b * Sq * H + h) * 512;
+    const int r0 = q0 + warp * 16 + g;
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+      store_block(acc[nb], inv0, inv1, ob, (size_t)H * 512, r0, Sq, 64 * (4 * cw + nb));
   }
 }
 
@@ -387,14 +706,23 @@ cudaError_t launch_fma_any(const void* q, const void* k, const void* v, void* o,
   return launch_fma<T, 512, 16, 32, 256>(q, k, v, o, B, Sq, Skv, H, D, scale, s);
 }
 
-template <int D>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                       int Skv, int H, float scale, cudaStream_t stream) {
-  dim3 grid((Sq + kMmaBQ - 1) / kMmaBQ, B * H);
-  flash_fwd_bf16_mma<D><<<grid, 128, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Skv, H,
-      scale * kLog2e);
+// tensor maps over q, k, v with `box_rows`-row boxes; the kernel's dynamic
+// shared memory (plus 1 KB to align the tiles) is set once per kernel
+template <typename Smem, typename Kernel>
+cudaError_t launch_wgmma(Kernel kernel, int threads, int D, int BM, int BN, const void* q,
+                         const void* k, const void* v, void* o, int B, int Sq, int Skv, int H,
+                         float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!make_bshd_map(&tq, q, B, Sq, H, D, BM) || !make_bshd_map(&tk, k, B, Skv, H, D, BN) ||
+      !make_bshd_map(&tv, v, B, Skv, H, D, BN))
+    return cudaErrorInvalidValue;
+  const int smem = (int)sizeof(Smem) + 1024;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  dim3 grid((Sq + BM - 1) / BM, B * H);
+  kernel<<<grid, threads, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Skv,
+                                           H, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -404,13 +732,19 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Tensors are contiguous [B, S, H, D].
 // Returns a cudaError_t (0 = success); 1 (cudaErrorInvalidValue) for a
-// dtype/D the kernels do not take (the Python wrapper checks first).
+// dtype/D the kernels do not take (the Python wrapper checks first) or a
+// tensor map the driver refuses.
 int fa_forward(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
                int H, int D, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D < 1 || D > 512 || Sq < 1 || Skv < 1) return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
-    if (D == 64) return (int)launch_mma<64>(q, k, v, o, B, Sq, Skv, H, scale, s);
+    if (D == 64)
+      return (int)launch_wgmma<Smem64>(flash_fwd_wgmma64, k64Threads, 64, k64BM, k64BN, q, k, v,
+                                       o, B, Sq, Skv, H, scale, s);
+    if (D == 512)
+      return (int)launch_wgmma<Smem512>(flash_fwd_wgmma512, k512Threads, 512, k512BM, k512BN, q,
+                                        k, v, o, B, Sq, Skv, H, scale, s);
     return (int)launch_fma_any<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, H, D, scale, s);
   }
   if (dtype == 0) return (int)launch_fma_any<float>(q, k, v, o, B, Sq, Skv, H, D, scale, s);

@@ -8,7 +8,9 @@ process and all of them start together. Libraries land in
 hashes the source and the flags, so a changed source rebuilds and an
 unchanged one loads from the previous build. The compiler's log (with
 `-Xptxas -v`: registers, shared memory and spills per kernel) is kept
-next to each library.
+next to each library. The hash covers every header under `csrc/` that a
+source includes (directly or through another header) and the include
+flags, so a change to a shared `.cuh` rebuilds every library that uses it.
 
 A failed build raises `KernelBuildError`; nothing falls back.
 """
@@ -18,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -35,6 +38,8 @@ NVCC_FLAGS = (
     "-fPIC",
     "-Xptxas=-v",
 )
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -57,9 +62,30 @@ def nvcc_path() -> str:
     return found
 
 
+def include_flags() -> list[str]:
+    return [f"-I{CSRC}"]
+
+
+def local_headers(source: Path) -> list[Path]:
+    """Every file under csrc/ that `source` includes with quotes, directly
+    or through another such header, in a fixed order."""
+    found: dict[Path, None] = {}
+    pending = [source]
+    while pending:
+        for name in _INCLUDE.findall(pending.pop().read_text()):
+            header = (CSRC / name).resolve()
+            if header.is_file() and header not in found:
+                found[header] = None
+                pending.append(header)
+    return sorted(found)
+
+
 def library_path(name: str) -> Path:
     source = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256()
+    for part in (source, *local_headers(source)):
+        digest.update(part.name.encode() + b"\0" + part.read_bytes() + b"\0")
+    digest.update(" ".join((*NVCC_FLAGS, *include_flags())).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -75,7 +101,7 @@ def build(names=SOURCES) -> dict[str, Path]:
             continue
         nvcc = nvcc or nvcc_path()
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *include_flags(), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         pending[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp)
     failures = []

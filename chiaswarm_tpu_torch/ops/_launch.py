@@ -18,7 +18,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 class LaunchCounter:
     """Launches of one kernel: `launches` counts every launch, `shapes`
-    counts them by the argument shapes (what a benchmark replays)."""
+    counts them by a key of the arguments' shapes and types (what a
+    benchmark replays)."""
 
     def __init__(self):
         self.launches = 0
@@ -43,7 +44,9 @@ def bind(lib: ctypes.CDLL, name: str, argtypes: list) -> None:
 
 
 def current_stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of PyTorch's current stream on `device` (a CUDA
+    device with its index), without building a Stream object."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check_launch(lib: ctypes.CDLL, error_fn: str, err: int, what: str) -> None:

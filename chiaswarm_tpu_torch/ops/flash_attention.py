@@ -33,6 +33,7 @@ from ._launch import (
 COUNTER = LaunchCounter()
 
 MAX_HEAD_DIM = 512
+FA_FORWARD_ARGS = [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, FLOAT, INT, PTR]
 
 
 def reference_attention(q, k, v, scale: float | None = None):
@@ -49,31 +50,31 @@ def reference_attention(q, k, v, scale: float | None = None):
 def flash_attention(q, k, v, scale: float | None = None):
     """[B, Sq, H, D] x [B, Skv, H, D] -> [B, Sq, H, D] on the card.
 
-    bf16 with D == 64 runs on the tensor cores; f32, and other head widths
-    up to 512, run the f32 FMA kernel. Raises on anything else."""
+    bf16 with D == 64 or D == 512 runs on the tensor cores (wgmma fed by
+    TMA); f32, and other head widths up to 512, run the f32 FMA kernel.
+    Raises on anything else."""
     require_cuda_tensor("q", q)
     require_cuda_tensor("k", k, q.dtype)
     require_cuda_tensor("v", v, q.dtype)
-    if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"expected q [B,Sq,H,D], k/v [B,Skv,H,D]; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, sq, h, d = q.shape
-    if k.shape[0] != b or k.shape[2] != h or k.shape[3] != d:
+    bk, skv, hk, dk = k.shape
+    if (bk, hk, dk) != (b, h, d):
         raise ValueError(f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
     if not 1 <= d <= MAX_HEAD_DIM or d % 8:
         raise ValueError(f"head dim {d} not supported (multiple of 8, <= {MAX_HEAD_DIM})")
-    skv = k.shape[1]
     if sq < 1 or skv < 1:
         raise ValueError("empty sequence")
     if scale is None:
         scale = d ** -0.5
     lib = _build.load("flash_attention")
-    bind(lib, "fa_forward",
-         [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, FLOAT, INT, PTR])
+    bind(lib, "fa_forward", FA_FORWARD_ARGS)
     out = torch.empty_like(q)
     err = lib.fa_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                          b, sq, skv, h, d, float(scale), DTYPE_CODES[q.dtype],
                          current_stream(q.device))
     check_launch(lib, "fa_error_string", err, "flash_attention")
-    COUNTER.note((tuple(q.shape), tuple(k.shape), str(q.dtype).replace("torch.", "")))
+    COUNTER.note((q.shape, k.shape, q.dtype))
     return out

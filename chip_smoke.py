@@ -9,7 +9,10 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
 2. Kernel build: every source under chiaswarm_tpu_torch/csrc, one nvcc
    each, in parallel; the build is timed.
 3. Kernels against their plain PyTorch versions at the shapes of the SDXL
-   1024^2 main path, bf16 and f32, each within its stated bound.
+   1024^2 main path, bf16 and f32, each within its stated bound; and
+   attention at the edges of the kernels' tiles: query and KV lengths
+   that are not multiples of a tile (Sq 1000 against Skv 77, 1000 and
+   4095), a query shorter than one tile (Sq 40), and B*H > 1 at D = 512.
 4. Small-input reference: the tiny SDXL-shaped pipeline in f32 on the card
    (kernels) against the same weights and latents on the CPU (plain
    versions); the decoded uint8 images must agree within 2/255.
@@ -21,9 +24,13 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
    launch counts are reset just before and read just after.
 6. Each kernel at every shape the main path launched it with: again held
    against its plain version, and timed (CUDA events) beside its plain
-   version, one PyTorch library call computing the same function, and its
-   bound on the H100 (bytes over 3.35 TB/s or operations over the peak of
-   their type, whichever is larger).
+   version and one PyTorch library call computing the same function (for
+   attention also replayed from a CUDA graph: the device's own time,
+   without the host's launch cost), and its bound on the H100 (bytes over
+   3.35 TB/s or operations over the peak of their type, whichever is
+   larger), with the achieved TFLOP/s and the share of the bound reached.
+   A kernel's bound per job is the sum over its shapes of each shape's
+   bound times its launches per job.
 7. The UNet (one call) and the VAE decode at the main path's shapes in
    bf16 through the kernels, against the same weights in f32 on the plain
    path: the relative RMS error may be at most 1.25x that of the plain
@@ -147,23 +154,56 @@ def time_ms(fn, min_total_ms: float = 30.0, max_iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(q_shape, k_shape, dtype) -> tuple[float, float]:
-    """(ms for the operations at the type's peak, ms for the bytes)."""
+def graph_ms(fn, launches: int = 20, replays: int = 5) -> float:
+    """Mean device time of fn() captured `launches` times in a CUDA graph
+    and replayed: the kernel's own time, without the host's cost of
+    launching it (which time_ms includes when a launch is shorter than the
+    host's work per call)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (launches * replays)
+
+
+def attention_work(q_shape, k_shape, dtype) -> tuple[float, float]:
+    """(flops, bytes): q, k, v read once, the output written once."""
     b, sq, h, d = q_shape
     skv = k_shape[1]
-    flops = 4.0 * b * h * sq * skv * d
     size = torch.tensor([], dtype=dtype).element_size()
-    nbytes = size * (2 * b * sq * h * d + 2 * b * skv * h * d)
-    return 1e3 * flops / PEAK_FLOPS[dtype], 1e3 * nbytes / HBM_BYTES_S
+    return 4.0 * b * h * sq * skv * d, size * (2 * b * sq * h * d + 2 * b * skv * h * d)
 
 
-def gn_bound(x_shape, dtype) -> tuple[float, float]:
+def gn_work(x_shape, dtype) -> tuple[float, float]:
+    """(flops, bytes): about 10 f32 operations an element (statistics,
+    normalisation, affine, SiLU); x and y once each, scale and bias."""
     numel = 1
     for s in x_shape:
         numel *= s
     size = torch.tensor([], dtype=dtype).element_size()
-    nbytes = 2 * numel * size + 2 * x_shape[-1] * size
-    return 1e3 * 10.0 * numel / PEAK_FLOPS[torch.float32], 1e3 * nbytes / HBM_BYTES_S
+    return 10.0 * numel, 2 * numel * size + 2 * x_shape[-1] * size
+
+
+def bound_fields(flops: float, nbytes: float, peak: float) -> dict:
+    """ms for the operations at their type's peak and for the bytes at the
+    memory rate; the shape's bound is the larger."""
+    ops_ms, bytes_ms = 1e3 * flops / peak, 1e3 * nbytes / HBM_BYTES_S
+    return {"flops": flops, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
 # --- the kernels against their plain versions ---
@@ -206,12 +246,13 @@ def attention_case(q_shape, k_shape, dtype, gen, timed: bool) -> dict:
     del diff, ref
     if timed:
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        ops_ms, bytes_ms = attention_bound(q_shape, k_shape, dtype)
         row.update(
             ms=time_ms(lambda: flash_attention(q, k, v)),
+            device_ms=graph_ms(lambda: flash_attention(q, k, v)),
             plain_ms=time_ms(lambda: reference_attention(q, k, v)),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
-            ops_ms=ops_ms, bytes_ms=bytes_ms)
+            library_device_ms=graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+            **bound_fields(*attention_work(q_shape, k_shape, dtype), PEAK_FLOPS[dtype]))
     return row
 
 
@@ -242,11 +283,11 @@ def gn_case(x_shape, dtype, silu: bool, gen, timed: bool, eps: float = 1e-5) -> 
             y = F.group_norm(xc, 32, scale, bias, eps)
             return F.silu(y) if silu else y
 
-        ops_ms, bytes_ms = gn_bound(x_shape, dtype)
         row.update(
             ms=time_ms(lambda: fused_group_norm(x, scale, bias, 32, eps, silu)),
             plain_ms=time_ms(lambda: reference_group_norm(x, scale, bias, 32, eps, silu)),
-            library_ms=time_ms(library), ops_ms=ops_ms, bytes_ms=bytes_ms)
+            library_ms=time_ms(library),
+            **bound_fields(*gn_work(x_shape, dtype), PEAK_FLOPS[torch.float32]))
     return row
 
 
@@ -259,6 +300,13 @@ def kernel_checks() -> None:
         ((2, 4096, 10, 64), (2, 4096, 10, 64), bf), ((2, 4096, 10, 64), (2, 77, 10, 64), bf),
         ((2, 1024, 20, 64), (2, 1024, 20, 64), bf), ((2, 1024, 20, 64), (2, 77, 20, 64), bf),
         ((1, 16384, 1, 512), (1, 16384, 1, 512), bf),
+        # edges of the tiles (192 query rows and 128 KV rows at D = 64, 64
+        # and 64 at D = 512): ragged lengths, a query shorter than a tile,
+        # and more than one (batch, head) at D = 512
+        ((2, 1000, 10, 64), (2, 77, 10, 64), bf), ((2, 1000, 10, 64), (2, 1000, 10, 64), bf),
+        ((2, 1000, 10, 64), (2, 4095, 10, 64), bf), ((2, 40, 10, 64), (2, 77, 10, 64), bf),
+        ((2, 40, 10, 64), (2, 4096, 10, 64), bf), ((2, 4096, 1, 512), (2, 4096, 1, 512), bf),
+        ((1, 40, 1, 512), (1, 1000, 1, 512), bf),
         ((2, 256, 3, 32), (2, 256, 3, 32), f32), ((2, 256, 3, 32), (2, 77, 3, 32), f32),
         ((2, 130, 3, 32), (2, 256, 3, 32), f32), ((2, 64, 3, 32), (2, 64, 3, 32), f32),
         ((2, 1024, 10, 64), (2, 77, 10, 64), f32), ((1, 1024, 1, 512), (1, 1024, 1, 512), f32),
@@ -411,31 +459,51 @@ def measure(launches: dict) -> tuple[list[dict], dict]:
         for key, n in sorted(shapes.items(), key=lambda kv: -kv[1]):
             if name == "flash_attention":
                 q_shape, k_shape, dtype = key
-                row = attention_case(q_shape, k_shape, getattr(torch, dtype), gen, timed=True)
+                row = attention_case(tuple(q_shape), tuple(k_shape), dtype, gen, timed=True)
             else:
                 x_shape, dtype, silu, eps = key
                 row = gn_case(x_shape, getattr(torch, dtype), silu, gen, timed=True, eps=eps)
             row["launches_per_job"] = n / N_JOBS
             rows.append(row)
+            row["tflops"] = row["flops"] / row["ms"] / 1e9
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
             log(f"[measure] {name} {row.get('q', row.get('x'))}"
                 f"{' kv' + str(row['kv']) if 'kv' in row else ''} {row['dtype']}"
                 f"{' eps %g' % row['eps'] if 'eps' in row else ''}: "
-                f"{n / N_JOBS:g}/job, kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
-                f"ms, library {row['library_ms']:.4f} ms, bound "
-                f"{max(row['ops_ms'], row['bytes_ms']):.4f} ms, err {row['max_abs_err']:.3g}")
+                f"{n / N_JOBS:g}/job, kernel {row['ms']:.4f} ms"
+                + (f" (device {row['device_ms']:.4f})" if "device_ms" in row else "")
+                + f", plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms"
+                + (f" (device {row['library_device_ms']:.4f})" if "library_device_ms" in row
+                   else "")
+                + f", bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}), {row['tflops']:.1f} TFLOP/s, "
+                f"{100 * row['share_of_bound']:.1f}% of bound, err {row['max_abs_err']:.3g}")
 
-        def per_job(field):
-            return sum(r[field] * r["launches_per_job"] for r in rows)
+        def per_job(field, which=None):
+            return sum(r[field] * r["launches_per_job"] for r in rows
+                       if which is None or r["bound_by"] == which)
 
-        ops_ms, bytes_ms = per_job("ops_ms"), per_job("bytes_ms")
+        # each shape's own bound (the larger of its two), summed over the
+        # shapes; bound_by names the kind that makes up most of the sum
+        by_ops, by_bytes = per_job("bound_ms", "operations"), per_job("bound_ms", "bytes")
         summary.append({
             "name": name, "route": "cuda", **KERNELS[name], "launches": count,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": per_job("ms"), "plain_ms": per_job("plain_ms"),
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_ms": by_ops + by_bytes,
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
             "library_ms": per_job("library_ms"),
         })
+        line = summary[-1]
+
+        def device(field):
+            return (f" (device {per_job(field):.1f})" if all(field in r for r in rows)
+                    else "")
+
+        log(f"[measure] {name} per job: kernel {line['ms']:.1f} ms{device('device_ms')}, "
+            f"plain {line['plain_ms']:.1f} ms, library {line['library_ms']:.1f} ms"
+            f"{device('library_device_ms')}, bound {line['bound_ms']:.1f} ms "
+            f"({line['bound_by']}), {count / N_JOBS:g} launches")
         detail[name] = rows
     return summary, detail
 

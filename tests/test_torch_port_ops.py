@@ -82,3 +82,33 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         fused_group_norm(x, torch.ones(64), torch.zeros(64))
     with pytest.raises(ValueError, match="unsupported activation"):
         group_norm(x, torch.ones(64), torch.zeros(64), act="gelu")
+
+
+def test_library_path_follows_included_headers(tmp_path, monkeypatch):
+    """A change to a header that a source includes, directly or through
+    another header, or to the flags, moves the library to a new path, so
+    it is rebuilt; an unrelated header does not. Needs no nvcc."""
+    from chiaswarm_tpu_torch.ops import _build
+
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <cuda.h>\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// v1\n")
+    (tmp_path / "unused.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert _build.local_headers(tmp_path / "k.cu") == [(tmp_path / "a.cuh").resolve(),
+                                                       (tmp_path / "b.cuh").resolve()]
+    first = _build.library_path("k")
+    (tmp_path / "unused.cuh").write_text("// v2\n")
+    assert _build.library_path("k") == first
+    (tmp_path / "b.cuh").write_text("// v2\n")
+    second = _build.library_path("k")
+    assert second != first
+    monkeypatch.setattr(_build, "NVCC_FLAGS", (*_build.NVCC_FLAGS, "-DEXTRA"))
+    assert _build.library_path("k") not in (first, second)
+
+
+def test_attention_source_includes_the_hopper_header():
+    from chiaswarm_tpu_torch.ops import _build
+
+    headers = _build.local_headers(_build.CSRC / "flash_attention.cu")
+    assert [h.name for h in headers] == ["hopper.cuh"]
