@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the kernels under csrc/, as raw PTX:
-// mbarriers, TMA tensor loads, wgmma with shared-memory descriptors,
-// register rebalancing and named barriers. Host side: a tensor map over a
+// mbarriers, TMA tensor loads and 1-d bulk copies (with an L2 policy),
+// wgmma with shared-memory descriptors, register rebalancing and named
+// barriers. Host side: a tensor map over a
 // [B, S, H, D] bf16 tensor as it lies in memory, encoded through the
 // driver entry point that the runtime hands out (no -lcuda link).
 //
@@ -82,6 +83,35 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// TMA without a tensor map: `bytes` (a multiple of 16) of contiguous global
+// memory into shared memory, both ends 16-byte aligned; completion is
+// counted in bytes on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// the same with an L2 cache policy (createpolicy) for the lines read
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+      " [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar)), "l"(policy)
+      : "memory");
+}
+
+// L2 policy for data read once: its lines are evicted first
+__device__ __forceinline__ uint64_t l2_evict_first_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
 }
 
 __device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {

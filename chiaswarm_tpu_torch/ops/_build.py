@@ -125,7 +125,11 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, building it on first use."""
+    """The loaded library for csrc/<name>.cu, building it on first use (a
+    loaded library is returned without taking the build lock)."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:

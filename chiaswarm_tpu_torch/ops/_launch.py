@@ -34,19 +34,20 @@ class LaunchCounter:
         self.shapes[key] += 1
 
 
-def bind(lib: ctypes.CDLL, name: str, argtypes: list) -> None:
-    """Declare a C entry point once (ctypes would pass pointers as
-    32-bit ints without argtypes)."""
+def bind(lib: ctypes.CDLL, name: str, argtypes: list):
+    """A C entry point with its argument types declared (ctypes would pass
+    pointers as 32-bit ints without them) and an int result. Wrappers bind
+    once, when their library first loads, and keep the function."""
     fn = getattr(lib, name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = INT
+    fn.argtypes = argtypes
+    fn.restype = INT
+    return fn
 
 
-def current_stream(device: torch.device) -> int:
-    """The raw handle of PyTorch's current stream on `device` (a CUDA
-    device with its index), without building a Stream object."""
-    return torch._C._cuda_getCurrentRawStream(device.index)
+def current_stream(device: int) -> int:
+    """The raw handle of PyTorch's current stream on CUDA device number
+    `device` (`tensor.get_device()`), without building a Stream object."""
+    return torch._C._cuda_getCurrentRawStream(device)
 
 
 def check_launch(lib: ctypes.CDLL, error_fn: str, err: int, what: str) -> None:
@@ -60,7 +61,7 @@ def check_launch(lib: ctypes.CDLL, error_fn: str, err: int, what: str) -> None:
 
 
 def require_cuda_tensor(name: str, x: torch.Tensor, dtype: torch.dtype | None = None) -> None:
-    if x.device.type != "cuda":
+    if not x.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
     if dtype is not None and x.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {x.dtype}")

@@ -34,6 +34,14 @@ COUNTER = LaunchCounter()
 
 MAX_HEAD_DIM = 512
 FA_FORWARD_ARGS = [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, FLOAT, INT, PTR]
+# fa_forward, bound when the library first loads
+_forward = None
+
+
+def _bind_forward():
+    global _forward
+    _forward = bind(_build.load("flash_attention"), "fa_forward", FA_FORWARD_ARGS)
+    return _forward
 
 
 def reference_attention(q, k, v, scale: float | None = None):
@@ -69,12 +77,12 @@ def flash_attention(q, k, v, scale: float | None = None):
         raise ValueError("empty sequence")
     if scale is None:
         scale = d ** -0.5
-    lib = _build.load("flash_attention")
-    bind(lib, "fa_forward", FA_FORWARD_ARGS)
+    forward = _forward or _bind_forward()
     out = torch.empty_like(q)
-    err = lib.fa_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                         b, sq, skv, h, d, float(scale), DTYPE_CODES[q.dtype],
-                         current_stream(q.device))
-    check_launch(lib, "fa_error_string", err, "flash_attention")
+    err = forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  b, sq, skv, h, d, float(scale), DTYPE_CODES[q.dtype],
+                  current_stream(q.get_device()))
+    if err:
+        check_launch(_build.load("flash_attention"), "fa_error_string", err, "flash_attention")
     COUNTER.note((q.shape, k.shape, q.dtype))
     return out

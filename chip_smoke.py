@@ -13,6 +13,12 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
    attention at the edges of the kernels' tiles: query and KV lengths
    that are not multiples of a tile (Sq 1000 against Skv 77, 1000 and
    4095), a query shorter than one tile (Sq 40), and B*H > 1 at D = 512.
+   GroupNorm at the edges of its launch plan: rows that do not divide
+   among the CTAs, B = 1 against B = 2 at the same N*C, groups that
+   straddle an 8-channel vector (C = 320), every main-path call too large
+   to stay on chip in bf16 and f32, eps 1e-6, a mean ten times the spread
+   (held against the plain version evaluated in float64), and one input
+   run 20 times with bit-identical outputs.
 4. Small-input reference: the tiny SDXL-shaped pipeline in f32 on the card
    (kernels) against the same weights and latents on the CPU (plain
    versions); the decoded uint8 images must agree within 2/255.
@@ -24,9 +30,10 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
    launch counts are reset just before and read just after.
 6. Each kernel at every shape the main path launched it with: again held
    against its plain version, and timed (CUDA events) beside its plain
-   version and one PyTorch library call computing the same function (for
-   attention also replayed from a CUDA graph: the device's own time,
-   without the host's launch cost), and its bound on the H100 (bytes over
+   version and one PyTorch library call computing the same function, each
+   also replayed from a CUDA graph (the device's own time, without the
+   host's launch cost), the wrapper's host time per call (launched back
+   to back, unsynchronised), and its bound on the H100 (bytes over
    3.35 TB/s or operations over the peak of their type, whichever is
    larger), with the achieved TFLOP/s and the share of the bound reached.
    A kernel's bound per job is the sum over its shapes of each shape's
@@ -35,13 +42,20 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
    bf16 through the kernels, against the same weights in f32 on the plain
    path: the relative RMS error may be at most 1.25x that of the plain
    path in bf16.
-8. torch.profiler over a few UNet calls at the main path's shapes: device
-   time by kernel category and the device's busy share.
+8. A few UNet calls and one VAE decode at the main path's shapes, timed
+   by the host's clock and then under torch.profiler: device time and
+   launches by kernel category, the GroupNorm kernels one by one, and the
+   device's busy share. Each GroupNorm call must be exactly one kernel
+   launch.
 
 The second-to-last lines are the `kernels` JSON object and the card's
 name and power limit; the last line is the `{"ok": true, ...}` object.
 `--detail PATH` also writes every measurement (per shape, per job, the
-profile) to PATH as JSON.
+profile) to PATH as JSON. `--group-norm-only` runs phases 1 and 2, then
+GroupNorm alone at the shapes of one UNet call and one VAE decode (its
+launches per job counted from those calls: STEPS UNet calls and one
+decode), and phase 8 without its one-launch check; it compares one tree's
+GroupNorm kernel with another's in one call, and prints no result line.
 """
 
 from __future__ import annotations
@@ -179,6 +193,20 @@ def graph_ms(fn, launches: int = 20, replays: int = 5) -> float:
     return start.elapsed_time(end) / (launches * replays)
 
 
+def host_ms(fn, calls: int = 200) -> float:
+    """Mean host time of one call of fn, launched back to back with no
+    synchronisation (fewer calls than the launch queue holds, so the host
+    never waits for the card): the wrapper's own cost per call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * elapsed / calls
+
+
 def attention_work(q_shape, k_shape, dtype) -> tuple[float, float]:
     """(flops, bytes): q, k, v read once, the output written once."""
     b, sq, h, d = q_shape
@@ -249,6 +277,7 @@ def attention_case(q_shape, k_shape, dtype, gen, timed: bool) -> dict:
         row.update(
             ms=time_ms(lambda: flash_attention(q, k, v)),
             device_ms=graph_ms(lambda: flash_attention(q, k, v)),
+            host_ms=host_ms(lambda: flash_attention(q, k, v)),
             plain_ms=time_ms(lambda: reference_attention(q, k, v)),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
             library_device_ms=graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
@@ -256,39 +285,81 @@ def attention_case(q_shape, k_shape, dtype, gen, timed: bool) -> dict:
     return row
 
 
-def gn_case(x_shape, dtype, silu: bool, gen, timed: bool, eps: float = 1e-5) -> dict:
+def gn_plan_fields(x, silu: bool) -> dict:
+    """The launch plan the wrapper takes for x: whether the call stays on
+    chip (x read once) or reads part of x again. Empty for a tree whose
+    wrapper has no plan (`--group-norm-only` also measures such a tree, the
+    three-launch kernel, for comparison)."""
+    import importlib
+
+    # (the package's `group_norm` attribute is the function, not the module)
+    gn = importlib.import_module("chiaswarm_tpu_torch.ops.group_norm")
+    plan_of = getattr(gn, "launch_plan", None)
+    if plan_of is None:
+        return {}
+    plan = plan_of(x, 32, silu)
+    return {"on_chip": plan.on_chip, "grid": plan.grid, "rows_per_cta": plan.rows_per_cta,
+            "keep_rows": plan.keep_rows, "smem_bytes": plan.smem_bytes}
+
+
+def gn_case(x_shape, dtype, silu: bool, gen, timed: bool, eps: float = 1e-5,
+            shift: float = 0.3, spread: float = 2.0, exact: bool = False) -> dict:
+    """The kernel on x = shift + spread * randn against the plain version,
+    which runs in f32 on the same inputs as in the JAX test (in float64
+    with `exact`, for inputs whose f32 statistics the plain version itself
+    loses to cancellation)."""
     import torch.nn.functional as F
 
     from chiaswarm_tpu_torch.ops.group_norm import fused_group_norm, reference_group_norm
 
-    x = rand(x_shape, dtype, gen, 2.0, 0.3)
+    x = rand(x_shape, dtype, gen, spread, shift)
     scale, bias = rand(x_shape[-1:], dtype, gen), rand(x_shape[-1:], dtype, gen)
     out = fused_group_norm(x, scale, bias, 32, eps, silu)
     torch.cuda.synchronize()
-    # as in the JAX test, the bound is against an f32 reference: the plain
-    # version runs in f32 on the same inputs
-    ref = reference_group_norm(x.float(), scale.float(), bias.float(), 32, eps, silu)
-    diff = (out.float() - ref).abs()
+    wide = torch.float64 if exact else torch.float32
+    ref = reference_group_norm(x.to(wide), scale.to(wide), bias.to(wide), 32, eps, silu)
+    diff = (out.to(wide) - ref).abs()
     err = diff.max().item()
     atol, rtol = GN_TOL[dtype]
     excess = (diff - (atol + rtol * ref.abs())).max().item()
+    del diff, ref
     row = {"x": list(x_shape), "dtype": str(dtype)[6:], "silu": silu, "eps": eps,
-           "max_abs_err": err, "bound": f"{atol:g} + {rtol:.4g} |y|"}
+           "max_abs_err": err, "bound": f"{atol:g} + {rtol:.4g} |y|",
+           **gn_plan_fields(x, silu)}
     check(excess <= 0, f"group_norm {x_shape} {dtype} eps {eps}: err {err} beyond "
                        f"{row['bound']} by {excess}")
     if timed:
         xc = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC rows
+
+        def kernel():
+            return fused_group_norm(x, scale, bias, 32, eps, silu)
 
         def library():
             y = F.group_norm(xc, 32, scale, bias, eps)
             return F.silu(y) if silu else y
 
         row.update(
-            ms=time_ms(lambda: fused_group_norm(x, scale, bias, 32, eps, silu)),
+            ms=time_ms(kernel), device_ms=graph_ms(kernel), host_ms=host_ms(kernel),
             plain_ms=time_ms(lambda: reference_group_norm(x, scale, bias, 32, eps, silu)),
-            library_ms=time_ms(library),
+            library_ms=time_ms(library), library_device_ms=graph_ms(library),
             **bound_fields(*gn_work(x_shape, dtype), PEAK_FLOPS[torch.float32]))
     return row
+
+
+def gn_repeat_check(x_shape, dtype, gen, runs: int = 20) -> None:
+    """One input through the kernel `runs` times: the outputs must be equal
+    bit for bit (a racy grid barrier, or a reduction whose order moves from
+    call to call, shows here)."""
+    from chiaswarm_tpu_torch.ops.group_norm import fused_group_norm
+
+    x = rand(x_shape, dtype, gen, 2.0, 0.3)
+    scale, bias = rand(x_shape[-1:], dtype, gen), rand(x_shape[-1:], dtype, gen)
+    first = fused_group_norm(x, scale, bias, 32, 1e-5, True)
+    differ = sum(not torch.equal(fused_group_norm(x, scale, bias, 32, 1e-5, True), first)
+                 for _ in range(runs - 1))
+    log(f"[check] group_norm x{x_shape} {str(dtype)[6:]}: {runs} runs of one input, "
+        f"{differ} differ from the first bit for bit {gn_plan_fields(x, True)}")
+    check(differ == 0, f"group_norm {x_shape} {dtype}: {differ} of {runs} runs differ")
 
 
 def kernel_checks() -> None:
@@ -323,10 +394,34 @@ def kernel_checks() -> None:
     norms += [((1, 1024, 1024, 128), bf, True), ((1, 128, 128, 512), bf, False),
               ((2, 8, 8, 64), f32, True), ((1, 16, 16, 96), f32, False),
               ((2, 64, 64, 640), f32, True), ((1, 1024, 1024, 128), f32, True)]
-    for x_shape, dtype, silu in norms:
-        row = gn_case(x_shape, dtype, silu, gen, timed=False)
-        log(f"[check] group_norm x{x_shape} {row['dtype']} silu={silu}: max_abs_err "
-            f"{row['max_abs_err']:.3g} (bound {row['bound']})")
+    norms = [(*n, 1e-5) for n in norms]
+    # edges of the launch plan: rows that do not divide among the CTAs; B = 1
+    # against B = 2 at the same N*C (a CTA's rows straddle two batch rows
+    # only in the second); groups straddling an 8-channel vector in f32;
+    # the main-path calls too large to stay on chip, in bf16 and f32; eps 1e-6
+    norms += [((2, 33, 31, 640), bf, True, 1e-5), ((2, 33, 31, 640), f32, False, 1e-5),
+              ((1, 64, 128, 640), bf, True, 1e-5), ((2, 64, 64, 640), bf, True, 1e-5),
+              ((2, 40, 40, 320), f32, True, 1e-5), ((2, 32, 32, 2560), f32, True, 1e-5),
+              ((2, 64, 64, 1920), f32, True, 1e-5), ((2, 128, 128, 960), bf, True, 1e-5),
+              ((2, 128, 128, 960), f32, True, 1e-5), ((2, 128, 128, 320), f32, True, 1e-5),
+              ((2, 64, 64, 640), bf, False, 1e-6), ((1, 256, 256, 512), bf, True, 1e-6)]
+    for x_shape, dtype, silu, eps in norms:
+        row = gn_case(x_shape, dtype, silu, gen, timed=False, eps=eps)
+        log(f"[check] group_norm x{x_shape} {row['dtype']} silu={silu} eps {eps:g}: max_abs_err "
+            f"{row['max_abs_err']:.3g} (bound {row['bound']})"
+            + (f", on chip: {row['on_chip']}" if "on_chip" in row else ""))
+    # a mean ten times the spread: E[x^2] - mean^2 cancels two digits, and an
+    # f32 sum of the CTAs' partials would leave the bound; the kernel's
+    # double finalize holds it. (At 500 times, as x = 50 + 0.1 randn, the
+    # f32 statistics that the function keeps lose the variance in any
+    # order of summation, so no f32 version, the plain one included, can
+    # be held to the bound there.)
+    row = gn_case((1, 512, 512, 256), f32, True, gen, timed=False, shift=10.0, spread=1.0,
+                  exact=True)
+    log(f"[check] group_norm x(1, 512, 512, 256) f32 = 10 + randn against the plain version "
+        f"in float64: max_abs_err {row['max_abs_err']:.3g} (bound {row['bound']})")
+    gn_repeat_check((2, 64, 64, 640), bf, gen)
+    gn_repeat_check((2, 128, 128, 640), bf, gen)
 
 
 # --- phase 4 ---
@@ -451,7 +546,9 @@ def serve_main_path(smi: str, device: str = "cuda", model: str = SDXL, size: int
 
 # --- phase 6 ---
 
-def measure(launches: dict) -> tuple[list[dict], dict]:
+def measure(launches: dict, jobs: int = N_JOBS) -> tuple[list[dict], dict]:
+    """Phase 6 for {kernel: (launches, {shape key: launches})} counted over
+    `jobs` jobs."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     detail, summary = {}, []
     for name, (count, shapes) in launches.items():
@@ -463,15 +560,16 @@ def measure(launches: dict) -> tuple[list[dict], dict]:
             else:
                 x_shape, dtype, silu, eps = key
                 row = gn_case(x_shape, getattr(torch, dtype), silu, gen, timed=True, eps=eps)
-            row["launches_per_job"] = n / N_JOBS
+            row["launches_per_job"] = n / jobs
             rows.append(row)
             row["tflops"] = row["flops"] / row["ms"] / 1e9
             row["share_of_bound"] = row["bound_ms"] / row["ms"]
             log(f"[measure] {name} {row.get('q', row.get('x'))}"
                 f"{' kv' + str(row['kv']) if 'kv' in row else ''} {row['dtype']}"
-                f"{' eps %g' % row['eps'] if 'eps' in row else ''}: "
-                f"{n / N_JOBS:g}/job, kernel {row['ms']:.4f} ms"
-                + (f" (device {row['device_ms']:.4f})" if "device_ms" in row else "")
+                f"{' eps %g' % row['eps'] if 'eps' in row else ''}"
+                f"{' on chip: %s' % row['on_chip'] if 'on_chip' in row else ''}: "
+                f"{n / jobs:g}/job, kernel {row['ms']:.4f} ms"
+                + f" (device {row['device_ms']:.4f}, host {row['host_ms']:.4f})"
                 + f", plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms"
                 + (f" (device {row['library_device_ms']:.4f})" if "library_device_ms" in row
                    else "")
@@ -489,21 +587,18 @@ def measure(launches: dict) -> tuple[list[dict], dict]:
         summary.append({
             "name": name, "route": "cuda", **KERNELS[name], "launches": count,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": per_job("ms"), "plain_ms": per_job("plain_ms"),
+            "ms": per_job("ms"), "device_ms": per_job("device_ms"), "host_ms": per_job("host_ms"),
+            "plain_ms": per_job("plain_ms"),
             "bound_ms": by_ops + by_bytes,
             "bound_by": "operations" if by_ops >= by_bytes else "bytes",
             "library_ms": per_job("library_ms"),
         })
         line = summary[-1]
 
-        def device(field):
-            return (f" (device {per_job(field):.1f})" if all(field in r for r in rows)
-                    else "")
-
-        log(f"[measure] {name} per job: kernel {line['ms']:.1f} ms{device('device_ms')}, "
-            f"plain {line['plain_ms']:.1f} ms, library {line['library_ms']:.1f} ms"
-            f"{device('library_device_ms')}, bound {line['bound_ms']:.1f} ms "
-            f"({line['bound_by']}), {count / N_JOBS:g} launches")
+        log(f"[measure] {name} per job: kernel {line['ms']:.1f} ms (device "
+            f"{line['device_ms']:.1f}, host {line['host_ms']:.1f}), plain {line['plain_ms']:.1f} ms, library "
+            f"{line['library_ms']:.1f} ms (device {per_job('library_device_ms'):.1f}), bound "
+            f"{line['bound_ms']:.1f} ms ({line['bound_by']}), {count / jobs:g} launches")
         detail[name] = rows
     return summary, detail
 
@@ -511,9 +606,13 @@ def measure(launches: dict) -> tuple[list[dict], dict]:
 
 # --- phases 7 and 8 ---
 
+# kernel-name marks of each category; the GroupNorm names of the
+# three-launch kernel (stats, finalize, apply) stay so that
+# `--group-norm-only` can profile such a tree beside the one-launch kernel
+_GN_MARKS = ("gn_fused", "gn_stats", "gn_finalize", "gn_apply")
 _CATEGORIES = (
     ("flash_attention kernel", ("flash_fwd",)),
-    ("group_norm kernel", ("gn_stats", "gn_finalize", "gn_apply")),
+    ("group_norm kernel", _GN_MARKS),
     ("convolution (cuDNN)", ("fprop", "conv", "dgrad", "implicit", "winograd")),
     ("matmul (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
 )
@@ -607,52 +706,139 @@ def end_to_end_bf16_check(pipe, size: int = SIZE) -> dict:
     return result
 
 
-def profile_unet_step(pipe, size: int = SIZE, steps: int = 3) -> dict:
-    """torch.profiler over a few UNet calls at the main path's shapes (CFG
-    batch 2, size/8 latents): device time by kernel category and the
-    device's busy share of the wall time."""
+def profiled(fn, calls: int, device) -> tuple[dict, float, float, int]:
+    """`calls` calls of fn after one warm-up call, timed by the host's clock
+    and then again under torch.profiler: ({kernel name: (device ms per
+    call, launches per call)}, wall ms per call unprofiled, the same under
+    the profiler, GroupNorm wrapper calls per call)."""
     from torch.profiler import ProfilerActivity, profile
 
     from chiaswarm_tpu_torch.device import synchronize
+    from chiaswarm_tpu_torch.ops.group_norm import COUNTER as GN_COUNTER
 
-    dev = pipe.device
-    x, t, ctx, added = unet_inputs(pipe, size)
     with torch.inference_mode():
-        pipe.unet(x, t, ctx, added_cond=added)
-        synchronize(dev)
+        fn()
+        synchronize(device)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        synchronize(device)
+        plain_wall_ms = 1e3 * (time.perf_counter() - t0) / calls
+        GN_COUNTER.reset()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for _ in range(steps):
-                pipe.unet(x, t, ctx, added_cond=added)
-            synchronize(dev)
-            wall_ms = 1e3 * (time.perf_counter() - t0) / steps
-    by_kernel = {}
+            for _ in range(calls):
+                fn()
+            synchronize(device)
+            wall_ms = 1e3 * (time.perf_counter() - t0) / calls
+    kernels = {}
     for event in prof.key_averages():
         device_us = getattr(event, "self_device_time_total", None)
         if device_us is None:
             device_us = getattr(event, "self_cuda_time_total", 0)
         if device_us > 0 and getattr(event, "device_type", None) != torch.autograd.DeviceType.CPU:
-            by_kernel[event.key] = by_kernel.get(event.key, 0.0) + device_us / 1e3 / steps
-    categories = {name: 0.0 for name, _ in _CATEGORIES}
-    categories["other (elementwise, norms, copies)"] = 0.0
-    for name, ms in by_kernel.items():
-        low = name.lower()
-        for label, marks in _CATEGORIES:
-            if any(m in low for m in marks):
-                categories[label] += ms
-                break
-        else:
-            categories["other (elementwise, norms, copies)"] += ms
-    device_ms = sum(by_kernel.values())
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-    return {"wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
+            ms, n = kernels.get(event.key, (0.0, 0.0))
+            kernels[event.key] = (ms + device_us / 1e3 / calls, n + event.count / calls)
+    return kernels, plain_wall_ms, wall_ms, GN_COUNTER.launches // calls
+
+
+def profile_main_path(pipe, size: int = SIZE, steps: int = 3) -> dict:
+    """Phase 8: torch.profiler over a few UNet calls (CFG batch 2, size/8
+    latents) and one VAE decode: device time and launches by kernel
+    category, each GroupNorm kernel by name, GroupNorm wrapper calls, and
+    the device's busy share of the wall time."""
+    x, t, ctx, added = unet_inputs(pipe, size)
+    lat = size // pipe.latent_factor
+    z = torch.randn((1, pipe.latent_channels, lat, lat), device=pipe.device,
+                    generator=torch.Generator(device=pipe.device).manual_seed(3))
+    z = z.to(pipe.dtype).contiguous(memory_format=torch.channels_last)
+    result = {}
+    for name, fn, calls in (("unet", lambda: pipe.unet(x, t, ctx, added_cond=added), steps),
+                            ("vae_decode", lambda: pipe.vae.decode(z), 1)):
+        kernels, plain_wall_ms, wall_ms, gn_calls = profiled(fn, calls, pipe.device)
+        categories = {label: [0.0, 0.0] for label, _ in _CATEGORIES}
+        categories["other (elementwise, norms, copies)"] = [0.0, 0.0]
+        for kernel, (ms, n) in kernels.items():
+            low = kernel.lower()
+            label = next((label for label, marks in _CATEGORIES
+                          if any(m in low for m in marks)),
+                         "other (elementwise, norms, copies)")
+            categories[label][0] += ms
+            categories[label][1] += n
+        device_ms = sum(ms for ms, _ in kernels.values())
+        result[name] = {
+            "calls": calls, "unprofiled_wall_ms_per_call": plain_wall_ms,
+            "wall_ms_per_call": wall_ms, "device_ms_per_call": device_ms,
             "busy_share": device_ms / wall_ms if wall_ms else None,
-            "categories_ms": categories, "top_kernels_ms": top}
+            "categories_ms_launches": categories,
+            "group_norm_kernels": {k: v for k, v in kernels.items()
+                                   if any(m in k.lower() for m in _GN_MARKS)},
+            "group_norm_calls": gn_calls,
+            "top_kernels_ms": sorted(((k, ms) for k, (ms, _) in kernels.items()),
+                                     key=lambda kv: -kv[1])[:8]}
+    return result
+
+
+def log_profile(profile: dict, smi: str) -> None:
+    for name, p in profile.items():
+        if p["device_ms_per_call"] <= 0:
+            log(f"[profile] {name}: the profiler saw no device kernels; device time not measured")
+            continue
+        log(f"[profile] {name} ({SIZE}^2{', CFG batch 2' if name == 'unet' else ''}) on {smi}: "
+            f"wall {p['wall_ms_per_call']:.2f} ms per call ({p['unprofiled_wall_ms_per_call']:.2f} "
+            f"unprofiled), device busy {p['device_ms_per_call']:.2f} ms "
+            f"({100 * p['busy_share']:.1f}% of the profiled wall)")
+        for label, (ms, n) in p["categories_ms_launches"].items():
+            log(f"[profile]   {label}: {ms:.3f} ms, {n:g} launches")
+        log(f"[profile]   group_norm: {p['group_norm_calls']} wrapper calls per call")
+        for kernel, (ms, n) in p["group_norm_kernels"].items():
+            log(f"[profile]   group_norm kernel {ms:.3f} ms, {n:g} launches: {kernel[:90]}")
+        for kernel, ms in p["top_kernels_ms"]:
+            log(f"[profile]   top kernel {ms:.3f} ms: {kernel[:110]}")
+
+
+def check_one_launch_per_call(profile: dict) -> None:
+    """Every GroupNorm wrapper call is exactly one kernel launch."""
+    for name, p in profile.items():
+        launches = p["categories_ms_launches"]["group_norm kernel"][1]
+        check(launches == p["group_norm_calls"],
+              f"{name}: {launches:g} GroupNorm kernel launches for {p['group_norm_calls']} calls")
+
+
+def group_norm_only(smi: str, detail: str | None) -> None:
+    """GroupNorm alone: phase 6 at the shapes of one UNet call and one VAE
+    decode (per job: STEPS UNet calls and one decode), then phase 8."""
+    from chiaswarm_tpu_torch.ops.group_norm import COUNTER as GN_COUNTER
+    from chiaswarm_tpu_torch.pipelines.stable_diffusion import SDPipeline
+
+    pipe = SDPipeline(SDXL, device="cuda", allow_random_init=True)
+    x, t, ctx, added = unet_inputs(pipe)
+    lat = SIZE // pipe.latent_factor
+    z = torch.zeros((1, pipe.latent_channels, lat, lat), device="cuda", dtype=pipe.dtype)
+    z = z.contiguous(memory_format=torch.channels_last)
+    per_job = {}
+    with torch.inference_mode():
+        for fn, times in ((lambda: pipe.unet(x, t, ctx, added_cond=added), STEPS),
+                          (lambda: pipe.vae.decode(z), 1)):
+            GN_COUNTER.reset()
+            fn()
+            for key, n in GN_COUNTER.shapes.items():
+                per_job[key] = per_job.get(key, 0) + n * times
+    summary, shapes = measure({"group_norm": (sum(per_job.values()), per_job)}, jobs=1)
+    profile = profile_main_path(pipe)
+    log_profile(profile, smi)
+    if detail:
+        path = Path(detail)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps({"card": smi, "kernels": summary, "shapes": shapes,
+                                    "profile": profile}, indent=1))
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--detail", help="write every measurement to this JSON file")
+    parser.add_argument("--group-norm-only", action="store_true",
+                        help="phases 1, 2, 6 and 8 for GroupNorm alone (no result line)")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs the card",
@@ -672,28 +858,23 @@ def main(argv=None) -> int:
             regs = [ln.strip() for ln in _build.build_log(name).splitlines()
                     if "registers" in ln or "spill" in ln]
             log(f"[build] {name}: " + " | ".join(regs))
+        if opts.group_norm_only:
+            group_norm_only(smi, opts.detail)
+            return 0
         kernel_checks()
         tiny_reference_check()
         launches, served, pipe = serve_main_path(smi)
         summary, shapes = measure(launches)
         e2e = end_to_end_bf16_check(pipe)
-        step = profile_unet_step(pipe)
-        if step["device_ms_per_step"] > 0:
-            log(f"[profile] UNet step (CFG batch 2, {SIZE}^2) on {smi}: wall "
-                f"{step['wall_ms_per_step']:.2f} ms, device busy "
-                f"{step['device_ms_per_step']:.2f} ms ({100 * step['busy_share']:.1f}%)")
-            for label, ms in step["categories_ms"].items():
-                log(f"[profile]   {label}: {ms:.2f} ms")
-            for name, ms in step["top_kernels_ms"]:
-                log(f"[profile]   top kernel {ms:.3f} ms: {name[:110]}")
-        else:
-            log("[profile] the profiler saw no device kernels; device time not measured")
+        profile = profile_main_path(pipe)
+        log_profile(profile, smi)
+        check_one_launch_per_call(profile)
         if opts.detail:
             path = Path(opts.detail)
             path.parent.mkdir(parents=True, exist_ok=True)
             path.write_text(json.dumps(
                 {"card": smi, "served": served, "kernels": summary, "shapes": shapes,
-                 "end_to_end_bf16": e2e, "unet_step_profile": step}, indent=1))
+                 "end_to_end_bf16": e2e, "profile": profile}, indent=1))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

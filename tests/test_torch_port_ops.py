@@ -3,6 +3,8 @@ the JAX package's Pallas kernels (interpret mode on the CPU), and the
 routing rule (CPU tensor -> plain version; the kernel wrappers take CUDA
 tensors only and raise on anything else). The CUDA kernels themselves run
 only on the card: chip_smoke.py holds them against these plain versions.
+The GroupNorm kernel's launch plan is plain arithmetic and is checked here
+at every main-path shape, with the H100's limits passed in.
 
 Tolerances are those of the JAX package's own kernel tests:
 tests/test_flash_attention.py (f32 2e-5) and tests/test_group_norm.py
@@ -112,3 +114,131 @@ def test_attention_source_includes_the_hopper_header():
 
     headers = _build.local_headers(_build.CSRC / "flash_attention.cu")
     assert [h.name for h in headers] == ["hopper.cuh"]
+
+
+# --- the GroupNorm kernel's launch plan (pure arithmetic) ---
+
+# H100 SXM: 132 SMs, 227 KB of shared memory a CTA may ask for, and one
+# CTA of the kernel per SM when it asks for all of it
+H100 = {"sms": 132, "smem_per_block": 232448, "blocks_per_sm": 1}
+
+# every GroupNorm call of the SDXL 1024^2 main path: (x, silu, eps, whether
+# it fits in the card's shared memory, about 30 MB). UNet at CFG batch 2:
+UNET_NORMS = [
+    ((2, 128, 128, 320), True, 1e-5, True), ((2, 64, 64, 320), True, 1e-5, True),
+    ((2, 64, 64, 640), True, 1e-5, True), ((2, 64, 64, 640), False, 1e-6, True),
+    ((2, 32, 32, 640), True, 1e-5, True), ((2, 32, 32, 1280), True, 1e-5, True),
+    ((2, 32, 32, 1280), False, 1e-6, True), ((2, 32, 32, 2560), True, 1e-5, True),
+    ((2, 32, 32, 1920), True, 1e-5, True), ((2, 64, 64, 1920), True, 1e-5, False),
+    ((2, 64, 64, 1280), True, 1e-5, True), ((2, 64, 64, 960), True, 1e-5, True),
+    ((2, 128, 128, 960), True, 1e-5, False), ((2, 128, 128, 640), True, 1e-5, False),
+]
+# VAE decoder at batch 1
+VAE_NORMS = [
+    ((1, 128, 128, 512), True, 1e-6, True), ((1, 128, 128, 512), False, 1e-6, True),
+    ((1, 256, 256, 512), True, 1e-6, False), ((1, 512, 512, 512), True, 1e-6, False),
+    ((1, 512, 512, 256), True, 1e-6, False), ((1, 1024, 1024, 256), True, 1e-6, False),
+    ((1, 1024, 1024, 128), True, 1e-6, False),
+]
+
+
+def _plan(shape, elem_size=2, groups=32):
+    from chiaswarm_tpu_torch.ops.group_norm import plan_launch
+
+    b, c = shape[0], shape[-1]
+    return plan_launch(b, int(np.prod(shape[1:-1])), c, groups, elem_size, **H100)
+
+
+def _check_plan_covers(plan):
+    """The kernel's index arithmetic under this plan: the slabs of each
+    batch row cover its rows once, with no empty CTA; the grid is resident;
+    the partials and the shared memory fit."""
+    assert plan.grid <= H100["sms"] * H100["blocks_per_sm"]
+    assert plan.chunks * plan.rows_per_cta >= plan.rows > (plan.chunks - 1) * plan.rows_per_cta
+    assert plan.smem_bytes <= H100["smem_per_block"]
+    assert 0 <= plan.keep_rows <= plan.rows_per_cta
+    # CTA blockIdx writes partial [blockIdx][g]; phase B reads batch b's
+    # CTAs b * chunks .. (b + 1) * chunks - 1
+    last = ((plan.grid - 1) * plan.groups + plan.groups - 1) * 8 + 8
+    assert last == plan.scratch_bytes
+
+
+@pytest.mark.parametrize("shape,silu,eps,fits", UNET_NORMS + VAE_NORMS)
+def test_group_norm_plan_main_path(shape, silu, eps, fits):
+    """Each main-path call takes the path the design names: the 11 UNet
+    and 2 VAE shapes under the card's shared memory read x once, the
+    rest keep what fits and read the remainder again."""
+    plan = _plan(shape)
+    assert plan.on_chip == fits
+    # each batch row's share of the SMs, slabs at most one row longer than
+    # an even split
+    assert plan.rows_per_cta == -(-plan.rows // (132 // plan.batch))
+    if not fits:
+        # what does not fit keeps as much as shared memory holds
+        assert plan.smem_bytes + plan.channels * 2 > H100["smem_per_block"]
+    _check_plan_covers(plan)
+
+
+@pytest.mark.parametrize("shape,fits", [
+    ((2, 64, 64, 640), True), ((2, 128, 128, 320), False), ((1, 1024, 1024, 128), False),
+    ((2, 64, 64, 1920), False), ((2, 8, 8, 64), True), ((1, 16, 16, 96), True),
+])
+def test_group_norm_plan_f32(shape, fits):
+    """f32 holds half as many elements on chip as bf16."""
+    plan = _plan(shape, elem_size=4, groups=32)
+    assert plan.on_chip == fits
+    _check_plan_covers(plan)
+
+
+@pytest.mark.parametrize("shape,groups", [
+    ((2, 33, 31, 640), 32),   # rows that do not divide among the CTAs
+    ((1, 64, 128, 640), 32),  # B = 1 ...
+    ((2, 64, 64, 640), 32),   # ... and B = 2 at the same N*C
+    ((3, 5, 7, 64), 16),      # fewer rows than SMs; slabs of one row
+    ((64, 3, 3, 64), 32),     # many batch rows, two CTAs each
+    ((132, 2, 2, 64), 32),    # one CTA per batch row
+    ((2, 40, 40, 320), 32),   # groups of 10 channels straddle the 8-channel vectors
+    ((1, 16, 16, 96), 32),    # groups of 3: a thread's channels span 4 groups
+])
+def test_group_norm_plan_edges(shape, groups):
+    plan = _plan(shape, groups=groups)
+    _check_plan_covers(plan)
+    assert 1 <= plan.fold_slots <= 8
+
+
+def test_group_norm_plan_refuses_what_the_kernel_does_not_take():
+    from chiaswarm_tpu_torch.ops.group_norm import plan_launch
+
+    with pytest.raises(ValueError, match="channels"):
+        plan_launch(1, 16, 4104, 8, 2, **H100)
+    with pytest.raises(ValueError, match="channels"):
+        plan_launch(1, 16, 100, 32, 2, **H100)
+    with pytest.raises(ValueError, match="groups"):
+        plan_launch(1, 16, 4096, 1024, 2, **H100)
+    with pytest.raises(ValueError, match="batch 133"):
+        plan_launch(133, 16, 64, 32, 2, **H100)
+    with pytest.raises(ValueError, match="batch 1"):
+        plan_launch(1, 16, 64, 32, 2, 132, 232448, 0)
+
+
+def test_group_norm_plan_struct_matches_the_kernel_source():
+    """The wrapper's `_PlanArgs` is csrc/group_norm.cu's `GnPlan` field for
+    field and type for type, and the plan's constants are the kernel's
+    (read from the source: needs no nvcc)."""
+    import ctypes
+    import re
+
+    from chiaswarm_tpu_torch.ops import _build
+    from chiaswarm_tpu_torch.ops.group_norm import MAX_THREADS, STAGES, _PlanArgs
+
+    source = (_build.CSRC / "group_norm.cu").read_text()
+    body = re.search(r"struct GnPlan \{(.*?)\};", source, re.S).group(1)
+    ctype = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float}
+    fields = []
+    for line in body.splitlines():
+        m = re.match(r"\s*(void\*|int|float)\s+([^;]+);", line)
+        if m:
+            fields += [(name.strip(), ctype[m.group(1)]) for name in m.group(2).split(",")]
+    assert fields == list(_PlanArgs._fields_)
+    assert f"constexpr int kMaxThreads = {MAX_THREADS};" in source
+    assert f"constexpr int kStages = {STAGES};" in source

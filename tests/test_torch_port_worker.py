@@ -111,8 +111,9 @@ def test_chip_smoke_phases_rehearse_on_cpu():
     smoke = _chip_smoke()
     with pytest.raises(smoke.SmokeFailure, match="flash_attention was never launched"):
         smoke.serve_main_path("cpu", device="cpu", model="test/tiny-xl", size=64, steps=2)
-    step = smoke.profile_unet_step(SDPipeline("test/tiny-xl", device="cpu"), size=64, steps=1)
-    assert step["device_ms_per_step"] == 0 and step["wall_ms_per_step"] > 0
+    profile = smoke.profile_main_path(SDPipeline("test/tiny-xl", device="cpu"), size=64, steps=1)
+    for call in ("unet", "vae_decode"):
+        assert profile[call]["device_ms_per_call"] == 0 and profile[call]["wall_ms_per_call"] > 0
 
 
 def test_chip_smoke_refuses_without_cuda():
