@@ -1,7 +1,10 @@
 """A minimal hive for hermetic runs of the worker (the tests and
 chip_smoke.py): stdlib HTTP on localhost, GET /api/work hands out queued
 jobs, POST /api/results records envelopes. It also records what each poll
-advertised and the auth header it carried.
+advertised and the auth header it carried. Files queued with
+`enqueue_file` are served without auth under /files/<name> (HEAD answers
+their Content-Type and Content-Length), so a job's `start_image_uri` and
+`mask_image_uri` can point at them.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ class FakeHive:
         self.results: list[dict] = []
         self.polls: list[dict] = []
         self.auth_failures = 0
+        self.files: dict[str, tuple[bytes, str]] = {}
         self._cond = threading.Condition()
         hive = self
 
@@ -35,15 +39,41 @@ class FakeHive:
                 self._reply(400, {"message": "bad token"})
                 return False
 
-            def _reply(self, status: int, payload: dict) -> None:
+            def _reply(self, status: int, payload: dict, with_body: bool = True) -> None:
                 body = json.dumps(payload).encode()
                 self.send_response(status)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(body)))
                 self.end_headers()
-                self.wfile.write(body)
+                if with_body:
+                    self.wfile.write(body)
+
+            def _file(self, with_body: bool) -> bool:
+                """Serve /files/<name>; False for any other path."""
+                path = urllib.parse.urlparse(self.path).path
+                if not path.startswith("/files/"):
+                    return False
+                with hive._cond:
+                    found = hive.files.get(urllib.parse.unquote(path[len("/files/"):]))
+                if found is None:
+                    self._reply(404, {"message": "no such file"}, with_body)
+                    return True
+                body, content_type = found
+                self.send_response(200)
+                self.send_header("Content-Type", content_type)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                if with_body:
+                    self.wfile.write(body)
+                return True
+
+            def do_HEAD(self):
+                if not self._file(with_body=False):
+                    self._reply(404, {"message": "not found"}, with_body=False)
 
             def do_GET(self):
+                if self._file(with_body=True):
+                    return
                 url = urllib.parse.urlparse(self.path)
                 if url.path != "/api/work":
                     return self._reply(404, {"message": "not found"})
@@ -78,6 +108,12 @@ class FakeHive:
     def enqueue(self, *jobs: dict) -> None:
         with self._cond:
             self.jobs.extend(jobs)
+
+    def enqueue_file(self, name: str, data: bytes, content_type: str) -> str:
+        """Serve `data` under /files/<name>; returns its URI."""
+        with self._cond:
+            self.files[name] = (bytes(data), content_type)
+        return f"{self.uri}/files/{urllib.parse.quote(name)}"
 
     def wait_for_results(self, n: int, timeout: float) -> list[dict]:
         deadline = time.monotonic() + timeout

@@ -192,11 +192,18 @@ class Transformer2DModel(nn.Module):
 
 
 class Downsample2D(nn.Module):
-    def __init__(self, channels: int):
+    """Stride-2 3x3 conv. The UNet pads 1 on every side; the VAE encoder
+    pads only the bottom and the right edge (diffusers' (0, 1, 0, 1))."""
+
+    def __init__(self, channels: int, asymmetric_pad: bool = False):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+        self.asymmetric_pad = asymmetric_pad
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2,
+                              padding=0 if asymmetric_pad else 1)
 
     def forward(self, x):
+        if self.asymmetric_pad:
+            x = F.pad(x, (0, 1, 0, 1))
         return self.conv(x)
 
 

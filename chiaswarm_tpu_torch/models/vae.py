@@ -1,8 +1,10 @@
-"""AutoencoderKL decoder path (torch.nn), the counterpart of
-chiaswarm_tpu/models/vae.py: post-quant conv, mid-block resnets and
-single-head attention, up blocks, output norm and conv. NCHW in
-`torch.channels_last` (see layers.py); diffusers' key layout. The encoder
-(img2img, inpaint) is not ported yet.
+"""AutoencoderKL (torch.nn), the counterpart of chiaswarm_tpu/models/vae.py.
+
+The encoder (img2img, inpaint): input conv, down blocks whose
+downsamplers pad only the bottom and right edge, mid-block resnets and
+single-head attention, output norm and conv, then `quant_conv`. The
+decoder: `post_quant_conv`, mid block, up blocks, output norm and conv.
+NCHW in `torch.channels_last` (see layers.py); diffusers' key layout.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ import dataclasses
 from torch import nn
 
 from ..ops import dot_product_attention
-from .layers import FusedGroupNorm, ResnetBlock2D, Upsample2D
+from .layers import Downsample2D, FusedGroupNorm, ResnetBlock2D, Upsample2D
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +63,23 @@ class MidBlock(nn.Module):
         return self.resnets[1](x)
 
 
+class DownBlock(nn.Module):
+    def __init__(self, in_ch: int, out_ch: int, layers: int, add_downsample: bool):
+        super().__init__()
+        self.resnets = nn.ModuleList(
+            [ResnetBlock2D(in_ch if i == 0 else out_ch, out_ch, eps=1e-6)
+             for i in range(layers)])
+        self.downsamplers = (nn.ModuleList([Downsample2D(out_ch, asymmetric_pad=True)])
+                             if add_downsample else None)
+
+    def forward(self, x):
+        for resnet in self.resnets:
+            x = resnet(x)
+        if self.downsamplers is not None:
+            x = self.downsamplers[0](x)
+        return x
+
+
 class UpBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, layers: int, add_upsample: bool):
         super().__init__()
@@ -76,6 +95,30 @@ class UpBlock(nn.Module):
         if self.upsamplers is not None:
             x = self.upsamplers[0](x)
         return x
+
+
+class Encoder(nn.Module):
+    """pixels [B, 3, H, W] -> moments [B, 2C, H/f, W/f] (mean, logvar)."""
+
+    def __init__(self, config: VAEConfig):
+        super().__init__()
+        blocks = config.block_out_channels
+        self.conv_in = nn.Conv2d(config.in_channels, blocks[0], 3, padding=1)
+        self.down_blocks = nn.ModuleList()
+        ch = blocks[0]
+        for b, out_ch in enumerate(blocks):
+            self.down_blocks.append(DownBlock(ch, out_ch, config.layers_per_block,
+                                              add_downsample=b != len(blocks) - 1))
+            ch = out_ch
+        self.mid_block = MidBlock(blocks[-1])
+        self.conv_norm_out = FusedGroupNorm(blocks[-1], 32, 1e-6, act="silu")
+        self.conv_out = nn.Conv2d(blocks[-1], 2 * config.latent_channels, 3, padding=1)
+
+    def forward(self, pixels):
+        x = self.conv_in(pixels)
+        for block in self.down_blocks:
+            x = block(x)
+        return self.conv_out(self.conv_norm_out(self.mid_block(x)))
 
 
 class Decoder(nn.Module):
@@ -102,15 +145,25 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """The decoding half: scaled latents [B, C, h, w] -> pixels
-    [B, 3, 8h, 8w] in [-1, 1]."""
+    """pixels [B, 3, H, W] in [-1, 1] <-> scaled latents [B, C, H/f, W/f]."""
 
     def __init__(self, config: VAEConfig):
         super().__init__()
         self.config = config
+        self.encoder = Encoder(config)
         self.decoder = Decoder(config)
-        self.post_quant_conv = (nn.Conv2d(config.latent_channels, config.latent_channels, 1)
-                                if config.use_quant_conv else nn.Identity())
+        c = config.latent_channels
+        self.quant_conv = (nn.Conv2d(2 * c, 2 * c, 1) if config.use_quant_conv
+                           else nn.Identity())
+        self.post_quant_conv = (nn.Conv2d(c, c, 1) if config.use_quant_conv
+                                else nn.Identity())
+
+    def encode(self, pixels):
+        """The latent distribution's mean, shifted and scaled (the JAX
+        package's encode without an rng; the sampled branch waits for a
+        caller that passes one)."""
+        mean = self.quant_conv(self.encoder(pixels))[:, :self.config.latent_channels]
+        return (mean - self.config.shift_factor) * self.config.scaling_factor
 
     def decode(self, latents):
         latents = latents / self.config.scaling_factor + self.config.shift_factor

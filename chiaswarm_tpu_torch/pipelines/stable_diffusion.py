@@ -1,26 +1,39 @@
-"""Resident Stable-Diffusion pipeline (SDXL and the tiny test models),
-txt2img only; the counterpart of chiaswarm_tpu/pipelines/stable_diffusion.py.
+"""Resident Stable-Diffusion pipeline (SDXL and the tiny test models):
+txt2img, img2img, 4-channel inpaint and dedicated (9-channel) inpaint;
+the counterpart of chiaswarm_tpu/pipelines/stable_diffusion.py.
 
 Weights load once and stay on the device. A job runs the CLIP encoders
-over [negatives | prompts] in one batch, then the classifier-free-guidance
-denoise loop (the UNet sees [uncond | cond] rows stacked, as the JAX
-program does), stepping DPM-Solver++(2M), then the VAE decode with the
-uint8 quantisation on the device. PyTorch runs eagerly, so the loop is a
-Python loop over steps.
+over [negatives | prompts] in one batch; encodes the start image (masked
+first for a 9-channel inpaint checkpoint) with the VAE encoder; runs the
+classifier-free-guidance denoise loop (the UNet sees [uncond | cond] rows
+stacked, as the JAX program does) with any ported solver; then the VAE
+decode with the uint8 quantisation on the device. PyTorch runs eagerly,
+so the loop is a Python loop over steps.
 
-Initial latents come from a `torch.Generator` seeded with the job's seed,
-or are injected by the caller (`latents`, NCHW), which is how the tests
-hand the port the noise that the JAX pipeline drew.
+Modes, as in the JAX pipeline: `inpaint9` for a 9-channel UNet given a
+mask (the mask and the masked image's latents ride on the UNet's channel
+axis), else `inpaint` for a mask (latent masking: the kept region follows
+the original's noise trajectory), else `img2img` for an image, else
+`txt2img`. img2img and inpaint start from the image's latents noised to
+`t_start = int(steps * (1 - strength))`.
+
+Noise: the initial latents, each step's ancestral noise and inpaint's
+keep noise come from one `torch.Generator` per job on the device, seeded
+with the job's seed. A caller may inject them instead (`latents`, NCHW,
+and `noise_fn(kind, i, shape)` for kind "step" and "keep"), which is how
+the tests hand the port the noise that the JAX pipeline drew.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+from PIL import Image
 
 from ..device import device_label, resolve_device, serving_dtype, synchronize
 from ..models import configs as cfgs
@@ -35,27 +48,57 @@ logger = logging.getLogger(__name__)
 
 # job arguments of the JAX pipeline whose features this slice lacks; a
 # job that sets one fails with a fatal envelope naming it
-_UNPORTED = ("image", "mask_image", "lora", "controlnet_model_name", "refiner",
-             "upscale", "textual_inversion", "vae", "control_image")
+_UNPORTED = ("lora", "controlnet_model_name", "refiner", "upscale", "textual_inversion",
+             "vae", "control_image")
+
+# model-name marks of families (and their tiny stand-ins) of later slices
+_LATER_FAMILIES = ("flux", "kandinsky", "cascade")
 
 
 def family_configs(model_name: str):
-    """(unet_cfg, [clip_cfgs], vae_cfg, default_size, prediction_type)."""
+    """(unet_cfg, [clip_cfgs], vae_cfg, default_size, prediction_type).
+
+    A name containing `inpaint` is a dedicated inpaint checkpoint: its
+    UNet takes 9 channels (latents, mask, masked-image latents)."""
     name = model_name.lower()
-    if "pix2pix" in name or "ip2p" in name or "inpaint" in name:
-        raise ValueError(f"{model_name}: edit and inpaint checkpoints are not "
+    if "pix2pix" in name or "ip2p" in name:
+        raise ValueError(f"{model_name}: edit (instruct-pix2pix) checkpoints are not "
                          "ported to chiaswarm_tpu_torch yet")
+    if any(family in name for family in _LATER_FAMILIES):
+        raise ValueError(f"{model_name}: this family is not ported to "
+                         "chiaswarm_tpu_torch yet")
     if "tiny" in name:
         if "xl" in name:
-            return (cfgs.TINY_XL_UNET, [cfgs.TINY_CLIP, cfgs.TINY_CLIP_2],
-                    cfgs.TINY_VAE, 64, "epsilon")
-        return cfgs.TINY_UNET, [cfgs.TINY_CLIP], cfgs.TINY_VAE, 64, "epsilon"
-    family = cfgs.model_family(model_name)
-    if family == "sdxl":
-        return (cfgs.SDXL_UNET, [cfgs.SDXL_CLIP_1, cfgs.SDXL_CLIP_2],
-                cfgs.SDXL_VAE, 1024, "epsilon")
-    raise ValueError(f"model family {family!r} ({model_name}) is not ported to "
-                     "chiaswarm_tpu_torch yet")
+            out = (cfgs.TINY_XL_UNET, [cfgs.TINY_CLIP, cfgs.TINY_CLIP_2],
+                   cfgs.TINY_VAE, 64, "epsilon")
+        else:
+            out = cfgs.TINY_UNET, [cfgs.TINY_CLIP], cfgs.TINY_VAE, 64, "epsilon"
+    elif (family := cfgs.model_family(model_name)) == "sdxl":
+        out = (cfgs.SDXL_UNET, [cfgs.SDXL_CLIP_1, cfgs.SDXL_CLIP_2],
+               cfgs.SDXL_VAE, 1024, "epsilon")
+    else:
+        raise ValueError(f"model family {family!r} ({model_name}) is not ported to "
+                         "chiaswarm_tpu_torch yet")
+    unet_cfg, clip_cfgs, vae_cfg, size, pred = out
+    if "inpaint" in name:
+        unet_cfg = dataclasses.replace(unet_cfg,
+                                       in_channels=2 * vae_cfg.latent_channels + 1)
+    return unet_cfg, clip_cfgs, vae_cfg, size, pred
+
+
+def _pil_to_array(image: Image.Image, width: int, height: int) -> np.ndarray:
+    """PIL -> float32 [H, W, 3] in [-1, 1], resized to the job canvas."""
+    image = image.convert("RGB")
+    if image.size != (width, height):
+        image = image.resize((width, height), Image.LANCZOS)
+    return np.asarray(image, np.float32) / 127.5 - 1.0
+
+
+def _mask_to_latent_array(mask: Image.Image, width: int, height: int,
+                          factor: int) -> np.ndarray:
+    """Mask PIL -> float32 [H/f, W/f, 1]; 1 = repaint, 0 = keep."""
+    mask = mask.convert("L").resize((width // factor, height // factor), Image.NEAREST)
+    return (np.asarray(mask, np.float32)[..., None] / 255.0 > 0.5).astype(np.float32)
 
 
 class _Timer:
@@ -73,7 +116,8 @@ class _Timer:
 
 
 class SDPipeline:
-    """One SD-family model resident on one device; serves txt2img."""
+    """One SD-family model resident on one device; serves txt2img, img2img
+    and inpaint (4- or 9-channel, by the UNet's input channels)."""
 
     def __init__(self, model_name: str, device=None, dtype=None,
                  allow_random_init: bool = False, weights: dict | None = None,
@@ -90,6 +134,8 @@ class SDPipeline:
         self.is_xl = unet_cfg.addition_embed_dim > 0
         self.latent_factor = 2 ** (len(vae_cfg.block_out_channels) - 1)
         self.latent_channels = vae_cfg.latent_channels
+        # a dedicated inpaint checkpoint, told by its architecture as in JAX
+        self.is_inpaint_unet = unet_cfg.in_channels == 2 * vae_cfg.latent_channels + 1
 
         t0 = time.perf_counter()
         with torch.device("meta"):
@@ -107,9 +153,7 @@ class SDPipeline:
             self.unet.load_state_dict(weights["unet"])
             for enc, sd in zip(self.text_encoders, weights["text"], strict=True):
                 enc.load_state_dict(sd)
-            # the encoder half of the VAE waits for img2img
-            self.vae.load_state_dict({k: v for k, v in weights["vae"].items()
-                                      if not k.startswith(("encoder.", "quant_conv."))})
+            self.vae.load_state_dict(weights["vae"])
             self.weights_source = "given"
         else:
             require_weights_present(model_name, model_dir, allow_random_init)
@@ -150,6 +194,13 @@ class SDPipeline:
         context = torch.cat(hiddens, dim=-1) if len(hiddens) > 1 else hiddens[0]
         return context, (pooled if self.is_xl else None)
 
+    def encode_image(self, pixels: np.ndarray):
+        """float32 [B, H, W, 3] in [-1, 1] -> scaled latents [B, C, h, w]
+        f32 (the latent distribution's mean)."""
+        x = torch.from_numpy(np.ascontiguousarray(pixels.transpose(0, 3, 1, 2)))
+        x = x.to(self.device, self.dtype).contiguous(memory_format=torch.channels_last)
+        return self.vae.encode(x).float()
+
     def decode(self, latents):
         """scaled latents [B, C, h, w] -> uint8 [B, H, W, 3] on the host,
         quantised on the device as the JAX program does."""
@@ -157,6 +208,16 @@ class SDPipeline:
         pixels = self.vae.decode(latents).float()
         pixels = ((pixels + 1.0) * 127.5).clamp(0.0, 255.0).round().to(torch.uint8)
         return pixels.permute(0, 2, 3, 1).cpu().numpy()
+
+    def _latents(self, value, shape) -> torch.Tensor:
+        """An injected latent-shaped array (numpy or tensor, NCHW) as f32 on
+        the device."""
+        if not isinstance(value, torch.Tensor):
+            value = torch.from_numpy(np.array(value, dtype=np.float32))
+        value = value.to(self.device, torch.float32)
+        if tuple(value.shape) != tuple(shape):
+            raise ValueError(f"latents {tuple(value.shape)} != {tuple(shape)}")
+        return value
 
     # --- public job API ---
 
@@ -167,10 +228,15 @@ class SDPipeline:
             height: int | None = None, width: int | None = None,
             num_images_per_prompt: int = 1,
             scheduler_type: str = "DPMSolverMultistepScheduler",
-            seed: int | None = None, latents=None, **kwargs):
-        """One txt2img job -> (list of uint8 [H, W, 3] arrays, pipeline_config).
+            seed: int | None = None, image: Image.Image | None = None,
+            mask_image: Image.Image | None = None, strength: float = 0.75,
+            latents=None, noise_fn=None, **kwargs):
+        """One job -> (list of uint8 [H, W, 3] arrays, pipeline_config).
 
-        `latents` [N, C, H/8, W/8] replaces the seeded initial draw."""
+        `image` starts img2img, with `mask_image` inpaint (white repaints).
+        `latents` [N, C, H/8, W/8] replaces the seeded initial draw, and
+        `noise_fn(kind, i, shape)` the seeded draws of each step's
+        ancestral noise ("step") and of inpaint's keep noise ("keep")."""
         for key in _UNPORTED:
             if kwargs.get(key):
                 raise ValueError(f"{key!r} is not supported by chiaswarm_tpu_torch yet")
@@ -178,10 +244,21 @@ class SDPipeline:
         steps = int(num_inference_steps)
         n = int(num_images_per_prompt)
         guidance_scale = float(guidance_scale)
+        if height is None and image is not None:
+            width, height = image.size
         height = int(height or self.default_size)
         width = int(width or self.default_size)
         height, width = (max(64, (d // 64) * 64) for d in (height, width))
         lh, lw = height // self.latent_factor, width // self.latent_factor
+        if mask_image is not None:
+            if image is None:
+                raise ValueError("inpaint requires an init image. None provided")
+            mode = "inpaint9" if self.is_inpaint_unet else "inpaint"
+        else:
+            mode = "txt2img" if image is None else "img2img"
+        t_start = 0
+        if mode in ("img2img", "inpaint"):
+            t_start = min(max(int(steps * (1.0 - float(strength))), 0), steps - 1)
         scheduler = get_scheduler(scheduler_type, **vars(SchedulerConfig(
             prediction_type=self.prediction_type,
             use_karras_sigmas=bool(kwargs.get("use_karras_sigmas", False)))))
@@ -199,24 +276,48 @@ class SDPipeline:
                 }
 
         shape = (n, self.latent_channels, lh, lw)
-        if latents is None:
-            gen = torch.Generator(device=self.device).manual_seed(int(seed or 0))
-            latents = torch.randn(shape, generator=gen, device=self.device,
-                                  dtype=torch.float32)
-        else:
-            if not isinstance(latents, torch.Tensor):
-                latents = torch.from_numpy(np.array(latents, dtype=np.float32))
-            latents = latents.to(self.device, torch.float32)
-            if tuple(latents.shape) != shape:
-                raise ValueError(f"latents {tuple(latents.shape)} != {shape}")
+        gen = torch.Generator(device=self.device).manual_seed(int(seed or 0))
+
+        def draw(kind: str, i: int):
+            if noise_fn is None:
+                return torch.randn(shape, generator=gen, device=self.device,
+                                   dtype=torch.float32)
+            return self._latents(noise_fn(kind, i, shape), shape)
+
+        latents = (torch.randn(shape, generator=gen, device=self.device, dtype=torch.float32)
+                   if latents is None else self._latents(latents, shape))
+
+        image_latents = mask = None
+        if image is not None:
+            with _Timer(self.device, timings, "image_encode_s"):
+                pixels = _pil_to_array(image, width, height)[None]
+                if mode == "inpaint9":
+                    # the 9-channel checkpoint conditions on the masked
+                    # image: the repaint region is blanked before encoding
+                    mask_px = np.asarray(mask_image.convert("L").resize(
+                        (width, height), Image.NEAREST), np.float32)[None, ..., None] / 255.0
+                    pixels = pixels * (mask_px <= 0.5).astype(np.float32)
+                # one start image for the whole batch: encoded once
+                image_latents = self.encode_image(pixels).expand(shape)
+        if mask_image is not None:
+            m = _mask_to_latent_array(mask_image, width, height, self.latent_factor)
+            mask = torch.from_numpy(m.transpose(2, 0, 1)[None]).to(self.device).expand(
+                n, 1, lh, lw)
 
         schedule = scheduler.schedule(steps)
-        start, end = scheduler.loop_bounds(schedule, steps, 0)
+        start, end = scheduler.loop_bounds(schedule, steps, t_start)
         with _Timer(self.device, timings, "denoise_s"):
-            latents = latents * float(schedule.init_noise_sigma)
+            if mode in ("img2img", "inpaint"):
+                latents = scheduler.add_noise(schedule, image_latents, latents, start)
+            else:
+                latents = latents * float(schedule.init_noise_sigma)
             state = scheduler.init_state(latents)
+            if mode == "inpaint9":
+                cond9 = torch.cat([mask, image_latents], dim=1)
             for i in range(start, end):
                 inp = scheduler.scale_model_input(schedule, latents, i)
+                if mode == "inpaint9":
+                    inp = torch.cat([inp, cond9], dim=1)
                 model_in = torch.cat([inp, inp]).to(self.dtype).contiguous(
                     memory_format=torch.channels_last)
                 t_vec = torch.full((2 * n,), float(schedule.timesteps[i]),
@@ -224,7 +325,14 @@ class SDPipeline:
                 out = self.unet(model_in, t_vec, context, added_cond=added).float()
                 out_u, out_c = out.chunk(2)
                 guided = out_u + guidance_scale * (out_c - out_u)
-                state, latents = scheduler.step(schedule, state, i, latents, guided)
+                noise = draw("step", i) if scheduler.uses_ancestral_noise else None
+                state, latents = scheduler.step(schedule, state, i, latents, guided, noise)
+                if mode == "inpaint":
+                    # the kept region stays on the original's trajectory,
+                    # and is the clean latents after the last step
+                    keep = (image_latents if i == end - 1 else scheduler.add_noise(
+                        schedule, image_latents, draw("keep", i), min(i + 1, end - 1)))
+                    latents = mask * latents + (1.0 - mask) * keep
 
         with _Timer(self.device, timings, "decode_s"):
             pixels = self.decode(latents)
@@ -237,10 +345,12 @@ class SDPipeline:
             "model": self.model_name,
             "pipeline": pipeline_type,
             "scheduler": scheduler_type,
-            "mode": "txt2img",
+            "mode": mode,
             "steps": steps,
             "size": [width, height],
             "guidance_scale": guidance_scale,
+            **({"strength": float(strength), "t_start": t_start}
+               if mode in ("img2img", "inpaint") else {}),
             "backend": f"torch-{self.device.type}",
             "device": device_label(self.device),
             "dtype": str(self.dtype).replace("torch.", ""),

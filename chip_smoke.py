@@ -18,17 +18,33 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
    straddle an 8-channel vector (C = 320), every main-path call too large
    to stay on chip in bf16 and f32, eps 1e-6, a mean ten times the spread
    (held against the plain version evaluated in float64), and one input
-   run 20 times with bit-identical outputs.
+   run 20 times with bit-identical outputs. The VAE encoder's calls that
+   the decoder never makes, (1,512,512,128) and (1,256,256,256), and its
+   attention, in bf16 and f32.
 4. Small-input reference: the tiny SDXL-shaped pipeline in f32 on the card
    (kernels) against the same weights and latents on the CPU (plain
-   versions); the decoded uint8 images must agree within 2/255.
+   versions); the decoded uint8 images must agree within 2/255. At 64^2:
+   tiny-xl img2img, 4-channel inpaint and test/tiny-xl-inpaint (9
+   channels), and one 4-step inpaint job for every ported solver wire
+   name, with the same injected noise on both sides. For 4-channel
+   inpaint on the card, the latents that reach the decode must equal the
+   encoded clean latents bit for bit where the mask keeps the image.
 5. Main path: a fake hive on localhost, the port's worker, and the
    full-width stabilityai/stable-diffusion-xl-base-1.0 pipeline on seeded
    random weights; three 1024^2 30-step DPM++ 2M txt2img jobs and one echo
    job are served. Every envelope is checked (sha256 of the artifact, a
    decodable image that is not constant, finite latents). The kernels'
    launch counts are reset just before and read just after.
-6. Each kernel at every shape the main path launched it with: again held
+   Then the image path: the counts are reset again, the 9-channel
+   diffusers/stable-diffusion-xl-1.0-inpainting-0.1 is built beside the
+   base model, and three 1024^2 30-step jobs whose start image (a smooth
+   JPEG under the 3 MiB input cap) and half mask the fake hive serves:
+   img2img (strength 0.75, Euler ancestral), 4-channel inpaint (strength
+   1.0, DDIM) and 9-channel inpaint (UniPC). Each envelope is checked as
+   above and for its mode; each job's launches are counted and held to
+   its UNet calls times the UNet's launches per call (from the txt2img
+   jobs) plus one VAE encode and one decode.
+6. Each kernel at every shape any path launched it with: again held
    against its plain version, and timed (CUDA events) beside its plain
    version and one PyTorch library call computing the same function, each
    also replayed from a CUDA graph (the device's own time, without the
@@ -37,19 +53,21 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
    3.35 TB/s or operations over the peak of their type, whichever is
    larger), with the achieved TFLOP/s and the share of the bound reached.
    A kernel's bound per job is the sum over its shapes of each shape's
-   bound times its launches per job.
-7. The UNet (one call) and the VAE decode at the main path's shapes in
-   bf16 through the kernels, against the same weights in f32 on the plain
-   path: the relative RMS error may be at most 1.25x that of the plain
-   path in bf16.
-8. A few UNet calls and one VAE decode at the main path's shapes, timed
-   by the host's clock and then under torch.profiler: device time and
-   launches by kernel category, the GroupNorm kernels one by one, and the
-   device's busy share. Each GroupNorm call must be exactly one kernel
-   launch.
+   bound times its launches per job, for each kind of job.
+7. The UNet (one call), the VAE decode and the VAE encode at the main
+   path's shapes in bf16 through the kernels, against the same weights in
+   f32 on the plain path: the relative RMS error may be at most 1.25x
+   that of the plain path in bf16.
+8. A few UNet calls, one VAE decode and one VAE encode at the main path's
+   shapes, timed by the host's clock and then under torch.profiler:
+   device time and launches by kernel category, the GroupNorm kernels one
+   by one, and the device's busy share. Each GroupNorm call must be
+   exactly one kernel launch.
 
-The second-to-last lines are the `kernels` JSON object and the card's
-name and power limit; the last line is the `{"ok": true, ...}` object.
+The second-to-last lines are the `kernels` JSON object (per txt2img job,
+as before; `launches` over every served job; `by_job` per job of each
+kind) and the card's name and power limit; the last line is the
+`{"ok": true, ...}` object.
 `--detail PATH` also writes every measurement (per shape, per job, the
 profile) to PATH as JSON. `--group-norm-only` runs phases 1 and 2, then
 GroupNorm alone at the shapes of one UNet call and one VAE decode (its
@@ -69,6 +87,7 @@ import json
 import subprocess
 import sys
 import time
+from collections import Counter
 from contextlib import contextmanager
 from pathlib import Path
 
@@ -76,6 +95,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 SDXL = "stabilityai/stable-diffusion-xl-base-1.0"
+SDXL_INPAINT = "diffusers/stable-diffusion-xl-1.0-inpainting-0.1"
 N_JOBS = 3
 STEPS = 30
 SIZE = 1024
@@ -378,6 +398,8 @@ def kernel_checks() -> None:
         ((2, 1000, 10, 64), (2, 4095, 10, 64), bf), ((2, 40, 10, 64), (2, 77, 10, 64), bf),
         ((2, 40, 10, 64), (2, 4096, 10, 64), bf), ((2, 4096, 1, 512), (2, 4096, 1, 512), bf),
         ((1, 40, 1, 512), (1, 1000, 1, 512), bf),
+        # the VAE encoder's mid-block attention (the decoder's shape) in f32
+        ((1, 16384, 1, 512), (1, 16384, 1, 512), f32),
         ((2, 256, 3, 32), (2, 256, 3, 32), f32), ((2, 256, 3, 32), (2, 77, 3, 32), f32),
         ((2, 130, 3, 32), (2, 256, 3, 32), f32), ((2, 64, 3, 32), (2, 64, 3, 32), f32),
         ((2, 1024, 10, 64), (2, 77, 10, 64), f32), ((1, 1024, 1, 512), (1, 1024, 1, 512), f32),
@@ -405,6 +427,10 @@ def kernel_checks() -> None:
               ((2, 64, 64, 1920), f32, True, 1e-5), ((2, 128, 128, 960), bf, True, 1e-5),
               ((2, 128, 128, 960), f32, True, 1e-5), ((2, 128, 128, 320), f32, True, 1e-5),
               ((2, 64, 64, 640), bf, False, 1e-6), ((1, 256, 256, 512), bf, True, 1e-6)]
+    # the VAE encoder's calls that the decoder never makes (both too large
+    # to stay on chip)
+    norms += [(shape, dtype, True, 1e-6) for shape in ((1, 512, 512, 128), (1, 256, 256, 256))
+              for dtype in (bf, f32)]
     for x_shape, dtype, silu, eps in norms:
         row = gn_case(x_shape, dtype, silu, gen, timed=False, eps=eps)
         log(f"[check] group_norm x{x_shape} {row['dtype']} silu={silu} eps {eps:g}: max_abs_err "
@@ -450,6 +476,120 @@ def tiny_reference_check(device: str = "cuda", size: int = 128) -> None:
     check(diff <= 2, f"tiny-xl card vs CPU pixel diff {diff} > 2")
 
 
+def start_image(size: int):
+    """A smooth procedural RGB image (compresses far under the 3 MiB input
+    cap at 1024^2, unlike noise)."""
+    import numpy as np
+    from PIL import Image
+
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    rgb = np.stack([0.5 + 0.5 * np.sin(6.0 * xx + 2.0 * yy),
+                    0.5 + 0.5 * np.cos(4.0 * yy - 3.0 * xx),
+                    0.25 + 0.5 * xx * yy], axis=-1)
+    return Image.fromarray((255 * rgb).astype(np.uint8))
+
+
+def half_mask(size: int):
+    """White (repaint) over the right half, black (keep) over the left."""
+    from PIL import Image
+
+    mask = Image.new("L", (size, size), 0)
+    mask.paste(255, (size // 2, 0, size, size))
+    return mask
+
+
+def image_bytes(image, fmt: str) -> bytes:
+    buf = io.BytesIO()
+    image.save(buf, fmt, **({"quality": 90} if fmt == "JPEG" else {}))
+    return buf.getvalue()
+
+
+def tiny_image_checks(device: str = "cuda", size: int = 64, steps: int = 4) -> dict:
+    """Phase 4 for the image modes: the tiny pipelines in f32 on `device`
+    against the same weights on the CPU, with the same initial latents and
+    injected step and keep noise; every ported solver wire name runs one
+    4-channel inpaint job. On `device`, each 4-channel inpaint job's
+    latents that reach the decode must equal the encoded clean latents bit
+    for bit where the mask keeps the image (captured by wrapping the
+    pipeline's encode_image and decode)."""
+    import numpy as np
+
+    from chiaswarm_tpu_torch.pipelines.stable_diffusion import SDPipeline, _mask_to_latent_array
+    from chiaswarm_tpu_torch.schedulers import SCHEDULERS
+
+    pairs = {}
+    for model in ("test/tiny-xl", "test/tiny-xl-inpaint"):
+        cpu = SDPipeline(model, device="cpu")
+        weights = {"unet": cpu.unet.state_dict(),
+                   "text": [e.state_dict() for e in cpu.text_encoders],
+                   "vae": cpu.vae.state_dict()}
+        pairs[model] = (cpu, SDPipeline(model, device=device, dtype=torch.float32,
+                                        weights=weights))
+    lat = size // pairs["test/tiny-xl"][0].latent_factor
+    latents = torch.randn((1, 4, lat, lat), generator=torch.Generator().manual_seed(7))
+
+    def noise_fn(kind, i, shape):
+        seed = 1000 * (kind == "keep") + i
+        return torch.randn(shape, generator=torch.Generator().manual_seed(seed))
+
+    image, mask = start_image(size), half_mask(size)
+    common = dict(prompt="a red cube", num_inference_steps=steps, latents=latents,
+                  noise_fn=noise_fn, image=image)
+    jobs = [("img2img", "test/tiny-xl",
+             dict(scheduler_type="EulerAncestralDiscreteScheduler", strength=0.75)),
+            ("inpaint", "test/tiny-xl",
+             dict(scheduler_type="DPMSolverMultistepScheduler", mask_image=mask)),
+            ("inpaint9", "test/tiny-xl-inpaint",
+             dict(scheduler_type="UniPCMultistepScheduler", mask_image=mask))]
+    jobs += [("inpaint", "test/tiny-xl", dict(scheduler_type=name, mask_image=mask,
+                                              strength=0.6))
+             for name in SCHEDULERS]
+    captured = {}
+
+    def capture(name, fn):
+        """fn, recording what it returns ("clean") or its input ("final")."""
+        def wrapped(*args):
+            out = fn(*args)
+            captured[name] = out if name == "clean" else args[0]
+            return out
+        return wrapped
+
+    result = {}
+    for mode, model, job in jobs:
+        cpu, card = pairs[model]
+        captured.clear()
+        if mode == "inpaint":
+            card.encode_image = capture("clean", card.encode_image)
+            card.decode = capture("final", card.decode)
+        try:
+            want, _ = cpu.run(**common, **job)
+            got, config = card.run(**common, **job)
+        finally:
+            card.__dict__.pop("encode_image", None)
+            card.__dict__.pop("decode", None)
+        what = f"{model} {mode} {job['scheduler_type']} strength {job.get('strength', 0.75)}"
+        diff = int(np.abs(got[0].astype(np.int16) - want[0].astype(np.int16)).max())
+        row = {"mode": config["mode"], "max_pixel_diff": diff}
+        check(config["mode"] == mode, f"{what}: mode {config['mode']}")
+        check(diff <= 2, f"{what}: card vs CPU pixel diff {diff} > 2")
+        if mode == "inpaint":
+            clean, final = captured["clean"].expand_as(captured["final"]), captured["final"]
+            factor = size // lat
+            keep = torch.from_numpy(_mask_to_latent_array(mask, size, size, factor)[..., 0] == 0)
+            keep = keep.to(final.device).expand_as(final)
+            row["kept_equal"] = bool(torch.equal(final[keep], clean[keep]))
+            row["kept_values"] = int(keep.sum())
+            check(row["kept_values"] > 0 and row["kept_equal"],
+                  f"{what}: the kept latents differ from the clean latents on {device}")
+            check(not torch.equal(final[~keep], clean[~keep]),
+                  f"{what}: the repainted latents equal the clean latents")
+        result[what] = row
+        log(f"[tiny] {what} {size}^2 f32, {device} vs CPU: max pixel diff {diff}/255 "
+            f"(bound 2/255)" + (f"; kept latents equal the clean latents bit for bit "
+                                f"({row['kept_values']} values)" if "kept_equal" in row else ""))
+    return result
+
+
 # --- phase 5 ---
 
 def decode_artifact(artifact: dict):
@@ -464,7 +604,9 @@ def decode_artifact(artifact: dict):
 
 
 def serve_main_path(smi: str, device: str = "cuda", model: str = SDXL, size: int = SIZE,
-                    steps: int = STEPS):
+                    steps: int = STEPS, registry=None):
+    """The txt2img jobs and the echo job -> ({kernel: (launches, {shape:
+    launches})}, served, registry)."""
     from chiaswarm_tpu_torch.fake_hive import FakeHive
     from chiaswarm_tpu_torch.ops.flash_attention import COUNTER as FA_COUNTER
     from chiaswarm_tpu_torch.ops.group_norm import COUNTER as GN_COUNTER
@@ -476,7 +618,7 @@ def serve_main_path(smi: str, device: str = "cuda", model: str = SDXL, size: int
     try:
         settings = Settings(sdaas_token="smoke-token", sdaas_uri=hive.uri,
                             worker_name="chip-smoke", model_root_dir=str(ROOT / ".no-models"))
-        registry = Registry(torch.device(device), settings.model_root_dir)
+        registry = registry or Registry(torch.device(device), settings.model_root_dir)
         t0 = time.perf_counter()
         pipe = registry.get_pipeline(model, allow_random_init=True)
         log(f"[serve] {model} resident in {time.perf_counter() - t0:.1f}s "
@@ -541,34 +683,159 @@ def serve_main_path(smi: str, device: str = "cuda", model: str = SDXL, size: int
         f"the served jobs: {json.dumps(counts)}")
     for name, count in counts.items():
         check(count > 0, f"{name} was never launched on the main path")
-    return launches, served, pipe
+    return launches, served, registry
+
+
+# kernel launches of one VAE encode and one VAE decode (one attention
+# call and 22 or 30 GroupNorm calls each, at any canvas)
+ENCODE_LAUNCHES = {"flash_attention": 1, "group_norm": 22}
+DECODE_LAUNCHES = {"flash_attention": 1, "group_norm": 30}
+
+
+def _snapshot(counters: dict) -> dict:
+    return {name: (c.launches, Counter(c.shapes)) for name, c in counters.items()}
+
+
+def serve_image_path(smi: str, registry, unet_launches: dict, device: str = "cuda",
+                     model: str = SDXL, inpaint_model: str = SDXL_INPAINT, size: int = SIZE,
+                     steps: int = STEPS) -> tuple[dict, dict]:
+    """Phase 5, image path: img2img, 4-channel inpaint and 9-channel inpaint
+    through the worker, their start image and mask served by the fake hive.
+    `unet_launches` {kernel: launches per UNet call} predicts each job's
+    launches -> ({job kind: (1, {kernel: (launches, {shape: launches})})},
+    served)."""
+    from chiaswarm_tpu_torch.external_resources import LIMITS
+    from chiaswarm_tpu_torch.fake_hive import FakeHive
+    from chiaswarm_tpu_torch.ops.flash_attention import COUNTER as FA_COUNTER
+    from chiaswarm_tpu_torch.ops.group_norm import COUNTER as GN_COUNTER
+    from chiaswarm_tpu_torch.settings import Settings
+    from chiaswarm_tpu_torch.worker import Worker
+
+    counters = {"flash_attention": FA_COUNTER, "group_norm": GN_COUNTER}
+    start = image_bytes(start_image(size), "JPEG")
+    check(len(start) < LIMITS.max_bytes, f"start image {len(start)} bytes over the input cap")
+    hive = FakeHive(token="smoke-token")
+    try:
+        start_uri = hive.enqueue_file("start.jpg", start, "image/jpeg")
+        mask_uri = hive.enqueue_file("mask.png", image_bytes(half_mask(size), "PNG"), "image/png")
+        settings = Settings(sdaas_token="smoke-token", sdaas_uri=hive.uri,
+                            worker_name="chip-smoke", model_root_dir=registry.model_root_dir)
+        t0 = time.perf_counter()
+        registry.get_pipeline(inpaint_model, allow_random_init=True)
+        log(f"[image] {inpaint_model} resident in {time.perf_counter() - t0:.1f}s beside "
+            f"{model}; {torch.cuda.memory_allocated() / 2**30 if device == 'cuda' else 0:.1f} "
+            "GiB allocated")
+        worker = Worker(settings=settings, device=device, registry=registry, poll_seconds=0.05)
+        common = {"prompt": "a lighthouse on a cliff at dusk, repainted",
+                  "negative_prompt": "blurry", "height": size, "width": size,
+                  "num_inference_steps": steps, "guidance_scale": 7.0,
+                  "content_type": "image/png", "start_image_uri": start_uri}
+        jobs = [
+            ("img2img", {"id": "img2img-0", "workflow": "img2img", "model_name": model,
+                         "strength": 0.75, "seed": 2000,
+                         "parameters": {"scheduler_type": "EulerAncestralDiscreteScheduler",
+                                        "large_model": True}}),
+            ("inpaint", {"id": "inpaint-0", "workflow": "inpaint", "model_name": model,
+                         "strength": 1.0, "seed": 2001, "mask_image_uri": mask_uri,
+                         "parameters": {"scheduler_type": "DDIMScheduler",
+                                        "large_model": True}}),
+            ("inpaint9", {"id": "inpaint9-0", "workflow": "inpaint",
+                          "model_name": inpaint_model, "seed": 2002,
+                          "mask_image_uri": mask_uri,
+                          "parameters": {"scheduler_type": "UniPCMultistepScheduler",
+                                         "large_model": True}}),
+        ]
+        FA_COUNTER.reset()
+        GN_COUNTER.reset()
+        paths, before = {}, _snapshot(counters)
+        t0 = time.perf_counter()
+        for k, (kind, job) in enumerate(jobs):
+            hive.enqueue({**common, **job})
+            asyncio.run(worker.run(max_jobs=k + 1))
+            after = _snapshot(counters)
+            paths[kind] = (1, {name: (after[name][0] - before[name][0],
+                                      after[name][1] - before[name][1]) for name in counters})
+            before = after
+        served_s = time.perf_counter() - t0
+        results = hive.wait_for_results(len(jobs), timeout=30)
+        check(hive.auth_failures == 0, "the hive refused the worker's bearer token")
+    finally:
+        hive.close()
+
+    by_id = {r["id"]: r for r in results}
+    served = {"served_s": served_s, "jobs": {}}
+    for kind, job in jobs:
+        r = by_id[job["id"]]
+        check(not r.get("fatal_error"), f"{job['id']}: fatal envelope {r['pipeline_config']}")
+        check("error" not in r["pipeline_config"], f"{job['id']}: {r['pipeline_config']}")
+        image = decode_artifact(r["artifacts"]["primary"])
+        cfg, t = r["pipeline_config"], r["pipeline_config"]["timings"]
+        check(cfg["mode"] == kind, f"{job['id']}: mode {cfg['mode']}, not {kind}")
+        check(image.shape == (size, size, 3), f"{job['id']}: image {image.shape}")
+        check(int(image.max()) != int(image.min()), f"{job['id']}: constant image")
+        check(cfg["latents"]["finite"], f"{job['id']}: non-finite latents")
+        unet_calls = steps - cfg.get("t_start", 0)
+        counted = {name: launches for name, (launches, _) in paths[kind][1].items()}
+        predicted = {name: unet_calls * unet_launches[name] + ENCODE_LAUNCHES[name]
+                     + DECODE_LAUNCHES[name] for name in counted}
+        served["jobs"][job["id"]] = {"mode": cfg["mode"], "timings": t, "latents": cfg["latents"],
+                                     "unet_calls": unet_calls, "launches": counted,
+                                     "predicted_launches": predicted}
+        log(f"[image] {job['id']} ({cfg['mode']}, {cfg['scheduler']}, {cfg['model']}) on {smi}: "
+            f"job {t['job_s']:.3f}s = text_encode {t['text_encode_s']:.3f}s + image_encode "
+            f"{t['image_encode_s']:.3f}s + denoise {t['denoise_s']:.3f}s ({unet_calls} UNet "
+            f"calls, step {t['unet_step_ms']:.1f} ms at CFG batch 2) + decode "
+            f"{t['decode_s']:.3f}s + artifacts {t['encode_artifacts_s']:.3f}s; latents |max| "
+            f"{cfg['latents']['absmax']:.3g}; pixels {int(image.min())}..{int(image.max())} "
+            f"mean {float(image.mean()):.1f}")
+        log(f"[image] {job['id']} kernel launches: counted {json.dumps(counted)}, predicted "
+            f"{json.dumps(predicted)} ({unet_calls} UNet calls x {json.dumps(unet_launches)} "
+            f"+ one encode + one decode)")
+    log(f"[image] {len(jobs)} jobs served in {served_s:.1f}s")
+    for job_id, job in served["jobs"].items():
+        for name, count in job["launches"].items():
+            check(count > 0, f"{name} was never launched on the image path")
+        check(job["launches"] == job["predicted_launches"],
+              f"{job_id}: launches {job['launches']} != predicted {job['predicted_launches']}")
+    return paths, served
 
 
 # --- phase 6 ---
 
-def measure(launches: dict, jobs: int = N_JOBS) -> tuple[list[dict], dict]:
-    """Phase 6 for {kernel: (launches, {shape key: launches})} counted over
-    `jobs` jobs."""
+def measure(paths: dict, main: str = "txt2img") -> tuple[list[dict], dict]:
+    """Phase 6 for {job kind: (jobs, {kernel: (launches, {shape key:
+    launches})})} counted over `jobs` jobs of each kind: every shape that
+    any kind launched is checked and timed once; each kernel's times and
+    bound per job are summed over its shapes for each kind. The summary
+    reports the `main` kind's job at the top level, as before, and every
+    kind under `by_job`; `launches` counts every served job."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     detail, summary = {}, []
-    for name, (count, shapes) in launches.items():
+    names = list(next(iter(paths.values()))[1])
+    for name in names:
+        shapes = Counter()
+        for _, launches in paths.values():
+            shapes.update(launches[name][1])
         rows = []
-        for key, n in sorted(shapes.items(), key=lambda kv: -kv[1]):
+        for key, _ in sorted(shapes.items(), key=lambda kv: -kv[1]):
             if name == "flash_attention":
                 q_shape, k_shape, dtype = key
                 row = attention_case(tuple(q_shape), tuple(k_shape), dtype, gen, timed=True)
             else:
                 x_shape, dtype, silu, eps = key
                 row = gn_case(x_shape, getattr(torch, dtype), silu, gen, timed=True, eps=eps)
-            row["launches_per_job"] = n / jobs
+            row["launches_per_job"] = {kind: launches[name][1].get(key, 0) / jobs
+                                       for kind, (jobs, launches) in paths.items()}
             rows.append(row)
             row["tflops"] = row["flops"] / row["ms"] / 1e9
             row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            per_kind = ", ".join(f"{kind} {n:g}" for kind, n in row["launches_per_job"].items()
+                                 if n)
             log(f"[measure] {name} {row.get('q', row.get('x'))}"
                 f"{' kv' + str(row['kv']) if 'kv' in row else ''} {row['dtype']}"
                 f"{' eps %g' % row['eps'] if 'eps' in row else ''}"
                 f"{' on chip: %s' % row['on_chip'] if 'on_chip' in row else ''}: "
-                f"{n / jobs:g}/job, kernel {row['ms']:.4f} ms"
+                f"per job {per_kind}; kernel {row['ms']:.4f} ms"
                 + f" (device {row['device_ms']:.4f}, host {row['host_ms']:.4f})"
                 + f", plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms"
                 + (f" (device {row['library_device_ms']:.4f})" if "library_device_ms" in row
@@ -577,31 +844,36 @@ def measure(launches: dict, jobs: int = N_JOBS) -> tuple[list[dict], dict]:
                 f"({row['bound_by']}), {row['tflops']:.1f} TFLOP/s, "
                 f"{100 * row['share_of_bound']:.1f}% of bound, err {row['max_abs_err']:.3g}")
 
-        def per_job(field, which=None):
-            return sum(r[field] * r["launches_per_job"] for r in rows
+        def per_job(field, kind, which=None):
+            return sum(r[field] * r["launches_per_job"][kind] for r in rows
                        if which is None or r["bound_by"] == which)
 
         # each shape's own bound (the larger of its two), summed over the
         # shapes; bound_by names the kind that makes up most of the sum
-        by_ops, by_bytes = per_job("bound_ms", "operations"), per_job("bound_ms", "bytes")
+        by_job = {}
+        for kind, (jobs, launches) in paths.items():
+            by_ops = per_job("bound_ms", kind, "operations")
+            by_bytes = per_job("bound_ms", kind, "bytes")
+            by_job[kind] = {
+                "launches": launches[name][0] / jobs, "ms": per_job("ms", kind),
+                "device_ms": per_job("device_ms", kind), "host_ms": per_job("host_ms", kind),
+                "plain_ms": per_job("plain_ms", kind), "bound_ms": by_ops + by_bytes,
+                "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+                "library_ms": per_job("library_ms", kind),
+                "library_device_ms": per_job("library_device_ms", kind)}
+            j = by_job[kind]
+            log(f"[measure] {name} per {kind} job: kernel {j['ms']:.1f} ms (device "
+                f"{j['device_ms']:.1f}, host {j['host_ms']:.1f}), plain {j['plain_ms']:.1f} ms, "
+                f"library {j['library_ms']:.1f} ms (device {j['library_device_ms']:.1f}), bound "
+                f"{j['bound_ms']:.1f} ms ({j['bound_by']}), {j['launches']:g} launches")
+        top = {k: v for k, v in by_job[main].items() if k not in ("launches", "library_device_ms")}
         summary.append({
-            "name": name, "route": "cuda", **KERNELS[name], "launches": count,
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": per_job("ms"), "device_ms": per_job("device_ms"), "host_ms": per_job("host_ms"),
-            "plain_ms": per_job("plain_ms"),
-            "bound_ms": by_ops + by_bytes,
-            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
-            "library_ms": per_job("library_ms"),
+            "name": name, "route": "cuda", **KERNELS[name],
+            "launches": sum(launches[name][0] for _, launches in paths.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in rows), **top, "by_job": by_job,
         })
-        line = summary[-1]
-
-        log(f"[measure] {name} per job: kernel {line['ms']:.1f} ms (device "
-            f"{line['device_ms']:.1f}, host {line['host_ms']:.1f}), plain {line['plain_ms']:.1f} ms, library "
-            f"{line['library_ms']:.1f} ms (device {per_job('library_device_ms'):.1f}), bound "
-            f"{line['bound_ms']:.1f} ms ({line['bound_by']}), {count / jobs:g} launches")
         detail[name] = rows
     return summary, detail
-
 
 
 # --- phases 7 and 8 ---
@@ -659,10 +931,21 @@ def plain_path():
         layers.dot_product_attention, vae.dot_product_attention, layers.group_norm = saved
 
 
+def encode_input(pipe, size: int = SIZE):
+    """The served start image as the VAE encoder's input: [1, 3, size,
+    size] in [-1, 1], the pipeline's dtype, channels_last."""
+    import numpy as np
+
+    px = np.asarray(start_image(size), np.float32) / 127.5 - 1.0
+    px = torch.from_numpy(px.transpose(2, 0, 1)[None].copy()).to(pipe.device, pipe.dtype)
+    return px.contiguous(memory_format=torch.channels_last)
+
+
 def end_to_end_bf16_check(pipe, size: int = SIZE) -> dict:
-    """One UNet call and one VAE decode at the main path's shapes, in bf16
-    through the kernels, against the same weights in f32 on the plain
-    path; the plain path in bf16 gives the error bf16 itself makes."""
+    """One UNet call, one VAE decode and one VAE encode at the main path's
+    shapes, in bf16 through the kernels, against the same weights in f32
+    on the plain path; the plain path in bf16 gives the error bf16 itself
+    makes."""
     import copy
 
     from chiaswarm_tpu_torch.device import synchronize
@@ -675,10 +958,12 @@ def end_to_end_bf16_check(pipe, size: int = SIZE) -> dict:
     z = z.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
     # the f32 reference sees the same bf16 input values, cast up
     up = {"text_embeds": added["text_embeds"].float(), "time_ids": added["time_ids"]}
+    px = encode_input(pipe, size)
     calls = (
         ("unet", pipe.unet, lambda m: m(x, t, ctx, added),
          lambda m: m(x.float(), t, ctx.float(), up)),
-        ("vae_decode", pipe.vae, lambda m: m.decode(z), lambda m: m.decode(z.float())))
+        ("vae_decode", pipe.vae, lambda m: m.decode(z), lambda m: m.decode(z.float())),
+        ("vae_encode", pipe.vae, lambda m: m.encode(px), lambda m: m.encode(px.float())))
     result = {}
     for name, module, call, call_f32 in calls:
         with torch.inference_mode():
@@ -744,7 +1029,7 @@ def profiled(fn, calls: int, device) -> tuple[dict, float, float, int]:
 
 def profile_main_path(pipe, size: int = SIZE, steps: int = 3) -> dict:
     """Phase 8: torch.profiler over a few UNet calls (CFG batch 2, size/8
-    latents) and one VAE decode: device time and launches by kernel
+    latents), one VAE decode and one VAE encode: device time and launches by kernel
     category, each GroupNorm kernel by name, GroupNorm wrapper calls, and
     the device's busy share of the wall time."""
     x, t, ctx, added = unet_inputs(pipe, size)
@@ -752,9 +1037,11 @@ def profile_main_path(pipe, size: int = SIZE, steps: int = 3) -> dict:
     z = torch.randn((1, pipe.latent_channels, lat, lat), device=pipe.device,
                     generator=torch.Generator(device=pipe.device).manual_seed(3))
     z = z.to(pipe.dtype).contiguous(memory_format=torch.channels_last)
+    px = encode_input(pipe, size)
     result = {}
     for name, fn, calls in (("unet", lambda: pipe.unet(x, t, ctx, added_cond=added), steps),
-                            ("vae_decode", lambda: pipe.vae.decode(z), 1)):
+                            ("vae_decode", lambda: pipe.vae.decode(z), 1),
+                            ("vae_encode", lambda: pipe.vae.encode(px), 1)):
         kernels, plain_wall_ms, wall_ms, gn_calls = profiled(fn, calls, pipe.device)
         categories = {label: [0.0, 0.0] for label, _ in _CATEGORIES}
         categories["other (elementwise, norms, copies)"] = [0.0, 0.0]
@@ -824,7 +1111,8 @@ def group_norm_only(smi: str, detail: str | None) -> None:
             fn()
             for key, n in GN_COUNTER.shapes.items():
                 per_job[key] = per_job.get(key, 0) + n * times
-    summary, shapes = measure({"group_norm": (sum(per_job.values()), per_job)}, jobs=1)
+    summary, shapes = measure({"txt2img": (1, {"group_norm": (sum(per_job.values()),
+                                                              per_job)})})
     profile = profile_main_path(pipe)
     log_profile(profile, smi)
     if detail:
@@ -863,8 +1151,13 @@ def main(argv=None) -> int:
             return 0
         kernel_checks()
         tiny_reference_check()
-        launches, served, pipe = serve_main_path(smi)
-        summary, shapes = measure(launches)
+        tiny_image = tiny_image_checks()
+        launches, served, registry = serve_main_path(smi)
+        unet_launches = {name: (count / N_JOBS - DECODE_LAUNCHES[name]) / STEPS
+                         for name, (count, _) in launches.items()}
+        image_paths, image_served = serve_image_path(smi, registry, unet_launches)
+        summary, shapes = measure({"txt2img": (N_JOBS, launches), **image_paths})
+        pipe = registry.get_pipeline(SDXL)
         e2e = end_to_end_bf16_check(pipe)
         profile = profile_main_path(pipe)
         log_profile(profile, smi)
@@ -873,7 +1166,8 @@ def main(argv=None) -> int:
             path = Path(opts.detail)
             path.parent.mkdir(parents=True, exist_ok=True)
             path.write_text(json.dumps(
-                {"card": smi, "served": served, "kernels": summary, "shapes": shapes,
+                {"card": smi, "tiny_image": tiny_image, "served": served,
+                 "image_served": image_served, "kernels": summary, "shapes": shapes,
                  "end_to_end_bf16": e2e, "profile": profile}, indent=1))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

@@ -4,7 +4,8 @@ its import purity.
 - The worker (`device="cpu"`) serves an echo job and a `test/tiny-xl`
   txt2img job against the port's local fake hive: bearer auth, the
   capability advertisement, envelopes whose artifact sha256 matches the
-  b64 blob, and a clean fatal envelope for a workflow not ported yet.
+  b64 blob, and a clean fatal envelope for an img2img job without a
+  start image.
 - Entry points run on the card unless told otherwise: without CUDA and
   without `device="cpu"` they raise.
 - The port imports nothing of JAX, flax or chiaswarm_tpu (this stands in
@@ -82,9 +83,9 @@ def test_worker_serves_echo_and_tiny_txt2img(tmp_path):
     assert {"text_encode_s", "denoise_s", "decode_s", "job_s"} <= set(config["timings"])
     assert _image(tti["artifacts"]["primary"]).shape == (64, 64, 3)
 
-    unported = results["i2i-1"]
-    assert unported["fatal_error"] is True
-    assert "img2img" in unported["pipeline_config"]["error"]
+    no_image = results["i2i-1"]
+    assert no_image["fatal_error"] is True
+    assert "requires an input image" in no_image["pipeline_config"]["error"]
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
