@@ -20,20 +20,24 @@
 // full tile (no masked column, positive scale) the scale folds into the
 // exponent's FMA and no mask is applied. Three paths:
 //
-//   - bf16, D == 64 (every SDXL UNet attention): `flash_fwd_wgmma64`, warp
-//     specialised. One producer warpgroup (one thread issues TMA loads,
-//     the rest give their registers away with setmaxnreg) and three
-//     consumer warpgroups, each owning 64 of the CTA's 192 query rows, so
-//     every K/V tile feeds 192 rows. K and V tiles of 128 rows move
-//     through a 3-stage ring in shared memory, each stage with a full
-//     barrier for K, one for V and one empty barrier, so copies run two
-//     tiles ahead of the products. The tensor maps cover q, k, v as they
-//     lie (dims {D, H, S, B}, box {64, 1, rows, 1}, 128-byte swizzle); TMA
-//     fills rows past Sq or Skv with zeros, and the -1e30 column mask does
-//     the rest. S = Q.K^T is wgmma (m64n128k16) with both operands K-major
-//     in shared memory; O += P.V is wgmma with P in registers (the S
-//     accumulators, softmaxed and packed to bf16) and V read from shared
-//     memory as an MN-major operand, so V is never transposed. Each consumer
+//   - bf16, D in {40, 64, 80, 160} (every UNet attention of SDXL, SD 2.x
+//     and SD 1.x): `flash_fwd_wgmma<D>`, warp specialised, one template
+//     over the head width (its tiles per width are at `WgTiles`). One
+//     producer warpgroup (one thread issues TMA loads, the rest give their
+//     registers away with setmaxnreg) and three consumer warpgroups (two
+//     at D = 80 and 160), each owning 64 of the CTA's query rows, so
+//     every K/V tile feeds 192 (128) rows. K and V tiles of 128 rows (64
+//     at D = 160) move through a 3-stage ring in shared memory, each stage
+//     with a full barrier for K, one for V and one empty barrier, so
+//     copies run two tiles ahead of the products. The tensor maps cover
+//     q, k, v as they lie (dims {D, H, S, B}, box {64, 1, rows, 1},
+//     128-byte swizzle; a row is ceil(D / 64) boxes); TMA fills rows past
+//     Sq or Skv and columns past D with zeros, and the -1e30 column mask
+//     does the rest. S = Q.K^T is wgmma (m64n128k16, m64n64k16 for 64-row
+//     tiles) with both operands K-major in shared memory; O += P.V is
+//     wgmma with P in registers (the S accumulators, softmaxed and packed
+//     to bf16) and V read from shared memory as an MN-major operand, so V
+//     is never transposed. Each consumer
 //     issues S of tile j with P.V of tile j-1 and runs the softmax of tile
 //     j after them; the consumers take turns in a ring to issue, so one's
 //     softmax overlaps the others' products.
@@ -48,12 +52,13 @@
 //     columns) fill shared memory; K and V have their own barriers, so
 //     K of tile j+1 loads during P.V of tile j and V of tile j+1 during
 //     S of tile j+1.
-//   - every other case (f32 inputs, other bf16 head widths up to 512): an
-//     FMA kernel in plain f32, no TF32, so f32 meets the 2e-5 bound of the
-//     reference test; 16-byte loads fill the tiles. It is right, not fast.
+//   - every other case (f32 inputs, other bf16 head widths up to 512, such
+//     as D = 128): an FMA kernel in plain f32, no TF32, so f32 meets the
+//     2e-5 bound of the reference test; 16-byte loads fill the tiles. It is
+//     right, not fast.
 //
 // C interface (bound with ctypes): fa_forward returns cudaGetLastError()
-// after the launch, 0 on success.
+// after the launch, 0 on success, and reports which kernel took the call.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -146,10 +151,12 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NS], int col0, int Skv,
 }
 
 // the output accumulator (32 registers of one 64-column block) times the
-// rescale factors of its two rows
+// rescale factors of its two rows: its first kCols columns (the columns of
+// a box past the head width stay zero)
+template <int kCols = 64>
 __device__ __forceinline__ void rescale(float* acc, float alpha0, float alpha1) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < kCols / 8; ++i) {
     acc[4 * i] *= alpha0;
     acc[4 * i + 1] *= alpha0;
     acc[4 * i + 2] *= alpha1;
@@ -165,13 +172,15 @@ __device__ __forceinline__ void pack_p(const float* s, int kk, uint32_t (&a)[4])
   a[3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
 }
 
-// quad-reduce the row sums and store one 64-column block of the output
+// store one 64-column block of the output: its first kCols columns (a box
+// past the head width is not written there)
+template <int kCols = 64>
 __device__ __forceinline__ void store_block(const float* acc, float inv0, float inv1,
                                             __nv_bfloat16* ob, size_t row_stride, int r0,
                                             int Sq, int col0) {
   const int t = threadIdx.x & 3;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < kCols / 8; ++i) {
     const int c = col0 + 8 * i + 2 * t;
     if (r0 < Sq)
       *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * row_stride + c) =
@@ -182,6 +191,7 @@ __device__ __forceinline__ void store_block(const float* acc, float inv0, float 
   }
 }
 
+// quad-reduce the row sums and take their inverses
 __device__ __forceinline__ void row_sums(float& l0, float& l1, float& inv0, float& inv1) {
   l0 += __shfl_xor_sync(0xffffffff, l0, 1);
   l0 += __shfl_xor_sync(0xffffffff, l0, 2);
@@ -192,83 +202,164 @@ __device__ __forceinline__ void row_sums(float& l0, float& l1, float& inv0, floa
 }
 
 // ---------------------------------------------------------------------
-// bf16, D == 64
+// bf16, D in {40, 64, 80, 160}: one warp-specialised kernel, a template
+// over the head width
 // ---------------------------------------------------------------------
 
-constexpr int k64BN = 128;  // KV rows per tile
-constexpr int k64Stages = 3;
-constexpr uint32_t k64KvBytes = k64BN * kRowBytes;  // one K or V box: 16 KB
-constexpr uint32_t kTurnBarrier = 1;  // named barriers 1 .. k64Consumers: whose turn it is
+// Tiles for each head width. A row of Q, K or V loads as ceil(D / 64)
+// boxes of 64 columns (one 128-byte swizzle atom each); TMA writes zeros
+// past D, so S = Q.K^T needs only ceil(D / 16) k16 slices (3, 4, 5, 10),
+// a compile-time count: a wgmma under a branch would be serialised.
+//
+// P.V runs n64 wgmmas over whole boxes, so it computes 64 / 128 / 192
+// output columns for D = 40 / 80 / 160 and the stores drop the zero
+// columns past D. The exact widths (n40, n64 + n16, 2 x n64 + n32) would
+// need an MN-major V operand narrower than its 128-byte swizzle atom,
+// outside the canonical wgmma layouts that the D = 64 and D = 512 kernels
+// use; and the padding costs tensor-core time, which is not what bounds
+// these widths: every score costs one exp2 whatever D is, and the narrow
+// heads do the fewest flops per score (at D = 40 the SFU's 16 exp2 a
+// cycle per SM is slower than the products, padded or not).
+//
+// Registers (ptxas -v for sm_90a): every instance builds with 0 bytes of
+// spill stores and loads; ptxas reports the launch allotment (128
+// registers a thread at D = 40 and 64, 168 at 80 and 160), and the
+// consumers run at the setmaxnreg counts below.
+template <int D>
+struct WgTiles;
 
-// One producer warpgroup and three consumer warpgroups of 64 query rows
-// each. The CTA is launched at 65536 / 512 = 128 registers a thread; the
-// producer keeps 32 and gives the rest to the consumers (160 each).
-constexpr int k64Consumers = 3;
-constexpr int k64Threads = 128 * (k64Consumers + 1);
-constexpr int k64BM = 64 * k64Consumers;  // query rows per CTA
-constexpr uint32_t k64ConsumerThreads = 128 * k64Consumers;
-constexpr uint32_t k64ProducerRegs = 32;
-constexpr uint32_t k64ConsumerRegs = 160;
-static_assert(128 * k64ProducerRegs + k64ConsumerThreads * k64ConsumerRegs <= 65536, "registers");
+// D = 64 (SDXL, SD 2.x) and D = 40 (SD 1.x's first level): three consumer
+// warpgroups of 64 query rows and 128-row K/V tiles in 3 stages (120 KB of
+// shared memory). The CTA is launched at 65536 / 512 = 128 registers a
+// thread; the producer keeps 32 and gives the rest to the consumers (160
+// each): S (64), P (32) and a one-box accumulator (32).
+template <>
+struct WgTiles<64> {
+  static constexpr int kConsumers = 3, kBN = 128, kStages = 3;
+  static constexpr uint32_t kProducerRegs = 32, kConsumerRegs = 160;
+};
+template <>
+struct WgTiles<40> : WgTiles<64> {};
 
-struct Smem64 {
-  __nv_bfloat16 q[k64BM * 64];
-  __nv_bfloat16 k[k64Stages][k64BN * 64];
-  __nv_bfloat16 v[k64Stages][k64BN * 64];
-  uint64_t q_full, k_full[k64Stages], v_full[k64Stages], empty[k64Stages];
+// D = 80 (SD 1.x's second level): a two-box accumulator (64 registers)
+// beside S and P would spill at 160, so two consumers at 232 (the
+// producer keeps 40; launched at 168), 128-row tiles in 3 stages: 224 KB.
+template <>
+struct WgTiles<80> {
+  static constexpr int kConsumers = 2, kBN = 128, kStages = 3;
+  static constexpr uint32_t kProducerRegs = 40, kConsumerRegs = 232;
 };
 
-// S = Q K^T for one 128-row K tile
-__device__ __forceinline__ void issue_s64(float (&s)[64], uint32_t q_addr, uint32_t k_addr) {
+// D = 160 (SD 1.x's third level and mid block): three boxes a row; 128-row
+// K and V tiles would be 96 KB a stage, so 64-row tiles (S 32 registers,
+// P 16, the accumulator 96) in 3 stages: 192 KB, two consumers at 232.
+template <>
+struct WgTiles<160> {
+  static constexpr int kConsumers = 2, kBN = 64, kStages = 3;
+  static constexpr uint32_t kProducerRegs = 40, kConsumerRegs = 232;
+};
+
+template <int D>
+struct Wg : WgTiles<D> {
+  using T = WgTiles<D>;
+  static constexpr int kBoxes = (D + 63) / 64;  // 64-column boxes of a row
+  static constexpr int kSteps = (D + 15) / 16;  // k16 slices of Q.K^T
+  static constexpr int kThreads = 128 * (T::kConsumers + 1);
+  static constexpr int kBM = 64 * T::kConsumers;  // query rows per CTA
+  static constexpr uint32_t kConsumerThreads = 128 * T::kConsumers;
+  static constexpr uint32_t kQBoxBytes = kBM * kRowBytes;      // one box of Q
+  static constexpr uint32_t kKvBytes = T::kBN * kRowBytes;     // one box of K or V
+  static constexpr int kNS = T::kBN / 2;   // S registers a thread (kBN / 8 groups of 4)
+  static constexpr int kPV = T::kBN / 16;  // k16 slices of P.V
+  static constexpr int kLastCols = D - 64 * (kBoxes - 1);  // head columns in the last box
+  // registers a thread at launch: 65536 over the threads, a multiple of 8
+  static constexpr uint32_t kLaunchRegs = (65536 / kThreads) & ~7u;
+  static_assert(D % 8 == 0 && D <= 64 * kBoxes, "head width");
+  static_assert(128 * T::kProducerRegs + kConsumerThreads * T::kConsumerRegs <=
+                    kLaunchRegs * kThreads,
+                "registers");
+};
+
+template <int D>
+struct SmemWg {
+  using C = Wg<D>;
+  __nv_bfloat16 q[C::kBoxes][C::kBM * 64];
+  __nv_bfloat16 k[C::kStages][C::kBoxes][C::kBN * 64];
+  __nv_bfloat16 v[C::kStages][C::kBoxes][C::kBN * 64];
+  uint64_t q_full, k_full[C::kStages], v_full[C::kStages], empty[C::kStages];
+};
+
+constexpr uint32_t kTurnBarrier = 1;  // named barriers 1 .. consumers: whose turn it is
+
+// S = Q K^T for one K tile (Q's rows of this consumer at q_addr)
+template <int D>
+__device__ __forceinline__ void issue_s(float (&s)[Wg<D>::kNS], uint32_t q_addr,
+                                        uint32_t k_addr) {
+  using C = Wg<D>;
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    wgmma_m64n128k16_ss(s, desc_kmajor(q_addr + ks * 32), desc_kmajor(k_addr + ks * 32), ks > 0);
+  for (int ks = 0; ks < C::kSteps; ++ks) {
+    const uint32_t qo = (ks / 4) * C::kQBoxBytes + (ks % 4) * 32;
+    const uint32_t ko = (ks / 4) * C::kKvBytes + (ks % 4) * 32;
+    if constexpr (C::kBN == 128)
+      wgmma_m64n128k16_ss(s, desc_kmajor(q_addr + qo), desc_kmajor(k_addr + ko), ks > 0);
+    else
+      wgmma_m64n64k16_ss(s, desc_kmajor(q_addr + qo), desc_kmajor(k_addr + ko), ks > 0);
   }
 }
 
-// O += P V for one 128-row V tile: P from registers, V MN-major in shared memory
-__device__ __forceinline__ void issue_pv64(float (&acc)[32], const uint32_t (&pa)[8][4],
-                                           uint32_t v_addr) {
+// O += P V for one V tile: P from registers, V MN-major in shared memory,
+// one n64 product per box
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[Wg<D>::kBoxes][32],
+                                         const uint32_t (&pa)[Wg<D>::kPV][4], uint32_t v_addr) {
+  using C = Wg<D>;
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
-    wgmma_m64n64k16_rs(acc, pa[kk], desc_mnmajor(v_addr + kk * 16 * kRowBytes));
+  for (int kk = 0; kk < C::kPV; ++kk)
+#pragma unroll
+    for (int nb = 0; nb < C::kBoxes; ++nb)
+      wgmma_m64n64k16_rs(acc[nb], pa[kk],
+                         desc_mnmajor(v_addr + nb * C::kKvBytes + kk * 16 * kRowBytes));
 }
 
 // The consumers take turns, in a ring, to issue their products, so one's
 // softmax (SFU) overlaps the others' wgmma (tensor cores); with two this
-// would be the ping-pong of FlashAttention-3. Named barrier kTurnBarrier + c
-// is consumer c's turn: c syncs on it, and its predecessor arrives on it
+// is the ping-pong of FlashAttention-3. Named barrier kTurnBarrier + c is
+// consumer c's turn: c syncs on it, and its predecessor arrives on it
 // after issuing. Consumer 0 goes first: the last consumer arrives once up
 // front and skips its arrival after its last tile, so the counts match.
 __device__ __forceinline__ void take_turn(int cw) {
   named_barrier_sync(kTurnBarrier + cw, 256);
 }
 
+template <int kConsumers>
 __device__ __forceinline__ void pass_turn(int cw, bool more) {
-  if (cw != k64Consumers - 1 || more)
-    named_barrier_arrive(kTurnBarrier + (cw + 1) % k64Consumers, 256);
+  if (cw != kConsumers - 1 || more)
+    named_barrier_arrive(kTurnBarrier + (cw + 1) % kConsumers, 256);
 }
 
-__global__ void __launch_bounds__(k64Threads, 1)
-flash_fwd_wgmma64(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                  const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int Sq,
-                  int Skv, int H, float scale_log2) {
+template <int D>
+__global__ void __launch_bounds__(Wg<D>::kThreads, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int Sq,
+                int Skv, int H, float scale_log2) {
+  using C = Wg<D>;
+  constexpr int kStages = C::kStages;
   extern __shared__ uint8_t smem_raw[];
-  Smem64& sm = *reinterpret_cast<Smem64*>(align1024(smem_raw));
+  SmemWg<D>& sm = *reinterpret_cast<SmemWg<D>*>(align1024(smem_raw));
   const int wg = threadIdx.x / 128;
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
-  const int q0 = blockIdx.x * k64BM;
-  const int n_tiles = (Skv + k64BN - 1) / k64BN;
+  const int q0 = blockIdx.x * C::kBM;
+  const int n_tiles = (Skv + C::kBN - 1) / C::kBN;
 
   if (threadIdx.x == 0) {
     mbar_init(&sm.q_full, 1);
 #pragma unroll
-    for (int s = 0; s < k64Stages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(&sm.k_full[s], 1);
       mbar_init(&sm.v_full[s], 1);
-      mbar_init(&sm.empty[s], k64ConsumerThreads);
+      mbar_init(&sm.empty[s], C::kConsumerThreads);
     }
     mbar_fence_init();
   }
@@ -276,38 +367,46 @@ flash_fwd_wgmma64(const __grid_constant__ CUtensorMap tq, const __grid_constant_
 
   if (wg == 0) {
     // producer: one thread keeps the ring full
-    setmaxnreg_dec<k64ProducerRegs>();
+    setmaxnreg_dec<C::kProducerRegs>();
     if (threadIdx.x == 0) {
       prefetch_tensor_map(&tq);
       prefetch_tensor_map(&tk);
       prefetch_tensor_map(&tv);
-      mbar_expect_tx(&sm.q_full, k64BM * kRowBytes);
-      tma_load_4d(sm.q, &tq, &sm.q_full, 0, h, q0, b);
+      mbar_expect_tx(&sm.q_full, C::kBoxes * C::kQBoxBytes);
+#pragma unroll
+      for (int nb = 0; nb < C::kBoxes; ++nb)
+        tma_load_4d(sm.q[nb], &tq, &sm.q_full, 64 * nb, h, q0, b);
       for (int j = 0; j < n_tiles; ++j) {
-        const int s = j % k64Stages;
-        mbar_wait(&sm.empty[s], ((j / k64Stages) & 1) ^ 1);
-        mbar_expect_tx(&sm.k_full[s], k64KvBytes);
-        tma_load_4d(sm.k[s], &tk, &sm.k_full[s], 0, h, j * k64BN, b);
-        mbar_expect_tx(&sm.v_full[s], k64KvBytes);
-        tma_load_4d(sm.v[s], &tv, &sm.v_full[s], 0, h, j * k64BN, b);
+        const int s = j % kStages;
+        mbar_wait(&sm.empty[s], ((j / kStages) & 1) ^ 1);
+        mbar_expect_tx(&sm.k_full[s], C::kBoxes * C::kKvBytes);
+#pragma unroll
+        for (int nb = 0; nb < C::kBoxes; ++nb)
+          tma_load_4d(sm.k[s][nb], &tk, &sm.k_full[s], 64 * nb, h, j * C::kBN, b);
+        mbar_expect_tx(&sm.v_full[s], C::kBoxes * C::kKvBytes);
+#pragma unroll
+        for (int nb = 0; nb < C::kBoxes; ++nb)
+          tma_load_4d(sm.v[s][nb], &tv, &sm.v_full[s], 64 * nb, h, j * C::kBN, b);
       }
     }
   } else {
-    setmaxnreg_inc<k64ConsumerRegs>();
+    setmaxnreg_inc<C::kConsumerRegs>();
     const int cw = wg - 1;  // which 64 query rows of the CTA
     const int tid = threadIdx.x & 127;
     const int warp = tid >> 5;
     const int g = (tid & 31) >> 2;
     const uint32_t q_addr = smem_addr(sm.q) + cw * 64 * kRowBytes;
 
-    float acc[32], s[64];
-    uint32_t pa[8][4];  // P of the previous tile, the A operand of its P.V
+    float acc[C::kBoxes][32], s[C::kNS];
+    uint32_t pa[C::kPV][4];  // P of the previous tile, the A operand of its P.V
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    for (int nb = 0; nb < C::kBoxes; ++nb)
 #pragma unroll
-    for (int i = 0; i < 64; ++i) s[i] = 0.f;
+      for (int i = 0; i < 32; ++i) acc[nb][i] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) pa[kk][0] = pa[kk][1] = pa[kk][2] = pa[kk][3] = 0u;
+    for (int i = 0; i < C::kNS; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < C::kPV; ++kk) pa[kk][0] = pa[kk][1] = pa[kk][2] = pa[kk][3] = 0u;
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
     // S of tile j is issued together with P.V of tile j-1, in one turn.
@@ -316,73 +415,84 @@ flash_fwd_wgmma64(const __grid_constant__ CUtensorMap tq, const __grid_constant_
     // Tile 0 (S only) is peeled off: a wgmma issued under a branch makes
     // ptxas serialize the products.
     mbar_wait(&sm.q_full, 0);
-    if (cw == k64Consumers - 1) named_barrier_arrive(kTurnBarrier, 256);
+    if (cw == C::kConsumers - 1) named_barrier_arrive(kTurnBarrier, 256);
     {
       mbar_wait(&sm.k_full[0], 0);
       take_turn(cw);
-      fence_regs(s, 64);
+      fence_regs(s, C::kNS);
       wgmma_fence();
-      issue_s64(s, q_addr, smem_addr(sm.k[0]));
+      issue_s<D>(s, q_addr, smem_addr(sm.k[0]));
       wgmma_commit();
-      pass_turn(cw, n_tiles > 1);
+      pass_turn<C::kConsumers>(cw, n_tiles > 1);
       wgmma_wait<0>();
-      fence_regs(s, 64);
+      fence_regs(s, C::kNS);
       float alpha0, alpha1;  // the accumulator is still zero
       softmax_tile(s, 0, Skv, scale_log2, m0, m1, l0, l1, alpha0, alpha1);
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) pack_p(s, kk, pa[kk]);
+      for (int kk = 0; kk < C::kPV; ++kk) pack_p(s, kk, pa[kk]);
     }
     for (int j = 1; j < n_tiles; ++j) {
-      const int st = j % k64Stages;
-      const int pst = (j - 1) % k64Stages;  // stage of tile j-1
-      mbar_wait(&sm.k_full[st], (j / k64Stages) & 1);
-      mbar_wait(&sm.v_full[pst], ((j - 1) / k64Stages) & 1);
+      const int st = j % kStages;
+      const int pst = (j - 1) % kStages;  // stage of tile j-1
+      mbar_wait(&sm.k_full[st], (j / kStages) & 1);
+      mbar_wait(&sm.v_full[pst], ((j - 1) / kStages) & 1);
       // opaque: the descriptors are rebuilt here, not held across the loop
       const uint32_t qa = opaque(q_addr);
       const uint32_t ka = opaque(smem_addr(sm.k[st]));
       const uint32_t va = opaque(smem_addr(sm.v[pst]));
 
       take_turn(cw);
-      fence_regs(s, 64);
-      fence_regs(acc, 32);
+      fence_regs(s, C::kNS);
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) fence_regs(pa[kk]);
+      for (int nb = 0; nb < C::kBoxes; ++nb) fence_regs(acc[nb], 32);
+#pragma unroll
+      for (int kk = 0; kk < C::kPV; ++kk) fence_regs(pa[kk]);
       wgmma_fence();
-      issue_s64(s, qa, ka);
+      issue_s<D>(s, qa, ka);
       wgmma_commit();
-      issue_pv64(acc, pa, va);
+      issue_pv<D>(acc, pa, va);
       wgmma_commit();
-      pass_turn(cw, j + 1 < n_tiles);
+      pass_turn<C::kConsumers>(cw, j + 1 < n_tiles);
       wgmma_wait<1>();  // S of tile j is in
-      fence_regs(s, 64);
+      fence_regs(s, C::kNS);
 
       float alpha0, alpha1;
-      softmax_tile(s, j * k64BN, Skv, scale_log2, m0, m1, l0, l1, alpha0, alpha1);
+      softmax_tile(s, j * C::kBN, Skv, scale_log2, m0, m1, l0, l1, alpha0, alpha1);
       wgmma_wait<0>();
-      fence_regs(acc, 32);
-      mbar_arrive(&sm.empty[pst]);  // K and V of tile j-1 are consumed
-      rescale(acc, alpha0, alpha1);
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) pack_p(s, kk, pa[kk]);
+      for (int nb = 0; nb < C::kBoxes; ++nb) fence_regs(acc[nb], 32);
+      mbar_arrive(&sm.empty[pst]);  // K and V of tile j-1 are consumed
+#pragma unroll
+      for (int nb = 0; nb < C::kBoxes - 1; ++nb) rescale(acc[nb], alpha0, alpha1);
+      rescale<C::kLastCols>(acc[C::kBoxes - 1], alpha0, alpha1);
+#pragma unroll
+      for (int kk = 0; kk < C::kPV; ++kk) pack_p(s, kk, pa[kk]);
     }
 
     // P.V of the last tile
-    const int last = (n_tiles - 1) % k64Stages;
-    mbar_wait(&sm.v_full[last], ((n_tiles - 1) / k64Stages) & 1);
-    fence_regs(acc, 32);
+    const int last = (n_tiles - 1) % kStages;
+    mbar_wait(&sm.v_full[last], ((n_tiles - 1) / kStages) & 1);
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) fence_regs(pa[kk]);
+    for (int nb = 0; nb < C::kBoxes; ++nb) fence_regs(acc[nb], 32);
+#pragma unroll
+    for (int kk = 0; kk < C::kPV; ++kk) fence_regs(pa[kk]);
     wgmma_fence();
-    issue_pv64(acc, pa, smem_addr(sm.v[last]));
+    issue_pv<D>(acc, pa, smem_addr(sm.v[last]));
     wgmma_commit();
     wgmma_wait<0>();
-    fence_regs(acc, 32);
+#pragma unroll
+    for (int nb = 0; nb < C::kBoxes; ++nb) fence_regs(acc[nb], 32);
     mbar_arrive(&sm.empty[last]);
 
     float inv0, inv1;
     row_sums(l0, l1, inv0, inv1);
-    __nv_bfloat16* ob = o + ((size_t)b * Sq * H + h) * 64;
-    store_block(acc, inv0, inv1, ob, (size_t)H * 64, q0 + cw * 64 + warp * 16 + g, Sq, 0);
+    __nv_bfloat16* ob = o + ((size_t)b * Sq * H + h) * D;
+    const int r0 = q0 + cw * 64 + warp * 16 + g;
+#pragma unroll
+    for (int nb = 0; nb < C::kBoxes - 1; ++nb)
+      store_block(acc[nb], inv0, inv1, ob, (size_t)H * D, r0, Sq, 64 * nb);
+    store_block<C::kLastCols>(acc[C::kBoxes - 1], inv0, inv1, ob, (size_t)H * D, r0, Sq,
+                              64 * (C::kBoxes - 1));
   }
 }
 
@@ -726,26 +836,46 @@ cudaError_t launch_wgmma(Kernel kernel, int threads, int D, int BM, int BN, cons
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_wg(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                      int Skv, int H, float scale, cudaStream_t stream) {
+  using C = Wg<D>;
+  return launch_wgmma<SmemWg<D>>(flash_fwd_wgmma<D>, C::kThreads, D, C::kBM, C::kBN, q, k, v,
+                                 o, B, Sq, Skv, H, scale, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Tensors are contiguous [B, S, H, D].
+// *route is set to the kernel that takes the call: the head width of the
+// tensor-core kernel (40, 64, 80, 160 or 512), or 0 for the FMA kernel.
 // Returns a cudaError_t (0 = success); 1 (cudaErrorInvalidValue) for a
 // dtype/D the kernels do not take (the Python wrapper checks first) or a
 // tensor map the driver refuses.
 int fa_forward(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
-               int H, int D, float scale, int dtype, void* stream) {
+               int H, int D, float scale, int dtype, void* stream, int* route) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  *route = 0;
   if (D < 1 || D > 512 || Sq < 1 || Skv < 1) return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
-    if (D == 64)
-      return (int)launch_wgmma<Smem64>(flash_fwd_wgmma64, k64Threads, 64, k64BM, k64BN, q, k, v,
-                                       o, B, Sq, Skv, H, scale, s);
-    if (D == 512)
-      return (int)launch_wgmma<Smem512>(flash_fwd_wgmma512, k512Threads, 512, k512BM, k512BN, q,
-                                        k, v, o, B, Sq, Skv, H, scale, s);
-    return (int)launch_fma_any<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, H, D, scale, s);
+    if (D == 40 || D == 64 || D == 80 || D == 160 || D == 512) *route = D;
+    switch (D) {
+      case 40:
+        return (int)launch_wg<40>(q, k, v, o, B, Sq, Skv, H, scale, s);
+      case 64:
+        return (int)launch_wg<64>(q, k, v, o, B, Sq, Skv, H, scale, s);
+      case 80:
+        return (int)launch_wg<80>(q, k, v, o, B, Sq, Skv, H, scale, s);
+      case 160:
+        return (int)launch_wg<160>(q, k, v, o, B, Sq, Skv, H, scale, s);
+      case 512:
+        return (int)launch_wgmma<Smem512>(flash_fwd_wgmma512, k512Threads, 512, k512BM, k512BN,
+                                          q, k, v, o, B, Sq, Skv, H, scale, s);
+      default:
+        return (int)launch_fma_any<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, H, D, scale, s);
+    }
   }
   if (dtype == 0) return (int)launch_fma_any<float>(q, k, v, o, B, Sq, Skv, H, D, scale, s);
   return (int)cudaErrorInvalidValue;

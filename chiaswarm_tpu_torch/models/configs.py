@@ -1,7 +1,7 @@
-"""Model configurations the port serves: SDXL base and the tiny stand-ins
-of the hermetic tests. Copied from chiaswarm_tpu/models/configs.py (the
-port imports nothing of the JAX package); the other families wait for
-their slices of the port.
+"""Model configurations the port serves: SD 1.x, SD 2.x, SDXL base and the
+tiny stand-ins of the hermetic tests. Copied from
+chiaswarm_tpu/models/configs.py (the port imports nothing of the JAX
+package); the other families wait for their slices of the port.
 """
 
 from __future__ import annotations
@@ -9,6 +9,28 @@ from __future__ import annotations
 from .clip import CLIPTextConfig
 from .unet2d import UNet2DConfig
 from .vae import VAEConfig
+
+# --- Stable Diffusion 1.x (512 base) ---
+SD15_UNET = UNet2DConfig(
+    block_out_channels=(320, 640, 1280, 1280),
+    transformer_layers=(1, 1, 1, 0),
+    num_attention_heads=8,  # head dim 40/80/160/160
+    cross_attention_dim=768,
+)
+SD15_CLIP = CLIPTextConfig(
+    hidden_size=768, num_layers=12, num_heads=12, hidden_act="quick_gelu"
+)
+
+# --- Stable Diffusion 2.1 ---
+SD21_UNET = UNet2DConfig(
+    block_out_channels=(320, 640, 1280, 1280),
+    transformer_layers=(1, 1, 1, 0),
+    num_attention_heads=(5, 10, 20, 20),  # head dim 64 throughout
+    cross_attention_dim=1024,
+)
+SD21_CLIP = CLIPTextConfig(
+    hidden_size=1024, num_layers=23, num_heads=16, hidden_act="gelu"
+)
 
 # --- SDXL base (stabilityai/stable-diffusion-xl-base-1.0) ---
 SDXL_UNET = UNet2DConfig(
@@ -34,6 +56,7 @@ SDXL_CLIP_2 = CLIPTextConfig(
     hidden_state_index=-2,
     projection_dim=1280,
 )
+SD_VAE = VAEConfig()
 SDXL_VAE = VAEConfig(scaling_factor=0.13025)
 
 # --- tiny configs for hermetic tests / test_tiny_model jobs ---

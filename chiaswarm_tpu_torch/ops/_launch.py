@@ -19,19 +19,24 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 class LaunchCounter:
     """Launches of one kernel: `launches` counts every launch, `shapes`
     counts them by a key of the arguments' shapes and types (what a
-    benchmark replays)."""
+    benchmark replays), `routes` by the route the kernel reported, where
+    it has more than one."""
 
     def __init__(self):
         self.launches = 0
         self.shapes: Counter = Counter()
+        self.routes: Counter = Counter()
 
     def reset(self) -> None:
         self.launches = 0
         self.shapes.clear()
+        self.routes.clear()
 
-    def note(self, key) -> None:
+    def note(self, key, route=None) -> None:
         self.launches += 1
         self.shapes[key] += 1
+        if route is not None:
+            self.routes[route] += 1
 
 
 def bind(lib: ctypes.CDLL, name: str, argtypes: list):

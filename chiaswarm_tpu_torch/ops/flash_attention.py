@@ -9,10 +9,14 @@ the source says what its design does about that.
 
 `flash_attention` takes CUDA tensors only and launches the kernel or
 raises; `reference_attention` is the plain version the CPU path and the
-on-card comparison use.
+on-card comparison use. The kernel reports which of its routes took each
+call (`COUNTER.routes`): a tensor-core kernel for bf16 at the head widths in
+`TENSOR_CORE_WIDTHS`, the f32 FMA kernel for everything else.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -29,11 +33,16 @@ from ._launch import (
     require_cuda_tensor,
 )
 
-# launches on the card (chip_smoke.py reads them around the main path)
+# launches on the card (chip_smoke.py reads them around the main path);
+# COUNTER.routes counts them by (route, dtype, head width): route
+# "wgmma-d<D>" is the tensor-core kernel for head width D, "fma" the f32
+# FMA kernel
 COUNTER = LaunchCounter()
 
 MAX_HEAD_DIM = 512
-FA_FORWARD_ARGS = [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, FLOAT, INT, PTR]
+# bf16 head widths that run on the tensor cores (wgmma fed by TMA)
+TENSOR_CORE_WIDTHS = (40, 64, 80, 160, 512)
+FA_FORWARD_ARGS = [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, FLOAT, INT, PTR, PTR]
 # fa_forward, bound when the library first loads
 _forward = None
 
@@ -58,9 +67,9 @@ def reference_attention(q, k, v, scale: float | None = None):
 def flash_attention(q, k, v, scale: float | None = None):
     """[B, Sq, H, D] x [B, Skv, H, D] -> [B, Sq, H, D] on the card.
 
-    bf16 with D == 64 or D == 512 runs on the tensor cores (wgmma fed by
-    TMA); f32, and other head widths up to 512, run the f32 FMA kernel.
-    Raises on anything else."""
+    bf16 at a head width in TENSOR_CORE_WIDTHS runs on the tensor cores
+    (wgmma fed by TMA); f32, and other head widths up to 512, run the f32
+    FMA kernel. Raises on anything else."""
     require_cuda_tensor("q", q)
     require_cuda_tensor("k", k, q.dtype)
     require_cuda_tensor("v", v, q.dtype)
@@ -79,10 +88,13 @@ def flash_attention(q, k, v, scale: float | None = None):
         scale = d ** -0.5
     forward = _forward or _bind_forward()
     out = torch.empty_like(q)
+    route = ctypes.c_int()
     err = forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   b, sq, skv, h, d, float(scale), DTYPE_CODES[q.dtype],
-                  current_stream(q.get_device()))
+                  current_stream(q.get_device()), ctypes.byref(route))
     if err:
         check_launch(_build.load("flash_attention"), "fa_error_string", err, "flash_attention")
-    COUNTER.note((q.shape, k.shape, q.dtype))
+    # the route code is the tensor-core kernel's head width, 0 for the FMA kernel
+    name = f"wgmma-d{route.value}" if route.value else "fma"
+    COUNTER.note((q.shape, k.shape, q.dtype), (name, q.dtype, d))
     return out

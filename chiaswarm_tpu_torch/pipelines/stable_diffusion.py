@@ -1,6 +1,6 @@
-"""Resident Stable-Diffusion pipeline (SDXL and the tiny test models):
-txt2img, img2img, 4-channel inpaint and dedicated (9-channel) inpaint;
-the counterpart of chiaswarm_tpu/pipelines/stable_diffusion.py.
+"""Resident Stable-Diffusion pipeline (SD 1.x, SD 2.x, SDXL and the tiny test
+models): txt2img, img2img, 4-channel inpaint and dedicated (9-channel)
+inpaint; the counterpart of chiaswarm_tpu/pipelines/stable_diffusion.py.
 
 Weights load once and stay on the device. A job runs the CLIP encoders
 over [negatives | prompts] in one batch; encodes the start image (masked
@@ -27,6 +27,7 @@ the tests hand the port the noise that the JAX pipeline drew.
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import time
 from pathlib import Path
@@ -55,8 +56,33 @@ _UNPORTED = ("lora", "controlnet_model_name", "refiner", "upscale", "textual_inv
 _LATER_FAMILIES = ("flux", "kandinsky", "cascade")
 
 
-def family_configs(model_name: str):
-    """(unet_cfg, [clip_cfgs], vae_cfg, default_size, prediction_type).
+def config_prediction_type(model_name: str, model_root_dir: str | None) -> str | None:
+    """`prediction_type` from the checkpoint's scheduler config
+    (<model_root_dir>/<model_name>/scheduler/scheduler_config.json), as
+    the JAX package's `_config_prediction_type` reads it: authoritative
+    over any name heuristic (a v-prediction fine-tune named without '768'
+    would otherwise get epsilon). None when the file is absent or
+    unreadable."""
+    if not model_root_dir:
+        return None
+    path = (Path(model_root_dir).expanduser() / model_name / "scheduler"
+            / "scheduler_config.json")
+    if not path.is_file():
+        return None
+    try:
+        pred = json.loads(path.read_text()).get("prediction_type")
+    except (OSError, ValueError):
+        return None
+    return str(pred) if pred else None
+
+
+def family_configs(model_name: str, model_root_dir: str | None = None):
+    """(unet_cfg, [clip_cfgs], vae_cfg, default_size, prediction_type), name
+    for name as the JAX package's `_family_configs`: SD 1.x (the default
+    family) at 512 and epsilon; SD 2.x at 768, v-prediction when the name
+    holds `768` or ends in `2-1`; SDXL at 1024. The checkpoint's scheduler
+    config under `model_root_dir`, where there is one, overrides the
+    prediction type for every family.
 
     A name containing `inpaint` is a dedicated inpaint checkpoint: its
     UNet takes 9 channels (latents, mask, masked-image latents)."""
@@ -76,10 +102,16 @@ def family_configs(model_name: str):
     elif (family := cfgs.model_family(model_name)) == "sdxl":
         out = (cfgs.SDXL_UNET, [cfgs.SDXL_CLIP_1, cfgs.SDXL_CLIP_2],
                cfgs.SDXL_VAE, 1024, "epsilon")
+    elif family == "sdxl_refiner":
+        raise ValueError(f"{model_name}: the SDXL refiner (five time ids with the "
+                         "aesthetic score) is not ported to chiaswarm_tpu_torch yet")
+    elif family == "sd21":
+        pred = "v_prediction" if "768" in name or name.endswith("2-1") else "epsilon"
+        out = cfgs.SD21_UNET, [cfgs.SD21_CLIP], cfgs.SD_VAE, 768, pred
     else:
-        raise ValueError(f"model family {family!r} ({model_name}) is not ported to "
-                         "chiaswarm_tpu_torch yet")
+        out = cfgs.SD15_UNET, [cfgs.SD15_CLIP], cfgs.SD_VAE, 512, "epsilon"
     unet_cfg, clip_cfgs, vae_cfg, size, pred = out
+    pred = config_prediction_type(model_name, model_root_dir) or pred
     if "inpaint" in name:
         unet_cfg = dataclasses.replace(unet_cfg,
                                        in_channels=2 * vae_cfg.latent_channels + 1)
@@ -130,7 +162,7 @@ class SDPipeline:
         self.device = resolve_device(device)
         self.dtype = dtype or serving_dtype(self.device)
         unet_cfg, clip_cfgs, vae_cfg, self.default_size, self.prediction_type = (
-            family_configs(model_name))
+            family_configs(model_name, model_root_dir))
         self.is_xl = unet_cfg.addition_embed_dim > 0
         self.latent_factor = 2 ** (len(vae_cfg.block_out_channels) - 1)
         self.latent_channels = vae_cfg.latent_channels

@@ -1,10 +1,12 @@
 """Pipeline residency: model name -> resident pipeline on one device.
 
 The counterpart of chiaswarm_tpu/registry.py for the one family the port
-serves (SD: SDXL and the tiny test models). A `Registry` is an object
-that the worker owns, not process-global state: the worker builds it for
-its device, and a caller may pre-build a pipeline into it (chip_smoke.py
-does, for a model that runs on random weights).
+serves (SD: SD 1.x, SD 2.x, SDXL and the tiny test models). A `Registry`
+is an object that the worker owns, not process-global state: the worker
+builds it for its device, and a caller may pre-build a pipeline into it
+(chip_smoke.py does, for a model that runs on random weights). Its
+pipelines read each checkpoint's scheduler config (the prediction type)
+under `model_root_dir`.
 """
 
 from __future__ import annotations

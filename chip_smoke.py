@@ -20,7 +20,12 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
    (held against the plain version evaluated in float64), and one input
    run 20 times with bit-identical outputs. The VAE encoder's calls that
    the decoder never makes, (1,512,512,128) and (1,256,256,256), and its
-   attention, in bf16 and f32.
+   attention, in bf16 and f32. Every attention and GroupNorm shape of the
+   SD 1.x 512^2 and SD 2.x 768^2 UNet calls and of their VAE at those
+   canvases (attention in bf16 and f32), and the tile edges at D = 40, 80
+   and 160 (Sq 1000 against Skv 77, 1000 and 4095, Sq 40, B*H of 1). Every
+   bf16 attention call at D = 40, 64, 80, 160 or 512 must report the
+   tensor-core route, not the FMA kernel.
 4. Small-input reference: the tiny SDXL-shaped pipeline in f32 on the card
    (kernels) against the same weights and latents on the CPU (plain
    versions); the decoded uint8 images must agree within 2/255. At 64^2:
@@ -29,6 +34,8 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
    name, with the same injected noise on both sides. For 4-channel
    inpaint on the card, the latents that reach the decode must equal the
    encoded clean latents bit for bit where the mask keeps the image.
+   test/tiny-sd (SD 1.x / 2.x structure) and a tiny SD model whose
+   scheduler config says v_prediction, card against CPU within 2/255.
 5. Main path: a fake hive on localhost, the port's worker, and the
    full-width stabilityai/stable-diffusion-xl-base-1.0 pipeline on seeded
    random weights; three 1024^2 30-step DPM++ 2M txt2img jobs and one echo
@@ -44,6 +51,13 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
    above and for its mode; each job's launches are counted and held to
    its UNet calls times the UNet's launches per call (from the txt2img
    jobs) plus one VAE encode and one decode.
+   Then the SD path, counted the same way (32 attention and 61 GroupNorm
+   launches per UNet call): runwayml/stable-diffusion-v1-5 txt2img (DPM++
+   2M) and img2img (Euler ancestral, strength 0.75) at 512^2, the
+   9-channel runwayml/stable-diffusion-inpainting (UniPC) at 512^2, and
+   stabilityai/stable-diffusion-2-1 txt2img at 768^2 with v-prediction
+   (DPM++ 2M), all 30 steps on seeded random weights. No served bf16
+   attention may take the FMA kernel.
 6. Each kernel at every shape any path launched it with: again held
    against its plain version, and timed (CUDA events) beside its plain
    version and one PyTorch library call computing the same function, each
@@ -57,12 +71,14 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
 7. The UNet (one call), the VAE decode and the VAE encode at the main
    path's shapes in bf16 through the kernels, against the same weights in
    f32 on the plain path: the relative RMS error may be at most 1.25x
-   that of the plain path in bf16.
+   that of the plain path in bf16. The same for one SD 1.5 UNet call at
+   512^2 and one SD 2.1 UNet call at 768^2.
 8. A few UNet calls, one VAE decode and one VAE encode at the main path's
-   shapes, timed by the host's clock and then under torch.profiler:
-   device time and launches by kernel category, the GroupNorm kernels one
-   by one, and the device's busy share. Each GroupNorm call must be
-   exactly one kernel launch.
+   shapes, and a few SD 1.5 and SD 2.1 UNet calls at theirs, timed by the
+   host's clock and then under torch.profiler: device time and launches
+   by kernel category (attention's share of the device time), the
+   GroupNorm kernels one by one, and the device's busy share. Each
+   GroupNorm call must be exactly one kernel launch.
 
 The second-to-last lines are the `kernels` JSON object (per txt2img job,
 as before; `launches` over every served job; `by_job` per job of each
@@ -74,6 +90,11 @@ GroupNorm alone at the shapes of one UNet call and one VAE decode (its
 launches per job counted from those calls: STEPS UNet calls and one
 decode), and phase 8 without its one-launch check; it compares one tree's
 GroupNorm kernel with another's in one call, and prints no result line.
+`--attention-only` is its counterpart for attention: phases 1 and 2 (the
+attention library alone), phase 3's attention checks, then phase 6 at
+the shapes of one UNet call and one VAE decode of SDXL, SD 1.5 and SD
+2.1 (per job: STEPS UNet calls and one decode); it runs on trees whose
+wrapper reports no routes too.
 """
 
 from __future__ import annotations
@@ -96,6 +117,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SDXL = "stabilityai/stable-diffusion-xl-base-1.0"
 SDXL_INPAINT = "diffusers/stable-diffusion-xl-1.0-inpainting-0.1"
+SD15 = "runwayml/stable-diffusion-v1-5"
+SD15_INPAINT = "runwayml/stable-diffusion-inpainting"
+SD21 = "stabilityai/stable-diffusion-2-1"
+# a tiny SD model whose scheduler config (written by phase 4) says v_prediction
+TINY_V = "test/tiny-sd-v"
+# SD 1.x and SD 2.x at their canvases (phases 7 and 8)
+SD_CANVASES = ((SD15, 512), (SD21, 768))
 N_JOBS = 3
 STEPS = 30
 SIZE = 1024
@@ -270,15 +298,17 @@ def attention_case(q_shape, k_shape, dtype, gen, timed: bool) -> dict:
     from chiaswarm_tpu_torch.ops.flash_attention import flash_attention, reference_attention
 
     q, k, v = rand(q_shape, dtype, gen), rand(k_shape, dtype, gen), rand(k_shape, dtype, gen)
-    out = flash_attention(q, k, v).float()
+    out, route = with_route(lambda: flash_attention(q, k, v))
+    out = out.float()
     torch.cuda.synchronize()
     qf, kf, vf = q.float(), k.float(), v.float()
     ref = reference_attention(qf, kf, vf)
     diff = (out - ref).abs()
     err = diff.max().item()
     row = {"q": list(q_shape), "kv": list(k_shape), "dtype": str(dtype)[6:],
-           "max_abs_err": err}
+           "max_abs_err": err, "route": route}
     what = f"flash_attention {q_shape}x{k_shape} {dtype}"
+    check_tensor_core_route(route, dtype, q_shape[-1], what)
     if dtype == torch.float32:
         row["bound"] = f"{F32_TOL:g}"
         check(err <= F32_TOL, f"{what}: err {err} > {F32_TOL}")
@@ -303,6 +333,32 @@ def attention_case(q_shape, k_shape, dtype, gen, timed: bool) -> dict:
             library_device_ms=graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
             **bound_fields(*attention_work(q_shape, k_shape, dtype), PEAK_FLOPS[dtype]))
     return row
+
+
+def with_route(call) -> tuple:
+    """(call(), the route that the kernel reported for that one launch),
+    the route None for a tree whose wrapper does not report routes
+    (`--attention-only` also measures such a tree, for comparison)."""
+    from chiaswarm_tpu_torch.ops.flash_attention import COUNTER
+
+    routes = getattr(COUNTER, "routes", None)
+    if routes is None:
+        return call(), None
+    before = Counter(routes)
+    out = call()
+    new = Counter(routes) - before
+    check(sum(new.values()) == 1, f"one call reported routes {dict(new)}")
+    return out, next(iter(new))[0]
+
+
+def check_tensor_core_route(route: str | None, dtype, d: int, what: str) -> None:
+    """bf16 at a tensor-core head width must not take the FMA kernel."""
+    from chiaswarm_tpu_torch.ops import flash_attention as fa
+
+    if route is None:
+        return
+    if dtype == torch.bfloat16 and d in fa.TENSOR_CORE_WIDTHS:
+        check(route == f"wgmma-d{d}", f"{what}: route {route}, not the tensor-core kernel")
 
 
 def gn_plan_fields(x, silu: bool) -> dict:
@@ -382,10 +438,67 @@ def gn_repeat_check(x_shape, dtype, gen, runs: int = 20) -> None:
     check(differ == 0, f"group_norm {x_shape} {dtype}: {differ} of {runs} runs differ")
 
 
-def kernel_checks() -> None:
-    """Phase 3: the shapes of the SDXL 1024^2 path (CFG batch 2), bf16,
-    plus the JAX tests' f32 shapes and full-size f32 rows."""
-    gen = torch.Generator(device="cuda").manual_seed(0)
+# The attention of each served model's UNet, by level: (channels,
+# transformer layers, heads) per level, the mid block's layers, and the
+# canvas. Plain numbers, not the package's configs, so that
+# `--attention-only` runs on trees that lack a model.
+UNET_ATTENTION = {
+    "sdxl": ((320, 640, 1280), (0, 2, 10), (5, 10, 20), 10, 1024),
+    "sd15": ((320, 640, 1280, 1280), (1, 1, 1, 0), (8, 8, 8, 8), 1, 512),
+    "sd21": ((320, 640, 1280, 1280), (1, 1, 1, 0), (5, 10, 20, 20), 1, 768),
+}
+
+
+def attention_shapes(model: str) -> Counter:
+    """{(q shape, kv shape, dtype): launches} of one bf16 UNet call of
+    `model` (CFG batch 2, 77 context tokens, two resnets a down block and
+    three an up block, each with its transformer, every transformer layer
+    one self- and one cross-attention)."""
+    channels, layers, heads, mid, size = UNET_ATTENTION[model]
+    shapes = Counter()
+    side = size // 8
+    for level, (ch, n, h) in enumerate(zip(channels, layers, heads)):
+        q = (2, (side >> level) ** 2, h, ch // h)
+        calls = n * 5 + (mid if level == len(channels) - 1 else 0)
+        if calls:
+            shapes[(q, q, torch.bfloat16)] += calls
+            shapes[(q, (2, 77, h, ch // h), torch.bfloat16)] += calls
+    return shapes
+
+
+def vae_attention_shape(model: str) -> tuple:
+    """The VAE mid block's single 512-wide head at `model`'s canvas."""
+    q = (1, (UNET_ATTENTION[model][-1] // 8) ** 2, 1, 512)
+    return q, q, torch.bfloat16
+
+
+# every GroupNorm call of the SD 1.x 512^2 UNet, the SD 2.x 768^2 UNet and
+# their VAE's decoder and encoder at 512^2 and 768^2: (x, silu, eps)
+SD_NORMS = [
+    ((2, s, s, c), True, 1e-5) for s, c in (
+        (64, 320), (32, 320), (32, 640), (16, 640), (16, 1280), (8, 1280), (8, 2560),
+        (16, 2560), (16, 1920), (32, 1920), (32, 1280), (32, 960), (64, 960), (64, 640),
+        (96, 320), (48, 320), (48, 640), (24, 640), (24, 1280), (12, 1280), (12, 2560),
+        (24, 2560), (24, 1920), (48, 1920), (48, 1280), (48, 960), (96, 960), (96, 640))
+] + [
+    ((2, s, s, c), False, 1e-6) for s, c in (
+        (64, 320), (32, 640), (16, 1280), (8, 1280), (96, 320), (48, 640), (24, 1280),
+        (12, 1280))
+] + [
+    ((1, s, s, c), True, 1e-6) for s, c in (
+        (64, 512), (128, 512), (256, 512), (256, 256), (512, 256), (512, 128), (256, 128),
+        (128, 256), (96, 512), (192, 512), (384, 512), (384, 256), (768, 256), (768, 128),
+        (384, 128), (192, 256))
+] + [((1, 64, 64, 512), False, 1e-6), ((1, 96, 96, 512), False, 1e-6)]
+
+
+def attention_checks(gen) -> None:
+    """Phase 3 for attention: the shapes of the SDXL 1024^2 path (CFG
+    batch 2), bf16, plus the JAX tests' f32 shapes and full-size f32 rows;
+    every shape of the SD 1.x 512^2 and SD 2.x 768^2 UNet calls and VAE
+    decodes in bf16 and f32; and the edges of the tiles at every
+    tensor-core head width. Each bf16 call at such a width must report the
+    tensor-core route."""
     bf, f32 = torch.bfloat16, torch.float32
     attention = [
         ((2, 4096, 10, 64), (2, 4096, 10, 64), bf), ((2, 4096, 10, 64), (2, 77, 10, 64), bf),
@@ -404,12 +517,32 @@ def kernel_checks() -> None:
         ((2, 130, 3, 32), (2, 256, 3, 32), f32), ((2, 64, 3, 32), (2, 64, 3, 32), f32),
         ((2, 1024, 10, 64), (2, 77, 10, 64), f32), ((1, 1024, 1, 512), (1, 1024, 1, 512), f32),
     ]
+    for model in ("sd15", "sd21"):
+        for q_shape, k_shape, _ in (*attention_shapes(model), vae_attention_shape(model)):
+            attention += [(q_shape, k_shape, bf), (q_shape, k_shape, f32)]
+    # edges at D = 40, 80 and 160 (192 query rows and 128 KV rows at 40, 128
+    # and 128 at 80, 128 and 64 at 160): query and KV lengths that are not
+    # multiples of a tile, 77 KV rows, a query shorter than 64 rows, and
+    # B*H of 1
+    for d in (40, 80, 160):
+        attention += [((2, 1000, 8, d), (2, 77, 8, d), bf), ((2, 1000, 8, d), (2, 1000, 8, d), bf),
+                      ((2, 1000, 8, d), (2, 4095, 8, d), bf), ((2, 40, 8, d), (2, 77, 8, d), bf),
+                      ((2, 40, 8, d), (2, 4096, 8, d), bf), ((1, 40, 1, d), (1, 1000, 1, d), bf),
+                      ((1, 200, 1, d), (1, 77, 1, d), f32)]
     for q_shape, k_shape, dtype in attention:
         row = attention_case(q_shape, k_shape, dtype, gen, timed=False)
-        log(f"[check] flash_attention q{q_shape} kv{k_shape} {row['dtype']}: "
+        log(f"[check] flash_attention q{q_shape} kv{k_shape} {row['dtype']} route {row['route']}: "
             f"max_abs_err {row['max_abs_err']:.3g}"
             + (f", RMS err {row['rms_err']:.3g}" if "rms_err" in row else "")
             + f" (bound {row['bound']})")
+
+
+def kernel_checks() -> None:
+    """Phase 3: attention (attention_checks), and GroupNorm at the shapes
+    of the served paths and the edges of its launch plan."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf, f32 = torch.bfloat16, torch.float32
+    attention_checks(gen)
     norms = [((2, 128, 128, c), bf, True) for c in (320, 640)]
     norms += [((2, 64, 64, c), bf, True) for c in (640, 960, 1280, 1920)]
     norms += [((2, 32, 32, c), bf, True) for c in (1280, 1920, 2560)]
@@ -431,6 +564,12 @@ def kernel_checks() -> None:
     # to stay on chip)
     norms += [(shape, dtype, True, 1e-6) for shape in ((1, 512, 512, 128), (1, 256, 256, 256))
               for dtype in (bf, f32)]
+    # every call of the SD 1.x 512^2 and SD 2.x 768^2 UNets (CFG batch 2) and
+    # of their VAE's decoder and encoder at those canvases, in bf16; in f32
+    # the one UNet call too large to stay on chip and two VAE calls
+    norms += [(shape, bf, silu, eps) for shape, silu, eps in SD_NORMS]
+    norms += [((2, 96, 96, 960), f32, True, 1e-5), ((1, 768, 768, 128), f32, True, 1e-6),
+              ((1, 96, 96, 512), f32, False, 1e-6)]
     for x_shape, dtype, silu, eps in norms:
         row = gn_case(x_shape, dtype, silu, gen, timed=False, eps=eps)
         log(f"[check] group_norm x{x_shape} {row['dtype']} silu={silu} eps {eps:g}: max_abs_err "
@@ -452,28 +591,54 @@ def kernel_checks() -> None:
 
 # --- phase 4 ---
 
-def tiny_reference_check(device: str = "cuda", size: int = 128) -> None:
+def tiny_reference_check(device: str = "cuda", size: int = 128, model: str = "test/tiny-xl",
+                         model_root_dir: str | None = None,
+                         prediction_type: str = "epsilon") -> int:
+    """Phase 4: `model` in f32 on `device` (the kernels on the card)
+    against the same weights and latents on the CPU (plain versions),
+    both reading the scheduler config under `model_root_dir`; the
+    pipelines must denoise with `prediction_type`. -> max pixel diff."""
     import numpy as np
 
     from chiaswarm_tpu_torch.pipelines.stable_diffusion import SDPipeline
 
-    cpu = SDPipeline("test/tiny-xl", device="cpu")
+    cpu = SDPipeline(model, device="cpu", model_root_dir=model_root_dir)
     weights = {
         "unet": cpu.unet.state_dict(),
         "text": [e.state_dict() for e in cpu.text_encoders],
         "vae": cpu.vae.state_dict(),
     }
-    card = SDPipeline("test/tiny-xl", device=device, dtype=torch.float32, weights=weights)
+    card = SDPipeline(model, device=device, dtype=torch.float32, weights=weights,
+                      model_root_dir=model_root_dir)
+    check(cpu.prediction_type == card.prediction_type == prediction_type,
+          f"{model}: prediction types {cpu.prediction_type}, {card.prediction_type}, not "
+          f"{prediction_type}")
     lat = size // cpu.latent_factor
     latents = torch.randn((1, cpu.latent_channels, lat, lat),
                           generator=torch.Generator().manual_seed(7))
     kw = dict(num_inference_steps=4, height=size, width=size, latents=latents)
     want, _ = cpu.run("a red cube", **kw)
     got, config = card.run("a red cube", **kw)
-    diff = np.abs(got[0].astype(np.int16) - want[0].astype(np.int16)).max()
-    log(f"[tiny] test/tiny-xl {size}^2 f32, card (kernels) vs CPU (plain): max pixel "
-        f"diff {diff}/255 (bound 2/255)")
-    check(diff <= 2, f"tiny-xl card vs CPU pixel diff {diff} > 2")
+    diff = int(np.abs(got[0].astype(np.int16) - want[0].astype(np.int16)).max())
+    log(f"[tiny] {model} ({prediction_type}) {size}^2 f32, card (kernels) vs CPU (plain): "
+        f"max pixel diff {diff}/255 (bound 2/255)")
+    check(diff <= 2, f"{model} card vs CPU pixel diff {diff} > 2")
+    return diff
+
+
+def tiny_sd_checks(device: str = "cuda", size: int = 128) -> dict:
+    """Phase 4 for SD 1.x / 2.x structure: test/tiny-sd, and a tiny SD model
+    whose checkpoint's scheduler config says v_prediction (written to a
+    temporary model root), each on `device` against the CPU."""
+    import tempfile
+
+    result = {"test/tiny-sd": tiny_reference_check(device, size, "test/tiny-sd")}
+    with tempfile.TemporaryDirectory() as root:
+        config = Path(root) / TINY_V / "scheduler"
+        config.mkdir(parents=True)
+        (config / "scheduler_config.json").write_text('{"prediction_type": "v_prediction"}')
+        result[TINY_V] = tiny_reference_check(device, size, TINY_V, root, "v_prediction")
+    return result
 
 
 def start_image(size: int):
@@ -646,6 +811,7 @@ def serve_main_path(smi: str, device: str = "cuda", model: str = SDXL, size: int
             "flash_attention": (FA_COUNTER.launches, dict(FA_COUNTER.shapes)),
             "group_norm": (GN_COUNTER.launches, dict(GN_COUNTER.shapes)),
         }
+        routes = dict(FA_COUNTER.routes)
         results = hive.wait_for_results(len(jobs), timeout=30)
         check(hive.auth_failures == 0, "the hive refused the worker's bearer token")
         poll = hive.polls[0]
@@ -683,6 +849,8 @@ def serve_main_path(smi: str, device: str = "cuda", model: str = SDXL, size: int
         f"the served jobs: {json.dumps(counts)}")
     for name, count in counts.items():
         check(count > 0, f"{name} was never launched on the main path")
+    fma = {k: n for k, n in routes.items() if k[0] == "fma" and k[1] == torch.bfloat16}
+    check(not fma, f"bf16 attention took the FMA kernel on the main path: {fma}")
     return launches, served, registry
 
 
@@ -696,14 +864,16 @@ def _snapshot(counters: dict) -> dict:
     return {name: (c.launches, Counter(c.shapes)) for name, c in counters.items()}
 
 
-def serve_image_path(smi: str, registry, unet_launches: dict, device: str = "cuda",
-                     model: str = SDXL, inpaint_model: str = SDXL_INPAINT, size: int = SIZE,
-                     steps: int = STEPS) -> tuple[dict, dict]:
-    """Phase 5, image path: img2img, 4-channel inpaint and 9-channel inpaint
-    through the worker, their start image and mask served by the fake hive.
-    `unet_launches` {kernel: launches per UNet call} predicts each job's
-    launches -> ({job kind: (1, {kernel: (launches, {shape: launches})})},
-    served)."""
+def serve_counted(smi: str, registry, jobs: list, per_call: dict, device: str = "cuda",
+                  tag: str = "image", where: str = "image path") -> tuple[dict, dict]:
+    """Serve `jobs` [(kind, mode, job)] one at a time through the worker;
+    a job's `start_image_uri` / `mask_image_uri` of "start" / "mask" is
+    replaced by the smooth start image / half mask at the job's size,
+    served by the fake hive. Each job's kernel launches are counted and
+    held to its UNet calls x `per_call`[its model] {kernel: launches per
+    UNet call} plus one VAE encode (a job with a start image) and one
+    decode; no bf16 attention may take the FMA kernel ->
+    ({kind: (1, {kernel: (launches, {shape: launches})})}, served)."""
     from chiaswarm_tpu_torch.external_resources import LIMITS
     from chiaswarm_tpu_torch.fake_hive import FakeHive
     from chiaswarm_tpu_torch.ops.flash_attention import COUNTER as FA_COUNTER
@@ -712,92 +882,187 @@ def serve_image_path(smi: str, registry, unet_launches: dict, device: str = "cud
     from chiaswarm_tpu_torch.worker import Worker
 
     counters = {"flash_attention": FA_COUNTER, "group_norm": GN_COUNTER}
-    start = image_bytes(start_image(size), "JPEG")
-    check(len(start) < LIMITS.max_bytes, f"start image {len(start)} bytes over the input cap")
     hive = FakeHive(token="smoke-token")
     try:
-        start_uri = hive.enqueue_file("start.jpg", start, "image/jpeg")
-        mask_uri = hive.enqueue_file("mask.png", image_bytes(half_mask(size), "PNG"), "image/png")
+        served_files = {}
+
+        def served_uri(which: str, size: int) -> str:
+            if (which, size) not in served_files:
+                if which == "start":
+                    data = image_bytes(start_image(size), "JPEG")
+                    check(len(data) < LIMITS.max_bytes,
+                          f"start image {len(data)} bytes over the input cap")
+                    uri = hive.enqueue_file(f"start-{size}.jpg", data, "image/jpeg")
+                else:
+                    uri = hive.enqueue_file(f"mask-{size}.png",
+                                            image_bytes(half_mask(size), "PNG"), "image/png")
+                served_files[(which, size)] = uri
+            return served_files[(which, size)]
+
         settings = Settings(sdaas_token="smoke-token", sdaas_uri=hive.uri,
                             worker_name="chip-smoke", model_root_dir=registry.model_root_dir)
-        t0 = time.perf_counter()
-        registry.get_pipeline(inpaint_model, allow_random_init=True)
-        log(f"[image] {inpaint_model} resident in {time.perf_counter() - t0:.1f}s beside "
-            f"{model}; {torch.cuda.memory_allocated() / 2**30 if device == 'cuda' else 0:.1f} "
-            "GiB allocated")
         worker = Worker(settings=settings, device=device, registry=registry, poll_seconds=0.05)
-        common = {"prompt": "a lighthouse on a cliff at dusk, repainted",
-                  "negative_prompt": "blurry", "height": size, "width": size,
-                  "num_inference_steps": steps, "guidance_scale": 7.0,
-                  "content_type": "image/png", "start_image_uri": start_uri}
-        jobs = [
-            ("img2img", {"id": "img2img-0", "workflow": "img2img", "model_name": model,
-                         "strength": 0.75, "seed": 2000,
-                         "parameters": {"scheduler_type": "EulerAncestralDiscreteScheduler",
-                                        "large_model": True}}),
-            ("inpaint", {"id": "inpaint-0", "workflow": "inpaint", "model_name": model,
-                         "strength": 1.0, "seed": 2001, "mask_image_uri": mask_uri,
-                         "parameters": {"scheduler_type": "DDIMScheduler",
-                                        "large_model": True}}),
-            ("inpaint9", {"id": "inpaint9-0", "workflow": "inpaint",
-                          "model_name": inpaint_model, "seed": 2002,
-                          "mask_image_uri": mask_uri,
-                          "parameters": {"scheduler_type": "UniPCMultistepScheduler",
-                                         "large_model": True}}),
-        ]
         FA_COUNTER.reset()
         GN_COUNTER.reset()
         paths, before = {}, _snapshot(counters)
         t0 = time.perf_counter()
-        for k, (kind, job) in enumerate(jobs):
-            hive.enqueue({**common, **job})
+        for k, (kind, _, job) in enumerate(jobs):
+            job = dict(job)
+            for key in ("start_image_uri", "mask_image_uri"):
+                if key in job:
+                    job[key] = served_uri(job[key], job["height"])
+            hive.enqueue(job)
             asyncio.run(worker.run(max_jobs=k + 1))
             after = _snapshot(counters)
             paths[kind] = (1, {name: (after[name][0] - before[name][0],
                                       after[name][1] - before[name][1]) for name in counters})
             before = after
         served_s = time.perf_counter() - t0
+        routes = dict(getattr(FA_COUNTER, "routes", {}))
         results = hive.wait_for_results(len(jobs), timeout=30)
         check(hive.auth_failures == 0, "the hive refused the worker's bearer token")
     finally:
         hive.close()
 
     by_id = {r["id"]: r for r in results}
-    served = {"served_s": served_s, "jobs": {}}
-    for kind, job in jobs:
+    served = {"served_s": served_s, "jobs": {}, "routes": {str(k): n for k, n in routes.items()}}
+    for kind, mode, job in jobs:
         r = by_id[job["id"]]
         check(not r.get("fatal_error"), f"{job['id']}: fatal envelope {r['pipeline_config']}")
         check("error" not in r["pipeline_config"], f"{job['id']}: {r['pipeline_config']}")
         image = decode_artifact(r["artifacts"]["primary"])
         cfg, t = r["pipeline_config"], r["pipeline_config"]["timings"]
-        check(cfg["mode"] == kind, f"{job['id']}: mode {cfg['mode']}, not {kind}")
+        size = job["height"]
+        check(cfg["mode"] == mode, f"{job['id']}: mode {cfg['mode']}, not {mode}")
         check(image.shape == (size, size, 3), f"{job['id']}: image {image.shape}")
         check(int(image.max()) != int(image.min()), f"{job['id']}: constant image")
         check(cfg["latents"]["finite"], f"{job['id']}: non-finite latents")
-        unet_calls = steps - cfg.get("t_start", 0)
+        unet_calls = job["num_inference_steps"] - cfg.get("t_start", 0)
         counted = {name: launches for name, (launches, _) in paths[kind][1].items()}
-        predicted = {name: unet_calls * unet_launches[name] + ENCODE_LAUNCHES[name]
-                     + DECODE_LAUNCHES[name] for name in counted}
-        served["jobs"][job["id"]] = {"mode": cfg["mode"], "timings": t, "latents": cfg["latents"],
+        encodes = int("start_image_uri" in job)
+        predicted = {name: unet_calls * per_call[job["model_name"]][name]
+                     + encodes * ENCODE_LAUNCHES[name] + DECODE_LAUNCHES[name]
+                     for name in counted}
+        served["jobs"][job["id"]] = {"kind": kind, "mode": cfg["mode"], "model": cfg["model"],
+                                     "size": size, "timings": t, "latents": cfg["latents"],
                                      "unet_calls": unet_calls, "launches": counted,
                                      "predicted_launches": predicted}
-        log(f"[image] {job['id']} ({cfg['mode']}, {cfg['scheduler']}, {cfg['model']}) on {smi}: "
-            f"job {t['job_s']:.3f}s = text_encode {t['text_encode_s']:.3f}s + image_encode "
-            f"{t['image_encode_s']:.3f}s + denoise {t['denoise_s']:.3f}s ({unet_calls} UNet "
-            f"calls, step {t['unet_step_ms']:.1f} ms at CFG batch 2) + decode "
-            f"{t['decode_s']:.3f}s + artifacts {t['encode_artifacts_s']:.3f}s; latents |max| "
+        log(f"[{tag}] {job['id']} ({cfg['mode']}, {cfg['scheduler']}, {cfg['model']}, "
+            f"{size}^2) on {smi}: job {t['job_s']:.3f}s = text_encode "
+            f"{t['text_encode_s']:.3f}s"
+            + (f" + image_encode {t['image_encode_s']:.3f}s" if "image_encode_s" in t else "")
+            + f" + denoise {t['denoise_s']:.3f}s ({unet_calls} UNet calls, step "
+            f"{t['unet_step_ms']:.1f} ms at CFG batch 2) + decode {t['decode_s']:.3f}s + "
+            f"artifacts {t['encode_artifacts_s']:.3f}s; latents |max| "
             f"{cfg['latents']['absmax']:.3g}; pixels {int(image.min())}..{int(image.max())} "
             f"mean {float(image.mean()):.1f}")
-        log(f"[image] {job['id']} kernel launches: counted {json.dumps(counted)}, predicted "
-            f"{json.dumps(predicted)} ({unet_calls} UNet calls x {json.dumps(unet_launches)} "
-            f"+ one encode + one decode)")
-    log(f"[image] {len(jobs)} jobs served in {served_s:.1f}s")
+        log(f"[{tag}] {job['id']} kernel launches: counted {json.dumps(counted)}, predicted "
+            f"{json.dumps(predicted)} ({unet_calls} UNet calls x "
+            f"{json.dumps(per_call[job['model_name']])}"
+            + (" + one encode" if encodes else "") + " + one decode)")
+    log(f"[{tag}] {len(jobs)} jobs served in {served_s:.1f}s; attention routes "
+        + json.dumps({f"{r} {str(dt)[6:]} D={d}": n for (r, dt, d), n in routes.items()}))
     for job_id, job in served["jobs"].items():
         for name, count in job["launches"].items():
-            check(count > 0, f"{name} was never launched on the image path")
+            check(count > 0, f"{name} was never launched on the {where}")
         check(job["launches"] == job["predicted_launches"],
               f"{job_id}: launches {job['launches']} != predicted {job['predicted_launches']}")
+    fma = {k: n for k, n in routes.items() if k[0] == "fma" and k[1] == torch.bfloat16}
+    check(not fma, f"bf16 attention took the FMA kernel on the {where}: {fma}")
     return paths, served
+
+
+def serve_image_path(smi: str, registry, unet_launches: dict, device: str = "cuda",
+                     model: str = SDXL, inpaint_model: str = SDXL_INPAINT, size: int = SIZE,
+                     steps: int = STEPS) -> tuple[dict, dict]:
+    """Phase 5, image path: img2img, 4-channel inpaint and 9-channel inpaint
+    through the worker, their start image and mask served by the fake hive.
+    `unet_launches` {kernel: launches per UNet call} predicts each job's
+    launches -> ({job kind: (1, {kernel: (launches, {shape: launches})})},
+    served)."""
+    t0 = time.perf_counter()
+    registry.get_pipeline(inpaint_model, allow_random_init=True)
+    log(f"[image] {inpaint_model} resident in {time.perf_counter() - t0:.1f}s beside "
+        f"{model}; {torch.cuda.memory_allocated() / 2**30 if device == 'cuda' else 0:.1f} "
+        "GiB allocated")
+    common = {"prompt": "a lighthouse on a cliff at dusk, repainted",
+              "negative_prompt": "blurry", "height": size, "width": size,
+              "num_inference_steps": steps, "guidance_scale": 7.0,
+              "content_type": "image/png", "start_image_uri": "start"}
+    jobs = [
+        ("img2img", "img2img", {**common, "id": "img2img-0", "workflow": "img2img",
+                                "model_name": model, "strength": 0.75, "seed": 2000,
+                                "parameters": {"scheduler_type": "EulerAncestralDiscreteScheduler",
+                                               "large_model": True}}),
+        ("inpaint", "inpaint", {**common, "id": "inpaint-0", "workflow": "inpaint",
+                                "model_name": model, "strength": 1.0, "seed": 2001,
+                                "mask_image_uri": "mask",
+                                "parameters": {"scheduler_type": "DDIMScheduler",
+                                               "large_model": True}}),
+        ("inpaint9", "inpaint9", {**common, "id": "inpaint9-0", "workflow": "inpaint",
+                                  "model_name": inpaint_model, "seed": 2002,
+                                  "mask_image_uri": "mask",
+                                  "parameters": {"scheduler_type": "UniPCMultistepScheduler",
+                                                 "large_model": True}}),
+    ]
+    return serve_counted(smi, registry, jobs, {model: unet_launches,
+                                               inpaint_model: unet_launches}, device)
+
+
+# kernel launches of one SD 1.x or SD 2.x UNet call: 32 attention (16
+# transformer layers, one self- and one cross-attention each) and 61
+# GroupNorm
+SD_UNET_LAUNCHES = {"flash_attention": 32, "group_norm": 61}
+
+
+def serve_sd_path(smi: str, registry, device: str = "cuda", sd15: str = SD15,
+                  sd15_inpaint: str = SD15_INPAINT, sd21: str = SD21, size15: int = 512,
+                  size21: int = 768, steps: int = STEPS) -> tuple[dict, dict]:
+    """Phase 5, SD 1.x and SD 2.x at their published widths and canvases:
+    SD 1.5 txt2img (DPM++ 2M) and img2img (Euler ancestral, strength
+    0.75), the 9-channel SD 1.5 inpainting checkpoint (UniPC), and SD 2.1
+    txt2img at 768^2 with v-prediction (DPM++ 2M), each through the worker
+    with its launches counted (SD_UNET_LAUNCHES per UNet call)."""
+    t0 = time.perf_counter()
+    for model in (sd15, sd15_inpaint, sd21):
+        registry.get_pipeline(model, allow_random_init=True)
+    pipe21 = registry.get_pipeline(sd21)
+    log(f"[sd] {sd15}, {sd15_inpaint} and {sd21} resident in {time.perf_counter() - t0:.1f}s "
+        f"(seeded random weights, {pipe21.dtype}); "
+        f"{torch.cuda.memory_allocated() / 2**30 if device == 'cuda' else 0:.1f} GiB allocated")
+    check(pipe21.prediction_type == "v_prediction",
+          f"{sd21}: prediction type {pipe21.prediction_type}, not v_prediction")
+    common = {"negative_prompt": "blurry", "num_inference_steps": steps, "guidance_scale": 7.0,
+              "content_type": "image/png"}
+    at15 = {**common, "height": size15, "width": size15}
+    jobs = [
+        ("sd15_txt2img", "txt2img", {**at15, "id": "sd15-txt2img-0", "workflow": "txt2img",
+                                     "model_name": sd15, "seed": 3000,
+                                     "prompt": "a lighthouse on a cliff at dusk",
+                                     "parameters": {"scheduler_type":
+                                                    "DPMSolverMultistepScheduler"}}),
+        ("sd15_img2img", "img2img", {**at15, "id": "sd15-img2img-0", "workflow": "img2img",
+                                     "model_name": sd15, "seed": 3001, "strength": 0.75,
+                                     "prompt": "a lighthouse on a cliff, repainted",
+                                     "start_image_uri": "start",
+                                     "parameters": {"scheduler_type":
+                                                    "EulerAncestralDiscreteScheduler"}}),
+        ("sd15_inpaint9", "inpaint9", {**at15, "id": "sd15-inpaint9-0", "workflow": "inpaint",
+                                       "model_name": sd15_inpaint, "seed": 3002,
+                                       "prompt": "a lighthouse on a cliff, repainted",
+                                       "start_image_uri": "start", "mask_image_uri": "mask",
+                                       "parameters": {"scheduler_type":
+                                                      "UniPCMultistepScheduler"}}),
+        ("sd21_txt2img", "txt2img", {**common, "height": size21, "width": size21,
+                                     "id": "sd21-txt2img-0", "workflow": "txt2img",
+                                     "model_name": sd21, "seed": 3003,
+                                     "prompt": "a lighthouse on a cliff at dusk",
+                                     "parameters": {"scheduler_type":
+                                                    "DPMSolverMultistepScheduler"}}),
+    ]
+    return serve_counted(smi, registry, jobs, {m: SD_UNET_LAUNCHES for m in (sd15, sd15_inpaint,
+                                                                             sd21)},
+                         device, tag="sd", where="SD path")
 
 
 # --- phase 6 ---
@@ -834,7 +1099,8 @@ def measure(paths: dict, main: str = "txt2img") -> tuple[list[dict], dict]:
             log(f"[measure] {name} {row.get('q', row.get('x'))}"
                 f"{' kv' + str(row['kv']) if 'kv' in row else ''} {row['dtype']}"
                 f"{' eps %g' % row['eps'] if 'eps' in row else ''}"
-                f"{' on chip: %s' % row['on_chip'] if 'on_chip' in row else ''}: "
+                f"{' on chip: %s' % row['on_chip'] if 'on_chip' in row else ''}"
+                f"{' route ' + row['route'] if row.get('route') else ''}: "
                 f"per job {per_kind}; kernel {row['ms']:.4f} ms"
                 + f" (device {row['device_ms']:.4f}, host {row['host_ms']:.4f})"
                 + f", plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms"
@@ -904,6 +1170,8 @@ def unet_inputs(pipe, size: int = SIZE, dtype=None, seed: int = 2):
     x = randn(2, cfg.in_channels, lat, lat).contiguous(memory_format=torch.channels_last)
     t = torch.full((2,), 500.0, device=dev)
     ctx = randn(2, 77, cfg.cross_attention_dim)
+    if not cfg.addition_embed_dim:
+        return x, t, ctx, None
     pooled = cfg.addition_embed_dim - 6 * cfg.addition_time_embed_dim
     added = {"text_embeds": randn(2, pooled),
              "time_ids": torch.tensor([[size, size, 0, 0, size, size]] * 2, device=dev,
@@ -941,11 +1209,12 @@ def encode_input(pipe, size: int = SIZE):
     return px.contiguous(memory_format=torch.channels_last)
 
 
-def end_to_end_bf16_check(pipe, size: int = SIZE) -> dict:
-    """One UNet call, one VAE decode and one VAE encode at the main path's
-    shapes, in bf16 through the kernels, against the same weights in f32
-    on the plain path; the plain path in bf16 gives the error bf16 itself
-    makes."""
+def end_to_end_bf16_check(pipe, size: int = SIZE,
+                          parts=("unet", "vae_decode", "vae_encode")) -> dict:
+    """One UNet call, one VAE decode and one VAE encode (the named parts)
+    at the shapes of `pipe`'s path at `size`, in bf16 through the kernels,
+    against the same weights in f32 on the plain path; the plain path in
+    bf16 gives the error bf16 itself makes."""
     import copy
 
     from chiaswarm_tpu_torch.device import synchronize
@@ -957,7 +1226,7 @@ def end_to_end_bf16_check(pipe, size: int = SIZE) -> dict:
                     generator=torch.Generator(device=pipe.device).manual_seed(3))
     z = z.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
     # the f32 reference sees the same bf16 input values, cast up
-    up = {"text_embeds": added["text_embeds"].float(), "time_ids": added["time_ids"]}
+    up = added and {"text_embeds": added["text_embeds"].float(), "time_ids": added["time_ids"]}
     px = encode_input(pipe, size)
     calls = (
         ("unet", pipe.unet, lambda m: m(x, t, ctx, added),
@@ -966,6 +1235,8 @@ def end_to_end_bf16_check(pipe, size: int = SIZE) -> dict:
         ("vae_encode", pipe.vae, lambda m: m.encode(px), lambda m: m.encode(px.float())))
     result = {}
     for name, module, call, call_f32 in calls:
+        if name not in parts:
+            continue
         with torch.inference_mode():
             kernels = call(module).float()
             with plain_path():
@@ -981,7 +1252,8 @@ def end_to_end_bf16_check(pipe, size: int = SIZE) -> dict:
         del kernels, plain, exact
         torch.cuda.empty_cache()
         result[name] = row
-        log(f"[e2e] {name} bf16 through the kernels vs f32 plain path: relative RMS err "
+        log(f"[e2e] {pipe.model_name} {name} at {size}^2, bf16 through the kernels vs f32 plain "
+            f"path: relative RMS err "
             f"{row['rel_rms_err']:.4g}; plain path in bf16: {row['plain_bf16_rel_rms_err']:.4g} "
             f"(bound {E2E_RATIO}x that)")
         check(row["finite"], f"{name}: non-finite output through the kernels")
@@ -1027,11 +1299,13 @@ def profiled(fn, calls: int, device) -> tuple[dict, float, float, int]:
     return kernels, plain_wall_ms, wall_ms, GN_COUNTER.launches // calls
 
 
-def profile_main_path(pipe, size: int = SIZE, steps: int = 3) -> dict:
+def profile_main_path(pipe, size: int = SIZE, steps: int = 3,
+                      parts=("unet", "vae_decode", "vae_encode")) -> dict:
     """Phase 8: torch.profiler over a few UNet calls (CFG batch 2, size/8
-    latents), one VAE decode and one VAE encode: device time and launches by kernel
-    category, each GroupNorm kernel by name, GroupNorm wrapper calls, and
-    the device's busy share of the wall time."""
+    latents), one VAE decode and one VAE encode (the named parts) of
+    `pipe` at `size`: device time and launches by kernel category, each
+    GroupNorm kernel by name, GroupNorm wrapper calls, and the device's
+    busy share of the wall time."""
     x, t, ctx, added = unet_inputs(pipe, size)
     lat = size // pipe.latent_factor
     z = torch.randn((1, pipe.latent_channels, lat, lat), device=pipe.device,
@@ -1042,6 +1316,8 @@ def profile_main_path(pipe, size: int = SIZE, steps: int = 3) -> dict:
     for name, fn, calls in (("unet", lambda: pipe.unet(x, t, ctx, added_cond=added), steps),
                             ("vae_decode", lambda: pipe.vae.decode(z), 1),
                             ("vae_encode", lambda: pipe.vae.encode(px), 1)):
+        if name not in parts:
+            continue
         kernels, plain_wall_ms, wall_ms, gn_calls = profiled(fn, calls, pipe.device)
         categories = {label: [0.0, 0.0] for label, _ in _CATEGORIES}
         categories["other (elementwise, norms, copies)"] = [0.0, 0.0]
@@ -1054,6 +1330,7 @@ def profile_main_path(pipe, size: int = SIZE, steps: int = 3) -> dict:
             categories[label][1] += n
         device_ms = sum(ms for ms, _ in kernels.values())
         result[name] = {
+            "model": pipe.model_name, "size": size,
             "calls": calls, "unprofiled_wall_ms_per_call": plain_wall_ms,
             "wall_ms_per_call": wall_ms, "device_ms_per_call": device_ms,
             "busy_share": device_ms / wall_ms if wall_ms else None,
@@ -1071,10 +1348,13 @@ def log_profile(profile: dict, smi: str) -> None:
         if p["device_ms_per_call"] <= 0:
             log(f"[profile] {name}: the profiler saw no device kernels; device time not measured")
             continue
-        log(f"[profile] {name} ({SIZE}^2{', CFG batch 2' if name == 'unet' else ''}) on {smi}: "
+        attention_ms = p["categories_ms_launches"]["flash_attention kernel"][0]
+        log(f"[profile] {p['model']} {name} ({p['size']}^2"
+            f"{', CFG batch 2' if name == 'unet' else ''}) on {smi}: "
             f"wall {p['wall_ms_per_call']:.2f} ms per call ({p['unprofiled_wall_ms_per_call']:.2f} "
             f"unprofiled), device busy {p['device_ms_per_call']:.2f} ms "
-            f"({100 * p['busy_share']:.1f}% of the profiled wall)")
+            f"({100 * p['busy_share']:.1f}% of the profiled wall); attention "
+            f"{100 * attention_ms / p['device_ms_per_call']:.1f}% of the device time")
         for label, (ms, n) in p["categories_ms_launches"].items():
             log(f"[profile]   {label}: {ms:.3f} ms, {n:g} launches")
         log(f"[profile]   group_norm: {p['group_norm_calls']} wrapper calls per call")
@@ -1122,12 +1402,34 @@ def group_norm_only(smi: str, detail: str | None) -> None:
                                     "profile": profile}, indent=1))
 
 
+def attention_only(smi: str, detail: str | None) -> None:
+    """Attention alone: the checks of phase 3, then phase 6 at the shapes
+    of one UNet call and one VAE decode of each model in UNET_ATTENTION
+    (per job: STEPS UNet calls and one decode)."""
+    attention_checks(torch.Generator(device="cuda").manual_seed(0))
+    paths = {}
+    for model in UNET_ATTENTION:
+        per_job = Counter({key: n * STEPS for key, n in attention_shapes(model).items()})
+        per_job[vae_attention_shape(model)] += 1
+        paths[f"{model} txt2img"] = (1, {"flash_attention": (sum(per_job.values()),
+                                                             dict(per_job))})
+    summary, shapes = measure(paths, main="sdxl txt2img")
+    if detail:
+        path = Path(detail)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps({"card": smi, "kernels": summary, "shapes": shapes},
+                                   indent=1, default=str))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--detail", help="write every measurement to this JSON file")
     parser.add_argument("--group-norm-only", action="store_true",
                         help="phases 1, 2, 6 and 8 for GroupNorm alone (no result line)")
+    parser.add_argument("--attention-only", action="store_true",
+                        help="phases 1, 2, 3 and 6 for attention alone (no result line)")
     opts = parser.parse_args(argv)
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs the card",
               file=sys.stderr)
@@ -1139,7 +1441,7 @@ def main(argv=None) -> int:
 
         set_precision()
         t0 = time.perf_counter()
-        paths = _build.build()
+        paths = _build.build(("flash_attention",) if opts.attention_only else _build.SOURCES)
         log(f"[build] {len(paths)} kernel libraries in {time.perf_counter() - t0:.1f}s: "
             + ", ".join(p.name for p in paths.values()))
         for name in paths:
@@ -1149,29 +1451,43 @@ def main(argv=None) -> int:
         if opts.group_norm_only:
             group_norm_only(smi, opts.detail)
             return 0
+        if opts.attention_only:
+            attention_only(smi, opts.detail)
+            return 0
         kernel_checks()
         tiny_reference_check()
+        tiny_sd = tiny_sd_checks()
         tiny_image = tiny_image_checks()
         launches, served, registry = serve_main_path(smi)
         unet_launches = {name: (count / N_JOBS - DECODE_LAUNCHES[name]) / STEPS
                          for name, (count, _) in launches.items()}
         image_paths, image_served = serve_image_path(smi, registry, unet_launches)
-        summary, shapes = measure({"txt2img": (N_JOBS, launches), **image_paths})
+        sd_paths, sd_served = serve_sd_path(smi, registry)
+        summary, shapes = measure({"txt2img": (N_JOBS, launches), **image_paths, **sd_paths})
         pipe = registry.get_pipeline(SDXL)
-        e2e = end_to_end_bf16_check(pipe)
-        profile = profile_main_path(pipe)
-        log_profile(profile, smi)
-        check_one_launch_per_call(profile)
+        e2e = {SDXL: end_to_end_bf16_check(pipe)}
+        for model, size in SD_CANVASES:
+            e2e[model] = end_to_end_bf16_check(registry.get_pipeline(model), size,
+                                               parts=("unet",))
+        profile = {SDXL: profile_main_path(pipe)}
+        for model, size in SD_CANVASES:
+            profile[model] = profile_main_path(registry.get_pipeline(model), size,
+                                               parts=("unet",))
+        for part in profile.values():
+            log_profile(part, smi)
+            check_one_launch_per_call(part)
         if opts.detail:
             path = Path(opts.detail)
             path.parent.mkdir(parents=True, exist_ok=True)
             path.write_text(json.dumps(
-                {"card": smi, "tiny_image": tiny_image, "served": served,
-                 "image_served": image_served, "kernels": summary, "shapes": shapes,
-                 "end_to_end_bf16": e2e, "profile": profile}, indent=1))
+                {"card": smi, "tiny_sd": tiny_sd, "tiny_image": tiny_image, "served": served,
+                 "image_served": image_served, "sd_served": sd_served, "kernels": summary,
+                 "shapes": shapes, "end_to_end_bf16": e2e, "profile": profile}, indent=1,
+                default=str))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
+    log(f"[smoke] every phase passed in {time.perf_counter() - started:.1f}s")
     print(json.dumps({"kernels": summary}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

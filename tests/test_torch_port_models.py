@@ -158,3 +158,56 @@ def test_tiny_clip(port_cfg, jax_cfg):
     for key in ("hidden_states", "pooled"):
         np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), **TOL,
                                    err_msg=key)
+
+
+# SD 1.x / 2.x structure at small width: four levels, the last one plain,
+# one mid transformer, two resnets a down block; head widths that differ
+# per level (as SD 1.x's 8 heads of 40/80/160/160) or one width at every
+# level (as SD 2.x's 64)
+_SD_STRUCTURE = dict(block_out_channels=(32, 32, 64, 64), transformer_layers=(1, 1, 1, 0),
+                     mid_transformer_layers=1, layers_per_block=2, cross_attention_dim=48)
+
+
+@pytest.mark.parametrize("heads", [(4, 2, 8, 8), (2, 2, 4, 4)], ids=["sd15-like", "sd21-like"])
+def test_sd_structured_unet(heads):
+    port_cfg = cfgs.SD15_UNET.__class__(**_SD_STRUCTURE, num_attention_heads=heads)
+    jax_cfg = jax_cfgs.SD15_UNET.__class__(**_SD_STRUCTURE, num_attention_heads=heads)
+    make = lambda: UNet2DConditionModel(port_cfg)  # noqa: E731
+    state = _numpy_sd(_random(make(), 9))
+    params = convert_unet(state)
+    restored = weights.unet_state_dict(params)
+    assert set(restored) == set(state)
+    for key, value in state.items():
+        np.testing.assert_array_equal(restored[key].numpy(), value, err_msg=key)
+    x, ctx = _rand((2, 16, 16, 4), 10), _rand((2, 77, 48), 11)
+    t = np.array([981.0, 1.0], np.float32)
+    want = jax.jit(JaxUNet(jax_cfg).apply)({"params": params}, jnp.asarray(x), jnp.asarray(t),
+                                           jnp.asarray(ctx))
+    port = _port_from_jax(make, params, weights.unet_state_dict)
+    with torch.no_grad():
+        got = port(_nchw(x), torch.from_numpy(t), torch.from_numpy(ctx))
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(want), **TOL)
+
+
+def test_sd21_style_clip():
+    """SD 2.x's encoder at small width: gelu, the last layer's output
+    through the final LayerNorm (hidden_state_index -1), no projection."""
+    port_cfg = cfgs.SD21_CLIP.__class__(vocab_size=1000, hidden_size=32, num_layers=3,
+                                        num_heads=4, hidden_act="gelu")
+    jax_cfg = jax_cfgs.SD21_CLIP.__class__(vocab_size=1000, hidden_size=32, num_layers=3,
+                                           num_heads=4, hidden_act="gelu")
+    assert (port_cfg.hidden_state_index, jax_cfg.hidden_state_index) == (-1, -1)
+    assert jax_cfg.apply_final_norm
+    make = lambda: CLIPTextEncoder(port_cfg)  # noqa: E731
+    params = convert_clip(_numpy_sd(_random(make(), 12)))
+    ids = np.full((2, 77), port_cfg.vocab_size - 1, np.int32)
+    ids[:, 0] = port_cfg.vocab_size - 2
+    ids[0, 1:4] = [11, 12, 13]
+    ids[1, 1:7] = [3, 1, 4, 1, 5, 9]
+    want = JaxCLIP(jax_cfg).apply({"params": params}, jnp.asarray(ids))
+    port = _port_from_jax(make, params, weights.clip_state_dict)
+    with torch.no_grad():
+        got = port(torch.from_numpy(ids.astype(np.int64)))
+    for key in ("hidden_states", "pooled"):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), **TOL,
+                                   err_msg=key)

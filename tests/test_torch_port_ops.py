@@ -35,6 +35,11 @@ def _rand(shape, seed, scale=1.0, shift=0.0):
     (2, 64, 64, 3, 32, None),
     (1, 64, 64, 1, 16, 0.5),     # custom scale
     (1, 128, 128, 1, 512, None),  # the VAE mid-block's single 512-wide head
+    # SD 1.x's head widths (8 heads of 40, 80 and 160 at its four levels):
+    # self-attention, the ragged 77-token cross-attention, a ragged query
+    (2, 256, 256, 2, 40, None), (2, 256, 77, 2, 40, None), (2, 130, 256, 2, 40, None),
+    (2, 256, 256, 2, 80, None), (2, 256, 77, 2, 80, None), (1, 130, 77, 2, 80, None),
+    (2, 128, 128, 2, 160, None), (2, 128, 77, 2, 160, None), (1, 130, 130, 1, 160, None),
 ])
 def test_attention_plain_matches_jax_kernel(b, sq, skv, h, d, scale):
     q, k, v = _rand((b, sq, h, d), 0), _rand((b, skv, h, d), 1), _rand((b, skv, h, d), 2)
@@ -116,6 +121,29 @@ def test_attention_source_includes_the_hopper_header():
     assert [h.name for h in headers] == ["hopper.cuh"]
 
 
+def test_attention_entry_point_matches_the_kernel_source():
+    """The wrapper's ctypes signature is `fa_forward`'s, argument for
+    argument, and the head widths it names as tensor-core routes are the
+    bf16 cases of the source's dispatch (read from the source: needs no
+    nvcc)."""
+    import ctypes
+    import re
+
+    from chiaswarm_tpu_torch.ops import _build
+    from chiaswarm_tpu_torch.ops import flash_attention as fa
+
+    source = (_build.CSRC / "flash_attention.cu").read_text()
+    params = re.search(r"int fa_forward\((.*?)\)\s*\{", source, re.S).group(1)
+    ctype = {"void*": ctypes.c_void_p, "int*": ctypes.c_void_p, "int": ctypes.c_int,
+             "float": ctypes.c_float}
+    kinds = [re.match(r"(?:const\s+)?(\w+\s*\*?)", p.strip()).group(1).replace(" ", "")
+             for p in params.split(",")]
+    assert [ctype[k] for k in kinds] == fa.FA_FORWARD_ARGS
+    dispatch = source[source.index("int fa_forward("):]
+    cases = [int(d) for d in re.findall(r"case (\d+):", dispatch)]
+    assert tuple(sorted(cases)) == fa.TENSOR_CORE_WIDTHS
+
+
 # --- the GroupNorm kernel's launch plan (pure arithmetic) ---
 
 # H100 SXM: 132 SMs, 227 KB of shared memory a CTA may ask for, and one
@@ -141,6 +169,41 @@ VAE_NORMS = [
     ((1, 1024, 1024, 128), True, 1e-6, False),
 ]
 
+# every GroupNorm call of the SD 1.x 512^2 UNet (64^2 latents) at CFG batch
+# 2: all 61 fit on chip
+SD15_UNET_NORMS = [
+    ((2, 64, 64, 320), True, 1e-5, True), ((2, 64, 64, 320), False, 1e-6, True),
+    ((2, 32, 32, 320), True, 1e-5, True), ((2, 32, 32, 640), False, 1e-6, True),
+    ((2, 16, 16, 640), True, 1e-5, True), ((2, 16, 16, 1280), True, 1e-5, True),
+    ((2, 16, 16, 1280), False, 1e-6, True), ((2, 8, 8, 1280), True, 1e-5, True),
+    ((2, 8, 8, 1280), False, 1e-6, True), ((2, 8, 8, 2560), True, 1e-5, True),
+    ((2, 16, 16, 2560), True, 1e-5, True), ((2, 16, 16, 1920), True, 1e-5, True),
+    ((2, 32, 32, 960), True, 1e-5, True),
+]
+# the SD 2.x 768^2 UNet (96^2 latents): all but (2,96,96,960) fit
+SD21_UNET_NORMS = [
+    ((2, 96, 96, 320), True, 1e-5, True), ((2, 96, 96, 320), False, 1e-6, True),
+    ((2, 48, 48, 320), True, 1e-5, True), ((2, 48, 48, 640), True, 1e-5, True),
+    ((2, 48, 48, 640), False, 1e-6, True), ((2, 24, 24, 640), True, 1e-5, True),
+    ((2, 24, 24, 1280), True, 1e-5, True), ((2, 24, 24, 1280), False, 1e-6, True),
+    ((2, 12, 12, 1280), True, 1e-5, True), ((2, 12, 12, 1280), False, 1e-6, True),
+    ((2, 12, 12, 2560), True, 1e-5, True), ((2, 24, 24, 2560), True, 1e-5, True),
+    ((2, 24, 24, 1920), True, 1e-5, True), ((2, 48, 48, 1920), True, 1e-5, True),
+    ((2, 48, 48, 1280), True, 1e-5, True), ((2, 48, 48, 960), True, 1e-5, True),
+    ((2, 96, 96, 960), True, 1e-5, False), ((2, 96, 96, 640), True, 1e-5, True),
+]
+# the VAE decoder and encoder at 512^2 and 768^2, batch 1
+SD_VAE_NORMS = [
+    ((1, 64, 64, 512), True, 1e-6, True), ((1, 64, 64, 512), False, 1e-6, True),
+    ((1, 256, 256, 256), True, 1e-6, False), ((1, 512, 512, 128), True, 1e-6, False),
+    ((1, 256, 256, 128), True, 1e-6, True), ((1, 128, 128, 256), True, 1e-6, True),
+    ((1, 96, 96, 512), True, 1e-6, True), ((1, 96, 96, 512), False, 1e-6, True),
+    ((1, 192, 192, 512), True, 1e-6, False), ((1, 384, 384, 512), True, 1e-6, False),
+    ((1, 384, 384, 256), True, 1e-6, False), ((1, 768, 768, 256), True, 1e-6, False),
+    ((1, 768, 768, 128), True, 1e-6, False), ((1, 384, 384, 128), True, 1e-6, False),
+    ((1, 192, 192, 256), True, 1e-6, True),
+]
+
 
 def _plan(shape, elem_size=2, groups=32):
     from chiaswarm_tpu_torch.ops.group_norm import plan_launch
@@ -163,11 +226,13 @@ def _check_plan_covers(plan):
     assert last == plan.scratch_bytes
 
 
-@pytest.mark.parametrize("shape,silu,eps,fits", UNET_NORMS + VAE_NORMS)
+@pytest.mark.parametrize("shape,silu,eps,fits",
+                         UNET_NORMS + VAE_NORMS + SD15_UNET_NORMS + SD21_UNET_NORMS + SD_VAE_NORMS)
 def test_group_norm_plan_main_path(shape, silu, eps, fits):
-    """Each main-path call takes the path the design names: the 11 UNet
-    and 2 VAE shapes under the card's shared memory read x once, the
-    rest keep what fits and read the remainder again."""
+    """Each main-path call takes the path the design names: the 11 SDXL
+    UNet and 2 VAE shapes under the card's shared memory read x once, as
+    do every SD 1.x UNet call and all but one SD 2.x UNet call; the rest
+    keep what fits and read the remainder again."""
     plan = _plan(shape)
     assert plan.on_chip == fits
     # each batch row's share of the SMs, slabs at most one row longer than
