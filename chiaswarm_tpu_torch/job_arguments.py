@@ -6,11 +6,12 @@ Same defaults and precedence as chiaswarm_tpu/job_arguments.py (30 steps,
 DPMSolverMultistepScheduler, the 1024 canvas cap, the img2img and inpaint
 pipeline types chosen by `large_model`, the job's size threaded into the
 image fetches, `parameters` passed through with the identity keys
-protected). A workflow or feature that is not ported yet raises
-ValueError naming it, which the worker turns into a fatal envelope; so
-do ControlNet, the instruct-pix2pix checkpoints and the size-locked 768
-models, by name. Input images are fetched here (`get_image` blocks: the
-worker formats a job on its executor thread).
+protected), and the same special cases of img2img: the instruct-pix2pix
+checkpoints take `strength * 5` as their image guidance scale, and the
+size-locked checkpoints get a 768 canvas. A workflow or feature that is
+not ported yet raises ValueError naming it, which the worker turns into a
+fatal envelope; so does ControlNet. Input images are fetched here
+(`get_image` blocks: the worker formats a job on its executor thread).
 """
 
 from __future__ import annotations
@@ -24,8 +25,8 @@ MAX_SIZE = LIMITS.max_edge
 
 # job keys of workflows and features this slice does not serve
 _UNPORTED_KEYS = ("lora", "video_uri")
-_UNPORTED_PARAMETERS = ("controlnet", "refiner", "upscale", "textual_inversion", "vae")
-# the JAX package's special cases of img2img, refused by name here
+_UNPORTED_PARAMETERS = ("controlnet", "upscale", "textual_inversion", "vae")
+# the JAX package's special cases of img2img
 _PIX2PIX_MODELS = {"timbrooks/instruct-pix2pix", "diffusers/sdxl-instructpix2pix-768"}
 _SIZE_LOCKED_MODELS = {"diffusers/sdxl-instructpix2pix-768",
                        "kandinsky-community/kandinsky-2-2-controlnet-depth"}
@@ -49,8 +50,6 @@ def format_args(job: dict):
     model_name = args.get("model_name", "")
     if model_name.startswith("DeepFloyd/"):
         raise ValueError("DeepFloyd IF is not ported to chiaswarm_tpu_torch yet")
-    if model_name in _PIX2PIX_MODELS | _SIZE_LOCKED_MODELS:
-        raise ValueError(f"{model_name} is not ported to chiaswarm_tpu_torch yet")
     return diffusion_callback, format_stable_diffusion_args(args, workflow)
 
 
@@ -114,6 +113,24 @@ def format_img2img_args(args: dict, parameters: dict, size) -> None:
         # the canvas comes from the start image
         args.pop("height", None)
         args.pop("width", None)
+    if args["model_name"] in _PIX2PIX_MODELS:
+        # the edit checkpoints take an image guidance scale (1-5), not a
+        # strength (0-1)
+        args["image_guidance_scale"] = args.pop("strength", 0.6) * 5
     if start_image is None:
         raise ValueError("Workflow requires an input image. None provided")
+    if args["model_name"] in _SIZE_LOCKED_MODELS and not parameters.get("test_tiny_model"):
+        # these checkpoints are trained at 768 only; tiny-model test jobs
+        # keep their small canvas
+        start_image = resize_square(start_image).resize((768, 768))
+        args["height"] = start_image.height
+        args["width"] = start_image.width
     args["image"] = start_image
+
+
+def resize_square(image):
+    """Center-crop a PIL image to its shorter side."""
+    side = min(image.width, image.height)
+    left = (image.width - side) // 2
+    top = (image.height - side) // 2
+    return image.crop((left, top, left + side, top + side))

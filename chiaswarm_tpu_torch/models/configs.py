@@ -1,5 +1,5 @@
-"""Model configurations the port serves: SD 1.x, SD 2.x, SDXL base and the
-tiny stand-ins of the hermetic tests. Copied from
+"""Model configurations the port serves: SD 1.x, SD 2.x, SDXL base and
+refiner, and the tiny stand-ins of the hermetic tests. Copied from
 chiaswarm_tpu/models/configs.py (the port imports nothing of the JAX
 package); the other families wait for their slices of the port.
 """
@@ -56,6 +56,16 @@ SDXL_CLIP_2 = CLIPTextConfig(
     hidden_state_index=-2,
     projection_dim=1280,
 )
+# --- SDXL refiner (single 1280 encoder, 2560 context) ---
+SDXL_REFINER_UNET = UNet2DConfig(
+    block_out_channels=(384, 768, 1536, 1536),
+    transformer_layers=(0, 4, 4, 0),
+    mid_transformer_layers=4,
+    num_attention_heads=(6, 12, 24, 24),  # head dim 64 throughout
+    cross_attention_dim=1280,
+    addition_embed_dim=2560,  # 1280 pooled + 5*256 time ids
+)
+
 SD_VAE = VAEConfig()
 SDXL_VAE = VAEConfig(scaling_factor=0.13025)
 

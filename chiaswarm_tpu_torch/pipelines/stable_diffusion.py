@@ -1,27 +1,37 @@
-"""Resident Stable-Diffusion pipeline (SD 1.x, SD 2.x, SDXL and the tiny test
-models): txt2img, img2img, 4-channel inpaint and dedicated (9-channel)
-inpaint; the counterpart of chiaswarm_tpu/pipelines/stable_diffusion.py.
+"""Resident Stable-Diffusion pipeline (SD 1.x, SD 2.x, SDXL base and
+refiner, the instruct-pix2pix edit checkpoints and the tiny test models):
+txt2img, img2img, pix2pix, 4-channel inpaint and dedicated (9-channel)
+inpaint, and the SDXL refiner chained after any of them; the counterpart
+of chiaswarm_tpu/pipelines/stable_diffusion.py.
 
-Weights load once and stay on the device. A job runs the CLIP encoders
-over [negatives | prompts] in one batch; encodes the start image (masked
-first for a 9-channel inpaint checkpoint) with the VAE encoder; runs the
+Weights load once (from the model directory's safetensors, see
+weights.py) and stay on the device. A job runs the CLIP encoders over
+[negatives | prompts] in one batch; encodes the start image (masked first
+for a 9-channel inpaint checkpoint) with the VAE encoder; runs the
 classifier-free-guidance denoise loop (the UNet sees [uncond | cond] rows
-stacked, as the JAX program does) with any ported solver; then the VAE
-decode with the uint8 quantisation on the device. PyTorch runs eagerly,
-so the loop is a Python loop over steps.
+stacked, as the JAX program does; pix2pix [uncond | image | image+text])
+with any ported solver; then the VAE decode with the uint8 quantisation
+on the device. PyTorch runs eagerly, so the loop is a Python loop over
+steps.
 
 Modes, as in the JAX pipeline: `inpaint9` for a 9-channel UNet given a
 mask (the mask and the masked image's latents ride on the UNet's channel
 axis), else `inpaint` for a mask (latent masking: the kept region follows
-the original's noise trajectory), else `img2img` for an image, else
-`txt2img`. img2img and inpaint start from the image's latents noised to
-`t_start = int(steps * (1 - strength))`.
+the original's noise trajectory), else `pix2pix` for an image on an
+8-channel edit UNet (the image's unscaled latents ride on the channel
+axis, dual guidance), else `img2img` for an image, else `txt2img`.
+img2img and inpaint start from the image's latents noised to
+`t_start = int(steps * (1 - strength))`; pix2pix, like txt2img, from pure
+noise over every step.
 
 Noise: the initial latents, each step's ancestral noise and inpaint's
 keep noise come from one `torch.Generator` per job on the device, seeded
-with the job's seed. A caller may inject them instead (`latents`, NCHW,
-and `noise_fn(kind, i, shape)` for kind "step" and "keep"), which is how
-the tests hand the port the noise that the JAX pipeline drew.
+with the job's seed (a chained refiner continues the job's generator, as
+the JAX pipeline refines with the job's own key). A caller may inject
+them instead (`latents`, NCHW, and `noise_fn(kind, i, shape)` for kind
+"step" and "keep"; `refiner_latents` and `refiner_noise_fn` for the
+refiner's stage), which is how the tests hand the port the noise that
+the JAX pipeline drew.
 """
 
 from __future__ import annotations
@@ -43,14 +53,21 @@ from ..models.tokenizer import load_tokenizer
 from ..models.unet2d import UNet2DConditionModel
 from ..models.vae import AutoencoderKL
 from ..schedulers import SchedulerConfig, get_scheduler
-from ..weights import model_seed, random_init_, require_weights_present
+from ..weights import (
+    TEXT_ENCODER_FOLDERS,
+    checkpoint_folders,
+    find_checkpoint,
+    load_checkpoint_,
+    model_seed,
+    random_init_,
+)
 
 logger = logging.getLogger(__name__)
 
 # job arguments of the JAX pipeline whose features this slice lacks; a
 # job that sets one fails with a fatal envelope naming it
-_UNPORTED = ("lora", "controlnet_model_name", "refiner", "upscale", "textual_inversion",
-             "vae", "control_image")
+_UNPORTED = ("lora", "controlnet_model_name", "upscale", "textual_inversion", "vae",
+             "control_image")
 
 # model-name marks of families (and their tiny stand-ins) of later slices
 _LATER_FAMILIES = ("flux", "kandinsky", "cascade")
@@ -84,12 +101,13 @@ def family_configs(model_name: str, model_root_dir: str | None = None):
     config under `model_root_dir`, where there is one, overrides the
     prediction type for every family.
 
-    A name containing `inpaint` is a dedicated inpaint checkpoint: its
-    UNet takes 9 channels (latents, mask, masked-image latents)."""
+    The SDXL refiner (`xl` and `refiner` in the name) has its own UNet
+    and OpenCLIP-bigG alone. A name containing `pix2pix` or `ip2p` is an
+    edit checkpoint: its UNet takes 8 channels (latents, start-image
+    latents). Else a name containing `inpaint` is a dedicated inpaint
+    checkpoint: its UNet takes 9 channels (latents, mask, masked-image
+    latents)."""
     name = model_name.lower()
-    if "pix2pix" in name or "ip2p" in name:
-        raise ValueError(f"{model_name}: edit (instruct-pix2pix) checkpoints are not "
-                         "ported to chiaswarm_tpu_torch yet")
     if any(family in name for family in _LATER_FAMILIES):
         raise ValueError(f"{model_name}: this family is not ported to "
                          "chiaswarm_tpu_torch yet")
@@ -103,8 +121,7 @@ def family_configs(model_name: str, model_root_dir: str | None = None):
         out = (cfgs.SDXL_UNET, [cfgs.SDXL_CLIP_1, cfgs.SDXL_CLIP_2],
                cfgs.SDXL_VAE, 1024, "epsilon")
     elif family == "sdxl_refiner":
-        raise ValueError(f"{model_name}: the SDXL refiner (five time ids with the "
-                         "aesthetic score) is not ported to chiaswarm_tpu_torch yet")
+        out = cfgs.SDXL_REFINER_UNET, [cfgs.SDXL_CLIP_2], cfgs.SDXL_VAE, 1024, "epsilon"
     elif family == "sd21":
         pred = "v_prediction" if "768" in name or name.endswith("2-1") else "epsilon"
         out = cfgs.SD21_UNET, [cfgs.SD21_CLIP], cfgs.SD_VAE, 768, pred
@@ -112,7 +129,9 @@ def family_configs(model_name: str, model_root_dir: str | None = None):
         out = cfgs.SD15_UNET, [cfgs.SD15_CLIP], cfgs.SD_VAE, 512, "epsilon"
     unet_cfg, clip_cfgs, vae_cfg, size, pred = out
     pred = config_prediction_type(model_name, model_root_dir) or pred
-    if "inpaint" in name:
+    if "pix2pix" in name or "ip2p" in name:
+        unet_cfg = dataclasses.replace(unet_cfg, in_channels=2 * vae_cfg.latent_channels)
+    elif "inpaint" in name:
         unet_cfg = dataclasses.replace(unet_cfg,
                                        in_channels=2 * vae_cfg.latent_channels + 1)
     return unet_cfg, clip_cfgs, vae_cfg, size, pred
@@ -148,16 +167,18 @@ class _Timer:
 
 
 class SDPipeline:
-    """One SD-family model resident on one device; serves txt2img, img2img
-    and inpaint (4- or 9-channel, by the UNet's input channels)."""
+    """One SD-family model resident on one device; serves txt2img, img2img,
+    pix2pix (an 8-channel UNet) and inpaint (4- or 9-channel, by the UNet's
+    input channels)."""
 
     def __init__(self, model_name: str, device=None, dtype=None,
                  allow_random_init: bool = False, weights: dict | None = None,
                  model_root_dir: str | None = None):
         """`weights`: {"unet": sd, "text": [sd, ...], "vae": sd} state dicts
         in the port's key layout (weights.from_jax_params gives them);
-        without it the model is random-initialised from a seed, as the
-        policy in weights.py permits."""
+        without it the model loads from `<model_root_dir>/<model_name>/`, or
+        is random-initialised from a seed, as the policy in weights.py
+        says."""
         self.model_name = model_name
         self.device = resolve_device(device)
         self.dtype = dtype or serving_dtype(self.device)
@@ -166,8 +187,27 @@ class SDPipeline:
         self.is_xl = unet_cfg.addition_embed_dim > 0
         self.latent_factor = 2 ** (len(vae_cfg.block_out_channels) - 1)
         self.latent_channels = vae_cfg.latent_channels
-        # a dedicated inpaint checkpoint, told by its architecture as in JAX
+        # dedicated inpaint and edit checkpoints, told by their architecture
+        # as in JAX
         self.is_inpaint_unet = unet_cfg.in_channels == 2 * vae_cfg.latent_channels + 1
+        self.is_pix2pix = unet_cfg.in_channels == 2 * vae_cfg.latent_channels
+        # SDXL's micro-conditioning ids: what the addition embedding holds
+        # beyond the last encoder's pooled output (6 for the base, 5 for the
+        # refiner)
+        pooled_dim = clip_cfgs[-1].projection_dim or clip_cfgs[-1].hidden_size
+        self.n_time_ids = ((unet_cfg.addition_embed_dim - pooled_dim)
+                           // unet_cfg.addition_time_embed_dim if self.is_xl else 0)
+
+        model_dir = None
+        if model_root_dir:
+            candidate = Path(model_root_dir).expanduser() / model_name
+            model_dir = candidate if candidate.is_dir() else None
+        # the policy first: a production model without weights costs no
+        # device memory
+        files = None if weights is not None else find_checkpoint(
+            model_name, model_dir, checkpoint_folders(len(clip_cfgs)), allow_random_init)
+        # what was read from the model directory: {"dir", "bytes", "load_s"}
+        self.checkpoint = None
 
         t0 = time.perf_counter()
         with torch.device("meta"):
@@ -177,18 +217,23 @@ class SDPipeline:
         self.unet, self.vae = self._materialise(unet), self._materialise(vae)
         self.text_encoders = [self._materialise(e) for e in encoders]
 
-        model_dir = None
-        if model_root_dir:
-            candidate = Path(model_root_dir).expanduser() / model_name
-            model_dir = candidate if candidate.is_dir() else None
         if weights is not None:
             self.unet.load_state_dict(weights["unet"])
             for enc, sd in zip(self.text_encoders, weights["text"], strict=True):
                 enc.load_state_dict(sd)
             self.vae.load_state_dict(weights["vae"])
             self.weights_source = "given"
+        elif files is not None:
+            t_load = time.perf_counter()
+            nbytes = load_checkpoint_(self.unet, files["unet"], "unet")
+            nbytes += load_checkpoint_(self.vae, files["vae"], "vae")
+            for folder, enc, c in zip(TEXT_ENCODER_FOLDERS, self.text_encoders, clip_cfgs):
+                nbytes += load_checkpoint_(enc, files[folder], folder, text_layers=c.num_layers)
+            synchronize(self.device)
+            self.checkpoint = {"dir": str(model_dir), "bytes": nbytes,
+                               "load_s": time.perf_counter() - t_load}
+            self.weights_source = "checkpoint"
         else:
-            require_weights_present(model_name, model_dir, allow_random_init)
             gen = torch.Generator(device=self.device).manual_seed(model_seed(model_name))
             for module in (self.unet, *self.text_encoders, self.vae):
                 random_init_(module, gen)
@@ -198,9 +243,11 @@ class SDPipeline:
         self.tokenizers = [load_tokenizer(model_dir, vocab_size=c.vocab_size)
                            for c in clip_cfgs]
         synchronize(self.device)
-        logger.info("%s resident on %s in %.1fs (dtype=%s, weights=%s)", model_name,
+        logger.info("%s resident on %s in %.1fs (dtype=%s, weights=%s%s)", model_name,
                     device_label(self.device), time.perf_counter() - t0, self.dtype,
-                    self.weights_source)
+                    self.weights_source,
+                    f" from {model_dir}, {self.checkpoint['bytes']} bytes"
+                    if self.checkpoint else "")
 
     def _materialise(self, module):
         module = module.to_empty(device=self.device).to(self.dtype)
@@ -209,10 +256,13 @@ class SDPipeline:
 
     # --- stages ---
 
-    def _xl_time_ids(self, height: int, width: int) -> list:
+    def _xl_time_ids(self, height: int, width: int, aesthetic_score: float = 6.0) -> list:
         """SDXL micro-conditioning ids for this canvas: original size, crop
-        top-left, target size (the refiner's 5-id layout is not ported)."""
-        return [height, width, 0, 0, height, width]
+        top-left, then the target size (the base's six ids) or the
+        aesthetic score (the refiner's five)."""
+        if self.n_time_ids == 5:
+            return [height, width, 0, 0, float(aesthetic_score)]
+        return [height, width, 0, 0, height, width][:self.n_time_ids]
 
     def encode_prompts(self, prompts: list[str]):
         """-> (context [B, 77, D], pooled [B, P] or None), all encoders in
@@ -260,21 +310,39 @@ class SDPipeline:
             height: int | None = None, width: int | None = None,
             num_images_per_prompt: int = 1,
             scheduler_type: str = "DPMSolverMultistepScheduler",
-            seed: int | None = None, image: Image.Image | None = None,
+            seed: int | None = None, image=None,
             mask_image: Image.Image | None = None, strength: float = 0.75,
-            latents=None, noise_fn=None, **kwargs):
+            image_guidance_scale: float | None = None, aesthetic_score: float = 6.0,
+            refiner: dict | None = None, registry=None, generator=None,
+            latents=None, noise_fn=None, refiner_latents=None, refiner_noise_fn=None,
+            **kwargs):
         """One job -> (list of uint8 [H, W, 3] arrays, pipeline_config).
 
-        `image` starts img2img, with `mask_image` inpaint (white repaints).
-        `latents` [N, C, H/8, W/8] replaces the seeded initial draw, and
-        `noise_fn(kind, i, shape)` the seeded draws of each step's
-        ancestral noise ("step") and of inpaint's keep noise ("keep")."""
+        `image` (one PIL image, or a list of them, one per output image)
+        starts img2img, or pix2pix on an edit checkpoint (guided by
+        `image_guidance_scale`, 1.5 unset); with `mask_image` inpaint
+        (white repaints). `aesthetic_score` is the refiner's fifth time id.
+        `refiner` {"model_name", "strength" (0.3)} re-enters the output into
+        that model's pipeline, which `registry` resolves, as img2img with the
+        job's prompts, steps, guidance and scheduler.
+        `generator` replaces the job's seeded generator; `latents` [N, C,
+        H/8, W/8] the initial draw, and `noise_fn(kind, i, shape)` the draws
+        of each step's ancestral noise ("step") and of inpaint's keep noise
+        ("keep"); `refiner_latents` and `refiner_noise_fn` the same for the
+        refiner's stage."""
+        if self.is_pix2pix and image is not None and kwargs.get("controlnet_model_name"):
+            raise ValueError("ControlNet is not supported with instruct-pix2pix models")
         for key in _UNPORTED:
             if kwargs.get(key):
                 raise ValueError(f"{key!r} is not supported by chiaswarm_tpu_torch yet")
         timings: dict[str, float] = {}
         steps = int(num_inference_steps)
         n = int(num_images_per_prompt)
+        starts = None
+        if isinstance(image, (list, tuple)):
+            # distinct start images, one per output image
+            starts, n = list(image), len(image)
+            image = starts[0]
         guidance_scale = float(guidance_scale)
         if height is None and image is not None:
             width, height = image.size
@@ -286,8 +354,14 @@ class SDPipeline:
             if image is None:
                 raise ValueError("inpaint requires an init image. None provided")
             mode = "inpaint9" if self.is_inpaint_unet else "inpaint"
+        elif image is not None and self.is_pix2pix:
+            mode = "pix2pix"
+            if image_guidance_scale is None:
+                image_guidance_scale = 1.5  # the edit checkpoints' default
         else:
             mode = "txt2img" if image is None else "img2img"
+        # pix2pix guides over [uncond | image only | image and text]
+        cfg_rows = 3 if mode == "pix2pix" else 2
         t_start = 0
         if mode in ("img2img", "inpaint"):
             t_start = min(max(int(steps * (1.0 - float(strength))), 0), steps - 1)
@@ -298,17 +372,19 @@ class SDPipeline:
 
         with _Timer(self.device, timings, "text_encode_s"):
             context, pooled = self.encode_prompts([negative_prompt] * n + [prompt] * n)
+            if cfg_rows == 3:
+                context = torch.cat([context[:n], context])
             added = None
             if self.is_xl:
-                ids = self._xl_time_ids(height, width)
+                ids = self._xl_time_ids(height, width, aesthetic_score)
                 added = {
-                    "text_embeds": pooled,
-                    "time_ids": torch.tensor([ids] * (2 * n), dtype=torch.float32,
+                    "text_embeds": torch.cat([pooled[:n]] * (cfg_rows - 1) + [pooled[n:]]),
+                    "time_ids": torch.tensor([ids] * (cfg_rows * n), dtype=torch.float32,
                                              device=self.device),
                 }
 
         shape = (n, self.latent_channels, lh, lw)
-        gen = torch.Generator(device=self.device).manual_seed(int(seed or 0))
+        gen = generator or torch.Generator(device=self.device).manual_seed(int(seed or 0))
 
         def draw(kind: str, i: int):
             if noise_fn is None:
@@ -322,7 +398,7 @@ class SDPipeline:
         image_latents = mask = None
         if image is not None:
             with _Timer(self.device, timings, "image_encode_s"):
-                pixels = _pil_to_array(image, width, height)[None]
+                pixels = np.stack([_pil_to_array(im, width, height) for im in starts or [image]])
                 if mode == "inpaint9":
                     # the 9-channel checkpoint conditions on the masked
                     # image: the repaint region is blanked before encoding
@@ -331,6 +407,10 @@ class SDPipeline:
                     pixels = pixels * (mask_px <= 0.5).astype(np.float32)
                 # one start image for the whole batch: encoded once
                 image_latents = self.encode_image(pixels).expand(shape)
+                if mode == "pix2pix":
+                    # the edit checkpoint conditions on the latent
+                    # distribution's unscaled mean
+                    image_latents = image_latents / self.vae.config.scaling_factor
         if mask_image is not None:
             m = _mask_to_latent_array(mask_image, width, height, self.latent_factor)
             mask = torch.from_numpy(m.transpose(2, 0, 1)[None]).to(self.device).expand(
@@ -346,17 +426,30 @@ class SDPipeline:
             state = scheduler.init_state(latents)
             if mode == "inpaint9":
                 cond9 = torch.cat([mask, image_latents], dim=1)
+            elif mode == "pix2pix":
+                # zeros on the uncond row: image guidance pulls away from a
+                # true no-image baseline
+                cond_rows = torch.cat([torch.zeros_like(image_latents), image_latents,
+                                       image_latents])
             for i in range(start, end):
                 inp = scheduler.scale_model_input(schedule, latents, i)
                 if mode == "inpaint9":
                     inp = torch.cat([inp, cond9], dim=1)
-                model_in = torch.cat([inp, inp]).to(self.dtype).contiguous(
-                    memory_format=torch.channels_last)
-                t_vec = torch.full((2 * n,), float(schedule.timesteps[i]),
+                model_in = torch.cat([inp] * cfg_rows)
+                if mode == "pix2pix":
+                    model_in = torch.cat([model_in, cond_rows], dim=1)
+                model_in = model_in.to(self.dtype).contiguous(memory_format=torch.channels_last)
+                t_vec = torch.full((cfg_rows * n,), float(schedule.timesteps[i]),
                                    device=self.device)
                 out = self.unet(model_in, t_vec, context, added_cond=added).float()
-                out_u, out_c = out.chunk(2)
-                guided = out_u + guidance_scale * (out_c - out_u)
+                if mode == "pix2pix":
+                    # dual guidance (InstructPix2Pix eq. 3)
+                    out_u, out_i, out_c = out.chunk(3)
+                    guided = (out_u + guidance_scale * (out_c - out_i)
+                              + float(image_guidance_scale) * (out_i - out_u))
+                else:
+                    out_u, out_c = out.chunk(2)
+                    guided = out_u + guidance_scale * (out_c - out_u)
                 noise = draw("step", i) if scheduler.uses_ancestral_noise else None
                 state, latents = scheduler.step(schedule, state, i, latents, guided, noise)
                 if mode == "inpaint":
@@ -371,6 +464,22 @@ class SDPipeline:
         finite = bool(torch.isfinite(latents).all())
         absmax = float(latents.abs().max())
         timings["unet_step_ms"] = 1000.0 * timings["denoise_s"] / max(end - start, 1)
+
+        if refiner is not None:
+            # the SDXL refiner stage: the output re-enters a second resident
+            # pipeline as img2img, on the job's generator
+            if registry is None:
+                raise ValueError("a refiner stage needs the worker's pipeline registry")
+            t0 = time.perf_counter()
+            refiner_pipe = registry.get_pipeline(refiner["model_name"])
+            refined, _ = refiner_pipe.run(
+                prompt=prompt, negative_prompt=negative_prompt,
+                strength=float(refiner.get("strength", 0.3)), num_inference_steps=steps,
+                guidance_scale=guidance_scale, scheduler_type=scheduler_type,
+                image=[Image.fromarray(px) for px in pixels], generator=gen,
+                latents=refiner_latents, noise_fn=refiner_noise_fn)
+            pixels = np.stack(refined)
+            timings["refiner_s"] = time.perf_counter() - t0
         timings["pipeline_s"] = time.perf_counter() - t_job
 
         pipeline_config = {
@@ -383,6 +492,12 @@ class SDPipeline:
             "guidance_scale": guidance_scale,
             **({"strength": float(strength), "t_start": t_start}
                if mode in ("img2img", "inpaint") else {}),
+            **({"image_guidance_scale": float(image_guidance_scale)}
+               if mode == "pix2pix" else {}),
+            # a pix2pix job on a checkpoint that is not an edit checkpoint
+            # runs as plain img2img, and says so
+            **({"approximated_as": "img2img"}
+               if image_guidance_scale is not None and mode == "img2img" else {}),
             "backend": f"torch-{self.device.type}",
             "device": device_label(self.device),
             "dtype": str(self.dtype).replace("torch.", ""),

@@ -1,37 +1,60 @@
 """Pipeline residency: model name -> resident pipeline on one device.
 
 The counterpart of chiaswarm_tpu/registry.py for the one family the port
-serves (SD: SD 1.x, SD 2.x, SDXL and the tiny test models). A `Registry`
-is an object that the worker owns, not process-global state: the worker
-builds it for its device, and a caller may pre-build a pipeline into it
-(chip_smoke.py does, for a model that runs on random weights). Its
-pipelines read each checkpoint's scheduler config (the prediction type)
-under `model_root_dir`.
+serves (SD: SD 1.x, SD 2.x, SDXL base and refiner, the edit checkpoints
+and the tiny test models). A `Registry` is an object that the worker
+owns, not process-global state: the worker builds it for its device, and
+a caller may pre-build a pipeline into it (chip_smoke.py does, for a
+model that runs on random weights). Its pipelines load their weights and
+read each checkpoint's scheduler config (the prediction type) under
+`model_root_dir`.
+
+At most MAX_RESIDENT_PIPELINES stay resident, as in the JAX package: a
+build past the limit evicts the least recently used pipeline (a fetch
+refreshes its recency). An eviction drops the registry's reference only;
+a job that still runs on the evicted pipeline keeps it alive until it
+ends, and its device memory returns when the last reference goes.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
+from collections import OrderedDict
+
+import torch
 
 from .pipelines.stable_diffusion import SDPipeline
+
+logger = logging.getLogger(__name__)
+
+MAX_RESIDENT_PIPELINES = 4
 
 
 class Registry:
     def __init__(self, device, model_root_dir: str | None = None):
         self.device = device
         self.model_root_dir = model_root_dir
-        self._pipelines: dict[str, SDPipeline] = {}
+        self._pipelines: OrderedDict[str, SDPipeline] = OrderedDict()
         self._lock = threading.Lock()
 
     def get_pipeline(self, model_name: str, allow_random_init: bool = False) -> SDPipeline:
         """The resident pipeline for `model_name`, built on first use."""
         with self._lock:
             pipe = self._pipelines.get(model_name)
-            if pipe is None:
-                pipe = SDPipeline(model_name, device=self.device,
-                                  allow_random_init=allow_random_init,
-                                  model_root_dir=self.model_root_dir)
-                self._pipelines[model_name] = pipe
+            if pipe is not None:
+                self._pipelines.move_to_end(model_name)
+                return pipe
+            pipe = SDPipeline(model_name, device=self.device,
+                              allow_random_init=allow_random_init,
+                              model_root_dir=self.model_root_dir)
+            self._pipelines[model_name] = pipe
+            evicted = [self._pipelines.popitem(last=False)[0]
+                       for _ in range(len(self._pipelines) - MAX_RESIDENT_PIPELINES)]
+            if evicted:
+                logger.info("evicted resident pipelines %s", evicted)
+                if torch.device(self.device).type == "cuda":
+                    torch.cuda.empty_cache()
             return pipe
 
     def resident_models(self) -> list[str]:

@@ -1,25 +1,35 @@
-"""Weights: the random-init policy, seeded random init, and conversion of
-the JAX package's parameter trees into the port's state dicts.
+"""Weights: the load-or-random-init policy, the diffusers checkpoint loader,
+seeded random init, and conversion of the JAX package's parameter trees
+into the port's state dicts.
 
-Policy (a copy of chiaswarm_tpu/weights.py):
+Policy (a copy of chiaswarm_tpu/weights.py and of the JAX pipeline's
+`_load_params`):
 
-- `test/*` and `*tiny*` model names: random init is the point (hermetic
-  CPU tests, `test_tiny_model` jobs) and is always allowed.
-- anything else: missing weights raise `MissingWeightsError`, a
-  ValueError, so the worker returns a fatal envelope and the hive does
-  not resubmit.
-- benchmarks and bring-up opt in explicitly with `allow_random_init=True`
-  (speed does not depend on weight values).
+- `<model_root_dir>/<name>/` exists: its `unet/`, `vae/` and
+  `text_encoder/` (`text_encoder_2/` for a second encoder) safetensors
+  load, every `*.safetensors` of a folder in sorted order. A folder
+  without safetensors gives random init where the name allows it (below)
+  and `MissingWeightsError` where it does not; a file that is present but
+  broken raises `CheckpointError` and never falls back.
+- no model directory: `test/*` and `*tiny*` model names, and callers that
+  pass `allow_random_init=True` (benchmarks, bring-up: speed does not
+  depend on weight values), get seeded random init; anything else raises
+  `MissingWeightsError`, a ValueError, so the worker returns a fatal
+  envelope and the hive does not resubmit.
+
+The port's modules use diffusers / transformers key names, so a
+checkpoint loads without a rename; the loader makes only the fix-ups of
+chiaswarm_tpu/models/conversion.py (`checkpoint_key`, `checkpoint_tensor`).
 
 `from_jax_params` inverts chiaswarm_tpu/models/conversion.py's
 `convert_unet` / `convert_vae` / `convert_clip`: flax paths become
 diffusers / transformers key names again, HWIO conv kernels become OIHW
-and Dense [in, out] kernels become Linear [out, in]. The port's modules
-use those key names, so a diffusers state dict loads without conversion.
+and Dense [in, out] kernels become Linear [out, in].
 """
 
 from __future__ import annotations
 
+import logging
 import math
 import re
 import zlib
@@ -31,9 +41,21 @@ from torch import nn
 
 from .models.layers import FusedGroupNorm
 
+logger = logging.getLogger(__name__)
+
+# a checkpoint's text-encoder folders, by the encoder's position
+TEXT_ENCODER_FOLDERS = ("text_encoder", "text_encoder_2")
+
 
 class MissingWeightsError(ValueError):
     """Model weights are not present on this worker (fatal job error)."""
+
+
+class CheckpointError(RuntimeError):
+    """A checkpoint file that is present but does not load: unreadable, a
+    key the module lacks, a shape that differs, or a parameter that no
+    file holds. Not a ValueError: another worker's files may be whole, so
+    the hive may resubmit the job."""
 
 
 def is_test_model(model_name: str) -> bool:
@@ -54,8 +76,9 @@ def require_weights_present(model_name: str, model_dir: Path | None,
         return True
     where = f" (looked in {model_dir})" if model_dir is not None else ""
     if hint is None:
-        hint = ("chiaswarm_tpu_torch does not load checkpoints yet; serve "
-                "test/tiny models or pass allow_random_init=True.")
+        hint = ("Put its diffusers-layout safetensors under <model_root_dir>/<name>/"
+                "{unet,vae,text_encoder[_2]}/, serve test/tiny models, or pass "
+                "allow_random_init=True.")
     raise MissingWeightsError(
         f"{component} weights for '{model_name}' are not present on this "
         f"worker{where}. {hint}")
@@ -84,6 +107,101 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> None:
             p.zero_()
         else:
             p.normal_(0.0, 1.0 / math.sqrt(p[0].numel()), generator=generator)
+
+
+# --- diffusers checkpoints ---
+
+def checkpoint_folders(n_encoders: int) -> tuple[str, ...]:
+    """The folders of a model directory that the pipeline loads."""
+    return ("unet", "vae", *TEXT_ENCODER_FOLDERS[:n_encoders])
+
+
+def find_checkpoint(model_name: str, model_dir: Path | None, folders,
+                    allow_random_init: bool) -> dict[str, list[Path]] | None:
+    """{folder: sorted safetensors files} to load, or None for random init
+    (raises MissingWeightsError where the policy forbids it)."""
+    if model_dir is None:
+        require_weights_present(model_name, None, allow_random_init)
+        return None
+    files = {}
+    for folder in folders:
+        files[folder] = sorted((model_dir / folder).glob("*.safetensors"))
+        if not files[folder]:
+            require_weights_present(model_name, model_dir, allow_random_init)
+            logger.warning("no safetensors under %s; falling back to random init",
+                           model_dir / folder)
+            return None
+    return files
+
+
+_LEGACY_VAE_ATTENTION = ((".query.", ".to_q."), (".key.", ".to_k."), (".value.", ".to_v."),
+                         (".proj_attn.", ".to_out.0."))
+_TEXT_LAYER = re.compile(r"text_model\.encoder\.layers\.(\d+)\.")
+
+
+def checkpoint_key(key: str, folder: str, text_layers: int | None = None) -> str | None:
+    """A checkpoint key -> the port's, or None for one that is dropped:
+    `position_ids` buffers, and text-encoder layers past the config's
+    `text_layers` (SD 2.x's OpenCLIP-H files hold 24, the port runs 23).
+    The VAE's legacy attention names (query/key/value/proj_attn) become
+    diffusers' (to_q/to_k/to_v/to_out.0)."""
+    if key.endswith("position_ids"):
+        return None
+    if text_layers is not None:
+        layer = _TEXT_LAYER.match(key)
+        if layer and int(layer.group(1)) >= text_layers:
+            return None
+    if folder == "vae":
+        for old, new in _LEGACY_VAE_ATTENTION:
+            key = key.replace(old, new)
+    return key
+
+
+def checkpoint_tensor(name: str, tensor: torch.Tensor) -> torch.Tensor:
+    """SD 1.x's transformer `proj_in` / `proj_out` are 1x1 convolutions
+    [C, C, 1, 1] in its files; the port's are Linear [C, C]."""
+    if (name.endswith(("proj_in.weight", "proj_out.weight")) and tensor.ndim == 4
+            and tuple(tensor.shape[2:]) == (1, 1)):
+        return tensor[:, :, 0, 0]
+    return tensor
+
+
+@torch.no_grad()
+def load_checkpoint_(module: nn.Module, files: list[Path], folder: str,
+                     text_layers: int | None = None) -> int:
+    """Copy one folder's safetensors into `module`'s own parameters, cast to
+    their dtype, one tensor at a time (no second copy of the module on its
+    device): a strict load, so a key the module lacks, a shape that
+    differs or a parameter that no file holds raises CheckpointError,
+    naming the key and the file. -> bytes read."""
+    from safetensors import SafetensorError, safe_open
+
+    targets = module.state_dict()  # views of the parameters
+    loaded = set()
+    for path in files:
+        try:
+            with safe_open(str(path), framework="pt") as f:
+                for key in f.keys():
+                    name = checkpoint_key(key, folder, text_layers)
+                    if name is None:
+                        continue
+                    if name not in targets:
+                        raise CheckpointError(f"{path}: unexpected key {key!r} (the {folder} "
+                                              "module has no such parameter)")
+                    tensor = checkpoint_tensor(name, f.get_tensor(key))
+                    if tensor.shape != targets[name].shape:
+                        raise CheckpointError(
+                            f"{path}: {key!r} has shape {tuple(tensor.shape)}, the {folder} "
+                            f"module's {name!r} {tuple(targets[name].shape)}")
+                    targets[name].copy_(tensor)
+                    loaded.add(name)
+        except (SafetensorError, OSError) as e:
+            raise CheckpointError(f"{path}: unreadable safetensors file ({e})") from e
+    missing = sorted(set(targets) - loaded)
+    if missing:
+        raise CheckpointError(f"{files[0].parent}: {len(missing)} {folder} parameters in no "
+                              f"file, e.g. {missing[:3]}")
+    return sum(path.stat().st_size for path in files)
 
 
 # --- JAX parameter tree -> port state dicts ---

@@ -1,7 +1,8 @@
 """Stable-diffusion-family workload callback, the counterpart of
 chiaswarm_tpu/workflows/diffusion.py `diffusion_callback`: resolve the
-resident pipeline, run the job (txt2img, or img2img and inpaint with the
-start image and mask that job_arguments fetched), package the images.
+resident pipeline, run the job (txt2img, or img2img, pix2pix and inpaint
+with the start image and mask that job_arguments fetched; a `refiner`
+stage resolves its pipeline in the same registry), package the images.
 
 The safety checker is a model of its own that the port does not have
 yet: envelopes say `nsfw_checked: false`, as the JAX package's
@@ -48,7 +49,8 @@ def diffusion_callback(device_identifier: str, model_name: str, *, registry, **k
         model_name = tiny_stand_in(model_name)
     pipeline_type = kwargs.pop("pipeline_type", "DiffusionPipeline")
     pipeline = registry.get_pipeline(model_name)
-    images, pipeline_config = pipeline.run(pipeline_type=pipeline_type, **kwargs)
+    images, pipeline_config = pipeline.run(pipeline_type=pipeline_type, registry=registry,
+                                           **kwargs)
 
     t0 = time.perf_counter()
     pipeline_config["nsfw"] = False

@@ -24,7 +24,10 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
    SD 1.x 512^2 and SD 2.x 768^2 UNet calls and of their VAE at those
    canvases (attention in bf16 and f32), and the tile edges at D = 40, 80
    and 160 (Sq 1000 against Skv 77, 1000 and 4095, Sq 40, B*H of 1). Every
-   bf16 attention call at D = 40, 64, 80, 160 or 512 must report the
+   attention and GroupNorm shape of an SD 1.5 pix2pix UNet call at 512^2
+   and an SDXL pix2pix one at 768^2 (3 CFG rows) and of an SDXL refiner
+   UNet call at 1024^2 (GroupNorm at C = 384 to 3072), in bf16 and f32.
+   Every bf16 attention call at D = 40, 64, 80, 160 or 512 must report the
    tensor-core route, not the FMA kernel.
 4. Small-input reference: the tiny SDXL-shaped pipeline in f32 on the card
    (kernels) against the same weights and latents on the CPU (plain
@@ -36,6 +39,13 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
    encoded clean latents bit for bit where the mask keeps the image.
    test/tiny-sd (SD 1.x / 2.x structure) and a tiny SD model whose
    scheduler config says v_prediction, card against CPU within 2/255.
+   Then the tiny models' weights written as safetensors (test/tiny-sd's in
+   the legacy layout: 1x1-conv proj_in, the VAE's query/key/value/proj_attn,
+   position_ids, a spare CLIP layer) and served from there by a Registry on
+   the card (f32) and one on the CPU: test/tiny-pix2pix and
+   test/tiny-xl-pix2pix pix2pix jobs, test/tiny-xl with test/tiny-xl-refiner
+   chained, test/tiny-sd txt2img; each must report weights loaded from the
+   checkpoint, and the images agree within 2/255.
 5. Main path: a fake hive on localhost, the port's worker, and the
    full-width stabilityai/stable-diffusion-xl-base-1.0 pipeline on seeded
    random weights; three 1024^2 30-step DPM++ 2M txt2img jobs and one echo
@@ -56,8 +66,24 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
    2M) and img2img (Euler ancestral, strength 0.75) at 512^2, the
    9-channel runwayml/stable-diffusion-inpainting (UniPC) at 512^2, and
    stabilityai/stable-diffusion-2-1 txt2img at 768^2 with v-prediction
-   (DPM++ 2M), all 30 steps on seeded random weights. No served bf16
-   attention may take the FMA kernel.
+   (DPM++ 2M), all 30 steps on seeded random weights, in a registry of
+   their own. Then the edit path, counted the same way: timbrooks/instruct-
+   pix2pix at 512^2 and diffusers/sdxl-instructpix2pix-768 at 768^2 from the
+   fake hive's start image at strength 0.3 (image guidance 1.5, 30 UNet
+   calls of 3 CFG rows), and an SDXL base txt2img job at 1024^2 with
+   stabilityai/stable-diffusion-xl-refiner-1.0 chained (strength 0.3: 9
+   refiner UNet calls of 88 attention and 56 GroupNorm launches, and the
+   refiner's encode and decode). Then the checkpoint path: SD 1.5's seeded
+   full-width weights written as fp16 safetensors in diffusers layout (SD
+   1.x's 1x1-conv proj_in / proj_out) under a temporary model root, one
+   512^2 txt2img job served through the worker's Registry over that root
+   (load time and bytes read printed), its image equal bit for bit to the
+   same job on a pipeline given the same fp16 tensors through `weights=`;
+   then four tiny models fill the registry, the fifth evicts SD 1.5 (the
+   least recently used), the device's allocated memory must fall by SD
+   1.5's bytes less the tiny model's (within 10% of SD 1.5's), and a second
+   job rebuilds SD 1.5 from its files with the first job's image bit for
+   bit. No served bf16 attention may take the FMA kernel.
 6. Each kernel at every shape any path launched it with: again held
    against its plain version, and timed (CUDA events) beside its plain
    version and one PyTorch library call computing the same function, each
@@ -72,10 +98,12 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
    path's shapes in bf16 through the kernels, against the same weights in
    f32 on the plain path: the relative RMS error may be at most 1.25x
    that of the plain path in bf16. The same for one SD 1.5 UNet call at
-   512^2 and one SD 2.1 UNet call at 768^2.
+   512^2, one SD 2.1 UNet call at 768^2, one SDXL refiner UNet call at
+   1024^2 and one SD 1.5 pix2pix UNet call (3 CFG rows, 8 input channels)
+   at 512^2.
 8. A few UNet calls, one VAE decode and one VAE encode at the main path's
-   shapes, and a few SD 1.5 and SD 2.1 UNet calls at theirs, timed by the
-   host's clock and then under torch.profiler: device time and launches
+   shapes, and a few SD 1.5, SD 2.1, refiner and SD 1.5 pix2pix UNet calls
+   at theirs, timed by the host's clock and then under torch.profiler: device time and launches
    by kernel category (attention's share of the device time), the
    GroupNorm kernels one by one, and the device's busy share. Each
    GroupNorm call must be exactly one kernel launch.
@@ -120,6 +148,9 @@ SDXL_INPAINT = "diffusers/stable-diffusion-xl-1.0-inpainting-0.1"
 SD15 = "runwayml/stable-diffusion-v1-5"
 SD15_INPAINT = "runwayml/stable-diffusion-inpainting"
 SD21 = "stabilityai/stable-diffusion-2-1"
+REFINER = "stabilityai/stable-diffusion-xl-refiner-1.0"
+SD15_P2P = "timbrooks/instruct-pix2pix"
+SDXL_P2P = "diffusers/sdxl-instructpix2pix-768"
 # a tiny SD model whose scheduler config (written by phase 4) says v_prediction
 TINY_V = "test/tiny-sd-v"
 # SD 1.x and SD 2.x at their canvases (phases 7 and 8)
@@ -446,24 +477,70 @@ UNET_ATTENTION = {
     "sdxl": ((320, 640, 1280), (0, 2, 10), (5, 10, 20), 10, 1024),
     "sd15": ((320, 640, 1280, 1280), (1, 1, 1, 0), (8, 8, 8, 8), 1, 512),
     "sd21": ((320, 640, 1280, 1280), (1, 1, 1, 0), (5, 10, 20, 20), 1, 768),
+    "refiner": ((384, 768, 1536, 1536), (0, 4, 4, 0), (6, 12, 24, 24), 4, 1024),
 }
 
 
-def attention_shapes(model: str) -> Counter:
+def attention_shapes(model: str, rows: int = 2, size: int | None = None) -> Counter:
     """{(q shape, kv shape, dtype): launches} of one bf16 UNet call of
-    `model` (CFG batch 2, 77 context tokens, two resnets a down block and
-    three an up block, each with its transformer, every transformer layer
-    one self- and one cross-attention)."""
-    channels, layers, heads, mid, size = UNET_ATTENTION[model]
+    `model` at `size` (its canvas unless given) with `rows` CFG rows (2;
+    pix2pix 3), 77 context tokens, two resnets a down block and three an
+    up block, each with its transformer, every transformer layer one self-
+    and one cross-attention."""
+    channels, layers, heads, mid, canvas = UNET_ATTENTION[model]
     shapes = Counter()
-    side = size // 8
+    side = (size or canvas) // 8
     for level, (ch, n, h) in enumerate(zip(channels, layers, heads)):
-        q = (2, (side >> level) ** 2, h, ch // h)
+        q = (rows, (side >> level) ** 2, h, ch // h)
         calls = n * 5 + (mid if level == len(channels) - 1 else 0)
         if calls:
             shapes[(q, q, torch.bfloat16)] += calls
-            shapes[(q, (2, 77, h, ch // h), torch.bfloat16)] += calls
+            shapes[(q, (rows, 77, h, ch // h), torch.bfloat16)] += calls
     return shapes
+
+
+def unet_norms(model: str, rows: int = 2, size: int | None = None) -> list:
+    """Every distinct GroupNorm call (x, silu, eps) of one UNet call of
+    `model` (UNET_ATTENTION's structure) at `size` with `rows` CFG rows:
+    each resnet's two norms (its input's channels, then its output's; an
+    up block's resnets take the skip concatenated), each transformer's
+    input norm (eps 1e-6, no SiLU) and the output norm."""
+    channels, layers, _, _, canvas = UNET_ATTENTION[model]
+    side = (size or canvas) // 8
+    calls = {}
+
+    def norm(c, s, silu=True):
+        key = ((rows, s, s, c), silu, 1e-5 if silu else 1e-6)
+        calls[key] = None
+
+    ch, skips = channels[0], [channels[0]]
+    for level, (out, n) in enumerate(zip(channels, layers)):
+        for _ in range(2):
+            norm(ch, side >> level)
+            norm(out, side >> level)
+            if n:
+                norm(out, side >> level, silu=False)
+            ch = out
+            skips.append(out)
+        if level < len(channels) - 1:
+            skips.append(out)
+    norm(ch, side >> (len(channels) - 1))
+    norm(ch, side >> (len(channels) - 1), silu=False)
+    for level in reversed(range(len(channels))):
+        out = channels[level]
+        for _ in range(3):
+            norm(ch + skips.pop(), side >> level)
+            norm(out, side >> level)
+            if layers[level]:
+                norm(out, side >> level, silu=False)
+            ch = out
+    norm(channels[0], side)
+    return list(calls)
+
+
+# the pix2pix jobs' UNet calls (3 CFG rows) and the refiner's: (model key,
+# rows, canvas)
+EDIT_CALLS = (("sd15", 3, 512), ("sdxl", 3, 768), ("refiner", 2, 1024))
 
 
 def vae_attention_shape(model: str) -> tuple:
@@ -537,12 +614,39 @@ def attention_checks(gen) -> None:
             + f" (bound {row['bound']})")
 
 
+def edit_checks(gen) -> None:
+    """Phase 3 for the pix2pix and refiner calls: every attention and
+    GroupNorm shape of an SD 1.5 pix2pix UNet call at 512^2 and an SDXL one
+    at 768^2 (3 CFG rows), and of an SDXL refiner UNet call at 1024^2
+    (C = 384 to 3072, its skip concatenations at 128^2 and 64^2), each in
+    bf16 and f32. Each bf16 attention call must report the tensor-core
+    route."""
+    for model, rows, size in EDIT_CALLS:
+        for q_shape, k_shape, _ in attention_shapes(model, rows, size):
+            for dtype in (torch.bfloat16, torch.float32):
+                row = attention_case(q_shape, k_shape, dtype, gen, timed=False)
+                log(f"[check] flash_attention q{q_shape} kv{k_shape} {row['dtype']} route "
+                    f"{row['route']} ({model}, {rows} rows, {size}^2): max_abs_err "
+                    f"{row['max_abs_err']:.3g}"
+                    + (f", RMS err {row['rms_err']:.3g}" if "rms_err" in row else "")
+                    + f" (bound {row['bound']})")
+        for x_shape, silu, eps in unet_norms(model, rows, size):
+            for dtype in (torch.bfloat16, torch.float32):
+                row = gn_case(x_shape, dtype, silu, gen, timed=False, eps=eps)
+                log(f"[check] group_norm x{x_shape} {row['dtype']} silu={silu} eps {eps:g} "
+                    f"({model}, {rows} rows, {size}^2): max_abs_err {row['max_abs_err']:.3g} "
+                    f"(bound {row['bound']})"
+                    + (f", on chip: {row['on_chip']}" if "on_chip" in row else ""))
+
+
 def kernel_checks() -> None:
-    """Phase 3: attention (attention_checks), and GroupNorm at the shapes
-    of the served paths and the edges of its launch plan."""
+    """Phase 3: attention (attention_checks), GroupNorm at the shapes of the
+    served paths and the edges of its launch plan, and both at the pix2pix
+    and refiner calls (edit_checks)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf, f32 = torch.bfloat16, torch.float32
     attention_checks(gen)
+    edit_checks(gen)
     norms = [((2, 128, 128, c), bf, True) for c in (320, 640)]
     norms += [((2, 64, 64, c), bf, True) for c in (640, 960, 1280, 1920)]
     norms += [((2, 32, 32, c), bf, True) for c in (1280, 1920, 2560)]
@@ -638,6 +742,129 @@ def tiny_sd_checks(device: str = "cuda", size: int = 128) -> dict:
         config.mkdir(parents=True)
         (config / "scheduler_config.json").write_text('{"prediction_type": "v_prediction"}')
         result[TINY_V] = tiny_reference_check(device, size, TINY_V, root, "v_prediction")
+    return result
+
+
+class Resident:
+    """A stand-in for the worker's registry over pipelines built by hand."""
+
+    def __init__(self, pipelines: dict):
+        self.pipelines = pipelines
+
+    def get_pipeline(self, model_name: str, allow_random_init: bool = False):
+        return self.pipelines[model_name]
+
+
+def write_checkpoint(pipe, model_dir: Path, dtype=None, legacy: bool = False) -> int:
+    """`pipe`'s weights as safetensors in a model directory's diffusers
+    layout (unet/, vae/, text_encoder[_2]/), cast to `dtype` (the
+    pipeline's own unset). Transformer `proj_in` / `proj_out` are written as
+    SD 1.x's 1x1 convolutions [C, C, 1, 1]; with `legacy`, also the VAE's
+    attention as query/key/value/proj_attn, `position_ids` buffers and one
+    text-encoder layer past the config's. -> bytes written."""
+    from safetensors.torch import save_file
+
+    parts = {"unet": pipe.unet, "vae": pipe.vae}
+    for i, enc in enumerate(pipe.text_encoders):
+        parts["text_encoder" + ("_2" if i else "")] = enc
+    written = 0
+    for folder, module in parts.items():
+        state = {}
+        for key, value in module.state_dict().items():
+            value = value.detach().to("cpu", dtype or value.dtype).contiguous()
+            if key.endswith(("proj_in.weight", "proj_out.weight")):
+                value = value[:, :, None, None].contiguous()
+            if legacy and folder == "vae":
+                for new, old in ((".to_q.", ".query."), (".to_k.", ".key."),
+                                 (".to_v.", ".value."), (".to_out.0.", ".proj_attn.")):
+                    key = key.replace(new, old)
+            state[key] = value
+        if legacy and folder.startswith("text_encoder"):
+            state["text_model.embeddings.position_ids"] = torch.arange(77)[None]
+            spare = f"text_model.encoder.layers.{module.config.num_layers}."
+            first = "text_model.encoder.layers.0."
+            state.update({spare + k[len(first):]: v.clone() for k, v in state.items()
+                          if k.startswith(first)})
+        (model_dir / folder).mkdir(parents=True, exist_ok=True)
+        path = model_dir / folder / "diffusion_pytorch_model.safetensors"
+        save_file(state, str(path))
+        written += path.stat().st_size
+    return written
+
+
+TINY_EDIT_MODELS = ("test/tiny-pix2pix", "test/tiny-xl-pix2pix", "test/tiny-xl",
+                    "test/tiny-xl-refiner", "test/tiny-sd")
+
+
+def tiny_edit_checks(device: str = "cuda", size: int = 64, steps: int = 4) -> dict:
+    """Phase 4 for checkpoints, pix2pix and the refiner: the tiny models'
+    seeded weights written as safetensors under a temporary model root
+    (test/tiny-sd's in the legacy layout), then loaded from there by
+    pipelines in f32 on `device` and served on the CPU by a Registry (five
+    models, so it also evicts and rebuilds from the files):
+    test/tiny-pix2pix and test/tiny-xl-pix2pix pix2pix jobs, test/tiny-xl
+    with test/tiny-xl-refiner chained, and test/tiny-sd txt2img, with the
+    same injected noise on both sides; the decoded uint8 images must agree
+    within 2/255, and every pipeline must report weights loaded from the
+    checkpoint."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from chiaswarm_tpu_torch.pipelines.stable_diffusion import SDPipeline
+    from chiaswarm_tpu_torch.registry import Registry
+
+    root = Path(tempfile.mkdtemp(prefix="chip-smoke-tiny-"))
+    try:
+        for model in TINY_EDIT_MODELS:
+            write_checkpoint(SDPipeline(model, device="cpu"), root / model,
+                             legacy=model == "test/tiny-sd")
+        cpu = Registry(torch.device("cpu"), str(root))
+        card = Resident({model: SDPipeline(model, device=device, dtype=torch.float32,
+                                           model_root_dir=str(root))
+                         for model in TINY_EDIT_MODELS})
+        lat = size // 2
+
+        def noise(seed):
+            return torch.randn((1, 4, lat, lat), generator=torch.Generator().manual_seed(seed))
+
+        def noise_fn(kind, i, shape):
+            return noise(100 + i + 1000 * (kind == "keep"))
+
+        common = dict(prompt="make it snow", negative_prompt="blurry", num_inference_steps=steps,
+                      guidance_scale=6.0, latents=noise(7), noise_fn=noise_fn)
+        jobs = [
+            ("test/tiny-pix2pix", "pix2pix", dict(image=start_image(size))),
+            ("test/tiny-xl-pix2pix", "pix2pix",
+             dict(image=start_image(size), image_guidance_scale=2.0,
+                  scheduler_type="EulerAncestralDiscreteScheduler")),
+            ("test/tiny-xl", "txt2img",
+             dict(height=size, width=size, refiner={"model_name": "test/tiny-xl-refiner"},
+                  refiner_latents=noise(8), refiner_noise_fn=noise_fn)),
+            ("test/tiny-sd", "txt2img", dict(height=size, width=size)),
+        ]
+        result = {}
+        for model, mode, job in jobs:
+            want, _ = cpu.get_pipeline(model).run(registry=cpu, **common, **job)
+            got, config = card.get_pipeline(model).run(registry=card, **common, **job)
+            diff = int(np.abs(got[0].astype(np.int16) - want[0].astype(np.int16)).max())
+            what = f"{model} {mode}" + (" + refiner" if "refiner" in job else "")
+            check(config["mode"] == mode, f"{what}: mode {config['mode']}")
+            check(config["weights"] == "checkpoint", f"{what}: weights {config['weights']}")
+            check(diff <= 2, f"{what}: card vs CPU pixel diff {diff} > 2")
+            if "refiner" in job:
+                check("refiner_s" in config["timings"], f"{what}: no refiner_s")
+                for reg in (cpu, card):
+                    check(reg.get_pipeline("test/tiny-xl-refiner").weights_source
+                          == "checkpoint", "the tiny refiner did not load its checkpoint")
+            result[what] = {"mode": mode, "max_pixel_diff": diff}
+            log(f"[tiny] {what} {size}^2 f32 from safetensors"
+                + (" (legacy layout)" if model == "test/tiny-sd" else "")
+                + f", {device} vs CPU: max pixel diff {diff}/255 (bound 2/255)")
+        check(len(cpu.resident_models()) == 4, f"the registry holds {cpu.resident_models()}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     return result
 
 
@@ -872,8 +1099,10 @@ def serve_counted(smi: str, registry, jobs: list, per_call: dict, device: str = 
     served by the fake hive. Each job's kernel launches are counted and
     held to its UNet calls x `per_call`[its model] {kernel: launches per
     UNet call} plus one VAE encode (a job with a start image) and one
-    decode; no bf16 attention may take the FMA kernel ->
-    ({kind: (1, {kernel: (launches, {shape: launches})})}, served)."""
+    decode, and for a job with a `refiner` the refiner's UNet calls x
+    `per_call`[the refiner] plus its encode and decode; no bf16 attention
+    may take the FMA kernel -> ({kind: (1, {kernel: (launches, {shape:
+    launches})})}, served), served["jobs"] with each image's sha256."""
     from chiaswarm_tpu_torch.external_resources import LIMITS
     from chiaswarm_tpu_torch.fake_hive import FakeHive
     from chiaswarm_tpu_torch.ops.flash_attention import COUNTER as FA_COUNTER
@@ -937,29 +1166,49 @@ def serve_counted(smi: str, registry, jobs: list, per_call: dict, device: str = 
         check(image.shape == (size, size, 3), f"{job['id']}: image {image.shape}")
         check(int(image.max()) != int(image.min()), f"{job['id']}: constant image")
         check(cfg["latents"]["finite"], f"{job['id']}: non-finite latents")
-        unet_calls = job["num_inference_steps"] - cfg.get("t_start", 0)
+        steps = job["num_inference_steps"]
+        unet_calls = steps - cfg.get("t_start", 0)
         counted = {name: launches for name, (launches, _) in paths[kind][1].items()}
         encodes = int("start_image_uri" in job)
         predicted = {name: unet_calls * per_call[job["model_name"]][name]
                      + encodes * ENCODE_LAUNCHES[name] + DECODE_LAUNCHES[name]
                      for name in counted}
+        refiner = job.get("parameters", {}).get("refiner")
+        refiner_calls = 0
+        if refiner:
+            # the refiner's img2img: t_start = int(steps * (1 - strength))
+            strength = float(refiner.get("strength", 0.3))
+            refiner_calls = steps - min(max(int(steps * (1.0 - strength)), 0), steps - 1)
+            for name in predicted:
+                predicted[name] += (refiner_calls * per_call[refiner["model_name"]][name]
+                                    + ENCODE_LAUNCHES[name] + DECODE_LAUNCHES[name])
+            check("refiner_s" in t, f"{job['id']}: no refiner_s in the timings")
+        rows = 3 if mode == "pix2pix" else 2
         served["jobs"][job["id"]] = {"kind": kind, "mode": cfg["mode"], "model": cfg["model"],
                                      "size": size, "timings": t, "latents": cfg["latents"],
-                                     "unet_calls": unet_calls, "launches": counted,
-                                     "predicted_launches": predicted}
+                                     "weights": cfg["weights"], "unet_calls": unet_calls,
+                                     "refiner_unet_calls": refiner_calls,
+                                     "image_guidance_scale": cfg.get("image_guidance_scale"),
+                                     "launches": counted, "predicted_launches": predicted,
+                                     "pixels_sha256": hashlib.sha256(image.tobytes()).hexdigest()}
         log(f"[{tag}] {job['id']} ({cfg['mode']}, {cfg['scheduler']}, {cfg['model']}, "
-            f"{size}^2) on {smi}: job {t['job_s']:.3f}s = text_encode "
+            f"{size}^2, weights {cfg['weights']}) on {smi}: job {t['job_s']:.3f}s = text_encode "
             f"{t['text_encode_s']:.3f}s"
             + (f" + image_encode {t['image_encode_s']:.3f}s" if "image_encode_s" in t else "")
             + f" + denoise {t['denoise_s']:.3f}s ({unet_calls} UNet calls, step "
-            f"{t['unet_step_ms']:.1f} ms at CFG batch 2) + decode {t['decode_s']:.3f}s + "
-            f"artifacts {t['encode_artifacts_s']:.3f}s; latents |max| "
+            f"{t['unet_step_ms']:.1f} ms at CFG batch {rows}) + decode {t['decode_s']:.3f}s"
+            + (f" + refiner {t['refiner_s']:.3f}s ({refiner_calls} UNet calls)"
+               if refiner else "")
+            + f" + artifacts {t['encode_artifacts_s']:.3f}s; latents |max| "
             f"{cfg['latents']['absmax']:.3g}; pixels {int(image.min())}..{int(image.max())} "
             f"mean {float(image.mean()):.1f}")
         log(f"[{tag}] {job['id']} kernel launches: counted {json.dumps(counted)}, predicted "
             f"{json.dumps(predicted)} ({unet_calls} UNet calls x "
             f"{json.dumps(per_call[job['model_name']])}"
-            + (" + one encode" if encodes else "") + " + one decode)")
+            + (" + one encode" if encodes else "") + " + one decode"
+            + (f" + {refiner_calls} refiner UNet calls x "
+               f"{json.dumps(per_call[refiner['model_name']])} + one encode + one decode"
+               if refiner else "") + ")")
     log(f"[{tag}] {len(jobs)} jobs served in {served_s:.1f}s; attention routes "
         + json.dumps({f"{r} {str(dt)[6:]} D={d}": n for (r, dt, d), n in routes.items()}))
     for job_id, job in served["jobs"].items():
@@ -1065,6 +1314,199 @@ def serve_sd_path(smi: str, registry, device: str = "cuda", sd15: str = SD15,
                          device, tag="sd", where="SD path")
 
 
+# kernel launches of one SDXL refiner UNet call: 88 attention (22
+# transformer layers: four in each of two down resnets and three up resnets
+# at two levels, four in the mid block; one self- and one cross-attention
+# each) and 56 GroupNorm (28 resnets of two, 11 transformers, the output)
+REFINER_UNET_LAUNCHES = {"flash_attention": 88, "group_norm": 56}
+
+
+def serve_edit_path(smi: str, xl_registry, sd_registry, xl_launches: dict,
+                    device: str = "cuda", sd15_p2p: str = SD15_P2P, sdxl_p2p: str = SDXL_P2P,
+                    base: str = SDXL, refiner: str = REFINER, size15: int = 512,
+                    size_xl_p2p: int = 768, size_xl: int = SIZE,
+                    steps: int = STEPS) -> tuple[dict, dict]:
+    """Phase 5, pix2pix and the refiner chain, each through the worker with
+    its launches counted: timbrooks/instruct-pix2pix at 512^2 (SD 1.5's
+    launches per UNet call, on `sd_registry`) and
+    diffusers/sdxl-instructpix2pix-768 at 768^2 (`xl_launches` per call),
+    each from the fake hive's start image at strength 0.3 (image guidance
+    1.5); then an SDXL base txt2img job at 1024^2 with the SDXL refiner
+    chained (strength 0.3: 9 refiner UNet calls of REFINER_UNET_LAUNCHES
+    after the base's 30), on `xl_registry` beside the base."""
+    t0 = time.perf_counter()
+    sd_registry.get_pipeline(sd15_p2p, allow_random_init=True)
+    for model in (sdxl_p2p, refiner):
+        xl_registry.get_pipeline(model, allow_random_init=True)
+    log(f"[edit] {sd15_p2p}, {sdxl_p2p} and {refiner} resident in "
+        f"{time.perf_counter() - t0:.1f}s (seeded random weights); "
+        f"{torch.cuda.memory_allocated() / 2**30 if device == 'cuda' else 0:.1f} GiB allocated")
+    common = {"negative_prompt": "blurry", "num_inference_steps": steps, "guidance_scale": 7.0,
+              "content_type": "image/png"}
+    edit = {**common, "workflow": "img2img", "strength": 0.3, "start_image_uri": "start",
+            "prompt": "make it a snowy winter evening"}
+    sd_jobs = [("sd15_pix2pix", "pix2pix",
+                {**edit, "id": "sd15-pix2pix-0", "model_name": sd15_p2p, "seed": 5000,
+                 "height": size15, "width": size15,
+                 "parameters": {"scheduler_type": "EulerAncestralDiscreteScheduler"}})]
+    xl_jobs = [("sdxl_pix2pix", "pix2pix",
+                {**edit, "id": "sdxl-pix2pix-0", "model_name": sdxl_p2p, "seed": 5001,
+                 "height": size_xl_p2p, "width": size_xl_p2p,
+                 "parameters": {"scheduler_type": "DPMSolverMultistepScheduler",
+                                "large_model": True}}),
+               ("sdxl_refined", "txt2img",
+                {**common, "id": "sdxl-refined-0", "workflow": "txt2img", "model_name": base,
+                 "seed": 5002, "prompt": "a lighthouse on a cliff at dusk, refined",
+                 "height": size_xl, "width": size_xl,
+                 "parameters": {"scheduler_type": "DPMSolverMultistepScheduler",
+                                "refiner": {"model_name": refiner}}})]
+    paths, served = serve_counted(smi, sd_registry, sd_jobs, {sd15_p2p: SD_UNET_LAUNCHES},
+                                  device, tag="edit", where="edit path")
+    xl_paths, xl_served = serve_counted(smi, xl_registry, xl_jobs,
+                                        {sdxl_p2p: xl_launches, base: xl_launches,
+                                         refiner: REFINER_UNET_LAUNCHES},
+                                        device, tag="edit", where="edit path")
+    paths.update(xl_paths)
+    served["jobs"].update(xl_served["jobs"])
+    served["served_s"] += xl_served["served_s"]
+    for job_id in ("sd15-pix2pix-0", "sdxl-pix2pix-0"):
+        check(served["jobs"][job_id]["image_guidance_scale"] == 1.5,
+              f"{job_id}: image guidance {served['jobs'][job_id]['image_guidance_scale']}, "
+              "not strength 0.3 x 5")
+    return paths, served
+
+
+def pipeline_bytes(pipe) -> int:
+    """Bytes of a pipeline's weights on its device."""
+    return sum(t.numel() * t.element_size()
+               for module in (pipe.unet, pipe.vae, *pipe.text_encoders)
+               for t in module.state_dict().values())
+
+
+def serve_checkpoint_path(smi: str, device: str = "cuda", model: str = SD15, size: int = 512,
+                          steps: int = STEPS,
+                          fillers=("test/tiny-sd", "test/tiny-xl", "test/tiny-inpaint",
+                                   "test/tiny-pix2pix")) -> tuple[dict, dict]:
+    """Phase 5, the checkpoint path: `model`'s seeded full-width weights
+    written as fp16 safetensors in diffusers layout (SD 1.x's 1x1-conv
+    `proj_in` / `proj_out`) under a temporary model root, then one txt2img
+    job served through the worker's Registry over that root, which loads
+    them (load time and bytes read printed; its launches counted). Its
+    image must equal, bit for bit, the same job on a pipeline given the
+    same fp16 tensors through `weights=`. Then an eviction on purpose: the
+    registry fills with `fillers` until the fifth model evicts `model`,
+    the least recently used, and the device's allocated memory must fall
+    by that model's bytes (within 10%); a second job on `model` rebuilds it
+    from the files and must give the first job's image bit for bit."""
+    import gc
+    import shutil
+    import tempfile
+
+    from chiaswarm_tpu_torch.job_arguments import format_args
+    from chiaswarm_tpu_torch.pipelines.stable_diffusion import SDPipeline
+    from chiaswarm_tpu_torch.registry import Registry
+    from chiaswarm_tpu_torch.workflows.diffusion import diffusion_callback
+
+    root = Path(tempfile.mkdtemp(prefix="chip-smoke-models-"))
+    try:
+        t0 = time.perf_counter()
+        seeded = SDPipeline(model, device=device, allow_random_init=True)
+        written = write_checkpoint(seeded, root / model, dtype=torch.float16)
+        # the same fp16 tensors in the port's layout, for the pipeline given them
+        given_weights = {name: {k: v.detach().to("cpu", torch.float16)
+                                for k, v in module.state_dict().items()}
+                         for name, module in (("unet", seeded.unet), ("vae", seeded.vae))}
+        given_weights["text"] = [{k: v.detach().to("cpu", torch.float16)
+                                  for k, v in e.state_dict().items()}
+                                 for e in seeded.text_encoders]
+        del seeded
+        gc.collect()
+        log(f"[checkpoint] {model}: seeded weights written as fp16 safetensors, {written} bytes, "
+            f"in {time.perf_counter() - t0:.1f}s")
+        registry = Registry(torch.device(device), str(root))
+        pipe = registry.get_pipeline(model)
+        check(pipe.weights_source == "checkpoint", f"{model}: weights {pipe.weights_source}")
+        load = pipe.checkpoint
+        model_bytes = pipeline_bytes(pipe)
+        log(f"[checkpoint] {model} loaded from {load['dir']} by the worker's Registry: "
+            f"{load['bytes']} bytes read in {load['load_s']:.2f}s "
+            f"({load['bytes'] / max(load['load_s'], 1e-9) / 1e9:.2f} GB/s); {model_bytes} bytes "
+            f"of {pipe.dtype} weights on the device")
+        del pipe
+        job = {"id": "sd15-checkpoint-0", "workflow": "txt2img", "model_name": model,
+               "seed": 6000, "prompt": "a lighthouse on a cliff at dusk",
+               "negative_prompt": "blurry", "height": size, "width": size,
+               "num_inference_steps": steps, "guidance_scale": 7.0, "content_type": "image/png",
+               "parameters": {"scheduler_type": "DPMSolverMultistepScheduler"}}
+        jobs = [("sd15_checkpoint", "txt2img", job)]
+        paths, served = serve_counted(smi, registry, jobs, {model: SD_UNET_LAUNCHES}, device,
+                                      tag="checkpoint", where="checkpoint path")
+        first = served["jobs"][job["id"]]
+        check(first["weights"] == "checkpoint", f"{job['id']}: weights {first['weights']}")
+
+        # the same job on a pipeline given the same fp16 tensors, through the
+        # same callback
+        given = SDPipeline(model, device=device, weights=given_weights)
+        del given_weights
+        _, args = format_args(dict(job))
+        args.pop("id", None)
+        name, seed = args.pop("model_name"), args.pop("seed")
+        results, config = diffusion_callback("chip-smoke", name, registry=Resident({name: given}),
+                                             seed=seed, **args)
+        del given
+        image = decode_artifact(results["primary"])
+        check(config["weights"] == "given",
+              f"the comparison pipeline's weights {config['weights']}")
+        same = hashlib.sha256(image.tobytes()).hexdigest() == first["pixels_sha256"]
+        log(f"[checkpoint] {job['id']} from the checkpoint against the same job on the same fp16 "
+            f"tensors given through weights=: images equal bit for bit: {same}")
+        check(same, f"{job['id']}: the checkpoint's image differs from the given weights' image")
+
+        # an eviction on purpose: the fifth resident model evicts `model`
+        for filler in fillers[:-1]:
+            registry.get_pipeline(filler)
+        check(registry.resident_models() == sorted([model, *fillers[:-1]]),
+              f"resident before the eviction: {registry.resident_models()}")
+        gc.collect()
+        on_card = torch.device(device).type == "cuda"
+        before = torch.cuda.memory_allocated() if on_card else 0
+        fifth = registry.get_pipeline(fillers[-1])
+        gc.collect()
+        after = torch.cuda.memory_allocated() if on_card else 0
+        check(model not in registry.resident_models(),
+              f"{model} still resident after a fifth model: {registry.resident_models()}")
+        expected = model_bytes - pipeline_bytes(fifth)
+        del fifth
+        eviction = {"resident_after": registry.resident_models(), "model_bytes": model_bytes,
+                    "allocated_before": before, "allocated_after": after,
+                    "fall": before - after, "expected_fall": expected}
+        log(f"[checkpoint] {fillers[-1]}, the fifth resident model, evicted {model}: allocated "
+            f"{before} -> {after} bytes, a fall of {before - after} against the {expected} "
+            f"bytes that {model} held beyond {fillers[-1]}; resident {registry.resident_models()}")
+        if on_card:
+            check(abs((before - after) - expected) <= 0.1 * model_bytes,
+                  f"allocated memory fell by {before - after} bytes, not about {expected}")
+
+        # a later job on the evicted name rebuilds it from the files
+        again = dict(job, id="sd15-checkpoint-1")
+        rebuilt_paths, rebuilt = serve_counted(smi, registry, [("sd15_rebuilt", "txt2img", again)],
+                                               {model: SD_UNET_LAUNCHES}, device,
+                                               tag="checkpoint", where="checkpoint path")
+        second = rebuilt["jobs"][again["id"]]
+        check(model in registry.resident_models() and second["weights"] == "checkpoint",
+              f"{model} was not rebuilt from its checkpoint")
+        check(second["pixels_sha256"] == first["pixels_sha256"],
+              f"{again['id']}: the rebuilt pipeline's image differs from the first")
+        log(f"[checkpoint] {again['id']}: {model} rebuilt from its checkpoint; the image equals "
+            "the first job's bit for bit")
+        paths.update(rebuilt_paths)
+        served["jobs"].update(rebuilt["jobs"])
+        served.update(written=written, load=load, eviction=eviction)
+        return paths, served
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # --- phase 6 ---
 
 def measure(paths: dict, main: str = "txt2img") -> tuple[list[dict], dict]:
@@ -1156,9 +1598,10 @@ _CATEGORIES = (
 )
 
 
-def unet_inputs(pipe, size: int = SIZE, dtype=None, seed: int = 2):
+def unet_inputs(pipe, size: int = SIZE, dtype=None, seed: int = 2, rows: int = 2):
     """(x, t, context, added_cond) for one UNet call at the main path's
-    shapes: CFG batch 2, size/8 latents, 77 context tokens."""
+    shapes: `rows` CFG rows (pix2pix 3), size/8 latents of the UNet's input
+    channels, 77 context tokens, the pipeline's own time ids."""
     dev, cfg = pipe.device, pipe.unet.config
     dtype = dtype or pipe.dtype
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1167,14 +1610,14 @@ def unet_inputs(pipe, size: int = SIZE, dtype=None, seed: int = 2):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     lat = size // pipe.latent_factor
-    x = randn(2, cfg.in_channels, lat, lat).contiguous(memory_format=torch.channels_last)
-    t = torch.full((2,), 500.0, device=dev)
-    ctx = randn(2, 77, cfg.cross_attention_dim)
+    x = randn(rows, cfg.in_channels, lat, lat).contiguous(memory_format=torch.channels_last)
+    t = torch.full((rows,), 500.0, device=dev)
+    ctx = randn(rows, 77, cfg.cross_attention_dim)
     if not cfg.addition_embed_dim:
         return x, t, ctx, None
-    pooled = cfg.addition_embed_dim - 6 * cfg.addition_time_embed_dim
-    added = {"text_embeds": randn(2, pooled),
-             "time_ids": torch.tensor([[size, size, 0, 0, size, size]] * 2, device=dev,
+    pooled = cfg.addition_embed_dim - pipe.n_time_ids * cfg.addition_time_embed_dim
+    added = {"text_embeds": randn(rows, pooled),
+             "time_ids": torch.tensor([pipe._xl_time_ids(size, size)] * rows, device=dev,
                                       dtype=torch.float32)}
     return x, t, ctx, added
 
@@ -1210,18 +1653,18 @@ def encode_input(pipe, size: int = SIZE):
 
 
 def end_to_end_bf16_check(pipe, size: int = SIZE,
-                          parts=("unet", "vae_decode", "vae_encode")) -> dict:
-    """One UNet call, one VAE decode and one VAE encode (the named parts)
-    at the shapes of `pipe`'s path at `size`, in bf16 through the kernels,
-    against the same weights in f32 on the plain path; the plain path in
-    bf16 gives the error bf16 itself makes."""
+                          parts=("unet", "vae_decode", "vae_encode"), rows: int = 2) -> dict:
+    """One UNet call (`rows` CFG rows), one VAE decode and one VAE encode
+    (the named parts) at the shapes of `pipe`'s path at `size`, in bf16
+    through the kernels, against the same weights in f32 on the plain path;
+    the plain path in bf16 gives the error bf16 itself makes."""
     import copy
 
     from chiaswarm_tpu_torch.device import synchronize
 
     check(pipe.dtype == torch.bfloat16, f"the main path runs {pipe.dtype}, not bf16")
     lat = size // pipe.latent_factor
-    x, t, ctx, added = unet_inputs(pipe, size)
+    x, t, ctx, added = unet_inputs(pipe, size, rows=rows)
     z = torch.randn((1, pipe.latent_channels, lat, lat), device=pipe.device,
                     generator=torch.Generator(device=pipe.device).manual_seed(3))
     z = z.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
@@ -1252,7 +1695,9 @@ def end_to_end_bf16_check(pipe, size: int = SIZE,
         del kernels, plain, exact
         torch.cuda.empty_cache()
         result[name] = row
-        log(f"[e2e] {pipe.model_name} {name} at {size}^2, bf16 through the kernels vs f32 plain "
+        log(f"[e2e] {pipe.model_name} {name} at {size}^2"
+            + (f" ({rows} CFG rows)" if name == "unet" else "")
+            + ", bf16 through the kernels vs f32 plain "
             f"path: relative RMS err "
             f"{row['rel_rms_err']:.4g}; plain path in bf16: {row['plain_bf16_rel_rms_err']:.4g} "
             f"(bound {E2E_RATIO}x that)")
@@ -1300,13 +1745,13 @@ def profiled(fn, calls: int, device) -> tuple[dict, float, float, int]:
 
 
 def profile_main_path(pipe, size: int = SIZE, steps: int = 3,
-                      parts=("unet", "vae_decode", "vae_encode")) -> dict:
-    """Phase 8: torch.profiler over a few UNet calls (CFG batch 2, size/8
-    latents), one VAE decode and one VAE encode (the named parts) of
+                      parts=("unet", "vae_decode", "vae_encode"), rows: int = 2) -> dict:
+    """Phase 8: torch.profiler over a few UNet calls (`rows` CFG rows,
+    size/8 latents), one VAE decode and one VAE encode (the named parts) of
     `pipe` at `size`: device time and launches by kernel category, each
     GroupNorm kernel by name, GroupNorm wrapper calls, and the device's
     busy share of the wall time."""
-    x, t, ctx, added = unet_inputs(pipe, size)
+    x, t, ctx, added = unet_inputs(pipe, size, rows=rows)
     lat = size // pipe.latent_factor
     z = torch.randn((1, pipe.latent_channels, lat, lat), device=pipe.device,
                     generator=torch.Generator(device=pipe.device).manual_seed(3))
@@ -1330,7 +1775,7 @@ def profile_main_path(pipe, size: int = SIZE, steps: int = 3,
             categories[label][1] += n
         device_ms = sum(ms for ms, _ in kernels.values())
         result[name] = {
-            "model": pipe.model_name, "size": size,
+            "model": pipe.model_name, "size": size, "rows": rows,
             "calls": calls, "unprofiled_wall_ms_per_call": plain_wall_ms,
             "wall_ms_per_call": wall_ms, "device_ms_per_call": device_ms,
             "busy_share": device_ms / wall_ms if wall_ms else None,
@@ -1350,7 +1795,7 @@ def log_profile(profile: dict, smi: str) -> None:
             continue
         attention_ms = p["categories_ms_launches"]["flash_attention kernel"][0]
         log(f"[profile] {p['model']} {name} ({p['size']}^2"
-            f"{', CFG batch 2' if name == 'unet' else ''}) on {smi}: "
+            f"{', CFG batch %d' % p.get('rows', 2) if name == 'unet' else ''}) on {smi}: "
             f"wall {p['wall_ms_per_call']:.2f} ms per call ({p['unprofiled_wall_ms_per_call']:.2f} "
             f"unprofiled), device busy {p['device_ms_per_call']:.2f} ms "
             f"({100 * p['busy_share']:.1f}% of the profiled wall); attention "
@@ -1438,6 +1883,7 @@ def main(argv=None) -> int:
         smi = device_probe()
         from chiaswarm_tpu_torch.device import set_precision
         from chiaswarm_tpu_torch.ops import _build
+        from chiaswarm_tpu_torch.registry import Registry
 
         set_precision()
         t0 = time.perf_counter()
@@ -1458,21 +1904,31 @@ def main(argv=None) -> int:
         tiny_reference_check()
         tiny_sd = tiny_sd_checks()
         tiny_image = tiny_image_checks()
+        tiny_edit = tiny_edit_checks()
         launches, served, registry = serve_main_path(smi)
         unet_launches = {name: (count / N_JOBS - DECODE_LAUNCHES[name]) / STEPS
                          for name, (count, _) in launches.items()}
         image_paths, image_served = serve_image_path(smi, registry, unet_launches)
-        sd_paths, sd_served = serve_sd_path(smi, registry)
-        summary, shapes = measure({"txt2img": (N_JOBS, launches), **image_paths, **sd_paths})
-        pipe = registry.get_pipeline(SDXL)
-        e2e = {SDXL: end_to_end_bf16_check(pipe)}
-        for model, size in SD_CANVASES:
-            e2e[model] = end_to_end_bf16_check(registry.get_pipeline(model), size,
-                                               parts=("unet",))
-        profile = {SDXL: profile_main_path(pipe)}
-        for model, size in SD_CANVASES:
-            profile[model] = profile_main_path(registry.get_pipeline(model), size,
-                                               parts=("unet",))
+        # the SD models in a registry of their own: with the SDXL base, its
+        # inpaint checkpoint, the refiner and the SDXL edit checkpoint, each
+        # registry holds four, so nothing is evicted by accident
+        sd_registry = Registry(torch.device("cuda"), registry.model_root_dir)
+        sd_paths, sd_served = serve_sd_path(smi, sd_registry)
+        edit_paths, edit_served = serve_edit_path(smi, registry, sd_registry, unet_launches)
+        checkpoint_paths, checkpoint_served = serve_checkpoint_path(smi)
+        summary, shapes = measure({"txt2img": (N_JOBS, launches), **image_paths, **sd_paths,
+                                   **edit_paths, **checkpoint_paths})
+        # (model, registry, canvas, CFG rows, parts) of phases 7 and 8
+        calls = [(SDXL, registry, SIZE, 2, ("unet", "vae_decode", "vae_encode")),
+                 *((model, sd_registry, size, 2, ("unet",)) for model, size in SD_CANVASES),
+                 (REFINER, registry, SIZE, 2, ("unet",)),
+                 (SD15_P2P, sd_registry, 512, 3, ("unet",))]
+        e2e, profile = {}, {}
+        for model, reg, size, rows, parts in calls:
+            e2e[model] = end_to_end_bf16_check(reg.get_pipeline(model), size, parts, rows)
+        for model, reg, size, rows, parts in calls:
+            profile[model] = profile_main_path(reg.get_pipeline(model), size, parts=parts,
+                                               rows=rows)
         for part in profile.values():
             log_profile(part, smi)
             check_one_launch_per_call(part)
@@ -1480,8 +1936,10 @@ def main(argv=None) -> int:
             path = Path(opts.detail)
             path.parent.mkdir(parents=True, exist_ok=True)
             path.write_text(json.dumps(
-                {"card": smi, "tiny_sd": tiny_sd, "tiny_image": tiny_image, "served": served,
-                 "image_served": image_served, "sd_served": sd_served, "kernels": summary,
+                {"card": smi, "tiny_sd": tiny_sd, "tiny_image": tiny_image,
+                 "tiny_edit": tiny_edit, "served": served, "image_served": image_served,
+                 "sd_served": sd_served, "edit_served": edit_served,
+                 "checkpoint_served": checkpoint_served, "kernels": summary,
                  "shapes": shapes, "end_to_end_bf16": e2e, "profile": profile}, indent=1,
                 default=str))
     except SmokeFailure as e:

@@ -4,7 +4,10 @@ input-fetch limits.
 - `job_arguments.format_args` against the JAX package's on the same jobs,
   with `get_image` stubbed on both sides (a table of images by URI that
   records the size each fetch was bounded to): equal callbacks by name,
-  equal argument dicts, equal fetches, and the same refusals.
+  equal argument dicts, equal fetches, and the same refusals. The jobs
+  include the instruct-pix2pix checkpoints (strength x 5 becomes the image
+  guidance scale; `diffusers/sdxl-instructpix2pix-768` gets a 768 canvas
+  unless the job is a tiny-model job) and a `refiner` parameter.
 - `external_resources.get_image` against the port's fake hive: a start
   image bounded to the job's size or the global edge, and the refusals of
   the JAX package's limits: a body over the 3 MiB cap (announced by HEAD,
@@ -79,6 +82,25 @@ JOBS = {
         "mask_image_uri": "http://h/mask.png",
         "parameters": {"large_model": True, "scheduler_type": "DDIMScheduler",
                        "unsupported_pipeline_arguments": ["strength"]}, "strength": 0.9},
+    # the edit checkpoints: strength * 5 becomes the image guidance scale
+    "img2img-pix2pix": {
+        "workflow": "img2img", "model_name": "timbrooks/instruct-pix2pix", "prompt": "snow",
+        "strength": 0.3, "start_image_uri": "http://h/start.png"},
+    "img2img-pix2pix-unset-strength": {
+        "workflow": "img2img", "model_name": "timbrooks/instruct-pix2pix",
+        "start_image_uri": "http://h/start.png"},
+    # the size-locked checkpoint: a 768 canvas, except for tiny-model jobs
+    "img2img-pix2pix-768": {
+        "workflow": "img2img", "model_name": "diffusers/sdxl-instructpix2pix-768",
+        "height": 512, "width": 512, "strength": 0.5, "start_image_uri": "http://h/start.png",
+        "parameters": {"large_model": True}},
+    "img2img-pix2pix-768-tiny": {
+        "workflow": "img2img", "model_name": "diffusers/sdxl-instructpix2pix-768",
+        "start_image_uri": "http://h/start.png", "parameters": {"test_tiny_model": True}},
+    "txt2img-refiner": {
+        "workflow": "txt2img", "model_name": SDXL, "prompt": "a boat",
+        "parameters": {"refiner": {"model_name": "stabilityai/stable-diffusion-xl-refiner-1.0",
+                                   "strength": 0.3}}},
     "txt2img-with-mask": {
         "workflow": "txt2img", "model_name": "diffusers/stable-diffusion-xl-1.0-inpainting-0.1",
         "start_image_uri": "http://h/start.png", "mask_image_uri": "http://h/mask.png",
@@ -92,7 +114,13 @@ def test_format_args_matches_jax(images, name):
     assert cb.__name__ == jax_cb.__name__ == "diffusion_callback"
     assert args == jax_args
     assert images.calls["port"] == images.calls["jax"]
-    assert args["image"] is images.images["http://h/start.png"]
+    if "image" not in args:  # txt2img
+        assert "start_image_uri" not in JOBS[name]
+    elif name == "img2img-pix2pix-768":
+        # the size-locked checkpoint's canvas: the start image cropped square
+        assert args["image"].size == (768, 768) and (args["height"], args["width"]) == (768, 768)
+    else:
+        assert args["image"] is images.images["http://h/start.png"]
 
 
 @pytest.mark.parametrize("job", [
@@ -107,8 +135,17 @@ def test_missing_start_image_is_refused_like_jax(images, job):
         job_arguments.format_args(copy.deepcopy(job))
 
 
+def test_pix2pix_strength_mapping(images):
+    """As tests/test_job_arguments.py expects of the JAX package: strength
+    0.8 becomes an image guidance scale of 4.0, and strength goes."""
+    _, kwargs = job_arguments.format_args({
+        "id": "j1", "workflow": "img2img", "model_name": "timbrooks/instruct-pix2pix",
+        "start_image_uri": "http://h/start.png", "strength": 0.8})
+    assert kwargs["image_guidance_scale"] == pytest.approx(4.0)
+    assert "strength" not in kwargs
+
+
 @pytest.mark.parametrize("job,match", [
-    ({"workflow": "img2img", "model_name": "timbrooks/instruct-pix2pix"}, "not ported"),
     ({"workflow": "img2img", "model_name": SDXL, "parameters": {"controlnet": {"x": 1}}},
      "controlnet"),
     ({"workflow": "img2img", "model_name": SDXL, "height": 2048, "width": 512},

@@ -3,8 +3,9 @@
 - `family_configs` against the JAX pipeline's `_family_configs`, name for
   name: the SD 1.x checkpoints and their fine-tunes (every name that is not
   XL and not 2.x), SD 2.1 (768, v-prediction), SD 2.1-base (epsilon), both
-  dedicated inpainting checkpoints (9 channels), SDXL and the tiny models;
-  the families of later slices raise, naming theirs.
+  dedicated inpainting checkpoints (9 channels), SDXL, the SDXL refiner,
+  instruct-pix2pix and the tiny models; the families of later slices
+  raise, naming theirs.
 - The checkpoint's `scheduler/scheduler_config.json` under the model root
   sets the prediction type for every family, as the JAX package reads it.
 - Whole txt2img jobs of tiny models (SD and SDXL structure) whose
@@ -102,6 +103,23 @@ def test_sd_families_at_published_widths(name, size, pred, head_widths, model_ro
 @pytest.mark.parametrize("name,match", [
     ("stabilityai/stable-diffusion-xl-refiner-1.0", "refiner"),
     ("timbrooks/instruct-pix2pix", "instruct-pix2pix"),
+])
+def test_formerly_refused_names_are_served(name, match, model_root):
+    """The SDXL refiner and the instruct-pix2pix checkpoint raised until the
+    port served them; now they configure as the JAX package does."""
+    unet, clips, vae, size, pred = family_configs(name, str(model_root))
+    j_unet, j_clips, j_vae, j_size, j_pred = jax_sd._family_configs(name)
+    _same_config(unet, j_unet, "unet")
+    for port_clip, jax_clip in zip(clips, j_clips, strict=True):
+        _same_config(port_clip, jax_clip, "clip")
+    assert (size, pred) == (j_size, j_pred)
+    if match == "refiner":
+        assert len(clips) == 1 and unet.addition_embed_dim == 2560
+    else:
+        assert unet.in_channels == 8 and size == 512
+
+
+@pytest.mark.parametrize("name,match", [
     ("black-forest-labs/FLUX.1-schnell", "not ported"),
     ("kandinsky-community/kandinsky-2-2-decoder", "not ported"),
     ("stabilityai/stable-cascade", "not ported"),
