@@ -8,15 +8,20 @@ pipeline types chosen by `large_model`, the job's size threaded into the
 image fetches, `parameters` passed through with the identity keys
 protected), and the same special cases of img2img: the instruct-pix2pix
 checkpoints take `strength * 5` as their image guidance scale, and the
-size-locked checkpoints get a 768 canvas. A workflow or feature that is
-not ported yet raises ValueError naming it, which the worker turns into a
-fatal envelope; so does ControlNet. Input images are fetched here
-(`get_image` blocks: the worker formats a job on its executor thread).
+size-locked checkpoints get a 768 canvas. A job's `lora` resolves against
+the settings' `lora_root_dir` (loras.py); `textual_inversion`, `vae`,
+`lora_scale` and `cross_attention_kwargs` pass through from `parameters`.
+A workflow or feature that is not ported yet raises ValueError naming it,
+which the worker turns into a fatal envelope; so does ControlNet. Input
+images are fetched here (`get_image` blocks: the worker formats a job on
+its executor thread).
 """
 
 from __future__ import annotations
 
 from .external_resources import LIMITS, get_image
+from .loras import resolve_lora
+from .settings import Settings, load_settings
 from .workflows.diffusion import diffusion_callback
 from .workflows.echo import echo_callback
 
@@ -24,8 +29,8 @@ DEFAULT_SCHEDULER = "DPMSolverMultistepScheduler"
 MAX_SIZE = LIMITS.max_edge
 
 # job keys of workflows and features this slice does not serve
-_UNPORTED_KEYS = ("lora", "video_uri")
-_UNPORTED_PARAMETERS = ("controlnet", "upscale", "textual_inversion", "vae")
+_UNPORTED_KEYS = ("video_uri",)
+_UNPORTED_PARAMETERS = ("controlnet", "upscale")
 # the JAX package's special cases of img2img
 _PIX2PIX_MODELS = {"timbrooks/instruct-pix2pix", "diffusers/sdxl-instructpix2pix-768"}
 _SIZE_LOCKED_MODELS = {"diffusers/sdxl-instructpix2pix-768",
@@ -37,8 +42,13 @@ _PROTECTED_ARGS = frozenset({"model_name", "prompt", "negative_prompt", "image",
                              "workflow", "id"})
 
 
-def format_args(job: dict):
+def format_args(job: dict, settings: Settings | None = None):
+    """-> (callback, kwargs). `settings` (read from disk when not given)
+    supplies the root a bare LoRA name resolves under."""
     args = dict(job)
+    if "lora" in args:
+        root = (settings or load_settings()).lora_root_dir
+        args["lora"] = resolve_lora(args["lora"], root)
     workflow = args.pop("workflow", None)
     if workflow == "echo":
         return echo_callback, args

@@ -1,0 +1,108 @@
+"""Adapter caches, the counterparts of chiaswarm_tpu/lora_cache.py (raw
+factors on the host) and chiaswarm_tpu/lora_operands.py (their stacks on
+the device).
+
+A `LoraCache` is an object that the `Registry` owns, as the registry is
+the worker's, not process-global state. It holds two byte-capped LRUs:
+
+- `factors`: an adapter's raw factors {module key: (A, B, alpha)} as read
+  from its file, keyed by `adapter_key` (ref, weight_name, subfolder). The
+  factors are scale-independent: one entry serves every `lora_scale`.
+- `operands`: the device stacks that pipelines/lora_runtime.py builds from
+  the factors an adapter matched on one model, keyed by (model name,
+  adapter key). A pipeline's entries go when the registry evicts it.
+
+A cap of 0 caches nothing: adapters still load, once per job. A factor
+load from the file drops the operand entries of that adapter, so a
+reloaded file never serves stale stacks.
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict
+
+from .models.lora import factors_nbytes, load_factors
+
+
+def adapter_key(lora: dict) -> tuple:
+    """The cache identity of a resolved adapter reference (its scale is
+    not part of it)."""
+    return (str(lora.get("lora")), lora.get("weight_name"), lora.get("subfolder"))
+
+
+class ByteLRU:
+    """A least-recently-used map whose entries' bytes stay under a cap."""
+
+    def __init__(self, max_bytes: int):
+        self.max_bytes = int(max_bytes)
+        self._entries: OrderedDict = OrderedDict()
+        self._bytes = 0
+        self._lock = threading.Lock()
+
+    def get(self, key):
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is None:
+                return None
+            self._entries.move_to_end(key)
+            return entry[0]
+
+    def put(self, key, value, nbytes: int) -> None:
+        """Insert (replacing `key`'s entry), then evict from the least
+        recent end to the cap. An entry larger than the cap is not kept."""
+        with self._lock:
+            old = self._entries.pop(key, None)
+            if old is not None:
+                self._bytes -= old[1]
+            if nbytes > self.max_bytes:
+                return
+            self._entries[key] = (value, int(nbytes))
+            self._bytes += int(nbytes)
+            while self._bytes > self.max_bytes:
+                self._bytes -= self._entries.popitem(last=False)[1][1]
+
+    def drop(self, predicate) -> int:
+        """Remove every entry whose key satisfies `predicate` -> bytes freed."""
+        with self._lock:
+            keys = [k for k in self._entries if predicate(k)]
+            freed = sum(self._entries.pop(k)[1] for k in keys)
+            self._bytes -= freed
+            return freed
+
+    @property
+    def resident_bytes(self) -> int:
+        return self._bytes
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+
+class LoraCache:
+    def __init__(self, factor_bytes: int = 256 << 20, operand_bytes: int = 512 << 20):
+        self.factors = ByteLRU(factor_bytes)
+        self.operands = ByteLRU(operand_bytes)
+
+    def resolve(self, lora: dict, model_name: str, model_root_dir: str | None
+                ) -> tuple[dict, bool]:
+        """-> (the adapter's raw factors, whether they came from the cache).
+        Load failures raise ValueError (a fatal job error)."""
+        key = adapter_key(lora)
+        factors = self.factors.get(key)
+        if factors is not None:
+            return factors, True
+        factors = load_factors(lora, model_name, model_root_dir)
+        self.factors.put(key, factors, factors_nbytes(factors))
+        self.operands.drop(lambda k: k[1] == key)
+        return factors, False
+
+    def stacks(self, model_name: str, lora: dict):
+        """The device stacks kept for (model, adapter), or None."""
+        return self.operands.get((model_name, adapter_key(lora)))
+
+    def keep_stacks(self, model_name: str, lora: dict, value, nbytes: int) -> None:
+        self.operands.put((model_name, adapter_key(lora)), value, nbytes)
+
+    def drop_model(self, model_name: str) -> int:
+        """Forget one model's device stacks -> bytes freed."""
+        return self.operands.drop(lambda k: k[0] == model_name)

@@ -115,16 +115,25 @@ class CLIPTextEncoder(nn.Module):
             nn.Linear(config.hidden_size, config.projection_dim, bias=False)
             if config.projection_dim else None)
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, extra_embeddings=None):
         """input_ids [B, S] -> {"hidden_states": [B, S, D] (per the
         config's index), "pooled": [B, D or projection_dim]} (the final
-        norm's state at each row's first EOS)."""
+        norm's state at each row's first EOS).
+
+        `extra_embeddings` [K, D] holds a job's textual-inversion vectors:
+        an id at or past `vocab_size` takes row `id - vocab_size` of it. The
+        token table only ever sees ids clamped into the vocabulary, and the
+        EOS that pools stays the vocabulary's last id, which no placeholder
+        id equals."""
         cfg = self.config
         tm = self.text_model
         b, s = input_ids.shape
-        ids = input_ids.clamp(max=cfg.vocab_size - 1)
-        hidden = (tm.embeddings.token_embedding(ids)
-                  + tm.embeddings.position_embedding.weight[None, :s])
+        tok = tm.embeddings.token_embedding(input_ids.clamp(max=cfg.vocab_size - 1))
+        if extra_embeddings is not None:
+            extra_idx = (input_ids - cfg.vocab_size).clamp(0, extra_embeddings.shape[0] - 1)
+            tok = torch.where((input_ids >= cfg.vocab_size)[..., None],
+                              extra_embeddings.to(tok.dtype)[extra_idx], tok)
+        hidden = tok + tm.embeddings.position_embedding.weight[None, :s]
         causal = torch.full((s, s), -1e9, dtype=hidden.dtype,
                             device=hidden.device).triu(1)[None, None]
         collected = []

@@ -1,8 +1,7 @@
 """CLIP BPE tokenizer (self-contained, offline).
 
 A copy of chiaswarm_tpu/models/tokenizer.py (the port imports nothing of
-the JAX package), without the textual-inversion placeholder tokenizer,
-which waits for the port's textual-inversion support.
+the JAX package), with its textual-inversion placeholder tokenizer.
 
 The reference gets tokenization implicitly through diffusers pipelines; a
 worker must not depend on hub downloads at job time, so the byte-pair
@@ -146,6 +145,48 @@ class HashTokenizer:
         for w in words:
             digest = hashlib.sha256(w.encode()).digest()
             ids.append(int.from_bytes(digest[:4], "little") % (self.vocab_size - 2))
+        return ids
+
+    def __call__(self, texts: str | list[str]) -> np.ndarray:
+        if isinstance(texts, str):
+            texts = [texts]
+        batch = np.full((len(texts), self.max_length), self.eos, dtype=np.int32)
+        for row, text in enumerate(texts):
+            ids = self.encode(text)[: self.max_length - 2]
+            batch[row, 0] = self.bos
+            batch[row, 1 : 1 + len(ids)] = ids
+            batch[row, 1 + len(ids)] = self.eos
+        return batch
+
+
+class PlaceholderTokenizer:
+    """A base tokenizer extended with textual-inversion placeholders: each
+    placeholder string maps to a fixed run of ids past the base vocabulary
+    (rows of the job's extra embedding table, models/clip.py). The text is
+    split on the placeholders before BPE, so bracketed or multi-word ones
+    like `<gta5-artwork>` survive intact."""
+
+    def __init__(self, base, placeholders: dict[str, list[int]]):
+        self.base = base
+        self.placeholders = dict(placeholders)
+        self.max_length = base.max_length
+        self.bos = base.bos
+        self.eos = base.eos
+        self._splitter = None
+        if self.placeholders:
+            pattern = "|".join(re.escape(p)
+                               for p in sorted(self.placeholders, key=len, reverse=True))
+            self._splitter = re.compile(f"({pattern})")
+
+    def encode(self, text: str) -> list[int]:
+        if self._splitter is None:
+            return self.base.encode(text)
+        ids: list[int] = []
+        for part in self._splitter.split(text):
+            if part in self.placeholders:
+                ids.extend(self.placeholders[part])
+            elif part:
+                ids.extend(self.base.encode(part))
         return ids
 
     def __call__(self, texts: str | list[str]) -> np.ndarray:

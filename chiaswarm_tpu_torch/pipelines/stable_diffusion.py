@@ -32,6 +32,16 @@ them instead (`latents`, NCHW, and `noise_fn(kind, i, shape)` for kind
 "step" and "keep"; `refiner_latents` and `refiner_noise_fn` for the
 refiner's stage), which is how the tests hand the port the noise that
 the JAX pipeline drew.
+
+Per-job adapters, as in the JAX pipeline: a `lora` (resolved by
+job_arguments) applies as a runtime low-rank delta on the one resident
+base model (lora_runtime.py) over the UNet's and the text encoders'
+matched Linear modules, every CFG row and every text row, at `lora_scale`
+(else `cross_attention_kwargs.scale`); a `textual_inversion` adds its
+vectors to the encoders whose widths they match (placeholder ids past the
+vocabulary); a `vae` names a model directory whose VAE encodes and decodes
+the job. A chained refiner gets none of them. An adapter that cannot be
+loaded or matches nothing raises ValueError, a fatal job error.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ import dataclasses
 import json
 import logging
 import time
+from collections import OrderedDict
 from pathlib import Path
 
 import numpy as np
@@ -47,9 +58,11 @@ import torch
 from PIL import Image
 
 from ..device import device_label, resolve_device, serving_dtype, synchronize
+from ..lora_cache import LoraCache
 from ..models import configs as cfgs
 from ..models.clip import CLIPTextEncoder
-from ..models.tokenizer import load_tokenizer
+from ..models.lora import linear_index, match_factors
+from ..models.tokenizer import PlaceholderTokenizer, load_tokenizer
 from ..models.unet2d import UNet2DConditionModel
 from ..models.vae import AutoencoderKL
 from ..schedulers import SchedulerConfig, get_scheduler
@@ -61,13 +74,17 @@ from ..weights import (
     model_seed,
     random_init_,
 )
+from . import lora_runtime
 
 logger = logging.getLogger(__name__)
 
 # job arguments of the JAX pipeline whose features this slice lacks; a
 # job that sets one fails with a fatal envelope naming it
-_UNPORTED = ("lora", "controlnet_model_name", "upscale", "textual_inversion", "vae",
-             "control_image")
+_UNPORTED = ("controlnet_model_name", "upscale", "control_image")
+
+# per-job add-ons a pipeline keeps resident, least recently used first out
+MAX_RESIDENT_TI = 4
+MAX_RESIDENT_VAES = 2
 
 # model-name marks of families (and their tiny stand-ins) of later slices
 _LATER_FAMILIES = ("flux", "kandinsky", "cascade")
@@ -137,6 +154,49 @@ def family_configs(model_name: str, model_root_dir: str | None = None):
     return unet_cfg, clip_cfgs, vae_cfg, size, pred
 
 
+def load_learned_embeddings(ref, model_root_dir: str | None,
+                            lora_root_dir: str | None) -> list[dict]:
+    """A textual-inversion file -> [{"tokens": [alias, ...], "vectors":
+    [[k, D] float32, ...]}] groups (the aliases of a group share one run of
+    ids; a group's several vectors are one per encoder width).
+
+    `ref` is a file or directory, tried as a path, under `model_root_dir`
+    and under `lora_root_dir`. Formats: diffusers (one key per placeholder
+    token), kohya `emb_params`, and SDXL's dual-encoder `clip_l` / `clip_g`;
+    the two named by their file register both its stem and `<stem>`."""
+    from safetensors import safe_open
+
+    candidates: list[Path] = []
+    for base in (Path(str(ref)).expanduser(),
+                 *(Path(root).expanduser() / str(ref)
+                   for root in (model_root_dir, lora_root_dir) if root)):
+        if base.is_file():
+            candidates.append(base)
+        elif base.is_dir():
+            candidates.extend(sorted(base.glob("*.safetensors")))
+    for f in candidates:
+        try:
+            with safe_open(str(f), framework="np") as sf:
+                state = {k: sf.get_tensor(k) for k in sf.keys()}
+        except Exception:  # noqa: BLE001 — an unreadable candidate: try the next
+            continue
+        if not state:
+            continue
+        stem = [f.stem, f"<{f.stem}>"]
+        if set(state) == {"emb_params"}:
+            return [{"tokens": stem, "vectors": [_as2d(state["emb_params"])]}]
+        if set(state) <= {"clip_l", "clip_g"}:
+            return [{"tokens": stem, "vectors": [_as2d(v) for v in state.values()]}]
+        return [{"tokens": [token], "vectors": [_as2d(v)]} for token, v in state.items()]
+    raise ValueError(
+        f"Could not load textual inversion {ref}: no embedding safetensors found (looked at "
+        f"{[str(c) for c in candidates] or 'no candidates'})")
+
+
+def _as2d(v) -> np.ndarray:
+    return np.atleast_2d(np.asarray(v, np.float32))
+
+
 def _pil_to_array(image: Image.Image, width: int, height: int) -> np.ndarray:
     """PIL -> float32 [H, W, 3] in [-1, 1], resized to the job canvas."""
     image = image.convert("RGB")
@@ -173,13 +233,21 @@ class SDPipeline:
 
     def __init__(self, model_name: str, device=None, dtype=None,
                  allow_random_init: bool = False, weights: dict | None = None,
-                 model_root_dir: str | None = None):
+                 model_root_dir: str | None = None, lora_root_dir: str | None = None,
+                 lora_cache: LoraCache | None = None):
         """`weights`: {"unet": sd, "text": [sd, ...], "vae": sd} state dicts
         in the port's key layout (weights.from_jax_params gives them);
         without it the model loads from `<model_root_dir>/<model_name>/`, or
         is random-initialised from a seed, as the policy in weights.py
-        says."""
+        says. Adapters resolve under `model_root_dir` and `lora_root_dir`
+        through `lora_cache` (the registry's; a pipeline of its own
+        otherwise)."""
         self.model_name = model_name
+        self.model_root_dir = model_root_dir
+        self.lora_root_dir = lora_root_dir
+        self.lora_cache = lora_cache or LoraCache()
+        self._ti_cache: OrderedDict[str, tuple] = OrderedDict()
+        self._vae_cache: OrderedDict[str, AutoencoderKL] = OrderedDict()
         self.device = resolve_device(device)
         self.dtype = dtype or serving_dtype(self.device)
         unet_cfg, clip_cfgs, vae_cfg, self.default_size, self.prediction_type = (
@@ -242,6 +310,9 @@ class SDPipeline:
             module.to(memory_format=torch.channels_last)
         self.tokenizers = [load_tokenizer(model_dir, vocab_size=c.vocab_size)
                            for c in clip_cfgs]
+        # the Linear modules an adapter's factors are matched on, by key
+        self.unet_index = linear_index(self.unet)
+        self.text_indexes = [linear_index(e, f"te{i}:") for i, e in enumerate(self.text_encoders)]
         synchronize(self.device)
         logger.info("%s resident on %s in %.1fs (dtype=%s, weights=%s%s)", model_name,
                     device_label(self.device), time.perf_counter() - t0, self.dtype,
@@ -254,6 +325,106 @@ class SDPipeline:
         module.eval().requires_grad_(False)
         return module
 
+    def release(self) -> int:
+        """Drop the per-job state this pipeline keeps resident (its adapter
+        stacks in the shared cache, textual-inversion tables, custom VAEs),
+        as the registry evicts it. -> the adapter stacks' bytes freed."""
+        self._ti_cache.clear()
+        self._vae_cache.clear()
+        return self.lora_cache.drop_model(self.model_name)
+
+    # --- per-job adapters ---
+
+    def adapter_stacks(self, lora: dict) -> tuple[dict, dict]:
+        """A resolved `lora` reference -> (its device stacks over the
+        modules it matched, {"matched", "unmatched", "bytes", "factor_hit",
+        "operand_hit"}). The factors come through the cache; the stacks are
+        built once per (model, adapter). An adapter that matches no module
+        raises ValueError."""
+        factors, factor_hit = self.lora_cache.resolve(lora, self.model_name,
+                                                      self.model_root_dir)
+        entry = self.lora_cache.stacks(self.model_name, lora)
+        operand_hit = entry is not None
+        if entry is None:
+            index = dict(self.unet_index)
+            for te in self.text_indexes:
+                index.update(te)
+            matched, unmatched = match_factors(factors, index)
+            if not matched:
+                raise ValueError(f"Could not load lora {lora}: no modules matched "
+                                 f"{self.model_name}'s parameter tree")
+            if unmatched:
+                # conv / LoCon factors, or a base of other shapes: skipped,
+                # as by the JAX package's delta path
+                logger.info("adapter %s: %d module(s) match no Linear of %s and are skipped",
+                            lora.get("lora"), unmatched, self.model_name)
+            stacks, nbytes = lora_runtime.build_stacks(matched, self.dtype, self.device)
+            entry = (stacks, {"matched": len(matched), "unmatched": unmatched, "bytes": nbytes})
+            self.lora_cache.keep_stacks(self.model_name, lora, entry, nbytes)
+        stacks, stats = entry
+        return stacks, {**stats, "factor_hit": factor_hit, "operand_hit": operand_hit}
+
+    def ti_apply(self, ti_ref) -> tuple[list, list]:
+        """A textual inversion -> (per encoder: its extra embedding table on
+        the device or None, its tokenizer with the placeholders). Vectors go
+        to the encoder whose hidden width they match; one that matches no
+        encoder raises ValueError. The resident weights are untouched."""
+        key = str(ti_ref)
+        if key in self._ti_cache:
+            self._ti_cache.move_to_end(key)
+            return self._ti_cache[key]
+        groups = load_learned_embeddings(ti_ref, self.model_root_dir, self.lora_root_dir)
+        extras, tokenizers = [], []
+        for enc, tok in zip(self.text_encoders, self.tokenizers):
+            dim, next_id = enc.config.hidden_size, enc.config.vocab_size
+            placeholders, rows = {}, []
+            for group in groups:
+                vec = next((v for v in group["vectors"] if v.shape[-1] == dim), None)
+                if vec is None:
+                    continue
+                ids = list(range(next_id, next_id + vec.shape[0]))
+                for alias in group["tokens"]:
+                    placeholders[alias] = ids
+                rows.append(vec)
+                next_id += vec.shape[0]
+            if not rows:
+                extras.append(None)
+                tokenizers.append(tok)
+                continue
+            extras.append(torch.from_numpy(np.concatenate(rows)).to(self.device, self.dtype))
+            tokenizers.append(PlaceholderTokenizer(tok, placeholders))
+        if all(extra is None for extra in extras):
+            dims = sorted({v.shape[-1] for g in groups for v in g["vectors"]})
+            raise ValueError(f"Textual inversion {ti_ref} is incompatible with "
+                             f"{self.model_name}: embedding widths {dims} match no text encoder")
+        self._ti_cache[key] = (extras, tokenizers)
+        while len(self._ti_cache) > MAX_RESIDENT_TI:
+            self._ti_cache.popitem(last=False)
+        return extras, tokenizers
+
+    def custom_vae(self, name: str) -> AutoencoderKL:
+        """The VAE of `<model_root_dir>/<name>` (its safetensors at the top
+        or under vae/), in this pipeline's VAE config, dtype and device.
+        Missing files raise ValueError."""
+        if name in self._vae_cache:
+            self._vae_cache.move_to_end(name)
+            return self._vae_cache[name]
+        root = Path(self.model_root_dir or "").expanduser() / name
+        files = self.model_root_dir and next(
+            (found for sub in ("", "vae") if (found := sorted((root / sub).glob("*.safetensors")))),
+            None)
+        if not files:
+            raise ValueError(f"Could not load custom VAE {name}: no safetensors under {root}")
+        with torch.device("meta"):
+            vae = AutoencoderKL(self.vae.config)
+        vae = self._materialise(vae)
+        load_checkpoint_(vae, files, "vae")
+        vae.to(memory_format=torch.channels_last)
+        self._vae_cache[name] = vae
+        while len(self._vae_cache) > MAX_RESIDENT_VAES:
+            self._vae_cache.popitem(last=False)
+        return vae
+
     # --- stages ---
 
     def _xl_time_ids(self, height: int, width: int, aesthetic_score: float = 6.0) -> list:
@@ -264,30 +435,37 @@ class SDPipeline:
             return [height, width, 0, 0, float(aesthetic_score)]
         return [height, width, 0, 0, height, width][:self.n_time_ids]
 
-    def encode_prompts(self, prompts: list[str]):
+    def encode_prompts(self, prompts: list[str], tokenizers=None, extras=None,
+                       stacks=None, gain: float = 1.0):
         """-> (context [B, 77, D], pooled [B, P] or None), all encoders in
-        one batch; SDXL concatenates both encoders' hidden states."""
+        one batch; SDXL concatenates both encoders' hidden states. A job's
+        textual inversion gives `tokenizers` and `extras` (per encoder), its
+        adapter the `stacks` whose "te{i}:" modules carry the delta at
+        `gain` on every row."""
         hiddens, pooled = [], None
-        for tok, enc in zip(self.tokenizers, self.text_encoders):
+        for i, enc in enumerate(self.text_encoders):
+            tok = (tokenizers or self.tokenizers)[i]
             ids = torch.from_numpy(tok(prompts).astype(np.int64)).to(self.device)
-            out = enc(ids)
+            with lora_runtime.applied(self.text_indexes[i], stacks, gain, len(prompts)):
+                out = enc(ids, extras[i] if extras else None)
             hiddens.append(out["hidden_states"])
             pooled = out["pooled"]
         context = torch.cat(hiddens, dim=-1) if len(hiddens) > 1 else hiddens[0]
         return context, (pooled if self.is_xl else None)
 
-    def encode_image(self, pixels: np.ndarray):
+    def encode_image(self, pixels: np.ndarray, vae=None):
         """float32 [B, H, W, 3] in [-1, 1] -> scaled latents [B, C, h, w]
-        f32 (the latent distribution's mean)."""
+        f32 (the latent distribution's mean), by `vae` (the resident one
+        unset)."""
         x = torch.from_numpy(np.ascontiguousarray(pixels.transpose(0, 3, 1, 2)))
         x = x.to(self.device, self.dtype).contiguous(memory_format=torch.channels_last)
-        return self.vae.encode(x).float()
+        return (vae or self.vae).encode(x).float()
 
-    def decode(self, latents):
+    def decode(self, latents, vae=None):
         """scaled latents [B, C, h, w] -> uint8 [B, H, W, 3] on the host,
         quantised on the device as the JAX program does."""
         latents = latents.to(self.dtype).contiguous(memory_format=torch.channels_last)
-        pixels = self.vae.decode(latents).float()
+        pixels = (vae or self.vae).decode(latents).float()
         pixels = ((pixels + 1.0) * 127.5).clamp(0.0, 255.0).round().to(torch.uint8)
         return pixels.permute(0, 2, 3, 1).cpu().numpy()
 
@@ -322,6 +500,9 @@ class SDPipeline:
         starts img2img, or pix2pix on an edit checkpoint (guided by
         `image_guidance_scale`, 1.5 unset); with `mask_image` inpaint
         (white repaints). `aesthetic_score` is the refiner's fifth time id.
+        `lora` {lora, weight_name, subfolder} (at `lora_scale`, else
+        `cross_attention_kwargs["scale"]`, else 1.0), `textual_inversion`
+        and `vae` are the job's adapters.
         `refiner` {"model_name", "strength" (0.3)} re-enters the output into
         that model's pipeline, which `registry` resolves, as img2img with the
         job's prompts, steps, guidance and scheduler.
@@ -336,6 +517,21 @@ class SDPipeline:
             if kwargs.get(key):
                 raise ValueError(f"{key!r} is not supported by chiaswarm_tpu_torch yet")
         timings: dict[str, float] = {}
+        # the adapters resolve before any work, so a bad one fails the job
+        # at once
+        t_adapters = time.perf_counter()
+        lora = kwargs.get("lora")
+        lora_scale = float(kwargs.get("lora_scale", (kwargs.get("cross_attention_kwargs")
+                                                     or {}).get("scale", 1.0)))
+        stacks = lora_stats = None
+        if lora is not None:
+            stacks, lora_stats = self.adapter_stacks(lora)
+        ti_ref = kwargs.get("textual_inversion")
+        extras, tokenizers = self.ti_apply(ti_ref) if ti_ref else (None, None)
+        vae = self.custom_vae(str(kwargs["vae"])) if kwargs.get("vae") else self.vae
+        if lora is not None or ti_ref or vae is not self.vae:
+            synchronize(self.device)
+            timings["adapters_s"] = time.perf_counter() - t_adapters
         steps = int(num_inference_steps)
         n = int(num_images_per_prompt)
         starts = None
@@ -371,7 +567,8 @@ class SDPipeline:
         t_job = time.perf_counter()
 
         with _Timer(self.device, timings, "text_encode_s"):
-            context, pooled = self.encode_prompts([negative_prompt] * n + [prompt] * n)
+            context, pooled = self.encode_prompts([negative_prompt] * n + [prompt] * n,
+                                                  tokenizers, extras, stacks, lora_scale)
             if cfg_rows == 3:
                 context = torch.cat([context[:n], context])
             added = None
@@ -406,11 +603,11 @@ class SDPipeline:
                         (width, height), Image.NEAREST), np.float32)[None, ..., None] / 255.0
                     pixels = pixels * (mask_px <= 0.5).astype(np.float32)
                 # one start image for the whole batch: encoded once
-                image_latents = self.encode_image(pixels).expand(shape)
+                image_latents = self.encode_image(pixels, vae).expand(shape)
                 if mode == "pix2pix":
                     # the edit checkpoint conditions on the latent
                     # distribution's unscaled mean
-                    image_latents = image_latents / self.vae.config.scaling_factor
+                    image_latents = image_latents / vae.config.scaling_factor
         if mask_image is not None:
             m = _mask_to_latent_array(mask_image, width, height, self.latent_factor)
             mask = torch.from_numpy(m.transpose(2, 0, 1)[None]).to(self.device).expand(
@@ -418,7 +615,8 @@ class SDPipeline:
 
         schedule = scheduler.schedule(steps)
         start, end = scheduler.loop_bounds(schedule, steps, t_start)
-        with _Timer(self.device, timings, "denoise_s"):
+        with (_Timer(self.device, timings, "denoise_s"),
+              lora_runtime.applied(self.unet_index, stacks, lora_scale, cfg_rows * n)):
             if mode in ("img2img", "inpaint"):
                 latents = scheduler.add_noise(schedule, image_latents, latents, start)
             else:
@@ -460,7 +658,7 @@ class SDPipeline:
                     latents = mask * latents + (1.0 - mask) * keep
 
         with _Timer(self.device, timings, "decode_s"):
-            pixels = self.decode(latents)
+            pixels = self.decode(latents, vae)
         finite = bool(torch.isfinite(latents).all())
         absmax = float(latents.abs().max())
         timings["unet_step_ms"] = 1000.0 * timings["denoise_s"] / max(end - start, 1)
@@ -502,6 +700,14 @@ class SDPipeline:
             "device": device_label(self.device),
             "dtype": str(self.dtype).replace("torch.", ""),
             "weights": self.weights_source,
+            # the adapter's route: the runtime delta, whatever its modules
+            # (the JAX package says "merged" where some of them are conv)
+            **({"lora_mode": "delta", "lora_scale": lora_scale,
+                "lora_modules": {k: lora_stats[k] for k in ("matched", "unmatched")},
+                "operand_cache": {"hits": int(lora_stats["operand_hit"]),
+                                  "misses": int(not lora_stats["operand_hit"]),
+                                  "bytes_saved": lora_stats["bytes"] * lora_stats["operand_hit"]}}
+               if lora is not None else {}),
             "latents": {"finite": finite, "absmax": absmax},
             "timings": {k: round(v, 4) for k, v in timings.items()},
         }

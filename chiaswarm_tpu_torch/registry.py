@@ -11,9 +11,14 @@ read each checkpoint's scheduler config (the prediction type) under
 
 At most MAX_RESIDENT_PIPELINES stay resident, as in the JAX package: a
 build past the limit evicts the least recently used pipeline (a fetch
-refreshes its recency). An eviction drops the registry's reference only;
-a job that still runs on the evicted pipeline keeps it alive until it
-ends, and its device memory returns when the last reference goes.
+refreshes its recency). An eviction releases the pipeline's adapter
+stacks, textual-inversion tables and custom VAEs and drops the registry's
+reference; a job that still runs on the evicted pipeline keeps it (and
+what the job itself holds) alive until it ends, and its device memory
+returns when the last reference goes.
+
+The registry owns the adapter caches its pipelines share (lora_cache.py)
+and the roots a job's adapters resolve under.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from collections import OrderedDict
 
 import torch
 
+from .lora_cache import LoraCache
 from .pipelines.stable_diffusion import SDPipeline
 
 logger = logging.getLogger(__name__)
@@ -32,9 +38,12 @@ MAX_RESIDENT_PIPELINES = 4
 
 
 class Registry:
-    def __init__(self, device, model_root_dir: str | None = None):
+    def __init__(self, device, model_root_dir: str | None = None,
+                 lora_root_dir: str | None = None, lora_cache: LoraCache | None = None):
         self.device = device
         self.model_root_dir = model_root_dir
+        self.lora_root_dir = lora_root_dir
+        self.lora_cache = lora_cache or LoraCache()
         self._pipelines: OrderedDict[str, SDPipeline] = OrderedDict()
         self._lock = threading.Lock()
 
@@ -47,12 +56,15 @@ class Registry:
                 return pipe
             pipe = SDPipeline(model_name, device=self.device,
                               allow_random_init=allow_random_init,
-                              model_root_dir=self.model_root_dir)
+                              model_root_dir=self.model_root_dir,
+                              lora_root_dir=self.lora_root_dir, lora_cache=self.lora_cache)
             self._pipelines[model_name] = pipe
-            evicted = [self._pipelines.popitem(last=False)[0]
+            evicted = [self._pipelines.popitem(last=False)
                        for _ in range(len(self._pipelines) - MAX_RESIDENT_PIPELINES)]
+            for _, old in evicted:
+                old.release()
             if evicted:
-                logger.info("evicted resident pipelines %s", evicted)
+                logger.info("evicted resident pipelines %s", [name for name, _ in evicted])
                 if torch.device(self.device).type == "cuda":
                     torch.cuda.empty_cache()
             return pipe

@@ -5,8 +5,8 @@ bearer auth, `worker_version`, a capability advertisement with the GPU in
 the legacy `gpu`/`memory` keys as well as `chips`/`hbm_gb`, and result
 envelopes {id, artifacts (b64 + sha256), nsfw, worker_version,
 pipeline_config (with timings), fatal_error on unrecoverable jobs}. One
-job runs at a time on one device. The outbox, telemetry, batching, LoRA,
-checkpoints, geometry and stage graphs are later slices.
+job runs at a time on one device. The outbox, telemetry, batching,
+resumable checkpoints, geometry and stage graphs are later slices.
 
 Run it with `python -m chiaswarm_tpu_torch.worker` (on the card; settings
 from $SDAAS_ROOT/settings.json and the SDAAS_* variables).
@@ -24,6 +24,7 @@ from . import __version__
 from .device import device_label, memory_gb, resolve_device
 from .hive import HiveClient, HiveError
 from .job_arguments import format_args
+from .lora_cache import LoraCache
 from .post_processors.output_processor import exception_image, fatal_exception_response
 from .registry import Registry
 from .settings import load_settings
@@ -39,7 +40,10 @@ class Worker:
                  poll_seconds: float = POLL_SECONDS):
         self.settings = settings or load_settings()
         self.device = resolve_device(device)
-        self.registry = registry or Registry(self.device, self.settings.model_root_dir)
+        self.registry = registry or Registry(
+            self.device, self.settings.model_root_dir, self.settings.lora_root_dir,
+            LoraCache(int(self.settings.lora_cache_mb) << 20,
+                      int(self.settings.lora_operand_cache_mb) << 20))
         self.hive = HiveClient(self.settings)
         self.poll_seconds = poll_seconds
         self.jobs_done = 0
@@ -67,7 +71,7 @@ class Worker:
         else an error-image artifact the hive may retry)."""
         job_id = job.get("id")
         try:
-            callback, args = format_args(job)
+            callback, args = format_args(job, self.settings)
         except Exception as e:  # noqa: BLE001 — malformed job: never resubmit
             logger.exception("format_args failed for job %s", job_id)
             return fatal_exception_response(e, job_id, job)

@@ -2,7 +2,10 @@
 chiaswarm_tpu/workflows/diffusion.py `diffusion_callback`: resolve the
 resident pipeline, run the job (txt2img, or img2img, pix2pix and inpaint
 with the start image and mask that job_arguments fetched; a `refiner`
-stage resolves its pipeline in the same registry), package the images.
+stage resolves its pipeline in the same registry; the job's `lora`,
+`textual_inversion` and `vae` go to the pipeline, whose ValueError for an
+adapter it cannot load or match the worker turns into a fatal envelope),
+package the images.
 
 The safety checker is a model of its own that the port does not have
 yet: envelopes say `nsfw_checked: false`, as the JAX package's

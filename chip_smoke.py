@@ -45,7 +45,14 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
    the card (f32) and one on the CPU: test/tiny-pix2pix and
    test/tiny-xl-pix2pix pix2pix jobs, test/tiny-xl with test/tiny-xl-refiner
    chained, test/tiny-sd txt2img; each must report weights loaded from the
-   checkpoint, and the images agree within 2/255.
+   checkpoint, and the images agree within 2/255. Then adapters written
+   from seeded tensors, card against CPU within 2/255, each image moved by
+   its adapter: test/tiny-xl with a kohya LoRA over the UNet and both text
+   encoders (`.alpha` per module) at scale 0.8 given as
+   cross_attention_kwargs.scale; test/tiny-sd with a PEFT LoRA whose
+   proj_in / proj_out factors are 1x1 convs (skipped, the same count on both
+   devices); a dual-encoder and a diffusers textual inversion; a custom VAE
+   on a tiny-sd img2img job.
 5. Main path: a fake hive on localhost, the port's worker, and the
    full-width stabilityai/stable-diffusion-xl-base-1.0 pipeline on seeded
    random weights; three 1024^2 30-step DPM++ 2M txt2img jobs and one echo
@@ -83,7 +90,22 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
    least recently used), the device's allocated memory must fall by SD
    1.5's bytes less the tiny model's (within 10% of SD 1.5's), and a second
    job rebuilds SD 1.5 from its files with the first job's image bit for
-   bit. No served bf16 attention may take the FMA kernel.
+   bit. Then the adapter path (`serve_adapter_path`), in a registry of its
+   own over a temporary root where every adapter is written from seeded
+   tensors: SDXL 1024^2 30-step DPM++ 2M txt2img plain, with a rank-32
+   kohya LoRA over 722 UNet and 264 text-encoder modules at scale 0.8, with
+   it at scale 0, plain again, and with a dual-encoder textual inversion
+   and a custom VAE; SD 1.5 512^2 under LCMScheduler at 4 steps plain and
+   with a rank-64 PEFT LoRA (160 modules, its 32 conv-shaped factors
+   skipped), and 30 steps plain and with a textual inversion and a custom
+   VAE. Each adapter job launches exactly what its plain twin does; scale 0
+   and the plain job after the LoRA job give the plain image bit for bit;
+   the LoRA changes it. The adapters' load times and bytes are printed,
+   the delta's device time per UNet call is a profiler category of its own
+   (SDXL and SD 1.5), one bf16 SDXL UNet call with the delta is held to
+   phase 7's bound, and evicting SDXL must free its adapter stacks (and
+   the device memory of its weights, stacks, table and VAE). No served
+   bf16 attention may take the FMA kernel.
 6. Each kernel at every shape any path launched it with: again held
    against its plain version, and timed (CUDA events) beside its plain
    version and one PyTorch library call computing the same function, each
@@ -137,7 +159,7 @@ import subprocess
 import sys
 import time
 from collections import Counter
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import torch
@@ -982,6 +1004,209 @@ def tiny_image_checks(device: str = "cuda", size: int = 64, steps: int = 4) -> d
     return result
 
 
+# --- adapters: files written from seeded tensors (phases 4 and 5) ---
+
+# the Linear modules a kohya or PEFT LoRA of SD covers: every attention
+# projection and the feed-forward of each transformer block, and each
+# transformer model's proj_in / proj_out; in a text encoder, every
+# attention projection and both MLP layers
+LORA_UNET_SUFFIXES = ("attn1.to_q", "attn1.to_k", "attn1.to_v", "attn1.to_out.0",
+                      "attn2.to_q", "attn2.to_k", "attn2.to_v", "attn2.to_out.0",
+                      "ff.net.0.proj", "ff.net.2", "proj_in", "proj_out")
+LORA_TE_SUFFIXES = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+                    "self_attn.out_proj", "mlp.fc1", "mlp.fc2")
+
+
+def write_lora(path: Path, pipe, layout: str, rank: int, alpha: float | None = None,
+               te_rank: int = 0, seed: int = 0, conv_proj: bool = False) -> dict:
+    """A LoRA over `pipe`'s modules from seeded tensors, as fp16
+    safetensors in `layout`: "kohya" (lora_unet_ / lora_te[1|2]_ names in
+    underscores, lora_down / lora_up, an `.alpha` per module when `alpha` is
+    given) or "peft" (unet. / text_encoder[_2]. dotted names, lora_A /
+    lora_B). The UNet's LORA_UNET_SUFFIXES modules at `rank`; with
+    `te_rank`, each text encoder's LORA_TE_SUFFIXES at that rank. With
+    `conv_proj`, proj_in / proj_out are written in SD 1.x's 1x1-conv shapes
+    [r, in, 1, 1] and [out, r, 1, 1]. A ~ N(0, 1/in), B ~ N(0, 1/16r).
+    -> {"name", "modules", "conv", "bytes"}."""
+    import numpy as np
+    from safetensors.numpy import save_file
+    from torch import nn
+
+    rng = np.random.default_rng(seed)
+    state, conv = {}, 0
+    parts = [(pipe.unet, "lora_unet_", "unet.", LORA_UNET_SUFFIXES, rank)]
+    if te_rank:
+        for i, enc in enumerate(pipe.text_encoders):
+            kohya = "lora_te_" if len(pipe.text_encoders) == 1 else f"lora_te{i + 1}_"
+            parts.append((enc, kohya, "text_encoder" + ("_2." if i else "."), LORA_TE_SUFFIXES,
+                          te_rank))
+    for module, kohya, peft, suffixes, r in parts:
+        for name, m in module.named_modules():
+            if not (isinstance(m, nn.Linear) and name.endswith(suffixes)):
+                continue
+            out_f, in_f = m.weight.shape
+            a = (rng.standard_normal((r, in_f)) / np.sqrt(in_f)).astype(np.float16)
+            b = (rng.standard_normal((out_f, r)) / (4 * np.sqrt(r))).astype(np.float16)
+            if conv_proj and name.endswith(("proj_in", "proj_out")):
+                a, b = a[:, :, None, None], b[:, :, None, None]
+                conv += 1
+            if layout == "kohya":
+                base = kohya + name.replace(".", "_")
+                state[f"{base}.lora_down.weight"], state[f"{base}.lora_up.weight"] = a, b
+                if alpha is not None:
+                    state[f"{base}.alpha"] = np.asarray(alpha, np.float16)
+            else:
+                state[f"{peft}{name}.lora_A.weight"], state[f"{peft}{name}.lora_B.weight"] = a, b
+    path.parent.mkdir(parents=True, exist_ok=True)
+    save_file(state, str(path))
+    modules = sum(k.endswith((".lora_down.weight", ".lora_A.weight")) for k in state)
+    return {"name": path.name, "modules": modules, "conv": conv, "bytes": path.stat().st_size}
+
+
+def write_ti(path: Path, pipe, fmt: str, token: str = "<smoke-style>", vectors: int = 2,
+             seed: int = 0) -> int:
+    """A textual inversion from seeded vectors (N(0, 0.05^2)) as safetensors:
+    "diffusers" ({token: [k, D]} at the first encoder's width), "kohya"
+    ({"emb_params": ...}) or "dual" (SDXL's {"clip_l": [k, D1], "clip_g":
+    [k, D2]} at the two encoders' widths). -> file bytes."""
+    import numpy as np
+    from safetensors.numpy import save_file
+
+    rng = np.random.default_rng(seed)
+    dims = [e.config.hidden_size for e in pipe.text_encoders]
+
+    def vec(dim):
+        return (0.05 * rng.standard_normal((vectors, dim))).astype(np.float32)
+
+    state = {"diffusers": lambda: {token: vec(dims[0])},
+             "kohya": lambda: {"emb_params": vec(dims[0])},
+             "dual": lambda: {"clip_l": vec(dims[0]), "clip_g": vec(dims[-1])}}[fmt]()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    save_file(state, str(path))
+    return path.stat().st_size
+
+
+def write_vae(model_dir: Path, pipe, seed: int, subfolder: str = "") -> int:
+    """A VAE of `pipe`'s VAE config with seeded random weights, as fp16
+    safetensors under `model_dir[/subfolder]` (sd-vae-ft-mse ships its file
+    at the top of the repo, an SD model directory under vae/). -> bytes."""
+    from safetensors.torch import save_file
+
+    from chiaswarm_tpu_torch.models.vae import AutoencoderKL
+    from chiaswarm_tpu_torch.weights import random_init_
+
+    with torch.device("meta"):
+        vae = AutoencoderKL(pipe.vae.config)
+    vae = vae.to_empty(device=pipe.device).float()
+    random_init_(vae, torch.Generator(device=pipe.device).manual_seed(seed))
+    state = {k: v.detach().to("cpu", torch.float16).contiguous()
+             for k, v in vae.state_dict().items()}
+    del vae
+    folder = model_dir / subfolder
+    folder.mkdir(parents=True, exist_ok=True)
+    path = folder / "diffusion_pytorch_model.safetensors"
+    save_file(state, str(path))
+    return path.stat().st_size
+
+
+def tiny_adapter_checks(device: str = "cuda", size: int = 64, steps: int = 4) -> dict:
+    """Phase 4 for adapters: the tiny pipelines in f32 on `device` against
+    the same weights on the CPU, every adapter written under a temporary
+    root, with the same injected noise; the decoded images must agree
+    within 2/255. Jobs: test/tiny-xl with a kohya adapter over the UNet and
+    both text encoders (`.alpha` per module) at lora_scale 0.8 given as
+    cross_attention_kwargs.scale; test/tiny-sd with a PEFT adapter whose
+    proj_in / proj_out factors are 1x1-conv shaped (skipped, the same count
+    on both devices); a dual-encoder textual inversion on tiny-xl and a
+    diffusers one on tiny-sd; a custom VAE on a tiny-sd img2img job. Each
+    adapter job's image must differ from the same job without it."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from chiaswarm_tpu_torch.loras import resolve_lora
+    from chiaswarm_tpu_torch.pipelines.stable_diffusion import SDPipeline
+
+    root = Path(tempfile.mkdtemp(prefix="chip-smoke-adapters-"))
+    loras = root / "loras"
+    try:
+        pairs = {}
+        for model in ("test/tiny-xl", "test/tiny-sd"):
+            cpu = SDPipeline(model, device="cpu", model_root_dir=str(root),
+                             lora_root_dir=str(loras))
+            weights = {"unet": cpu.unet.state_dict(),
+                       "text": [e.state_dict() for e in cpu.text_encoders],
+                       "vae": cpu.vae.state_dict()}
+            pairs[model] = (cpu, SDPipeline(model, device=device, dtype=torch.float32,
+                                            weights=weights, model_root_dir=str(root),
+                                            lora_root_dir=str(loras)))
+        xl, sd = pairs["test/tiny-xl"][0], pairs["test/tiny-sd"][0]
+        kohya = write_lora(loras / "tiny-xl-kohya.safetensors", xl, "kohya", rank=4, alpha=2.0,
+                           te_rank=2, seed=11)
+        peft = write_lora(loras / "tiny-sd-peft.safetensors", sd, "peft", rank=4, seed=12,
+                          conv_proj=True)
+        write_ti(loras / "tiny-xl-dual.safetensors", xl, "dual", seed=13)
+        write_ti(loras / "tiny-sd-ti.safetensors", sd, "diffusers", seed=14)
+        write_vae(root / "test/tiny-vae", sd, seed=15)
+        lat = size // 2
+
+        def noise(seed):
+            return torch.randn((1, 4, lat, lat), generator=torch.Generator().manual_seed(seed))
+
+        def noise_fn(kind, i, shape):
+            return noise(100 + i + 1000 * (kind == "keep"))
+
+        common = dict(negative_prompt="blurry", num_inference_steps=steps, guidance_scale=6.0,
+                      height=size, width=size, latents=noise(7), noise_fn=noise_fn,
+                      scheduler_type="EulerAncestralDiscreteScheduler")
+        jobs = [
+            ("test/tiny-xl", "kohya LoRA (UNet, te1, te2, alpha) at scale 0.8",
+             dict(prompt="a red cube",
+                  lora=resolve_lora("tiny-xl-kohya.safetensors", str(loras)),
+                  cross_attention_kwargs={"scale": 0.8})),
+            ("test/tiny-sd", "PEFT LoRA with conv-shaped proj_in / proj_out",
+             dict(prompt="a red cube", lora=resolve_lora("tiny-sd-peft.safetensors", str(loras)))),
+            ("test/tiny-xl", "dual-encoder textual inversion",
+             dict(prompt="a <tiny-xl-dual> cube", textual_inversion="tiny-xl-dual.safetensors")),
+            ("test/tiny-sd", "diffusers textual inversion",
+             dict(prompt="a <smoke-style> cube", textual_inversion="tiny-sd-ti.safetensors")),
+            ("test/tiny-sd", "custom VAE, img2img",
+             dict(prompt="a red cube", vae="test/tiny-vae", image=start_image(size),
+                  strength=0.75)),
+        ]
+        result = {}
+        for model, what, job in jobs:
+            cpu, card = pairs[model]
+            want, want_cfg = cpu.run(**common, **job)
+            got, config = card.run(**common, **job)
+            plain = {k: v for k, v in job.items()
+                     if k not in ("lora", "cross_attention_kwargs", "textual_inversion", "vae")}
+            base, _ = card.run(**common, **plain)
+            diff = int(np.abs(got[0].astype(np.int16) - want[0].astype(np.int16)).max())
+            moved = int(np.abs(got[0].astype(np.int16) - base[0].astype(np.int16)).max())
+            row = {"max_pixel_diff": diff, "changed_by_adapter": moved,
+                   "lora_modules": config.get("lora_modules")}
+            check(diff <= 2, f"{model} {what}: card vs CPU pixel diff {diff} > 2")
+            check(moved > 2, f"{model} {what}: the adapter left the image unchanged ({moved})")
+            if "lora" in job:
+                check(config["lora_mode"] == "delta", f"{model} {what}: {config['lora_mode']}")
+                check(config["lora_modules"] == want_cfg["lora_modules"],
+                      f"{model} {what}: modules {config['lora_modules']} on {device}, "
+                      f"{want_cfg['lora_modules']} on the CPU")
+                written = kohya if "kohya" in what else peft
+                check(config["lora_modules"] == {"matched": written["modules"] - written["conv"],
+                                                 "unmatched": written["conv"]},
+                      f"{model} {what}: modules {config['lora_modules']}, written {written}")
+            result[f"{model} {what}"] = row
+            log(f"[tiny] {model} {what} {size}^2 f32, {device} vs CPU: max pixel diff {diff}/255 "
+                f"(bound 2/255); the adapter moves the image by up to {moved}/255"
+                + (f"; modules {config['lora_modules']}" if "lora" in job else ""))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return result
+
+
 # --- phase 5 ---
 
 def decode_artifact(artifact: dict):
@@ -1092,7 +1317,8 @@ def _snapshot(counters: dict) -> dict:
 
 
 def serve_counted(smi: str, registry, jobs: list, per_call: dict, device: str = "cuda",
-                  tag: str = "image", where: str = "image path") -> tuple[dict, dict]:
+                  tag: str = "image", where: str = "image path",
+                  hold: bool = True) -> tuple[dict, dict]:
     """Serve `jobs` [(kind, mode, job)] one at a time through the worker;
     a job's `start_image_uri` / `mask_image_uri` of "start" / "mask" is
     replaced by the smooth start image / half mask at the job's size,
@@ -1102,7 +1328,8 @@ def serve_counted(smi: str, registry, jobs: list, per_call: dict, device: str = 
     decode, and for a job with a `refiner` the refiner's UNet calls x
     `per_call`[the refiner] plus its encode and decode; no bf16 attention
     may take the FMA kernel -> ({kind: (1, {kernel: (launches, {shape:
-    launches})})}, served), served["jobs"] with each image's sha256."""
+    launches})})}, served), served["jobs"] with each image's sha256. With
+    `hold` false the caller holds the launches itself (`hold_launches`)."""
     from chiaswarm_tpu_torch.external_resources import LIMITS
     from chiaswarm_tpu_torch.fake_hive import FakeHive
     from chiaswarm_tpu_torch.ops.flash_attention import COUNTER as FA_COUNTER
@@ -1129,7 +1356,8 @@ def serve_counted(smi: str, registry, jobs: list, per_call: dict, device: str = 
             return served_files[(which, size)]
 
         settings = Settings(sdaas_token="smoke-token", sdaas_uri=hive.uri,
-                            worker_name="chip-smoke", model_root_dir=registry.model_root_dir)
+                            worker_name="chip-smoke", model_root_dir=registry.model_root_dir,
+                            lora_root_dir=registry.lora_root_dir or Settings.lora_root_dir)
         worker = Worker(settings=settings, device=device, registry=registry, poll_seconds=0.05)
         FA_COUNTER.reset()
         GN_COUNTER.reset()
@@ -1154,7 +1382,9 @@ def serve_counted(smi: str, registry, jobs: list, per_call: dict, device: str = 
         hive.close()
 
     by_id = {r["id"]: r for r in results}
-    served = {"served_s": served_s, "jobs": {}, "routes": {str(k): n for k, n in routes.items()}}
+    served = {"served_s": served_s, "jobs": {}, "routes": {str(k): n for k, n in routes.items()},
+              "fma_bf16": {str(k): n for k, n in routes.items()
+                           if k[0] == "fma" and k[1] == torch.bfloat16}}
     for kind, mode, job in jobs:
         r = by_id[job["id"]]
         check(not r.get("fatal_error"), f"{job['id']}: fatal envelope {r['pipeline_config']}")
@@ -1190,6 +1420,9 @@ def serve_counted(smi: str, registry, jobs: list, per_call: dict, device: str = 
                                      "refiner_unet_calls": refiner_calls,
                                      "image_guidance_scale": cfg.get("image_guidance_scale"),
                                      "launches": counted, "predicted_launches": predicted,
+                                     "adapter": {k: cfg[k] for k in ("lora_mode", "lora_scale",
+                                                                   "lora_modules", "operand_cache")
+                                                 if k in cfg},
                                      "pixels_sha256": hashlib.sha256(image.tobytes()).hexdigest()}
         log(f"[{tag}] {job['id']} ({cfg['mode']}, {cfg['scheduler']}, {cfg['model']}, "
             f"{size}^2, weights {cfg['weights']}) on {smi}: job {t['job_s']:.3f}s = text_encode "
@@ -1211,14 +1444,21 @@ def serve_counted(smi: str, registry, jobs: list, per_call: dict, device: str = 
                if refiner else "") + ")")
     log(f"[{tag}] {len(jobs)} jobs served in {served_s:.1f}s; attention routes "
         + json.dumps({f"{r} {str(dt)[6:]} D={d}": n for (r, dt, d), n in routes.items()}))
+    if hold:
+        hold_launches(served, where)
+    return paths, served
+
+
+def hold_launches(served: dict, where: str) -> None:
+    """Every served job launched both kernels, exactly as predicted, and no
+    bf16 attention took the FMA kernel."""
     for job_id, job in served["jobs"].items():
         for name, count in job["launches"].items():
             check(count > 0, f"{name} was never launched on the {where}")
         check(job["launches"] == job["predicted_launches"],
               f"{job_id}: launches {job['launches']} != predicted {job['predicted_launches']}")
-    fma = {k: n for k, n in routes.items() if k[0] == "fma" and k[1] == torch.bfloat16}
-    check(not fma, f"bf16 attention took the FMA kernel on the {where}: {fma}")
-    return paths, served
+    check(not served["fma_bf16"],
+          f"bf16 attention took the FMA kernel on the {where}: {served['fma_bf16']}")
 
 
 def serve_image_path(smi: str, registry, unet_launches: dict, device: str = "cuda",
@@ -1507,6 +1747,242 @@ def serve_checkpoint_path(smi: str, device: str = "cuda", model: str = SD15, siz
         shutil.rmtree(root, ignore_errors=True)
 
 
+# the adapters of phase 5's adapter path. SDXL: kohya layout, rank 32 and
+# alpha 16 over the 722 Linear modules of LORA_UNET_SUFFIXES (70
+# transformer blocks x 10, and the 11 transformer models' proj_in /
+# proj_out), rank 8 over both text encoders' attention and MLP (264). SD
+# 1.5: PEFT layout, rank 64 over its 160 block modules, its 32 proj_in /
+# proj_out written as 1x1 convs (skipped), as a few-step distillation LoRA
+# is served: LCMScheduler at 4 steps.
+ADAPTER_SDXL = dict(layout="kohya", rank=32, alpha=16.0, te_rank=8, seed=21)
+ADAPTER_SD15 = dict(layout="peft", rank=64, conv_proj=True, seed=22)
+ADAPTER_SCALE = 0.8
+
+
+def serve_adapter_path(smi: str, xl_launches: dict, device: str = "cuda", sdxl: str = SDXL,
+                       sd15: str = SD15, size_xl: int = SIZE, size15: int = 512,
+                       steps: int = STEPS, lcm_steps: int = 4,
+                       fillers=("test/tiny-sd", "test/tiny-xl", "test/tiny-inpaint")
+                       ) -> tuple[dict, dict]:
+    """Phase 5, the adapter path: a registry of its own over a temporary
+    root holds SDXL and SD 1.5 on seeded random weights, and every adapter
+    is written there from seeded tensors (ADAPTER_SDXL, ADAPTER_SD15, a
+    dual-encoder and a diffusers textual inversion, a custom VAE of each
+    VAE config). Their load times (factors cold from the file and warm from
+    the cache, the device stacks, the tables, the VAEs) and bytes are
+    printed. Then, through the worker, each counted as the other paths
+    are: SDXL 1024^2 txt2img plain, with the LoRA at ADAPTER_SCALE, with it
+    at scale 0, plain again, and with the textual inversion and the custom
+    VAE; SD 1.5 512^2 30-step DPM++ 2M plain (first, so that it and not an
+    adapter job takes the new pipeline's first-call costs), LCM at
+    `lcm_steps` plain and with its LoRA, and 30-step with its textual
+    inversion and custom VAE. Checks:
+    every adapter job launches what its plain twin does; scale 0 and the
+    plain job after the LoRA job give the plain job's image bit for bit;
+    the LoRA changes it. Then one bf16 SDXL UNet call with the delta,
+    through the kernels, against f32 on the plain path (phase 7's bound),
+    the delta's device time by the profiler (SDXL and SD 1.5 UNet calls),
+    and an eviction: `fillers` push SDXL out, and its adapter stacks,
+    table and VAE leave the device with it."""
+    import gc
+    import shutil
+    import tempfile
+
+    from chiaswarm_tpu_torch.device import synchronize
+    from chiaswarm_tpu_torch.loras import resolve_lora
+    from chiaswarm_tpu_torch.models.lora import factors_nbytes, match_factors
+    from chiaswarm_tpu_torch.registry import Registry
+
+    on_card = torch.device(device).type == "cuda"
+
+    def allocated():
+        gc.collect()
+        return torch.cuda.memory_allocated() if on_card else 0
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        synchronize(torch.device(device))
+        return out, time.perf_counter() - t0
+
+    root = Path(tempfile.mkdtemp(prefix="chip-smoke-adapters-"))
+    loras = root / "loras"
+    try:
+        registry = Registry(torch.device(device), str(root), str(loras))
+        pipes = {m: registry.get_pipeline(m, allow_random_init=True) for m in (sdxl, sd15)}
+        files = {
+            "sdxl_lora": write_lora(loras / "sdxl-kohya.safetensors", pipes[sdxl],
+                                    **ADAPTER_SDXL),
+            "sd15_lora": write_lora(loras / "sd15-peft-lcm.safetensors", pipes[sd15],
+                                    **ADAPTER_SD15),
+            "sdxl_ti": write_ti(loras / "sdxl-dual.safetensors", pipes[sdxl], "dual", seed=23),
+            "sd15_ti": write_ti(loras / "sd15-ti.safetensors", pipes[sd15], "diffusers",
+                                seed=24),
+            "sdxl_vae": write_vae(root / "smoke/sdxl-vae", pipes[sdxl], 25, "vae"),
+            "sd15_vae": write_vae(root / "smoke/sd-vae-ft", pipes[sd15], 26),
+        }
+        log(f"[adapter] files written under a temporary root: {json.dumps(files)}")
+        loads = {}
+        for model, key, ti, vae in ((sdxl, "sdxl", "sdxl-dual.safetensors", "smoke/sdxl-vae"),
+                                    (sd15, "sd15", "sd15-ti.safetensors", "smoke/sd-vae-ft")):
+            pipe = pipes[model]
+            lora = resolve_lora(files[f"{key}_lora"]["name"], str(loras))
+            (factors, hit_cold), cold_s = timed(
+                lambda: registry.lora_cache.resolve(lora, model, str(root)))
+            (_, hit_warm), warm_s = timed(
+                lambda: registry.lora_cache.resolve(lora, model, str(root)))
+            (_, stats), stacks_s = timed(lambda: pipe.adapter_stacks(lora))
+            (extras, _), ti_s = timed(lambda: pipe.ti_apply(ti))
+            custom, vae_s = timed(lambda: pipe.custom_vae(vae))
+            check(not hit_cold and hit_warm, f"{model}: factor cache hits {hit_cold}, {hit_warm}")
+            written = files[f"{key}_lora"]
+            check(stats["matched"] == written["modules"] - written["conv"]
+                  and stats["unmatched"] == written["conv"],
+                  f"{model}: adapter modules {stats}, written {written}")
+            loads[key] = {
+                "lora_cold_s": cold_s, "lora_warm_s": warm_s, "stacks_s": stacks_s,
+                "host_bytes": factors_nbytes(factors), "device_bytes": stats["bytes"],
+                "matched": stats["matched"], "unmatched": stats["unmatched"],
+                "ti_s": ti_s, "ti_bytes": sum(e.numel() * e.element_size()
+                                              for e in extras if e is not None),
+                "vae_s": vae_s, "vae_bytes": sum(t.numel() * t.element_size()
+                                                 for t in custom.state_dict().values())}
+            del factors, extras, custom
+            row = loads[key]
+            log(f"[adapter] {model} on {smi}: LoRA factors {row['host_bytes']} bytes on the host, "
+                f"read cold from the file in {cold_s:.3f}s, warm from the cache in "
+                f"{warm_s * 1e3:.3f} ms; {row['matched']} modules matched, {row['unmatched']} "
+                f"skipped; device stacks {row['device_bytes']} bytes built in {stacks_s:.3f}s; "
+                f"textual inversion {row['ti_bytes']} bytes in {ti_s * 1e3:.1f} ms; custom VAE "
+                f"{row['vae_bytes']} bytes in {vae_s:.3f}s")
+
+        prompt = "a lighthouse on a cliff at dusk"
+        xl = {"workflow": "txt2img", "model_name": sdxl, "negative_prompt": "blurry",
+              "height": size_xl, "width": size_xl, "num_inference_steps": steps,
+              "guidance_scale": 7.0, "content_type": "image/png", "seed": 7000,
+              "prompt": prompt}
+        dpm = {"scheduler_type": "DPMSolverMultistepScheduler"}
+        lora_xl = {"lora": "sdxl-kohya.safetensors"}
+        ti_xl = {"textual_inversion": "sdxl-dual.safetensors", "vae": "smoke/sdxl-vae"}
+        sd = {**xl, "model_name": sd15, "height": size15, "width": size15, "seed": 7100}
+        lcm = {"scheduler_type": "LCMScheduler"}
+        jobs = [
+            ("sdxl_plain", {**xl, "id": "adapter-sdxl-plain-0", "parameters": dpm}),
+            ("sdxl_lora", {**xl, **lora_xl, "id": "adapter-sdxl-lora-0",
+                           "parameters": {**dpm, "lora_scale": ADAPTER_SCALE}}),
+            ("sdxl_lora_scale0", {**xl, **lora_xl, "id": "adapter-sdxl-lora-scale0-0",
+                                  "parameters": {**dpm, "lora_scale": 0.0}}),
+            ("sdxl_plain_after", {**xl, "id": "adapter-sdxl-plain-1", "parameters": dpm}),
+            ("sdxl_ti_plain", {**xl, "id": "adapter-sdxl-ti-plain-0", "seed": 7001,
+                               "prompt": f"{prompt}, <sdxl-dual>", "parameters": dpm}),
+            ("sdxl_ti_vae", {**xl, "id": "adapter-sdxl-ti-vae-0", "seed": 7001,
+                             "prompt": f"{prompt}, <sdxl-dual>", "parameters": {**dpm, **ti_xl}}),
+            ("sd15_ti_plain", {**sd, "id": "adapter-sd15-ti-plain-0", "seed": 7101,
+                               "prompt": f"{prompt}, <smoke-style>", "parameters": dpm}),
+            ("sd15_lcm_plain", {**sd, "id": "adapter-sd15-lcm-plain-0",
+                                "num_inference_steps": lcm_steps, "guidance_scale": 1.5,
+                                "parameters": lcm}),
+            ("sd15_lcm_lora", {**sd, "id": "adapter-sd15-lcm-lora-0",
+                               "num_inference_steps": lcm_steps, "guidance_scale": 1.5,
+                               "lora": "sd15-peft-lcm.safetensors", "parameters": lcm}),
+            ("sd15_ti_vae", {**sd, "id": "adapter-sd15-ti-vae-0", "seed": 7101,
+                             "prompt": f"{prompt}, <smoke-style>",
+                             "parameters": {**dpm, "textual_inversion": "sd15-ti.safetensors",
+                                            "vae": "smoke/sd-vae-ft"}}),
+        ]
+        paths, served = serve_counted(
+            smi, registry, [(kind, "txt2img", job) for kind, job in jobs],
+            {sdxl: xl_launches, sd15: SD_UNET_LAUNCHES}, device, tag="adapter",
+            where="adapter path", hold=False)
+        got = {kind: served["jobs"][job["id"]] for kind, job in jobs}
+        for kind, twin in (("sdxl_lora", "sdxl_plain"), ("sdxl_lora_scale0", "sdxl_plain"),
+                           ("sdxl_ti_vae", "sdxl_ti_plain"), ("sd15_lcm_lora", "sd15_lcm_plain"),
+                           ("sd15_ti_vae", "sd15_ti_plain")):
+            job, plain = got[kind], got[twin]
+            check(job["launches"] == plain["launches"],
+                  f"{kind}: launches {job['launches']}, its plain twin's {plain['launches']}")
+            adapter = job["adapter"]
+            if "lora" in dict(jobs)[kind]:
+                check(adapter.get("lora_mode") == "delta", f"{kind}: {adapter}")
+            log(f"[adapter] {kind}: UNet step {job['timings']['unet_step_ms']:.1f} ms against "
+                f"{plain['timings']['unet_step_ms']:.1f} ms plain ({twin}); job "
+                f"{job['timings']['job_s']:.3f}s against {plain['timings']['job_s']:.3f}s; "
+                f"adapters resolved in {job['timings'].get('adapters_s', 0.0) * 1e3:.1f} ms; "
+                f"{json.dumps(adapter)}")
+        same = {kind: got[kind]["pixels_sha256"] == got["sdxl_plain"]["pixels_sha256"]
+                for kind in ("sdxl_lora", "sdxl_lora_scale0", "sdxl_plain_after")}
+        log(f"[adapter] SDXL images equal to the plain job's bit for bit: {json.dumps(same)}")
+        check(same["sdxl_lora_scale0"], "the job at lora_scale 0 differs from the plain job")
+        check(same["sdxl_plain_after"], "the plain job after the LoRA job differs from before it")
+        check(not same["sdxl_lora"], "the LoRA left the SDXL image unchanged")
+        hold_launches(served, "adapter path")
+
+        # the delta's numerics and device time, at the served scale
+        e2e, profile = {}, {}
+        for model, lora_name, size in ((sdxl, "sdxl-kohya.safetensors", size_xl),
+                                       (sd15, "sd15-peft-lcm.safetensors", size15)):
+            pipe = pipes[model]
+            factors, _ = registry.lora_cache.resolve(resolve_lora(lora_name, str(loras)),
+                                                     model, str(root))
+            matched = match_factors(factors, pipe.unet_index)[0]
+            if model == sdxl:
+                e2e[model] = end_to_end_bf16_check(pipe, size, ("unet",), 2,
+                                                   adapter=(matched, ADAPTER_SCALE))
+            profile[model] = {
+                "plain": profile_main_path(pipe, size, parts=("unet",))["unet"],
+                "lora": profile_main_path(pipe, size, parts=("unet",),
+                                          adapter=(matched, ADAPTER_SCALE))["unet"]}
+            del factors, matched
+            plain, with_delta = profile[model]["plain"], profile[model]["lora"]
+            delta_ms, delta_n = with_delta["categories_ms_launches"][LORA_CATEGORY]
+            device, device_plain = with_delta["device_ms_per_call"], plain["device_ms_per_call"]
+            log(f"[adapter] {model} UNet call with its LoRA on {smi}: device {device:.2f} ms "
+                f"against {device_plain:.2f} plain (difference {device - device_plain:.2f}); "
+                f"the delta's own category {delta_ms:.3f} ms in {delta_n:g} launches; wall "
+                f"{with_delta['unprofiled_wall_ms_per_call']:.2f} ms against "
+                f"{plain['unprofiled_wall_ms_per_call']:.2f} unprofiled")
+            log_profile({"unet": with_delta}, smi)
+            for kernel, (ms, n) in sorted(with_delta["lora_delta_kernels"].items(),
+                                          key=lambda kv: -kv[1][0]):
+                log(f"[adapter]   delta kernel {ms:.3f} ms, {n:g} launches: {kernel[:100]}")
+
+        # an eviction on purpose: SDXL leaves with its adapter state
+        adapter_bytes = (loads["sdxl"]["device_bytes"] + loads["sdxl"]["ti_bytes"]
+                         + loads["sdxl"]["vae_bytes"])
+        model_bytes = pipeline_bytes(pipes[sdxl])
+        del pipes
+        registry.get_pipeline(sd15)
+        for filler in fillers[:-1]:
+            registry.get_pipeline(filler)
+        operands_before = registry.lora_cache.operands.resident_bytes
+        before = allocated()
+        fifth = registry.get_pipeline(fillers[-1])
+        after = allocated()
+        check(sdxl not in registry.resident_models(),
+              f"{sdxl} still resident: {registry.resident_models()}")
+        operands_freed = operands_before - registry.lora_cache.operands.resident_bytes
+        expected = model_bytes + adapter_bytes - pipeline_bytes(fifth)
+        del fifth
+        eviction = {"model_bytes": model_bytes, "adapter_bytes": adapter_bytes,
+                    "operand_bytes_freed": operands_freed, "allocated_before": before,
+                    "allocated_after": after, "fall": before - after, "expected_fall": expected}
+        log(f"[adapter] {fillers[-1]} evicted {sdxl}: the adapter cache freed {operands_freed} "
+            f"bytes of device stacks (built {loads['sdxl']['device_bytes']}); allocated {before} "
+            f"-> {after}, a fall of {before - after} against {expected} expected ({model_bytes} "
+            f"of weights and {adapter_bytes} of adapter stacks, table and VAE, less "
+            f"{fillers[-1]}'s)")
+        check(operands_freed == loads["sdxl"]["device_bytes"],
+              f"the eviction freed {operands_freed} bytes of adapter stacks, not "
+              f"{loads['sdxl']['device_bytes']}")
+        if on_card:
+            check(expected - adapter_bytes / 4 <= before - after <= expected + 0.02 * model_bytes,
+                  f"allocated memory fell by {before - after} bytes, not about {expected}")
+        served.update(loads=loads, e2e=e2e, profile=profile, eviction=eviction, files=files)
+        return paths, served
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # --- phase 6 ---
 
 def measure(paths: dict, main: str = "txt2img") -> tuple[list[dict], dict]:
@@ -1590,6 +2066,7 @@ def measure(paths: dict, main: str = "txt2img") -> tuple[list[dict], dict]:
 # three-launch kernel (stats, finalize, apply) stay so that
 # `--group-norm-only` can profile such a tree beside the one-launch kernel
 _GN_MARKS = ("gn_fused", "gn_stats", "gn_finalize", "gn_apply")
+LORA_CATEGORY = "lora delta (x·Aᵀ, then addmm into y)"
 _CATEGORIES = (
     ("flash_attention kernel", ("flash_fwd",)),
     ("group_norm kernel", _GN_MARKS),
@@ -1652,12 +2129,32 @@ def encode_input(pipe, size: int = SIZE):
     return px.contiguous(memory_format=torch.channels_last)
 
 
+def adapter_context(adapter, rows: int):
+    """-> delta(module): a context applying `adapter` (matched factors,
+    gain) to that UNet, its stacks built in the module's own dtype; a
+    context that does nothing when `adapter` is None."""
+    from chiaswarm_tpu_torch.models.lora import linear_index
+    from chiaswarm_tpu_torch.pipelines import lora_runtime
+
+    def delta(module):
+        if adapter is None:
+            return nullcontext()
+        matched, gain = adapter
+        weight = next(module.parameters())
+        stacks, _ = lora_runtime.build_stacks(matched, weight.dtype, weight.device)
+        return lora_runtime.applied(linear_index(module), stacks, gain, rows)
+    return delta
+
+
 def end_to_end_bf16_check(pipe, size: int = SIZE,
-                          parts=("unet", "vae_decode", "vae_encode"), rows: int = 2) -> dict:
+                          parts=("unet", "vae_decode", "vae_encode"), rows: int = 2,
+                          adapter=None) -> dict:
     """One UNet call (`rows` CFG rows), one VAE decode and one VAE encode
     (the named parts) at the shapes of `pipe`'s path at `size`, in bf16
     through the kernels, against the same weights in f32 on the plain path;
-    the plain path in bf16 gives the error bf16 itself makes."""
+    the plain path in bf16 gives the error bf16 itself makes. `adapter`
+    (matched factors, gain) applies its delta to the UNet call on all three
+    paths, from stacks in each path's dtype."""
     import copy
 
     from chiaswarm_tpu_torch.device import synchronize
@@ -1671,6 +2168,7 @@ def end_to_end_bf16_check(pipe, size: int = SIZE,
     # the f32 reference sees the same bf16 input values, cast up
     up = added and {"text_embeds": added["text_embeds"].float(), "time_ids": added["time_ids"]}
     px = encode_input(pipe, size)
+    delta = adapter_context(adapter, rows)
     calls = (
         ("unet", pipe.unet, lambda m: m(x, t, ctx, added),
          lambda m: m(x.float(), t, ctx.float(), up)),
@@ -1680,12 +2178,16 @@ def end_to_end_bf16_check(pipe, size: int = SIZE,
     for name, module, call, call_f32 in calls:
         if name not in parts:
             continue
+        around = delta if name == "unet" else (lambda m: nullcontext())
         with torch.inference_mode():
-            kernels = call(module).float()
+            with around(module):
+                kernels = call(module).float()
             with plain_path():
-                plain = call(module).float()
+                with around(module):
+                    plain = call(module).float()
                 wide = copy.deepcopy(module).float()
-                exact = call_f32(wide)
+                with around(wide):
+                    exact = call_f32(wide)
                 del wide
             synchronize(pipe.device)
         scale = rms(exact)
@@ -1697,6 +2199,7 @@ def end_to_end_bf16_check(pipe, size: int = SIZE,
         result[name] = row
         log(f"[e2e] {pipe.model_name} {name} at {size}^2"
             + (f" ({rows} CFG rows)" if name == "unet" else "")
+            + (", LoRA delta active" if adapter is not None and name == "unet" else "")
             + ", bf16 through the kernels vs f32 plain "
             f"path: relative RMS err "
             f"{row['rel_rms_err']:.4g}; plain path in bf16: {row['plain_bf16_rel_rms_err']:.4g} "
@@ -1708,11 +2211,13 @@ def end_to_end_bf16_check(pipe, size: int = SIZE,
     return result
 
 
-def profiled(fn, calls: int, device) -> tuple[dict, float, float, int]:
+def profiled(fn, calls: int, device) -> tuple[dict, float, float, int, dict]:
     """`calls` calls of fn after one warm-up call, timed by the host's clock
     and then again under torch.profiler: ({kernel name: (device ms per
     call, launches per call)}, wall ms per call unprofiled, the same under
-    the profiler, GroupNorm wrapper calls per call)."""
+    the profiler, GroupNorm wrapper calls per call, {kernel name: (device
+    ms, launches) per call} of the kernels launched inside `lora_delta`
+    ranges)."""
     from torch.profiler import ProfilerActivity, profile
 
     from chiaswarm_tpu_torch.device import synchronize
@@ -1738,20 +2243,38 @@ def profiled(fn, calls: int, device) -> tuple[dict, float, float, int]:
         device_us = getattr(event, "self_device_time_total", None)
         if device_us is None:
             device_us = getattr(event, "self_cuda_time_total", 0)
-        if device_us > 0 and getattr(event, "device_type", None) != torch.autograd.DeviceType.CPU:
+        # a record_function range's own span on the device is no kernel
+        if (device_us > 0 and event.key != "lora_delta"
+                and getattr(event, "device_type", None) != torch.autograd.DeviceType.CPU):
             ms, n = kernels.get(event.key, (0.0, 0.0))
             kernels[event.key] = (ms + device_us / 1e3 / calls, n + event.count / calls)
-    return kernels, plain_wall_ms, wall_ms, GN_COUNTER.launches // calls
+    delta = {}
+
+    def under(event):
+        for kernel in getattr(event, "kernels", ()):
+            ms, n = delta.get(kernel.name, (0.0, 0.0))
+            delta[kernel.name] = (ms + kernel.duration / 1e3 / calls, n + 1 / calls)
+        for child in event.cpu_children:
+            under(child)
+
+    for event in prof.events():
+        if event.name == "lora_delta" and event.device_type == torch.autograd.DeviceType.CPU:
+            under(event)
+    return kernels, plain_wall_ms, wall_ms, GN_COUNTER.launches // calls, delta
 
 
 def profile_main_path(pipe, size: int = SIZE, steps: int = 3,
-                      parts=("unet", "vae_decode", "vae_encode"), rows: int = 2) -> dict:
+                      parts=("unet", "vae_decode", "vae_encode"), rows: int = 2,
+                      adapter=None) -> dict:
     """Phase 8: torch.profiler over a few UNet calls (`rows` CFG rows,
     size/8 latents), one VAE decode and one VAE encode (the named parts) of
     `pipe` at `size`: device time and launches by kernel category, each
     GroupNorm kernel by name, GroupNorm wrapper calls, and the device's
-    busy share of the wall time."""
+    busy share of the wall time. With `adapter` (matched factors, gain) the
+    UNet calls carry its delta, whose kernels form a category of their
+    own."""
     x, t, ctx, added = unet_inputs(pipe, size, rows=rows)
+    delta = adapter_context(adapter, rows)
     lat = size // pipe.latent_factor
     z = torch.randn((1, pipe.latent_channels, lat, lat), device=pipe.device,
                     generator=torch.Generator(device=pipe.device).manual_seed(3))
@@ -1763,16 +2286,27 @@ def profile_main_path(pipe, size: int = SIZE, steps: int = 3,
                             ("vae_encode", lambda: pipe.vae.encode(px), 1)):
         if name not in parts:
             continue
-        kernels, plain_wall_ms, wall_ms, gn_calls = profiled(fn, calls, pipe.device)
+        with delta(pipe.unet) if name == "unet" else nullcontext():
+            kernels, plain_wall_ms, wall_ms, gn_calls, delta_kernels = profiled(
+                fn, calls, pipe.device)
         categories = {label: [0.0, 0.0] for label, _ in _CATEGORIES}
         categories["other (elementwise, norms, copies)"] = [0.0, 0.0]
-        for kernel, (ms, n) in kernels.items():
+
+        def category(kernel):
             low = kernel.lower()
-            label = next((label for label, marks in _CATEGORIES
-                          if any(m in low for m in marks)),
-                         "other (elementwise, norms, copies)")
-            categories[label][0] += ms
-            categories[label][1] += n
+            return next((label for label, marks in _CATEGORIES if any(m in low for m in marks)),
+                        "other (elementwise, norms, copies)")
+
+        for kernel, (ms, n) in kernels.items():
+            categories[category(kernel)][0] += ms
+            categories[category(kernel)][1] += n
+        if adapter is not None and name == "unet":
+            # the delta's kernels leave the category their names put them in
+            categories[LORA_CATEGORY] = [0.0, 0.0]
+            for kernel, (ms, n) in delta_kernels.items():
+                for label, sign in ((category(kernel), -1), (LORA_CATEGORY, 1)):
+                    categories[label][0] += sign * ms
+                    categories[label][1] += sign * n
         device_ms = sum(ms for ms, _ in kernels.values())
         result[name] = {
             "model": pipe.model_name, "size": size, "rows": rows,
@@ -1784,7 +2318,8 @@ def profile_main_path(pipe, size: int = SIZE, steps: int = 3,
                                    if any(m in k.lower() for m in _GN_MARKS)},
             "group_norm_calls": gn_calls,
             "top_kernels_ms": sorted(((k, ms) for k, (ms, _) in kernels.items()),
-                                     key=lambda kv: -kv[1])[:8]}
+                                     key=lambda kv: -kv[1])[:8],
+            "lora_delta_kernels": delta_kernels}
     return result
 
 
@@ -1905,6 +2440,7 @@ def main(argv=None) -> int:
         tiny_sd = tiny_sd_checks()
         tiny_image = tiny_image_checks()
         tiny_edit = tiny_edit_checks()
+        tiny_adapters = tiny_adapter_checks()
         launches, served, registry = serve_main_path(smi)
         unet_launches = {name: (count / N_JOBS - DECODE_LAUNCHES[name]) / STEPS
                          for name, (count, _) in launches.items()}
@@ -1916,8 +2452,9 @@ def main(argv=None) -> int:
         sd_paths, sd_served = serve_sd_path(smi, sd_registry)
         edit_paths, edit_served = serve_edit_path(smi, registry, sd_registry, unet_launches)
         checkpoint_paths, checkpoint_served = serve_checkpoint_path(smi)
+        adapter_paths, adapter_served = serve_adapter_path(smi, unet_launches)
         summary, shapes = measure({"txt2img": (N_JOBS, launches), **image_paths, **sd_paths,
-                                   **edit_paths, **checkpoint_paths})
+                                   **edit_paths, **checkpoint_paths, **adapter_paths})
         # (model, registry, canvas, CFG rows, parts) of phases 7 and 8
         calls = [(SDXL, registry, SIZE, 2, ("unet", "vae_decode", "vae_encode")),
                  *((model, sd_registry, size, 2, ("unet",)) for model, size in SD_CANVASES),
@@ -1937,9 +2474,10 @@ def main(argv=None) -> int:
             path.parent.mkdir(parents=True, exist_ok=True)
             path.write_text(json.dumps(
                 {"card": smi, "tiny_sd": tiny_sd, "tiny_image": tiny_image,
-                 "tiny_edit": tiny_edit, "served": served, "image_served": image_served,
-                 "sd_served": sd_served, "edit_served": edit_served,
-                 "checkpoint_served": checkpoint_served, "kernels": summary,
+                 "tiny_edit": tiny_edit, "tiny_adapters": tiny_adapters, "served": served,
+                 "image_served": image_served, "sd_served": sd_served,
+                 "edit_served": edit_served, "checkpoint_served": checkpoint_served,
+                 "adapter_served": adapter_served, "kernels": summary,
                  "shapes": shapes, "end_to_end_bf16": e2e, "profile": profile}, indent=1,
                 default=str))
     except SmokeFailure as e:
