@@ -1,0 +1,173 @@
+"""Cross-job batching: hold compatible hive jobs for a short linger window
+and release them as one work item. The counterpart of
+chiaswarm_tpu/batching.py `BatchScheduler`, trimmed to the port's one
+device.
+
+`put()` admits raw hive jobs. A job whose `coalesce_key` is None leaves at
+once as a work item of its own ("solo"). Others join the open group of
+their key, which leaves as one item when its linger window ends
+("linger"), when it holds `max_coalesce` jobs ("size"), when its images
+reach the device's rows limit ("rows", checked before a job would push it
+past the limit too), when a new distinct adapter would pass `lora_slots`
+("slots"), when an interactive job joins it ("priority"), when an
+interactive job of another key dispatches ("preempt": the one device is
+contended, so linger luck must not decide who goes first), or at
+`flush_all()` / `close()` ("shutdown"). The device takes items in FIFO
+order with `get()`; `task_done()` and `full()` gate the poll loop as an
+asyncio.Queue would.
+
+Left out, as the port has one device and no gang-scheduling hive: the
+dispatch board's placement matching (`claim`) and `put_gang` (the port
+advertises no `gang_rows`); and the telemetry counters (each released
+item carries its flush reason instead).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import time
+from typing import Callable
+
+from .coalesce import adapter_ref, coalesce_key, is_interactive, job_rows
+
+logger = logging.getLogger(__name__)
+
+
+class BatchScheduler:
+    def __init__(self, linger_s: float = 0.05, max_coalesce: int = 8, maxsize: int = 0,
+                 ready_maxsize: int = 0, rows_limit: Callable[[dict], int | None] | None = None,
+                 lora_slots: int = 8):
+        self.linger_s = max(float(linger_s), 0.0)
+        self.max_coalesce = int(max_coalesce)
+        self.lora_slots = max(int(lora_slots), 1)
+        self.maxsize = int(maxsize)
+        self.ready_maxsize = int(ready_maxsize)
+        self.rows_limit = rows_limit
+        # released work items, oldest first: {"jobs", "reason"}
+        self._board: list[dict] = []
+        self._change = asyncio.Event()
+        # key -> {"jobs", "rows", "cap", "adapters", "opened", "timer"}
+        self._pending: dict[tuple, dict] = {}
+        self._outstanding = 0
+        self._ready_jobs = 0
+        self._closed = False
+
+    # --- the queue surface of the worker's loops ---
+
+    def full(self) -> bool:
+        """Poll gating: released jobs not yet taken, or all jobs in flight,
+        at their bounds (0 = unbounded)."""
+        if self.ready_maxsize > 0 and self._ready_jobs >= self.ready_maxsize:
+            return True
+        return self.maxsize > 0 and self._outstanding >= self.maxsize
+
+    def task_done(self) -> None:
+        """One job finished executing."""
+        self._outstanding -= 1
+
+    @property
+    def outstanding_jobs(self) -> int:
+        """Lingering, released and executing jobs."""
+        return self._outstanding
+
+    @property
+    def pending_jobs(self) -> int:
+        """Jobs lingering in open groups."""
+        return sum(len(g["jobs"]) for g in self._pending.values())
+
+    async def get_item(self) -> dict:
+        """The oldest released work item {"jobs", "reason"}."""
+        while not self._board:
+            await self._change.wait()
+        entry = self._board.pop(0)
+        self._ready_jobs -= len(entry["jobs"])
+        return entry
+
+    async def get(self) -> list[dict]:
+        """The jobs of the oldest released work item."""
+        return (await self.get_item())["jobs"]
+
+    def _release(self, jobs: list[dict], reason: str) -> None:
+        self._ready_jobs += len(jobs)
+        self._board.append({"jobs": jobs, "reason": reason})
+        event, self._change = self._change, asyncio.Event()
+        event.set()
+
+    # --- admission ---
+
+    async def put(self, job: dict) -> None:
+        self._outstanding += 1
+        if self._closed or self.max_coalesce <= 1 or self.linger_s <= 0:
+            self._release([job], "solo")
+            return
+        key = coalesce_key(job)
+        if key is None:
+            if is_interactive(job):
+                self._preempt_lingerers()
+            self._release([job], "solo")
+            return
+
+        rows = job_rows(job)
+        adapter = adapter_ref(job)
+        group = self._pending.get(key)
+        if group is not None and group["cap"] is not None and group["rows"] + rows > group["cap"]:
+            # this job would push the group past one pass: release it now
+            self._flush(key, "rows")
+            group = None
+        if (group is not None and adapter is not None and adapter not in group["adapters"]
+                and len(group["adapters"]) >= self.lora_slots):
+            self._flush(key, "slots")
+            group = None
+        if group is None:
+            cap = None
+            if self.rows_limit is not None:
+                try:
+                    cap = self.rows_limit(job)
+                except Exception:  # noqa: BLE001 — the capacity probe is advisory
+                    logger.exception("rows_limit probe failed")
+            group = {"jobs": [], "rows": 0, "cap": cap, "adapters": set(),
+                     "opened": time.monotonic()}
+            group["timer"] = asyncio.get_running_loop().call_later(
+                self.linger_s, self._flush, key)
+            self._pending[key] = group
+        group["jobs"].append(job)
+        group["rows"] += rows
+        if adapter is not None:
+            group["adapters"].add(adapter)
+        if is_interactive(job):
+            # the interactive job takes its group with it now
+            self._flush(key, "priority")
+            self._preempt_lingerers()
+        elif len(group["jobs"]) >= self.max_coalesce:
+            self._flush(key, "size")
+        elif group["cap"] is not None and group["rows"] >= group["cap"]:
+            self._flush(key, "rows")
+
+    def _preempt_lingerers(self) -> None:
+        """An interactive job dispatches: every other lingering group
+        leaves now (the one device is contended), behind it in FIFO
+        order."""
+        for other in list(self._pending):
+            self._flush(other, "preempt")
+
+    def _flush(self, key: tuple, reason: str = "linger") -> None:
+        group = self._pending.pop(key, None)
+        if group is None:  # the timer fired after an earlier flush
+            return
+        group["timer"].cancel()
+        if len(group["jobs"]) > 1:
+            logger.info("coalesced %d jobs (%d images) for %s [%s] after %.3fs",
+                        len(group["jobs"]), group["rows"], key[0], reason,
+                        time.monotonic() - group["opened"])
+        self._release(group["jobs"], reason)
+
+    def flush_all(self) -> None:
+        """Release every lingering group now."""
+        for key in list(self._pending):
+            self._flush(key, "shutdown")
+
+    def close(self) -> None:
+        """Drain: release every lingering group, and admit later jobs solo."""
+        self._closed = True
+        self.flush_all()

@@ -1,0 +1,219 @@
+"""Coalesce compatibility: which raw hive jobs may share one padded
+denoise + decode pass. The counterpart of chiaswarm_tpu/coalesce.py, of
+which it keeps a copy (the port imports nothing of the JAX package).
+
+`coalesce_key(job)` is the bucket: two jobs with equal keys give the same
+images alone or coalesced, up to the rounding of other batch shapes.
+Everything the pass shares (model, canvas, steps, scheduler, guidance,
+workflow, img2img strength) is in the key; everything per row (prompt,
+negative, seed, start image, image count, adapter and its scale) rides
+outside it. None means the job runs alone.
+
+For the families and features the port serves the key is the JAX
+package's, element for element. It is None wherever the JAX key is None,
+and also for what the port cannot serve in a pass: flux (a later slice),
+ControlNet (refused by job_arguments), stage jobs (no stage graph yet)
+and the job keys job_arguments refuses. The port has one adapter route,
+the runtime delta (pipelines/lora_runtime.py), so adapter jobs always
+coalesce, as in the JAX package with `lora_runtime_delta` at its
+default.
+"""
+
+from __future__ import annotations
+
+from .job_arguments import _UNPORTED_KEYS
+from .models.configs import model_family
+
+# wire pipeline_type strings whose txt2img semantics the pass reproduces
+_BATCHABLE_PIPELINE_TYPES = {
+    None,
+    "DiffusionPipeline",
+    "StableDiffusionPipeline",
+    "StableDiffusionXLPipeline",
+    "AutoPipelineForText2Image",
+}
+
+# img2img wire names the pass serves (per-row start-image latents)
+_BATCHABLE_I2I_PIPELINE_TYPES = {
+    None,
+    "DiffusionPipeline",
+    "StableDiffusionImg2ImgPipeline",
+    "StableDiffusionXLImg2ImgPipeline",
+    "AutoPipelineForImage2Image",
+}
+
+# job keys that mean per-job structure the padded pass cannot carry
+_UNBATCHABLE_JOB_KEYS = ("mask_image_uri", "refiner", "upscale", "textual_inversion", "vae")
+
+# the only `parameters` keys a batchable job may carry (`controlnet` is
+# one in the JAX package, whose shared-ControlNet group the port lacks:
+# such a job keys to None below)
+_SAFE_PARAMETER_KEYS = frozenset({
+    "test_tiny_model",
+    "pipeline_type",
+    "scheduler_type",
+    "num_inference_steps",
+    "guidance_scale",
+    "num_images_per_prompt",
+    "large_model",
+    "use_karras_sigmas",
+    "default_height",
+    "default_width",
+    "controlnet",
+    "cross_attention_kwargs",
+    "lora_rank",
+})
+
+DEFAULT_STEPS = 30
+DEFAULT_GUIDANCE = 7.5
+DEFAULT_SCHEDULER = "DPMSolverMultistepScheduler"
+DEFAULT_STRENGTH = 0.75
+
+# the smallest padded factor rank of the JAX package's batched program:
+# declared ranks below it share one bucket
+LORA_MIN_RANK = 4
+
+
+def is_interactive(job: dict) -> bool:
+    """The latency-sensitive marker: `priority: "interactive"` (or the
+    legacy `sdaas_priority`) must not sit in a linger window."""
+    return "interactive" in (str(job.get("priority", "")).lower(),
+                             str(job.get("sdaas_priority", "")).lower())
+
+
+def job_rows(job: dict) -> int:
+    """Images this job contributes to a coalesced pass."""
+    params = job.get("parameters") or {}
+    try:
+        n = int(params.get("num_images_per_prompt", job.get("num_images_per_prompt", 1)) or 1)
+    except (TypeError, ValueError):
+        return 1
+    return max(n, 1)
+
+
+def placement_model(job: dict) -> str | None:
+    """The model name the registry knows this job by (the tiny stand-in
+    when `test_tiny_model` is set)."""
+    model = job.get("model_name")
+    if not isinstance(model, str) or not model:
+        return None
+    params = job.get("parameters")
+    tiny = bool(job.get("test_tiny_model"))
+    if isinstance(params, dict):
+        tiny = tiny or bool(params.get("test_tiny_model"))
+    if tiny:
+        from .workflows.diffusion import tiny_stand_in
+
+        return tiny_stand_in(model)
+    return model
+
+
+def adapter_ref(job: dict) -> str | None:
+    """One spelling of the adapter a job carries (the raw wire string or
+    the resolved {lora, weight_name, subfolder}), or None: the scheduler
+    caps the distinct adapters of a group with it."""
+    lora = job.get("lora")
+    if lora is None or lora == "":
+        return None
+    if isinstance(lora, dict):
+        return "|".join(str(lora.get(k) or "") for k in ("lora", "weight_name", "subfolder"))
+    return str(lora)
+
+
+def _pow2_bucket(n: int) -> int:
+    b = 1
+    while b < n:
+        b *= 2
+    return b
+
+
+def _adapter_component(job: dict, params: dict) -> tuple | None:
+    """The key's adapter element: adapter jobs coalesce with each other and
+    with adapter-free jobs (identity rides per row); only a declared
+    `lora_rank` splits, by power-of-two rank bucket, as in the JAX
+    package."""
+    if adapter_ref(job) is None:
+        return None
+    try:
+        rank = int(params.get("lora_rank", job.get("lora_rank", 0)) or 0)
+    except (TypeError, ValueError):
+        rank = 0
+    if rank <= 0:
+        return None
+    return ("lora", _pow2_bucket(max(rank, LORA_MIN_RANK)))
+
+
+def _family(model: str) -> str | None:
+    """The JAX package's `_auto_family` for the SD families ("sd",
+    "sdxl"), from the port's own `model_family`; None for every family the
+    port's pass does not serve."""
+    name = model.lower()
+    if any(mark in name for mark in ("kandinsky", "cascade", "flux", "tiny-if",
+                                     "latent-upscaler", "tiny-upscaler")) \
+            or name.startswith("deepfloyd/"):
+        return None
+    return "sdxl" if "xl" in model_family(model) else "sd"
+
+
+def coalesce_key(job: dict) -> tuple | None:
+    """The compatibility bucket of one raw hive job; None = not batchable."""
+    try:
+        workflow = job.get("workflow")
+        if workflow not in ("txt2img", "img2img"):
+            return None
+        if job.get("stage") is not None:
+            return None
+        model = job.get("model_name")
+        if not isinstance(model, str) or not model:
+            return None
+        if any(k in job for k in _UNBATCHABLE_JOB_KEYS) or any(job.get(k) for k in _UNPORTED_KEYS):
+            return None
+        params = job.get("parameters") or {}
+        if not isinstance(params, dict):
+            return None
+        if not set(params) <= _SAFE_PARAMETER_KEYS or params.get("controlnet") is not None:
+            return None
+        adapter = _adapter_component(job, params)
+        family = _family(model)
+        if family is None:
+            return None
+
+        # canvas: explicit dims, else the model-pinned default; jobs on the
+        # family default share the None bucket
+        height = job.get("height", params.get("default_height"))
+        width = job.get("width", params.get("default_width"))
+        if (height is None) != (width is None):
+            return None
+        if height is not None:
+            height, width = int(height), int(width)
+
+        strength = None
+        if workflow == "txt2img":
+            if "start_image_uri" in job or "strength" in job:
+                return None
+            if params.get("pipeline_type") not in _BATCHABLE_PIPELINE_TYPES:
+                return None
+        else:
+            # per-request start images at a shared explicit canvas
+            if not job.get("start_image_uri") or height is None:
+                return None
+            if params.get("pipeline_type") not in _BATCHABLE_I2I_PIPELINE_TYPES:
+                return None
+            if any(s in model.lower() for s in ("pix2pix", "ip2p", "inpaint")):
+                return None
+            strength = round(float(job.get("strength", DEFAULT_STRENGTH)), 4)
+
+        steps = int(params.get("num_inference_steps",
+                               job.get("num_inference_steps", DEFAULT_STEPS)))
+        guidance = round(float(params.get("guidance_scale",
+                                          job.get("guidance_scale", DEFAULT_GUIDANCE))), 4)
+        scheduler = str(params.get("scheduler_type", DEFAULT_SCHEDULER))
+        karras = bool(params.get("use_karras_sigmas", False))
+        # the tiny flag at either level splits the bucket
+        tiny = bool(params.get("test_tiny_model", False)) or bool(job.get("test_tiny_model", False))
+        large = bool(params.get("large_model", False))
+        return (model, family, height, width, steps, scheduler, guidance, karras, tiny, large,
+                workflow, strength, adapter, None, None)
+    except (TypeError, ValueError):
+        # values that do not parse: the solo path gives its fatal envelope
+        return None

@@ -160,6 +160,19 @@ def plan_launch(b: int, n: int, c: int, groups: int, elem_size: int, sms: int,
                       slab + keep * row_bytes)
 
 
+def max_batch_rows(sms: int, smem_per_block: int, blocks_per_sm: int = 1) -> int:
+    """The most batch rows `plan_launch` accepts on a card of `sms` SMs
+    (each batch row needs one resident CTA at least): what caps the rows of
+    a coalesced UNet pass (capacity.py)."""
+    rows = 0
+    while True:
+        try:
+            plan_launch(rows + 1, 1, 320, 32, 2, sms, smem_per_block, blocks_per_sm)
+        except ValueError:
+            return rows
+        rows += 1
+
+
 # --- the kernel on the card ---
 
 class _PlanArgs(ctypes.Structure):

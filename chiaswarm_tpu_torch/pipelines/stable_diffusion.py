@@ -51,6 +51,7 @@ import json
 import logging
 import time
 from collections import OrderedDict
+from contextlib import nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -58,7 +59,8 @@ import torch
 from PIL import Image
 
 from ..device import device_label, resolve_device, serving_dtype, synchronize
-from ..lora_cache import LoraCache
+from ..embed_cache import EmbedCache
+from ..lora_cache import LoraCache, adapter_key
 from ..models import configs as cfgs
 from ..models.clip import CLIPTextEncoder
 from ..models.lora import linear_index, match_factors
@@ -75,6 +77,7 @@ from ..weights import (
     random_init_,
 )
 from . import lora_runtime
+from .common import pad_bucket, split_by_counts
 
 logger = logging.getLogger(__name__)
 
@@ -234,15 +237,20 @@ class SDPipeline:
     def __init__(self, model_name: str, device=None, dtype=None,
                  allow_random_init: bool = False, weights: dict | None = None,
                  model_root_dir: str | None = None, lora_root_dir: str | None = None,
-                 lora_cache: LoraCache | None = None):
+                 lora_cache: LoraCache | None = None, embed_cache: EmbedCache | None = None):
         """`weights`: {"unet": sd, "text": [sd, ...], "vae": sd} state dicts
         in the port's key layout (weights.from_jax_params gives them);
         without it the model loads from `<model_root_dir>/<model_name>/`, or
         is random-initialised from a seed, as the policy in weights.py
         says. Adapters resolve under `model_root_dir` and `lora_root_dir`
         through `lora_cache` (the registry's; a pipeline of its own
-        otherwise)."""
+        otherwise). Encoded prompt rows are kept in `embed_cache` (the
+        registry's; none otherwise)."""
         self.model_name = model_name
+        self.embed_cache = embed_cache
+        # the last encode's (hits, misses) of the cache, None when it was
+        # bypassed
+        self.last_encode_stats = None
         self.model_root_dir = model_root_dir
         self.lora_root_dir = lora_root_dir
         self.lora_cache = lora_cache or LoraCache()
@@ -327,10 +335,13 @@ class SDPipeline:
 
     def release(self) -> int:
         """Drop the per-job state this pipeline keeps resident (its adapter
-        stacks in the shared cache, textual-inversion tables, custom VAEs),
+        stacks and prompt rows in the shared caches, textual-inversion
+        tables, custom VAEs),
         as the registry evicts it. -> the adapter stacks' bytes freed."""
         self._ti_cache.clear()
         self._vae_cache.clear()
+        if self.embed_cache is not None:
+            self.embed_cache.drop_model(self.model_name)
         return self.lora_cache.drop_model(self.model_name)
 
     # --- per-job adapters ---
@@ -436,17 +447,65 @@ class SDPipeline:
         return [height, width, 0, 0, height, width][:self.n_time_ids]
 
     def encode_prompts(self, prompts: list[str], tokenizers=None, extras=None,
-                       stacks=None, gain: float = 1.0):
+                       stacks=None, gain: float = 1.0, slot_stacks=None, slot_gains=None):
         """-> (context [B, 77, D], pooled [B, P] or None), all encoders in
         one batch; SDXL concatenates both encoders' hidden states. A job's
         textual inversion gives `tokenizers` and `extras` (per encoder), its
         adapter the `stacks` whose "te{i}:" modules carry the delta at
-        `gain` on every row."""
+        `gain` on every row; a coalesced pass gives per-row adapters as
+        `slot_stacks` and `slot_gains` (lora_runtime.applied_rows).
+
+        Rows come from the embedding cache, as in the JAX package, unless
+        something of the job changes the encoders: a textual inversion, or
+        an adapter with text-encoder modules. Only the texts the cache
+        misses run the encoders, padded to a power of two (two at least) by
+        repeating the last miss, so the encode batch takes few shapes."""
+        self.last_encode_stats = None
+        te_delta = any(":" in key for group in ([stacks or {}] + list(slot_stacks or []))
+                       for key in group)
+        cache = self.embed_cache
+        if cache is None or tokenizers is not None or extras is not None or te_delta:
+            return self._encode(prompts, tokenizers, extras, stacks, gain, slot_stacks,
+                                slot_gains)
+        found: dict[str, tuple | None] = {}
+        hits = misses = 0
+        for text in prompts:
+            if text in found:
+                # a repeat within the batch skips its encoder forward too
+                hits += 1
+                continue
+            found[text] = cache.lookup((self.model_name, text))
+            hits += found[text] is not None
+            misses += found[text] is None
+        cache.note_rows(hits, misses)
+        self.last_encode_stats = (hits, misses)
+        missing = [t for t, v in found.items() if v is None]
+        if missing:
+            # never a batch of one: its pooled projection would be a
+            # matrix-vector product, which rounds otherwise than the matrix
+            # product of every other batch (a job's own encode has two rows
+            # at least), and a cached row must be the row a job would get
+            padded = missing + [missing[-1]] * (max(pad_bucket(len(missing)), 2) - len(missing))
+            context, pooled = self._encode(padded)
+            for i, text in enumerate(missing):
+                # a copy of its own: a view would keep the encode batch alive
+                found[text] = (context[i].clone(),
+                               pooled[i].clone() if pooled is not None else None)
+                cache.put((self.model_name, text), found[text])
+        context = torch.stack([found[t][0] for t in prompts])
+        pooled = torch.stack([found[t][1] for t in prompts]) if self.is_xl else None
+        return context, pooled
+
+    def _encode(self, prompts: list[str], tokenizers=None, extras=None, stacks=None,
+                gain: float = 1.0, slot_stacks=None, slot_gains=None):
         hiddens, pooled = [], None
         for i, enc in enumerate(self.text_encoders):
             tok = (tokenizers or self.tokenizers)[i]
             ids = torch.from_numpy(tok(prompts).astype(np.int64)).to(self.device)
-            with lora_runtime.applied(self.text_indexes[i], stacks, gain, len(prompts)):
+            hooks = (lora_runtime.applied_rows(self.text_indexes[i], slot_stacks, slot_gains)
+                     if slot_stacks else
+                     lora_runtime.applied(self.text_indexes[i], stacks, gain, len(prompts)))
+            with hooks:
                 out = enc(ids, extras[i] if extras else None)
             hiddens.append(out["hidden_states"])
             pooled = out["pooled"]
@@ -708,7 +767,224 @@ class SDPipeline:
                                   "misses": int(not lora_stats["operand_hit"]),
                                   "bytes_saved": lora_stats["bytes"] * lora_stats["operand_hit"]}}
                if lora is not None else {}),
+            **self._embed_cache_stamp(),
             "latents": {"finite": finite, "absmax": absmax},
             "timings": {k: round(v, 4) for k, v in timings.items()},
         }
         return list(pixels), pipeline_config
+
+    def _embed_cache_stamp(self) -> dict:
+        """The envelope's `embed_cache` {hits, misses} of the job's (or the
+        pass's) encode; nothing when the cache was off or bypassed."""
+        if self.last_encode_stats is None:
+            return {}
+        hits, misses = self.last_encode_stats
+        return {"embed_cache": {"hits": hits, "misses": misses}}
+
+    @torch.inference_mode()
+    def run_batched(self, requests: list[dict], *, height: int | None = None,
+                    width: int | None = None, num_inference_steps: int = 30,
+                    guidance_scale: float = 7.5,
+                    scheduler_type: str = "DPMSolverMultistepScheduler",
+                    use_karras_sigmas: bool = False, pipeline_type: str = "DiffusionPipeline",
+                    strength: float = 0.75, lora_slots_max: int = 8,
+                    aesthetic_score: float = 6.0, latents=None, noise_fn=None):
+        """A coalesced txt2img or img2img group in one padded pass, the
+        counterpart of the JAX pipeline's `run_batched` -> [(images,
+        pipeline_config)], one per request, in order.
+
+        `requests`: [{"prompt", "negative_prompt", "seed",
+        "num_images_per_prompt", "image"?, "lora"?, "lora_scale"?}]; what
+        the group shares (model, canvas, steps, scheduler, guidance,
+        strength) comes as keywords, as `coalesce_key` guarantees. Either
+        every request has a start image (img2img; one size for all) or none
+        has; else ValueError. The rows are counted per request and padded to
+        `pad_bucket(total)`; padding rows carry the empty prompt, slot 0 and
+        zero start latents, and are discarded before the decode.
+
+        Each request's noise comes from its own generator, seeded with its
+        `seed`: its initial latents [n, C, h, w], then its ancestral noise
+        at each step, in the order the solo `run` draws them, so a row does
+        not depend on its batchmates. Padding rows draw from a generator of
+        their own. `latents` [padded, C, h, w] and `noise_fn(kind, i,
+        shape)` (kind "step", shape the padded batch) inject all of it
+        instead.
+
+        Adapters ride per row (lora_runtime.applied_rows): each distinct
+        adapter is a slot, at most `lora_slots_max` per pass (past that,
+        ValueError, and the members run alone). Conv-shaped factors and
+        any rank are served, as by the solo path's delta over the matched
+        Linear modules."""
+        timings: dict[str, float] = {}
+        start_images = [r.get("image") for r in requests]
+        i2i = any(im is not None for im in start_images)
+        if i2i and not all(im is not None for im in start_images):
+            raise ValueError("coalesced img2img group missing a start image")
+        if i2i and len({im.size for im in start_images}) > 1:
+            raise ValueError("coalesced img2img group has mixed start-image sizes; "
+                             "serving members individually")
+        if self.is_pix2pix or self.is_inpaint_unet:
+            raise ValueError(f"{self.model_name} conditions on the channel axis; its jobs "
+                             "run alone")
+        if height is None and i2i:
+            width, height = start_images[0].size
+        height = int(height or self.default_size)
+        width = int(width or height)
+        height, width = (max(64, (d // 64) * 64) for d in (height, width))
+        lh, lw = height // self.latent_factor, width // self.latent_factor
+        steps = int(num_inference_steps)
+        strength = min(max(float(strength), 0.0), 1.0)
+        t_start = min(max(int(steps * (1.0 - strength)), 0), steps - 1) if i2i else 0
+        counts = [max(int(r.get("num_images_per_prompt", 1) or 1), 1) for r in requests]
+        total = sum(counts)
+        padded = pad_bucket(total)
+        pad_rows = padded - total
+
+        # per-row adapters: one slot per distinct adapter, slot 0 for none
+        t_adapters = time.perf_counter()
+        slot_of: dict[tuple, int] = {}
+        slot_stacks, slot_stats, row_slots, row_gains, request_slots = [], [], [], [], []
+        for r, n in zip(requests, counts):
+            slot, gain = 0, 0.0
+            if r.get("lora"):
+                key = adapter_key(r["lora"])
+                slot = slot_of.get(key, 0)
+                if not slot:
+                    if len(slot_stacks) >= lora_slots_max:
+                        raise ValueError(f"group carries more than {lora_slots_max} distinct "
+                                         "adapters; serving members individually")
+                    stacks, stats = self.adapter_stacks(r["lora"])
+                    slot_stacks.append(stacks)
+                    slot_stats.append(stats)
+                    slot = slot_of[key] = len(slot_stacks)
+                gain = float(r.get("lora_scale", 1.0) or 0.0)
+            request_slots.append(slot)
+            row_slots += [slot] * n
+            row_gains += [gain] * n
+        row_slots += [0] * pad_rows
+        row_gains += [0.0] * pad_rows
+        gains = None
+        if slot_stacks:
+            # [slot, row]: a row's gain in its own slot's line; the UNet's
+            # CFG rows and the text encode are [uncond x padded | cond x
+            # padded], so the row vector is written twice
+            per_row = torch.tensor([[g if s == k else 0.0 for s, g in zip(row_slots, row_gains)]
+                                    for k in range(1, len(slot_stacks) + 1)])
+            gains = torch.cat([per_row, per_row], dim=1).to(self.device, self.dtype)
+            synchronize(self.device)
+            timings["adapters_s"] = time.perf_counter() - t_adapters
+        t_job = time.perf_counter()
+
+        with _Timer(self.device, timings, "text_encode_s"):
+            negs, prompts = [], []
+            for r, n in zip(requests, counts):
+                negs += [r.get("negative_prompt") or ""] * n
+                prompts += [r.get("prompt") or ""] * n
+            context, pooled = self.encode_prompts(
+                negs + [""] * pad_rows + prompts + [""] * pad_rows,
+                slot_stacks=slot_stacks or None, slot_gains=gains)
+            added = None
+            if self.is_xl:
+                ids = self._xl_time_ids(height, width, aesthetic_score)
+                added = {"text_embeds": pooled,
+                         "time_ids": torch.tensor([ids] * (2 * padded), dtype=torch.float32,
+                                                  device=self.device)}
+
+        shape = (padded, self.latent_channels, lh, lw)
+        sources = [(torch.Generator(device=self.device).manual_seed(int(r.get("seed") or 0)), n)
+                   for r, n in zip(requests, counts)]
+        if pad_rows:
+            sources.append((torch.Generator(device=self.device).manual_seed(0x9AD), pad_rows))
+
+        def fresh():
+            return torch.cat([torch.randn((n, *shape[1:]), generator=gen, device=self.device,
+                                          dtype=torch.float32) for gen, n in sources])
+
+        def draw(kind: str, i: int):
+            return fresh() if noise_fn is None else self._latents(noise_fn(kind, i, shape), shape)
+
+        latents = fresh() if latents is None else self._latents(latents, shape)
+
+        image_latents = None
+        if i2i:
+            with _Timer(self.device, timings, "image_encode_s"):
+                # one encode per request, gathered into the row layout
+                rows = [self.encode_image(_pil_to_array(im, width, height)[None]).expand(
+                    n, -1, -1, -1) for im, n in zip(start_images, counts)]
+                if pad_rows:
+                    rows.append(torch.zeros((pad_rows, *shape[1:]), device=self.device))
+                image_latents = torch.cat(rows)
+
+        scheduler = get_scheduler(scheduler_type, **vars(SchedulerConfig(
+            prediction_type=self.prediction_type, use_karras_sigmas=bool(use_karras_sigmas))))
+        schedule = scheduler.schedule(steps)
+        start, end = scheduler.loop_bounds(schedule, steps, t_start)
+        hooks = (lora_runtime.applied_rows(self.unet_index, slot_stacks, gains)
+                 if slot_stacks else nullcontext())
+        with _Timer(self.device, timings, "denoise_s"), hooks:
+            if i2i:
+                latents = scheduler.add_noise(schedule, image_latents, latents, start)
+            else:
+                latents = latents * float(schedule.init_noise_sigma)
+            state = scheduler.init_state(latents)
+            for i in range(start, end):
+                inp = scheduler.scale_model_input(schedule, latents, i)
+                model_in = torch.cat([inp, inp]).to(self.dtype).contiguous(
+                    memory_format=torch.channels_last)
+                t_vec = torch.full((2 * padded,), float(schedule.timesteps[i]),
+                                   device=self.device)
+                out_u, out_c = self.unet(model_in, t_vec, context, added_cond=added).float().chunk(2)
+                guided = out_u + float(guidance_scale) * (out_c - out_u)
+                noise = draw("step", i) if scheduler.uses_ancestral_noise else None
+                state, latents = scheduler.step(schedule, state, i, latents, guided, noise)
+
+        real = latents[:total]
+        with _Timer(self.device, timings, "decode_s"):
+            if lh * lw >= 9216:
+                # one image at a time from 768² up: the VAE's activations
+                # stay those of one image, as the JAX program's big decode
+                pixels = np.concatenate([self.decode(real[k:k + 1]) for k in range(total)])
+            else:
+                pixels = self.decode(real)
+        timings["unet_step_ms"] = 1000.0 * timings["denoise_s"] / max(end - start, 1)
+        timings["pipeline_s"] = time.perf_counter() - t_job
+
+        operand_hits = sum(st["operand_hit"] for st in slot_stats)
+        shared = {
+            "model": self.model_name,
+            "pipeline": pipeline_type,
+            "scheduler": scheduler_type,
+            "mode": "img2img" if i2i else "txt2img",
+            "steps": steps,
+            "size": [width, height],
+            "guidance_scale": float(guidance_scale),
+            **({"strength": strength, "t_start": t_start} if i2i else {}),
+            "backend": f"torch-{self.device.type}",
+            "device": device_label(self.device),
+            "dtype": str(self.dtype).replace("torch.", ""),
+            "weights": self.weights_source,
+            "batched_with": len(requests),
+            "padded_rows": padded,
+            **self._embed_cache_stamp(),
+            # per adapter of the pass: were its device stacks resident
+            **({"operand_cache": {
+                "hits": operand_hits, "misses": len(slot_stats) - operand_hits,
+                "bytes_saved": sum(st["bytes"] * st["operand_hit"] for st in slot_stats)}}
+               if slot_stats else {}),
+        }
+        results, offset = [], 0
+        for r, n, slot, images, rows in zip(requests, counts, request_slots,
+                                            split_by_counts(list(pixels), counts),
+                                            real.split(counts)):
+            config = {**shared, "batch_rows": [offset, n],
+                      "latents": {"finite": bool(torch.isfinite(rows).all()),
+                                  "absmax": float(rows.abs().max())},
+                      "timings": {k: round(v, 4) for k, v in timings.items()}}
+            if slot:
+                stats = slot_stats[slot - 1]
+                config.update({"lora_mode": "delta",
+                               "lora_scale": float(r.get("lora_scale", 1.0) or 0.0),
+                               "lora_modules": {k: stats[k] for k in ("matched", "unmatched")}})
+            results.append((images, config))
+            offset += n
+        return results

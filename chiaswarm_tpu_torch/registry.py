@@ -17,8 +17,9 @@ reference; a job that still runs on the evicted pipeline keeps it (and
 what the job itself holds) alive until it ends, and its device memory
 returns when the last reference goes.
 
-The registry owns the adapter caches its pipelines share (lora_cache.py)
-and the roots a job's adapters resolve under.
+The registry owns the caches its pipelines share (the adapter caches of
+lora_cache.py, the encoded-prompt cache of embed_cache.py) and the roots a
+job's adapters resolve under.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from collections import OrderedDict
 
 import torch
 
+from .embed_cache import EmbedCache
 from .lora_cache import LoraCache
 from .pipelines.stable_diffusion import SDPipeline
 
@@ -39,11 +41,17 @@ MAX_RESIDENT_PIPELINES = 4
 
 class Registry:
     def __init__(self, device, model_root_dir: str | None = None,
-                 lora_root_dir: str | None = None, lora_cache: LoraCache | None = None):
+                 lora_root_dir: str | None = None, lora_cache: LoraCache | None = None,
+                 embed_cache: EmbedCache | None | bool = True):
+        """`embed_cache` True gives a cache of the default 64 MiB; None or
+        False turns it off."""
         self.device = device
         self.model_root_dir = model_root_dir
         self.lora_root_dir = lora_root_dir
         self.lora_cache = lora_cache or LoraCache()
+        if embed_cache is True:
+            embed_cache = EmbedCache(64 << 20)
+        self.embed_cache = embed_cache if isinstance(embed_cache, EmbedCache) else None
         self._pipelines: OrderedDict[str, SDPipeline] = OrderedDict()
         self._lock = threading.Lock()
 
@@ -57,7 +65,8 @@ class Registry:
             pipe = SDPipeline(model_name, device=self.device,
                               allow_random_init=allow_random_init,
                               model_root_dir=self.model_root_dir,
-                              lora_root_dir=self.lora_root_dir, lora_cache=self.lora_cache)
+                              lora_root_dir=self.lora_root_dir, lora_cache=self.lora_cache,
+                              embed_cache=self.embed_cache)
             self._pipelines[model_name] = pipe
             evicted = [self._pipelines.popitem(last=False)
                        for _ in range(len(self._pipelines) - MAX_RESIDENT_PIPELINES)]

@@ -23,6 +23,16 @@ class Settings:
     # (adapters still load, once per job)
     lora_cache_mb: int = 256
     lora_operand_cache_mb: int = 512
+    # cross-job batching (batching.py): how long a coalescable job waits
+    # for batchmates, and the most jobs one group holds (<= 1, or a linger
+    # of 0, serves every job alone)
+    batch_linger_ms: float = 50.0
+    max_coalesce: int = 8
+    # byte cap (MiB) of the encoded-prompt cache (embed_cache.py); 0 turns
+    # it off
+    embed_cache_mb: int = 64
+    # most distinct adapters one coalesced pass carries
+    lora_slots_max: int = 8
 
 
 _ENV_OVERRIDES = {
@@ -33,6 +43,10 @@ _ENV_OVERRIDES = {
     "CHIASWARM_LORA_ROOT_DIR": "lora_root_dir",
     "CHIASWARM_LORA_CACHE_MB": "lora_cache_mb",
     "CHIASWARM_LORA_OPERAND_CACHE_MB": "lora_operand_cache_mb",
+    "SDAAS_BATCH_LINGER_MS": "batch_linger_ms",
+    "SDAAS_MAX_COALESCE": "max_coalesce",
+    "CHIASWARM_EMBED_CACHE_MB": "embed_cache_mb",
+    "CHIASWARM_LORA_SLOTS_MAX": "lora_slots_max",
 }
 
 

@@ -7,6 +7,11 @@ stage resolves its pipeline in the same registry; the job's `lora`,
 adapter it cannot load or match the worker turns into a fatal envelope),
 package the images.
 
+`diffusion_batched_callback` is the coalesced counterpart (JAX
+`diffusion_batched_callback`): a group of jobs with one coalesce key runs
+as few padded passes as the device's capacity allows (usually one), and
+every job gets its own envelope.
+
 The safety checker is a model of its own that the port does not have
 yet: envelopes say `nsfw_checked: false`, as the JAX package's
 `flag_images` does when no checker is available.
@@ -16,7 +21,9 @@ from __future__ import annotations
 
 import time
 
+from ..capacity import coalesced_fit, default_canvas
 from ..models.configs import model_family
+from ..pipelines.common import chunk_by_rows
 from ..post_processors.output_processor import OutputProcessor
 
 
@@ -63,3 +70,76 @@ def diffusion_callback(device_identifier: str, model_name: str, *, registry, **k
     results = processor.get_results()
     pipeline_config["timings"]["encode_artifacts_s"] = round(time.perf_counter() - t0, 4)
     return results, pipeline_config
+
+
+def diffusion_batched_callback(device_identifier: str, requests: list[dict], *, registry,
+                               lora_slots_max: int = 8) -> list[tuple[dict, dict]]:
+    """A coalesced group (formatted job arguments that share one coalesce
+    key: model, canvas, steps, scheduler, guidance, workflow, strength) ->
+    [(artifacts, pipeline_config)], one per request, in order. The shared
+    arguments are the first request's; prompts, seeds, start images, image
+    counts and adapters are per request. A group larger than one pass runs
+    in passes of whole requests; a request larger than one pass serves the
+    images that fit, and says so (`batch_capped`). Raising is fine: the
+    worker then serves every member alone, which reproduces the error per
+    job."""
+    shared = requests[0]
+    model_name = shared["model_name"]
+    if shared.get("test_tiny_model", False):
+        model_name = tiny_stand_in(model_name)
+    height, width = shared.get("height"), shared.get("width")
+    if (height is None or width is None) and shared.get("image") is not None:
+        # img2img formatting sized the start images to the explicit canvas
+        est_w, est_h = shared["image"].size
+    else:
+        est_h = int(height or default_canvas(model_name))
+        est_w = int(width or est_h)
+    strength = shared.get("strength")
+    envelopes, row_specs, counts = [], [], []
+    for r in requests:
+        envelopes.append((r.get("content_type", "image/jpeg"), r.get("outputs", ["primary"])))
+        n = max(int(r.get("num_images_per_prompt", 1) or 1), 1)
+        counts.append(n)
+        xattn = r.get("cross_attention_kwargs") or {}
+        row_specs.append({"prompt": r.get("prompt", ""),
+                          "negative_prompt": r.get("negative_prompt", ""),
+                          "seed": r.get("seed"), "num_images_per_prompt": n,
+                          "image": r.get("image"), "lora": r.get("lora"),
+                          "lora_scale": float(r.get("lora_scale", xattn.get("scale", 1.0))
+                                              or 0.0)})
+
+    max_rows = coalesced_fit(registry.device, model_name, sum(counts), est_h, est_w)
+    capped = {}
+    for i, n in enumerate(counts):
+        if n > max_rows:
+            capped[i] = {"requested": n, "served": max_rows}
+            counts[i] = row_specs[i]["num_images_per_prompt"] = max_rows
+
+    pipeline = registry.get_pipeline(model_name)
+    results = []
+    for start, end in chunk_by_rows(counts, max_rows):
+        results.extend(pipeline.run_batched(
+            row_specs[start:end], height=height, width=width,
+            num_inference_steps=int(shared.get("num_inference_steps", 30)),
+            guidance_scale=float(shared.get("guidance_scale", 7.5)),
+            scheduler_type=shared.get("scheduler_type", "DPMSolverMultistepScheduler"),
+            use_karras_sigmas=bool(shared.get("use_karras_sigmas", False)),
+            pipeline_type=shared.get("pipeline_type", "DiffusionPipeline"),
+            strength=0.75 if strength is None else float(strength),
+            lora_slots_max=lora_slots_max))
+
+    out = []
+    for i, ((images, pipeline_config), (content_type, outputs)) in enumerate(
+            zip(results, envelopes)):
+        t0 = time.perf_counter()
+        pipeline_config["nsfw"] = False
+        pipeline_config["nsfw_checked"] = False
+        pipeline_config["batched_with"] = len(requests)
+        if i in capped:
+            pipeline_config["batch_capped"] = capped[i]
+        processor = OutputProcessor(outputs, content_type)
+        processor.add_outputs(images)
+        packaged = processor.get_results()
+        pipeline_config["timings"]["encode_artifacts_s"] = round(time.perf_counter() - t0, 4)
+        out.append((packaged, pipeline_config))
+    return out

@@ -345,10 +345,25 @@ def rms(t) -> float:
     return t.float().square().mean().sqrt().item()
 
 
+def plain_attention(q, k, v):
+    """The plain version over chunks of the batch whose f32 logits stay
+    under 2 GiB (a coalesced pass's batch would need tens of GiB at once);
+    attention is independent per batch row, so the result is the same."""
+    from chiaswarm_tpu_torch.ops.flash_attention import reference_attention
+
+    rows = max(1, (1 << 31) // (4 * q.shape[1] * q.shape[2] * k.shape[1]))
+    if rows >= q.shape[0]:
+        return reference_attention(q, k, v)
+    return torch.cat([reference_attention(q[i:i + rows], k[i:i + rows], v[i:i + rows])
+                      for i in range(0, q.shape[0], rows)])
+
+
 def attention_case(q_shape, k_shape, dtype, gen, timed: bool) -> dict:
     import torch.nn.functional as F
 
-    from chiaswarm_tpu_torch.ops.flash_attention import flash_attention, reference_attention
+    from chiaswarm_tpu_torch.ops.flash_attention import flash_attention
+
+    reference_attention = plain_attention
 
     q, k, v = rand(q_shape, dtype, gen), rand(k_shape, dtype, gen), rand(k_shape, dtype, gen)
     out, route = with_route(lambda: flash_attention(q, k, v))
@@ -446,12 +461,18 @@ def gn_case(x_shape, dtype, silu: bool, gen, timed: bool, eps: float = 1e-5,
     out = fused_group_norm(x, scale, bias, 32, eps, silu)
     torch.cuda.synchronize()
     wide = torch.float64 if exact else torch.float32
-    ref = reference_group_norm(x.to(wide), scale.to(wide), bias.to(wide), 32, eps, silu)
-    diff = (out.to(wide) - ref).abs()
-    err = diff.max().item()
     atol, rtol = GN_TOL[dtype]
-    excess = (diff - (atol + rtol * ref.abs())).max().item()
-    del diff, ref
+    err = excess = -float("inf")
+    # by chunks of the batch of at most 1 GiB in float64 (GroupNorm is per
+    # batch row, so the plain version is the same on a chunk)
+    rows = max(1, (1 << 30) // (8 * x[0].numel()))
+    for i in range(0, x_shape[0], rows):
+        ref = reference_group_norm(x[i:i + rows].to(wide), scale.to(wide), bias.to(wide), 32,
+                                   eps, silu)
+        diff = (out[i:i + rows].to(wide) - ref).abs()
+        err = max(err, diff.max().item())
+        excess = max(excess, (diff - (atol + rtol * ref.abs())).max().item())
+        del diff, ref
     row = {"x": list(x_shape), "dtype": str(dtype)[6:], "silu": silu, "eps": eps,
            "max_abs_err": err, "bound": f"{atol:g} + {rtol:.4g} |y|",
            **gn_plan_fields(x, silu)}
@@ -469,7 +490,9 @@ def gn_case(x_shape, dtype, silu: bool, gen, timed: bool, eps: float = 1e-5,
 
         row.update(
             ms=time_ms(kernel), device_ms=graph_ms(kernel), host_ms=host_ms(kernel),
-            plain_ms=time_ms(lambda: reference_group_norm(x, scale, bias, 32, eps, silu)),
+            plain_ms=time_ms(lambda: [reference_group_norm(x[i:i + rows], scale, bias, 32,
+                                                           eps, silu)
+                                      for i in range(0, x_shape[0], rows)]),
             library_ms=time_ms(library), library_device_ms=graph_ms(library),
             **bound_fields(*gn_work(x_shape, dtype), PEAK_FLOPS[torch.float32]))
     return row
@@ -713,6 +736,63 @@ def kernel_checks() -> None:
         f"in float64: max_abs_err {row['max_abs_err']:.3g} (bound {row['bound']})")
     gn_repeat_check((2, 64, 64, 640), bf, gen)
     gn_repeat_check((2, 128, 128, 640), bf, gen)
+
+
+# the coalesced UNet calls of the batched path: (model key, CFG rows,
+# canvas); SD 1.5 at the largest pass the capacity admits (64 images)
+BATCHED_CALLS = (("sdxl", 8, None), ("sdxl", 16, None), ("sd15", 128, 512))
+
+
+def batched_checks(gen) -> dict:
+    """Phase 3 at the batched path's shapes: every attention and GroupNorm
+    call of an SDXL UNet call at 8 and 16 CFG rows and of an SD 1.5 call at
+    128 (BATCHED_CALLS), in bf16 and f32. Then the GroupNorm kernel's own
+    limit: the most batch rows its plan takes on this card at one CTA per
+    SM run, one row more raises ValueError from the wrapper (nothing else),
+    and the capacity's pass budget (half the rows, floored to a power of
+    two) is what the SD 1.5 512^2 pass is given. -> the limits."""
+    from chiaswarm_tpu_torch.capacity import coalesce_rows_limit, kernel_image_limit
+    from chiaswarm_tpu_torch.ops.group_norm import fused_group_norm, max_batch_rows
+
+    for model, rows, size in BATCHED_CALLS:
+        for q_shape, k_shape, _ in attention_shapes(model, rows, size):
+            for dtype in (torch.bfloat16, torch.float32):
+                row = attention_case(q_shape, k_shape, dtype, gen, timed=False)
+                log(f"[check] flash_attention q{q_shape} kv{k_shape} {row['dtype']} route "
+                    f"{row['route']} ({model}, {rows} CFG rows): max_abs_err "
+                    f"{row['max_abs_err']:.3g}"
+                    + (f", RMS err {row['rms_err']:.3g}" if "rms_err" in row else "")
+                    + f" (bound {row['bound']})")
+        for x_shape, silu, eps in unet_norms(model, rows, size):
+            for dtype in (torch.bfloat16, torch.float32):
+                row = gn_case(x_shape, dtype, silu, gen, timed=False, eps=eps)
+                log(f"[check] group_norm x{x_shape} {row['dtype']} silu={silu} eps {eps:g} "
+                    f"({model}, {rows} CFG rows): max_abs_err {row['max_abs_err']:.3g} (bound "
+                    f"{row['bound']})" + (f", on chip: {row['on_chip']}" if "on_chip" in row
+                                          else ""))
+    props = torch.cuda.get_device_properties(0)
+    limit = max_batch_rows(props.multi_processor_count,
+                           getattr(props, "shared_memory_per_block_optin", 227 << 10))
+    images = kernel_image_limit("cuda")
+    check(images == limit // 2, f"pass images {images} from {limit} GroupNorm rows")
+    row = gn_case((limit, 8, 8, 320), torch.bfloat16, True, gen, timed=False)
+    x = rand((limit + 1, 8, 8, 320), torch.bfloat16, gen)
+    scale = bias = rand((320,), torch.bfloat16, gen)
+    try:
+        fused_group_norm(x, scale, bias, 32, 1e-5, True)
+        refused = None
+    except Exception as e:  # noqa: BLE001 — what it raises is the check
+        refused = e
+    check(type(refused) is ValueError,
+          f"group_norm at {limit + 1} batch rows: {type(refused).__name__} {refused}, "
+          "not ValueError")
+    budget = coalesce_rows_limit("cuda", SD15, 512)
+    log(f"[check] group_norm takes {limit} batch rows on this card (max_abs_err "
+        f"{row['max_abs_err']:.3g} there); {limit + 1} raise ValueError: {refused}; a "
+        f"coalesced pass may hold {images} images, {budget} after the power-of-two floor "
+        f"(SD 1.5 at 512^2); SDXL at 1024^2: {coalesce_rows_limit('cuda', SDXL, SIZE)}")
+    check(budget == 64, f"the SD 1.5 512^2 pass budget is {budget}, not 64")
+    return {"group_norm_rows": limit, "pass_images": images, "sd15_budget": budget}
 
 
 # --- phase 4 ---
@@ -1207,6 +1287,102 @@ def tiny_adapter_checks(device: str = "cuda", size: int = 64, steps: int = 4) ->
     return result
 
 
+def tiny_batched_checks(device: str = "cuda", size: int = 64, steps: int = 4) -> dict:
+    """Phase 4 for coalesced passes: `run_batched` of the tiny pipelines in
+    f32 on `device` against the same weights on the CPU, with the same
+    injected per-row noise, each image within 2/255: a test/tiny-sd txt2img
+    group of counts (1, 2, 1); a test/tiny-xl group of 3 rows padded to 4;
+    a test/tiny-xl img2img group with two distinct start images (strength
+    0.6); a test/tiny-xl group with two LoRAs (one over the text encoders
+    too) and a plain row, each adapter row moved by its adapter and the
+    plain row what a pass without adapters gives, bit for bit."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from chiaswarm_tpu_torch.loras import resolve_lora
+    from chiaswarm_tpu_torch.pipelines.common import pad_bucket
+    from chiaswarm_tpu_torch.pipelines.stable_diffusion import SDPipeline
+
+    root = Path(tempfile.mkdtemp(prefix="chip-smoke-batched-"))
+    loras = root / "loras"
+    try:
+        pairs = {}
+        for model in ("test/tiny-sd", "test/tiny-xl"):
+            cpu = SDPipeline(model, device="cpu", lora_root_dir=str(loras))
+            weights = {"unet": cpu.unet.state_dict(),
+                       "text": [e.state_dict() for e in cpu.text_encoders],
+                       "vae": cpu.vae.state_dict()}
+            pairs[model] = (cpu, SDPipeline(model, device=device, dtype=torch.float32,
+                                            weights=weights, lora_root_dir=str(loras)))
+        xl = pairs["test/tiny-xl"][0]
+        write_lora(loras / "tiny-xl-a.safetensors", xl, "kohya", rank=4, alpha=2.0, te_rank=2,
+                   seed=41)
+        write_lora(loras / "tiny-xl-b.safetensors", xl, "peft", rank=2, seed=42)
+        second = start_image(size).transpose(Image.Transpose.FLIP_LEFT_RIGHT)
+        lat = size // 2
+        groups = [
+            ("test/tiny-sd", "txt2img, counts (1, 2, 1)", {}, [
+                dict(prompt="a red cube", seed=1), dict(prompt="a blue ball", seed=2,
+                                                        num_images_per_prompt=2),
+                dict(prompt="a green cone", seed=3)]),
+            ("test/tiny-xl", "3 rows padded to 4", {}, [
+                dict(prompt="a boat", seed=4), dict(prompt="a ship", seed=5),
+                dict(prompt="a raft", seed=6)]),
+            ("test/tiny-xl", "img2img, two start images", {"strength": 0.6}, [
+                dict(prompt="a castle", seed=7, image=start_image(size)),
+                dict(prompt="a tower", seed=8, image=second)]),
+            ("test/tiny-xl", "two LoRAs and a plain row", {}, [
+                dict(prompt="a cat", seed=9, lora=resolve_lora("tiny-xl-a.safetensors",
+                                                               str(loras)), lora_scale=0.8),
+                dict(prompt="a dog", seed=10),
+                dict(prompt="a fox", seed=11, lora=resolve_lora("tiny-xl-b.safetensors",
+                                                                str(loras)), lora_scale=0.5)]),
+        ]
+        result = {}
+        for model, what, extra, requests in groups:
+            cpu, card = pairs[model]
+            padded = pad_bucket(sum(r.get("num_images_per_prompt", 1) for r in requests))
+            shape = (padded, 4, lat, lat)
+            requests = [dict(r, negative_prompt="blurry") for r in requests]
+            common = dict(num_inference_steps=steps,
+                          guidance_scale=6.0, height=size, width=size,
+                          scheduler_type="EulerAncestralDiscreteScheduler",
+                          latents=torch.randn(shape, generator=torch.Generator().manual_seed(7)),
+                          noise_fn=lambda kind, i, shape: torch.randn(
+                              shape, generator=torch.Generator().manual_seed(100 + i)), **extra)
+            want = cpu.run_batched([dict(r) for r in requests], **common)
+            got = card.run_batched([dict(r) for r in requests], **common)
+            diff = max(int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+                       for (images, _), (ref, _) in zip(got, want) for a, b in zip(images, ref))
+            row = {"max_pixel_diff": diff, "padded_rows": got[0][1]["padded_rows"],
+                   "batch_rows": [c["batch_rows"] for _, c in got]}
+            check(diff <= 2, f"{model} {what}: card vs CPU pixel diff {diff} > 2")
+            check([c["batch_rows"] for _, c in got] == [c["batch_rows"] for _, c in want]
+                  and row["padded_rows"] == padded, f"{model} {what}: rows {row}")
+            if "LoRA" in what:
+                plain = card.run_batched([{k: v for k, v in r.items()
+                                           if k not in ("lora", "lora_scale")}
+                                          for r in requests], **common)
+                moved = [int(np.abs(a[0].astype(np.int16) - b[0].astype(np.int16)).max())
+                         for (a, _), (b, _) in zip(got, plain)]
+                row["changed_by_adapter"] = moved
+                check(moved[0] > 2 and moved[2] > 2, f"{model} {what}: adapters moved {moved}")
+                check(moved[1] == 0, f"{model} {what}: the plain row moved by {moved[1]}")
+                check([c.get("lora_mode") for _, c in got] == ["delta", None, "delta"],
+                      f"{model} {what}: lora modes {[c.get('lora_mode') for _, c in got]}")
+            result[f"{model} {what}"] = row
+            log(f"[tiny] coalesced {model} {what} {size}^2 f32, {device} vs CPU: max pixel diff "
+                f"{diff}/255 (bound 2/255); rows {row['batch_rows']} padded to {padded}"
+                + (f"; adapters move their rows by {row['changed_by_adapter']}/255"
+                   if "changed_by_adapter" in row else ""))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return result
+
+
 # --- phase 5 ---
 
 def decode_artifact(artifact: dict):
@@ -1233,8 +1409,10 @@ def serve_main_path(smi: str, device: str = "cuda", model: str = SDXL, size: int
 
     hive = FakeHive(token="smoke-token")
     try:
+        # one job a pass, as before batching (the batched path is its own)
         settings = Settings(sdaas_token="smoke-token", sdaas_uri=hive.uri,
-                            worker_name="chip-smoke", model_root_dir=str(ROOT / ".no-models"))
+                            worker_name="chip-smoke", model_root_dir=str(ROOT / ".no-models"),
+                            max_coalesce=1)
         registry = registry or Registry(torch.device(device), settings.model_root_dir)
         t0 = time.perf_counter()
         pipe = registry.get_pipeline(model, allow_random_init=True)
@@ -1357,7 +1535,8 @@ def serve_counted(smi: str, registry, jobs: list, per_call: dict, device: str = 
 
         settings = Settings(sdaas_token="smoke-token", sdaas_uri=hive.uri,
                             worker_name="chip-smoke", model_root_dir=registry.model_root_dir,
-                            lora_root_dir=registry.lora_root_dir or Settings.lora_root_dir)
+                            lora_root_dir=registry.lora_root_dir or Settings.lora_root_dir,
+                            max_coalesce=1)
         worker = Worker(settings=settings, device=device, registry=registry, poll_seconds=0.05)
         FA_COUNTER.reset()
         GN_COUNTER.reset()
@@ -1983,6 +2162,352 @@ def serve_adapter_path(smi: str, xl_launches: dict, device: str = "cuda", sdxl: 
         shutil.rmtree(root, ignore_errors=True)
 
 
+# --- phase 5, the batched path ---
+
+# the prompts of the batched path's jobs
+BATCH_PROMPTS = ("a lighthouse on a cliff at dusk", "a red fox in fresh snow",
+                 "a sailing ship in a storm", "a glass greenhouse full of ferns",
+                 "a steam train crossing a bridge", "an old library with tall windows",
+                 "a hot air balloon over a valley", "a koi pond in autumn")
+# the SDXL LoRAs of the per-row pass: kohya rank 16 (alpha 8) and PEFT rank
+# 8 over LORA_UNET_SUFFIXES, the UNet alone
+BATCH_ADAPTERS = {"a": dict(layout="kohya", rank=16, alpha=8.0, seed=31),
+                  "b": dict(layout="peft", rank=8, seed=32)}
+
+
+def _grid(n: int, size: int) -> tuple:
+    """The shape of the artifact of a job of n images at size^2."""
+    from chiaswarm_tpu_torch.post_processors.output_processor import GRID_LAYOUTS
+
+    rows, cols = next(layout for cap, layout in GRID_LAYOUTS if n <= cap)
+    return (rows * size, cols * size, 3)
+
+
+def serve_group(registry, jobs: list, device: str = "cuda", max_coalesce: int = 8,
+                files: dict | None = None) -> tuple[dict, dict, float]:
+    """Every job of `jobs` queued before the worker's first poll, served
+    through the worker (`max_coalesce` 1 serves each alone) with the
+    kernels' launches counted; a `start_image_uri` naming a key of `files`
+    {name: bytes} is served by the fake hive -> (envelopes by id, {kernel:
+    (launches, {shape: launches})}, wall seconds)."""
+    from chiaswarm_tpu_torch.fake_hive import FakeHive
+    from chiaswarm_tpu_torch.ops.flash_attention import COUNTER as FA_COUNTER
+    from chiaswarm_tpu_torch.ops.group_norm import COUNTER as GN_COUNTER
+    from chiaswarm_tpu_torch.settings import Settings
+    from chiaswarm_tpu_torch.worker import Worker
+
+    hive = FakeHive(token="smoke-token")
+    try:
+        uris = {name: hive.enqueue_file(name, data, "image/jpeg")
+                for name, data in (files or {}).items()}
+        jobs = [dict(job, **({"start_image_uri": uris[job["start_image_uri"]]}
+                             if "start_image_uri" in job else {})) for job in jobs]
+        settings = Settings(sdaas_token="smoke-token", sdaas_uri=hive.uri,
+                            worker_name="chip-smoke", model_root_dir=registry.model_root_dir,
+                            lora_root_dir=registry.lora_root_dir or Settings.lora_root_dir,
+                            max_coalesce=max_coalesce)
+        worker = Worker(settings=settings, device=device, registry=registry, poll_seconds=0.05)
+        hive.enqueue(*jobs)
+        FA_COUNTER.reset()
+        GN_COUNTER.reset()
+        t0 = time.perf_counter()
+        asyncio.run(worker.run(max_jobs=len(jobs)))
+        wall = time.perf_counter() - t0
+        launches = {"flash_attention": (FA_COUNTER.launches, Counter(FA_COUNTER.shapes)),
+                    "group_norm": (GN_COUNTER.launches, Counter(GN_COUNTER.shapes))}
+        fma = {k: n for k, n in FA_COUNTER.routes.items()
+               if k[0] == "fma" and k[1] == torch.bfloat16}
+        results = hive.wait_for_results(len(jobs), timeout=30)
+        check(hive.auth_failures == 0, "the hive refused the worker's bearer token")
+    finally:
+        hive.close()
+    check(not fma, f"bf16 attention took the FMA kernel on the batched path: {fma}")
+    return {r["id"]: r for r in results}, launches, wall
+
+
+def check_group(name: str, jobs: list, results: dict, launches: dict, wall: float,
+                per_call: dict, size: int, coalesced: bool, hold: bool = True) -> dict:
+    """Every envelope of a served group (sha256, a decodable image of the
+    job's grid that is not constant, finite latents; for a coalesced pass
+    `batched_with`, `batch_rows` and `padded_rows`), and its launches held
+    to the prediction: a pass launches UNet calls x `per_call` plus one VAE
+    encode per request with a start image and one decode per image at
+    768^2 and up (one for the pass below); alone, each job its own UNet
+    calls, encode and one decode (with `hold` false the launches are only
+    printed: a CPU rehearsal launches no kernel). -> {"row", "images" and
+    "configs" by id}."""
+    import numpy as np
+
+    from chiaswarm_tpu_torch.pipelines.common import pad_bucket
+
+    counts = [j.get("parameters", {}).get("num_images_per_prompt", 1) for j in jobs]
+    total = sum(counts)
+    images, configs, offset = {}, {}, 0
+    for job, n in zip(jobs, counts):
+        r = results[job["id"]]
+        cfg = r["pipeline_config"]
+        check(not r.get("fatal_error") and "error" not in cfg, f"{job['id']}: {cfg}")
+        image = decode_artifact(r["artifacts"]["primary"])
+        check(image.shape == _grid(n, size), f"{job['id']}: image {image.shape}")
+        check(int(image.max()) != int(image.min()), f"{job['id']}: constant image")
+        check(cfg["latents"]["finite"], f"{job['id']}: non-finite latents")
+        if coalesced:
+            check(cfg.get("batched_with") == len(jobs) and cfg["batch_rows"] == [offset, n]
+                  and cfg["padded_rows"] == pad_bucket(total),
+                  f"{job['id']}: batched_with {cfg.get('batched_with')}, batch_rows "
+                  f"{cfg.get('batch_rows')}, padded_rows {cfg.get('padded_rows')}")
+        else:
+            check("batched_with" not in cfg, f"{job['id']} alone: {cfg.get('batched_with')}")
+        images[job["id"]], configs[job["id"]] = image, cfg
+        offset += n
+    cfg = configs[jobs[0]["id"]]
+    unet_calls = cfg["steps"] - cfg.get("t_start", 0)
+    encodes = sum("start_image_uri" in j for j in jobs)
+    if coalesced:
+        decodes = total if size >= 768 else 1
+        predicted = {k: unet_calls * per_call[k] + encodes * ENCODE_LAUNCHES[k]
+                     + decodes * DECODE_LAUNCHES[k] for k in per_call}
+        job_s = cfg["timings"]["job_s"]
+        step_ms = cfg["timings"]["unet_step_ms"]
+    else:
+        predicted = {k: len(jobs) * (unet_calls * per_call[k] + DECODE_LAUNCHES[k])
+                     + encodes * ENCODE_LAUNCHES[k] for k in per_call}
+        job_s = sum(c["timings"]["job_s"] for c in configs.values())
+        step_ms = float(np.mean([c["timings"]["unet_step_ms"] for c in configs.values()]))
+    counted = {k: v[0] for k, v in launches.items()}
+    check(counted == predicted or not hold,
+          f"{name}: launches {counted} != predicted {predicted}")
+    if counted != predicted:
+        log(f"[batched] {name}: launches {counted}, predicted {predicted} (not held)")
+    row = {"jobs": len(jobs), "images": total, "wall_s": wall, "job_s": job_s,
+           "images_per_s": total / job_s, "unet_step_ms": step_ms, "launches": counted,
+           "text_encode_s": cfg["timings"]["text_encode_s"],
+           "embed_cache": cfg.get("embed_cache")}
+    log(f"[batched] {name} ({'one pass' if coalesced else 'each job alone'}): {len(jobs)} jobs, "
+        f"{total} images at {size}^2" + (f", {pad_bucket(total)} padded rows" if coalesced
+                                         else "")
+        + f"; {job_s:.3f}s of jobs ({wall:.3f}s served), {row['images_per_s']:.3f} images/s; "
+        f"UNet step {step_ms:.1f} ms; text_encode {row['text_encode_s']:.4f}s; embed cache "
+        f"{row['embed_cache']}; launches {json.dumps(counted)} ({unet_calls} UNet calls x "
+        f"{json.dumps(per_call)}, {encodes} encodes, {decodes if coalesced else len(jobs)} "
+        "decodes)")
+    return {"row": row, "images": images, "configs": configs}
+
+
+def serve_batched_path(smi: str, xl_launches: dict, device: str = "cuda", sdxl: str = SDXL,
+                       sd15: str = SD15, size_xl: int = SIZE, size15: int = 512,
+                       steps: int = STEPS, big_jobs: int = 8, big_images: int = 8,
+                       hold: bool = True) -> tuple[dict, dict]:
+    """Phase 5, the batched path: coalesced groups served through the fake
+    hive and the worker (every job queued before the first poll), in
+    registries of their own on seeded random weights, 30 steps, DPM++ 2M
+    unless named, each group checked (`check_group`) and then served again
+    with each job alone, for the images per second and step time of both.
+    SDXL 1024^2: four txt2img jobs (one pass of 4 rows); three with counts
+    (1, 2, 2) (5 rows padded to 8); the four again (the embedding cache
+    serves every text row: text_encode_s falls, the images equal the
+    first pass's bit for bit); the first of them with three other
+    batchmates at the same padded size (its image bit for bit again); three
+    img2img jobs at an explicit 1024^2 canvas from two distinct start images
+    (strength 0.75, Euler ancestral); four jobs with per-row LoRAs (plain,
+    LoRA a at 0.8, a at 0.5 by cross_attention_kwargs.scale, b at 1.0:
+    `lora_mode` "delta" on the adapter rows, the plain row equal bit for bit
+    to the same job in an all-plain pass of the same padded size, each
+    adapter row moved), with the delta's launches and device time per UNet
+    call by the profiler. The one job served alone against its coalesced
+    self: step time and image difference in levels (other GEMM shapes and
+    GroupNorm plans apply). SD 1.5 512^2: eight txt2img jobs (8 rows), then
+    `big_jobs` jobs of `big_images` images, the largest pass the capacity
+    admits (GroupNorm at 128 batch rows). `hold` false only prints the
+    launches (the CPU rehearsal). -> ({kind: (jobs, launches)} of the
+    coalesced passes, served)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from chiaswarm_tpu_torch.capacity import coalesce_rows_limit
+    from chiaswarm_tpu_torch.loras import resolve_lora
+    from chiaswarm_tpu_torch.pipelines import lora_runtime
+    from chiaswarm_tpu_torch.registry import Registry
+
+    root = Path(tempfile.mkdtemp(prefix="chip-smoke-batched-path-"))
+    loras = root / "loras"
+    paths, served = {}, {}
+    try:
+        registry = Registry(torch.device(device), str(ROOT / ".no-models"), str(loras))
+        t0 = time.perf_counter()
+        pipe = registry.get_pipeline(sdxl, allow_random_init=True)
+        log(f"[batched] {sdxl} resident in a registry of its own in "
+            f"{time.perf_counter() - t0:.1f}s; a group holds at most "
+            f"{coalesce_rows_limit(device, sdxl, size_xl)} images at {size_xl}^2")
+        for key, spec in BATCH_ADAPTERS.items():
+            write_lora(loras / f"xl-{key}.safetensors", pipe, **spec)
+        xl = {"workflow": "txt2img", "model_name": sdxl, "negative_prompt": "blurry",
+              "height": size_xl, "width": size_xl, "num_inference_steps": steps,
+              "guidance_scale": 7.0, "content_type": "image/png",
+              "parameters": {"scheduler_type": "DPMSolverMultistepScheduler"}}
+
+        def txt(tag, i, **kw):
+            return dict(xl, id=f"{tag}-{i}", prompt=BATCH_PROMPTS[i % len(BATCH_PROMPTS)],
+                        seed=8000 + i, **kw)
+
+        def both(name, jobs, per_call, size, files=None, alone_as=None):
+            """Serve `jobs` as one pass, then each alone; a pass whose jobs
+            have the shapes of an earlier pass's (`alone_as`) is set beside
+            that pass's jobs served alone instead."""
+            results, launches, wall = serve_group(registry, jobs, device, files=files)
+            got = check_group(name, jobs, results, launches, wall, per_call, size, True, hold)
+            served[name] = {"pass": got["row"]}
+            paths[f"batched_{name}"] = (len(jobs), launches)
+            if alone_as is None:
+                solo_jobs = [dict(j, id=f"{j['id']}-alone") for j in jobs]
+                results, launches, wall = serve_group(registry, solo_jobs, device,
+                                                      max_coalesce=1, files=files)
+                got["alone"] = check_group(f"{name} alone", solo_jobs, results, launches,
+                                           wall, per_call, size, False, hold)
+                served[name]["alone"] = got["alone"]["row"]
+            solo = served[alone_as or name]["alone"]
+            log(f"[batched] {name} on {smi}: {got['row']['images_per_s']:.3f} images/s "
+                f"coalesced against {solo['images_per_s']:.3f} alone"
+                + (f" ({alone_as}'s jobs)" if alone_as else "")
+                + f" ({got['row']['images_per_s'] / solo['images_per_s']:.2f}x); UNet step "
+                f"{got['row']['unet_step_ms']:.1f} ms for the pass against "
+                f"{solo['unet_step_ms']:.1f} ms a job alone")
+            return got
+
+        first = both("sdxl_4", [txt("xl4", i) for i in range(4)], xl_launches, size_xl)
+        counts = (1, 2, 2)
+        both("sdxl_5_of_8", [txt("xl5", 4 + i, parameters={
+            **xl["parameters"], "num_images_per_prompt": n}) for i, n in enumerate(counts)],
+            xl_launches, size_xl)
+        # one job alone against its coalesced self
+        job_id = "xl4-0"
+        alone = first["alone"]
+        diff = (first["images"][job_id].astype(np.int16)
+                - alone["images"][f"{job_id}-alone"].astype(np.int16))
+        solo_vs = {"max_levels": int(np.abs(diff).max()),
+                   "mean_levels": float(np.abs(diff).mean()),
+                   "step_ms_coalesced": first["configs"][job_id]["timings"]["unet_step_ms"],
+                   "step_ms_alone": alone["configs"][f"{job_id}-alone"]["timings"][
+                       "unet_step_ms"]}
+        served["solo_vs_coalesced"] = solo_vs
+        log(f"[batched] {job_id} alone against its 4-row pass: UNet step "
+            f"{solo_vs['step_ms_alone']:.1f} ms (2 CFG rows) against "
+            f"{solo_vs['step_ms_coalesced']:.1f} ms (8 CFG rows, 4 images); images differ by "
+            f"{solo_vs['max_levels']} levels at most, {solo_vs['mean_levels']:.3f} on average "
+            "(other GEMM shapes and GroupNorm plans apply)")
+
+        # the embedding cache: the same prompts and seeds again
+        again = both("sdxl_4_cached", [txt("xl4", i) for i in range(4)], xl_launches, size_xl,
+                     alone_as="sdxl_4")
+        hits = [again["configs"][f"xl4-{i}"]["embed_cache"] for i in range(4)]
+        equal = all(np.array_equal(again["images"][f"xl4-{i}"], first["images"][f"xl4-{i}"])
+                    for i in range(4))
+        log(f"[batched] the repeat pass: embed cache {hits[0]} (first pass "
+            f"{first['configs']['xl4-0'].get('embed_cache')}), text_encode "
+            f"{served['sdxl_4_cached']['pass']['text_encode_s']:.4f}s against "
+            f"{served['sdxl_4']['pass']['text_encode_s']:.4f}s; images equal bit for bit: {equal}")
+        check(hits[0] == {"hits": 8, "misses": 0}, f"the repeat pass's embed cache: {hits[0]}")
+        check(served["sdxl_4_cached"]["pass"]["text_encode_s"]
+              < served["sdxl_4"]["pass"]["text_encode_s"], "text_encode_s did not fall")
+        check(equal, "the repeat pass's images differ from the first pass's")
+        # one job, other batchmates, the same padded rows
+        mates = both("sdxl_4_other_batchmates", [txt("xl4", 0)] + [
+            txt("xl4b", 8 + i) for i in range(3)], xl_launches, size_xl, alone_as="sdxl_4")
+        same = np.array_equal(mates["images"][job_id], again["images"][job_id])
+        log(f"[batched] {job_id} with other batchmates at 4 padded rows: its image equals the "
+            f"earlier pass's bit for bit: {same}")
+        check(same, f"{job_id}: its image moved with its batchmates")
+
+        # img2img: two distinct start images, three jobs
+        files = {"start-a.jpg": image_bytes(start_image(size_xl), "JPEG"),
+                 "start-b.jpg": image_bytes(start_image(size_xl).rotate(90), "JPEG")}
+        i2i = dict(xl, workflow="img2img", strength=0.75,
+                   parameters={"scheduler_type": "EulerAncestralDiscreteScheduler"})
+        both("sdxl_img2img", [dict(i2i, id=f"xl-i2i-{i}", prompt=BATCH_PROMPTS[i], seed=8100 + i,
+                                   start_image_uri=name)
+                              for i, name in enumerate(("start-a.jpg", "start-b.jpg",
+                                                        "start-a.jpg"))],
+             xl_launches, size_xl, files=files)
+
+        # per-row LoRA: plain, a at 0.8, a at 0.5, b at 1.0
+        lora_jobs = [txt("xl-lora", 0), txt("xl-lora", 1, lora="xl-a.safetensors",
+                                            lora_scale=0.8),
+                     txt("xl-lora", 2, lora="xl-a.safetensors",
+                         parameters={**xl["parameters"],
+                                     "cross_attention_kwargs": {"scale": 0.5}}),
+                     txt("xl-lora", 3, lora="xl-b.safetensors")]
+        with_lora = both("sdxl_lora", lora_jobs, xl_launches, size_xl)
+        plain = both("sdxl_lora_plain", [{k: v for k, v in j.items()
+                                          if k not in ("lora", "lora_scale")}
+                                         | {"id": j["id"] + "-plain",
+                                            "parameters": xl["parameters"]}
+                                         for j in lora_jobs], xl_launches, size_xl,
+                     alone_as="sdxl_4")
+        modes = [with_lora["configs"][j["id"]].get("lora_mode") for j in lora_jobs]
+        scales = [with_lora["configs"][j["id"]].get("lora_scale") for j in lora_jobs]
+        moved = [int(np.abs(with_lora["images"][j["id"]].astype(np.int16)
+                            - plain["images"][j["id"] + "-plain"].astype(np.int16)).max())
+                 for j in lora_jobs]
+        log(f"[batched] per-row LoRA pass: modes {modes}, scales {scales}; each row against the "
+            f"same job in an all-plain pass of 4 padded rows: {moved} levels at most")
+        check(modes == [None, "delta", "delta", "delta"], f"lora modes {modes}")
+        check(scales == [None, 0.8, 0.5, 1.0], f"lora scales {scales}")
+        check(moved[0] == 0, f"the plain row moved by {moved[0]} beside the adapters")
+        check(min(moved[1:]) > 2, f"an adapter left its row unchanged: {moved}")
+        # the delta's launches and device time in one UNet call at 8 CFG rows
+        refs = [resolve_lora(f"xl-{key}.safetensors", str(loras)) for key in BATCH_ADAPTERS]
+        stacks = [pipe.adapter_stacks(ref)[0] for ref in refs]
+        gains = torch.tensor([[0.0, 0.8, 0.5, 0.0], [0.0, 0.0, 0.0, 1.0]]).repeat(1, 2)
+        x, t, ctx, added = unet_inputs(pipe, size_xl, rows=8)
+        with lora_runtime.applied_rows(pipe.unet_index, stacks,
+                                       gains.to(pipe.device, pipe.dtype)):
+            kernels, _, wall_ms, _, delta = profiled(
+                lambda: pipe.unet(x, t, ctx, added_cond=added), 2, pipe.device)
+        delta_ms, delta_n = sum(v[0] for v in delta.values()), sum(v[1] for v in delta.values())
+        device_ms = sum(v[0] for v in kernels.values())
+        served["lora_delta_per_unet_call"] = {"launches": delta_n, "device_ms": delta_ms,
+                                              "unet_device_ms": device_ms, "wall_ms": wall_ms}
+        log(f"[batched] per-row LoRA delta (2 slots) in one SDXL UNet call at 8 CFG rows on "
+            f"{smi}: {delta_n:g} launches, {delta_ms:.3f} device-ms of the call's "
+            f"{device_ms:.2f} ({wall_ms:.2f} ms wall under the profiler)")
+        del pipe, stacks, x, ctx, added
+        registry = None
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+        # SD 1.5 512^2 in a registry of its own
+        registry = Registry(torch.device(device), str(ROOT / ".no-models"), str(loras))
+        registry.get_pipeline(sd15, allow_random_init=True)
+        budget = coalesce_rows_limit(device, sd15, size15)
+        log(f"[batched] {sd15} resident; a group holds at most {budget} images at {size15}^2")
+        sd = dict(xl, model_name=sd15, height=size15, width=size15)
+
+        def sd_job(tag, i, n=1):
+            return dict(sd, id=f"{tag}-{i}", prompt=BATCH_PROMPTS[i % len(BATCH_PROMPTS)],
+                        seed=9000 + i, parameters={**sd["parameters"],
+                                                   "num_images_per_prompt": n})
+
+        both("sd15_8", [sd_job("sd8", i) for i in range(8)], SD_UNET_LAUNCHES, size15)
+        check(big_jobs * big_images <= budget, f"{big_jobs} x {big_images} images > {budget}")
+        big = both("sd15_largest", [sd_job("sd64", i, big_images) for i in range(big_jobs)],
+                   SD_UNET_LAUNCHES, size15)
+        rows = {key[0][0] for key in paths["batched_sd15_largest"][1]["group_norm"][1]}
+        log(f"[batched] the largest SD 1.5 pass: {big_jobs * big_images} images, GroupNorm at "
+            f"batch rows {sorted(rows)}; {torch.cuda.max_memory_allocated() / 2**30 if device == 'cuda' else 0:.1f}"
+            " GiB allocated at most so far")
+        check(2 * big_jobs * big_images in rows or not hold,
+              f"GroupNorm batch rows {sorted(rows)}")
+        del big, registry
+        gc.collect()
+        return paths, served
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # --- phase 6 ---
 
 def measure(paths: dict, main: str = "txt2img") -> tuple[list[dict], dict]:
@@ -2211,6 +2736,10 @@ def end_to_end_bf16_check(pipe, size: int = SIZE,
     return result
 
 
+# idle host time on either side of the calls a profile counts
+PROFILE_MARGIN_S = 0.05
+
+
 def profiled(fn, calls: int, device) -> tuple[dict, float, float, int, dict]:
     """`calls` calls of fn after one warm-up call, timed by the host's clock
     and then again under torch.profiler: ({kernel name: (device ms per
@@ -2218,7 +2747,7 @@ def profiled(fn, calls: int, device) -> tuple[dict, float, float, int, dict]:
     the profiler, GroupNorm wrapper calls per call, {kernel name: (device
     ms, launches) per call} of the kernels launched inside `lora_delta`
     ranges)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from chiaswarm_tpu_torch.device import synchronize
     from chiaswarm_tpu_torch.ops.group_norm import COUNTER as GN_COUNTER
@@ -2231,20 +2760,38 @@ def profiled(fn, calls: int, device) -> tuple[dict, float, float, int, dict]:
             fn()
         synchronize(device)
         plain_wall_ms = 1e3 * (time.perf_counter() - t0) / calls
-        GN_COUNTER.reset()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # one call in the schedule's warm-up step, whose events are dropped:
+        # the device's tracing is running before the counted calls start (a
+        # profile that began with them once lost the first kernels of a
+        # VAE decode). The profiler keeps only the kernels that its clock
+        # places inside the active window, and the device's timestamps are
+        # converted to the host's clock only approximately: an idle margin
+        # on either side of the counted calls keeps their first and last
+        # kernels inside it (without one, an SD UNet profile once counted
+        # 60 GroupNorm launches of 61).
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1), acc_events=True) as prof:
+            fn()
+            synchronize(device)
+            prof.step()
+            time.sleep(PROFILE_MARGIN_S)
+            GN_COUNTER.reset()
             t0 = time.perf_counter()
             for _ in range(calls):
                 fn()
             synchronize(device)
             wall_ms = 1e3 * (time.perf_counter() - t0) / calls
+            time.sleep(PROFILE_MARGIN_S)
+            prof.step()
     kernels = {}
     for event in prof.key_averages():
         device_us = getattr(event, "self_device_time_total", None)
         if device_us is None:
             device_us = getattr(event, "self_cuda_time_total", 0)
-        # a record_function range's own span on the device is no kernel
+        # a record_function range's own span on the device is no kernel,
+        # nor is the schedule's step range
         if (device_us > 0 and event.key != "lora_delta"
+                and not event.key.startswith("ProfilerStep")
                 and getattr(event, "device_type", None) != torch.autograd.DeviceType.CPU):
             ms, n = kernels.get(event.key, (0.0, 0.0))
             kernels[event.key] = (ms + device_us / 1e3 / calls, n + event.count / calls)
@@ -2349,7 +2896,8 @@ def check_one_launch_per_call(profile: dict) -> None:
     for name, p in profile.items():
         launches = p["categories_ms_launches"]["group_norm kernel"][1]
         check(launches == p["group_norm_calls"],
-              f"{name}: {launches:g} GroupNorm kernel launches for {p['group_norm_calls']} calls")
+              f"{p['model']} {name} at {p.get('rows', 2)} CFG rows: {launches:g} GroupNorm "
+              f"kernel launches for {p['group_norm_calls']} calls")
 
 
 def group_norm_only(smi: str, detail: str | None) -> None:
@@ -2436,11 +2984,13 @@ def main(argv=None) -> int:
             attention_only(smi, opts.detail)
             return 0
         kernel_checks()
+        limits = batched_checks(torch.Generator(device="cuda").manual_seed(2))
         tiny_reference_check()
         tiny_sd = tiny_sd_checks()
         tiny_image = tiny_image_checks()
         tiny_edit = tiny_edit_checks()
         tiny_adapters = tiny_adapter_checks()
+        tiny_batched = tiny_batched_checks()
         launches, served, registry = serve_main_path(smi)
         unet_launches = {name: (count / N_JOBS - DECODE_LAUNCHES[name]) / STEPS
                          for name, (count, _) in launches.items()}
@@ -2453,8 +3003,10 @@ def main(argv=None) -> int:
         edit_paths, edit_served = serve_edit_path(smi, registry, sd_registry, unet_launches)
         checkpoint_paths, checkpoint_served = serve_checkpoint_path(smi)
         adapter_paths, adapter_served = serve_adapter_path(smi, unet_launches)
+        batched_paths, batched_served = serve_batched_path(smi, unet_launches)
         summary, shapes = measure({"txt2img": (N_JOBS, launches), **image_paths, **sd_paths,
-                                   **edit_paths, **checkpoint_paths, **adapter_paths})
+                                   **edit_paths, **checkpoint_paths, **adapter_paths,
+                                   **batched_paths})
         # (model, registry, canvas, CFG rows, parts) of phases 7 and 8
         calls = [(SDXL, registry, SIZE, 2, ("unet", "vae_decode", "vae_encode")),
                  *((model, sd_registry, size, 2, ("unet",)) for model, size in SD_CANVASES),
@@ -2466,6 +3018,10 @@ def main(argv=None) -> int:
         for model, reg, size, rows, parts in calls:
             profile[model] = profile_main_path(reg.get_pipeline(model), size, parts=parts,
                                                rows=rows)
+        # coalesced UNet calls: SDXL at 8 CFG rows (4 images), SD 1.5 at 16 (8)
+        for model, reg, size, rows in ((SDXL, registry, SIZE, 8), (SD15, sd_registry, 512, 16)):
+            profile[f"{model} at {rows} CFG rows"] = profile_main_path(
+                reg.get_pipeline(model), size, parts=("unet",), rows=rows)
         for part in profile.values():
             log_profile(part, smi)
             check_one_launch_per_call(part)
@@ -2477,7 +3033,9 @@ def main(argv=None) -> int:
                  "tiny_edit": tiny_edit, "tiny_adapters": tiny_adapters, "served": served,
                  "image_served": image_served, "sd_served": sd_served,
                  "edit_served": edit_served, "checkpoint_served": checkpoint_served,
-                 "adapter_served": adapter_served, "kernels": summary,
+                 "adapter_served": adapter_served, "batch_limits": limits,
+                 "tiny_batched": tiny_batched, "batched_served": batched_served,
+                 "kernels": summary,
                  "shapes": shapes, "end_to_end_bf16": e2e, "profile": profile}, indent=1,
                 default=str))
     except SmokeFailure as e:
