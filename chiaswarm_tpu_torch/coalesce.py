@@ -10,10 +10,12 @@ negative, seed, start image, image count, adapter and its scale) rides
 outside it. None means the job runs alone.
 
 For the families and features the port serves the key is the JAX
-package's, element for element. It is None wherever the JAX key is None,
-and also for what the port cannot serve in a pass: flux (a later slice),
-ControlNet (refused by job_arguments), stage jobs (no stage graph yet)
-and the job keys job_arguments refuses. The port has one adapter route,
+package's, element for element, the shared ControlNet element among them
+(jobs with one ControlNet branch and one control image coalesce; a
+ControlNet job with a start image, a QR chain or QR contents runs
+alone). It is None wherever the JAX key is None, and also for what the
+port cannot serve in a pass: flux (a later slice), stage jobs (no stage
+graph yet) and the job keys job_arguments refuses. The port has one adapter route,
 the runtime delta (pipelines/lora_runtime.py), so adapter jobs always
 coalesce, as in the JAX package with `lora_runtime_delta` at its
 default.
@@ -42,12 +44,18 @@ _BATCHABLE_I2I_PIPELINE_TYPES = {
     "AutoPipelineForImage2Image",
 }
 
+# txt2img ControlNet wire names whose batched semantics the shared
+# ControlNet pass reproduces (one control image conditions every row)
+_BATCHABLE_CN_PIPELINE_TYPES = {
+    None,
+    "StableDiffusionControlNetPipeline",
+    "StableDiffusionXLControlNetPipeline",
+}
+
 # job keys that mean per-job structure the padded pass cannot carry
 _UNBATCHABLE_JOB_KEYS = ("mask_image_uri", "refiner", "upscale", "textual_inversion", "vae")
 
-# the only `parameters` keys a batchable job may carry (`controlnet` is
-# one in the JAX package, whose shared-ControlNet group the port lacks:
-# such a job keys to None below)
+# the only `parameters` keys a batchable job may carry
 _SAFE_PARAMETER_KEYS = frozenset({
     "test_tiny_model",
     "pipeline_type",
@@ -143,6 +151,36 @@ def _adapter_component(job: dict, params: dict) -> tuple | None:
     return ("lora", _pow2_bucket(max(rank, LORA_MIN_RANK)))
 
 
+def _controlnet_component(job: dict, params: dict, workflow: str) -> tuple | None | bool:
+    """The key's shared-ControlNet element, as in the JAX package: jobs
+    conditioned by one ControlNet branch and one control image coalesce.
+    False = ControlNet structure a pass cannot share (a start image, a QR
+    chain, QR contents): the job runs alone; None = no ControlNet."""
+    cn = params.get("controlnet")
+    if cn is None:
+        return None
+    if not isinstance(cn, dict) or workflow != "txt2img":
+        return False
+    cn_params = cn.get("parameters") or {}
+    if not isinstance(cn_params, dict):
+        return False
+    if cn_params.get("controlnet_prepipeline_type"):
+        return False  # the QR two-stage chain runs per job
+    if cn.get("qr_code_contents"):
+        return False  # a generated control image is the job's own
+    uri = cn.get("control_image_uri")
+    if not uri:
+        return False
+    if params.get("pipeline_type") not in _BATCHABLE_CN_PIPELINE_TYPES:
+        return False
+    return (str(cn.get("controlnet_model_name", "lllyasviel/control_v11p_sd15_canny")),
+            str(uri),
+            str(cn.get("preprocessor") or ""),
+            round(float(cn.get("controlnet_conditioning_scale", 1.0)), 4),
+            round(float(cn.get("control_guidance_start", 0.0)), 4),
+            round(float(cn.get("control_guidance_end", 1.0)), 4))
+
+
 def _family(model: str) -> str | None:
     """The JAX package's `_auto_family` for the SD families ("sd",
     "sdxl"), from the port's own `model_family`; None for every family the
@@ -171,9 +209,15 @@ def coalesce_key(job: dict) -> tuple | None:
         params = job.get("parameters") or {}
         if not isinstance(params, dict):
             return None
-        if not set(params) <= _SAFE_PARAMETER_KEYS or params.get("controlnet") is not None:
+        if not set(params) <= _SAFE_PARAMETER_KEYS:
             return None
         adapter = _adapter_component(job, params)
+        cn = _controlnet_component(job, params, workflow)
+        if cn is False:
+            return None
+        if cn is not None and adapter_ref(job) is not None:
+            # each coalesces alone; the two together run alone, as in JAX
+            return None
         family = _family(model)
         if family is None:
             return None
@@ -191,7 +235,8 @@ def coalesce_key(job: dict) -> tuple | None:
         if workflow == "txt2img":
             if "start_image_uri" in job or "strength" in job:
                 return None
-            if params.get("pipeline_type") not in _BATCHABLE_PIPELINE_TYPES:
+            # the ControlNet element checked its own pipeline types
+            if cn is None and params.get("pipeline_type") not in _BATCHABLE_PIPELINE_TYPES:
                 return None
         else:
             # per-request start images at a shared explicit canvas
@@ -213,7 +258,7 @@ def coalesce_key(job: dict) -> tuple | None:
         tiny = bool(params.get("test_tiny_model", False)) or bool(job.get("test_tiny_model", False))
         large = bool(params.get("large_model", False))
         return (model, family, height, width, steps, scheduler, guidance, karras, tiny, large,
-                workflow, strength, adapter, None, None)
+                workflow, strength, adapter, cn, None)
     except (TypeError, ValueError):
         # values that do not parse: the solo path gives its fatal envelope
         return None

@@ -1,4 +1,5 @@
-"""Fetching and validating a job's input images (start image, mask).
+"""Fetching and validating a job's input images (start image, mask,
+control image), and the QR control image of QR-monster jobs.
 
 A trimmed copy of chiaswarm_tpu/external_resources.py (the port imports
 nothing of the JAX package), over stdlib `urllib` instead of aiohttp:
@@ -107,3 +108,23 @@ def get_image(uri: str | None, size: tuple[int, int] | None,
     with _open(uri, "GET", limits.timeout_s) as response:
         raw = _read_capped(response, limits)
     return _decode_image(raw, size, limits)
+
+
+def get_qrcode_image(qr_code_contents: str, size: tuple[int, int] | None) -> Image.Image:
+    """A QR control image for the QR-monster jobs, at the job's longer
+    edge (768 unsized). Needs the `qrcode` package; without it the job
+    fails, as in the JAX package."""
+    try:
+        import qrcode
+    except ImportError as e:
+        raise Exception("QR-code workflows require the 'qrcode' package, which is not "
+                        "installed on this worker.") from e
+    from .pre_processors.image_utils import resize_for_condition_image
+
+    edge = max(size) if size is not None else 768
+    qr = qrcode.QRCode(version=None, error_correction=qrcode.constants.ERROR_CORRECT_H,
+                       box_size=10, border=4)
+    qr.add_data(qr_code_contents)
+    qr.make(fit=True)
+    return resize_for_condition_image(qr.make_image(fill_color="black", back_color="white"),
+                                      edge)

@@ -11,16 +11,28 @@ checkpoints take `strength * 5` as their image guidance scale, and the
 size-locked checkpoints get a 768 canvas. A job's `lora` resolves against
 the settings' `lora_root_dir` (loras.py); `textual_inversion`, `vae`,
 `lora_scale` and `cross_attention_kwargs` pass through from `parameters`.
+
+A `parameters.controlnet` dict gives the ControlNet arguments, as in the
+JAX package's `format_controlnet_args`: the control image is the
+fetched `control_image_uri`, a QR code of `qr_code_contents` (which
+overrides it), or the start image; a `preprocessor` turns the start image
+(else the control image) into the condition image; the txt2img
+ControlNet pipelines take the control image as `image`, the others as
+`control_image`, and an img2img start image is cropped to the control
+image's size. The ControlNet pipeline types are chosen by `large_model`.
+
 A workflow or feature that is not ported yet raises ValueError naming it,
-which the worker turns into a fatal envelope; so does ControlNet. Input
-images are fetched here (`get_image` blocks: the worker formats a job on
-its executor thread).
+which the worker turns into a fatal envelope; so does a preprocessor that
+runs a model. Input images are fetched, and preprocessed, here
+(`get_image` blocks: the worker formats a job on its executor thread).
 """
 
 from __future__ import annotations
 
-from .external_resources import LIMITS, get_image
+from .external_resources import LIMITS, get_image, get_qrcode_image, is_blank
 from .loras import resolve_lora
+from .pre_processors.controlnet import preprocess_image
+from .pre_processors.image_utils import center_crop_resize, resize_square
 from .settings import Settings, load_settings
 from .workflows.diffusion import diffusion_callback
 from .workflows.echo import echo_callback
@@ -30,7 +42,7 @@ MAX_SIZE = LIMITS.max_edge
 
 # job keys of workflows and features this slice does not serve
 _UNPORTED_KEYS = ("video_uri",)
-_UNPORTED_PARAMETERS = ("controlnet", "upscale")
+_UNPORTED_PARAMETERS = ("upscale",)
 # the JAX package's special cases of img2img
 _PIX2PIX_MODELS = {"timbrooks/instruct-pix2pix", "diffusers/sdxl-instructpix2pix-768"}
 _SIZE_LOCKED_MODELS = {"diffusers/sdxl-instructpix2pix-768",
@@ -80,6 +92,8 @@ def format_stable_diffusion_args(args: dict, workflow: str | None) -> dict:
         format_img2img_args(args, parameters, size)
     elif workflow == "inpaint" or "mask_image_uri" in args:
         format_inpaint_args(args, parameters, size)
+    elif workflow == "txt2img":
+        format_txt2img_args(args, parameters, size)
 
     args.setdefault("num_inference_steps", 30)
     args["pipeline_type"] = parameters.pop("pipeline_type", "DiffusionPipeline")
@@ -100,23 +114,48 @@ def format_stable_diffusion_args(args: dict, workflow: str | None) -> dict:
     return args
 
 
+def format_txt2img_args(args: dict, parameters: dict, size) -> None:
+    if "controlnet" in parameters:
+        parameters.setdefault(
+            "pipeline_type",
+            "StableDiffusionXLControlNetPipeline" if parameters.get("large_model", False)
+            else "StableDiffusionControlNetPipeline")
+        format_controlnet_args(args, parameters, None, size)
+
+
 def format_inpaint_args(args: dict, parameters: dict, size) -> None:
     # the inpaint pipeline type is chosen before img2img's setup, whose
     # own default would otherwise claim the slot
-    parameters.setdefault(
-        "pipeline_type",
-        "StableDiffusionXLInpaintPipeline" if parameters.get("large_model", False)
-        else "StableDiffusionInpaintPipeline")
+    large = parameters.get("large_model", False)
+    if "controlnet" in parameters:
+        parameters.setdefault(
+            "pipeline_type",
+            "StableDiffusionXLControlNetInpaintPipeline" if large
+            else "StableDiffusionControlNetInpaintPipeline")
+    else:
+        parameters.setdefault(
+            "pipeline_type",
+            "StableDiffusionXLInpaintPipeline" if large else "StableDiffusionInpaintPipeline")
     # inpaint inherits img2img's setup, since it has a start image
     format_img2img_args(args, parameters, size)
     args["mask_image"] = get_image(args.pop("mask_image_uri"), size)
     args.pop("height", None)
     args.pop("width", None)
+    if "controlnet" in parameters:
+        format_controlnet_args(args, parameters, None, size)
 
 
 def format_img2img_args(args: dict, parameters: dict, size) -> None:
     start_image = get_image(args.pop("start_image_uri", None), size)
-    if "pipeline_type" not in parameters:
+    if size is None and start_image is not None:
+        size = start_image.size
+    if "controlnet" in parameters:
+        format_controlnet_args(args, parameters, start_image, size)
+        parameters.setdefault(
+            "pipeline_type",
+            "StableDiffusionXLControlNetImg2ImgPipeline" if parameters.get("large_model", False)
+            else "StableDiffusionControlNetImg2ImgPipeline")
+    elif "pipeline_type" not in parameters:
         parameters["pipeline_type"] = (
             "StableDiffusionXLImg2ImgPipeline" if parameters.get("large_model", False)
             else "StableDiffusionImg2ImgPipeline")
@@ -127,6 +166,8 @@ def format_img2img_args(args: dict, parameters: dict, size) -> None:
         # the edit checkpoints take an image guidance scale (1-5), not a
         # strength (0-1)
         args["image_guidance_scale"] = args.pop("strength", 0.6) * 5
+    if start_image is None and args.get("control_image") is not None:
+        start_image = args["control_image"]
     if start_image is None:
         raise ValueError("Workflow requires an input image. None provided")
     if args["model_name"] in _SIZE_LOCKED_MODELS and not parameters.get("test_tiny_model"):
@@ -135,12 +176,50 @@ def format_img2img_args(args: dict, parameters: dict, size) -> None:
         start_image = resize_square(start_image).resize((768, 768))
         args["height"] = start_image.height
         args["width"] = start_image.width
+    if "control_image" in args:
+        start_image = center_crop_resize(start_image, args["control_image"].size)
     args["image"] = start_image
 
 
-def resize_square(image):
-    """Center-crop a PIL image to its shorter side."""
-    side = min(image.width, image.height)
-    left = (image.width - side) // 2
-    top = (image.height - side) // 2
-    return image.crop((left, top, left + side, top + side))
+def format_controlnet_args(args: dict, parameters: dict, start_image, size) -> None:
+    controlnet = parameters.pop("controlnet")
+    control_image = get_image(controlnet.get("control_image_uri"), size)
+    args["save_preprocessed_input"] = True
+    # the JAX package runs a preprocessor on an executor so that its event
+    # loop keeps turning; the port formats a job on the worker's executor
+    # thread already, so it calls the preprocessor in place
+    if not is_blank(controlnet.get("qr_code_contents")):
+        # a QR code overrides any control image given
+        control_image = get_qrcode_image(controlnet["qr_code_contents"], size)
+        if start_image is None:
+            start_image = control_image
+    elif start_image is not None and not is_blank(controlnet.get("preprocessor")):
+        control_image = preprocess_image(start_image, controlnet["preprocessor"])
+    elif control_image is not None and not is_blank(controlnet.get("preprocessor")):
+        control_image = preprocess_image(control_image, controlnet["preprocessor"])
+    elif control_image is None:
+        control_image = start_image
+    if control_image is None:
+        raise ValueError("Controlnet specified but no control image provided")
+
+    controlnet_parameters = controlnet.get("parameters", {})
+    args["controlnet_model_type"] = controlnet_parameters.get("controlnet_model_type",
+                                                              "ControlNetModel")
+    if "controlnet_prepipeline_type" in controlnet_parameters:
+        args["controlnet_prepipeline_type"] = controlnet_parameters[
+            "controlnet_prepipeline_type"]
+    args["controlnet_model_name"] = controlnet.get("controlnet_model_name",
+                                                   "lllyasviel/control_v11p_sd15_canny")
+    args["controlnet_conditioning_scale"] = float(
+        controlnet.get("controlnet_conditioning_scale", 1.0))
+    args["control_guidance_start"] = float(controlnet.get("control_guidance_start", 0.0))
+    args["control_guidance_end"] = float(controlnet.get("control_guidance_end", 1.0))
+    if args["model_name"] == "kandinsky-community/kandinsky-2-2-controlnet-depth":
+        # its depth hint comes with the Kandinsky family
+        raise ValueError("the Kandinsky family is not ported to chiaswarm_tpu_torch yet")
+    if parameters.get("pipeline_type") in ("StableDiffusionControlNetPipeline",
+                                           "StableDiffusionXLControlNetPipeline"):
+        # the txt2img ControlNet pipelines take the control image as `image`
+        args["image"] = control_image
+    else:
+        args["control_image"] = control_image

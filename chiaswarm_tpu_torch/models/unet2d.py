@@ -1,6 +1,7 @@
 """Conditional UNet2D of the SD family (torch.nn), the counterpart of
 chiaswarm_tpu/models/unet2d.py, including SDXL's `addition_embed` branch
-(pooled text embeds + size/crop time ids).
+(pooled text embeds + size/crop time ids) and the residuals of a
+ControlNet (controlnet.py).
 
 NCHW in and out, activations in `torch.channels_last` (see layers.py);
 diffusers' UNet2DConditionModel key layout.
@@ -154,10 +155,13 @@ class UNet2DConditionModel(nn.Module):
         self.conv_norm_out = FusedGroupNorm(blocks[0], 32, 1e-5, act="silu")
         self.conv_out = nn.Conv2d(blocks[0], cfg.out_channels, 3, padding=1)
 
-    def forward(self, sample, timesteps, encoder_hidden_states, added_cond=None):
+    def forward(self, sample, timesteps, encoder_hidden_states, added_cond=None,
+                down_residuals=None, mid_residual=None):
         """sample [B, C_in, H, W]; timesteps [B] or scalar; context
         [B, S, cross_attention_dim]; SDXL added_cond {"text_embeds":
-        [B, P], "time_ids": [B, 6]}. -> [B, C_out, H, W]."""
+        [B, P], "time_ids": [B, 6]}; a ControlNet's `down_residuals` (one
+        per skip, added to it) and `mid_residual` (added after the mid
+        block). -> [B, C_out, H, W]."""
         cfg = self.config
         dtype = sample.dtype
         b = sample.shape[0]
@@ -182,7 +186,11 @@ class UNet2DConditionModel(nn.Module):
         for block in self.down_blocks:
             x, block_skips = block(x, temb, encoder_hidden_states)
             skips.extend(block_skips)
+        if down_residuals is not None:
+            skips = [s + r for s, r in zip(skips, down_residuals, strict=True)]
         x = self.mid_block(x, temb, encoder_hidden_states)
+        if mid_residual is not None:
+            x = x + mid_residual
         for block in self.up_blocks:
             x = block(x, skips, temb, encoder_hidden_states)
         return self.conv_out(self.conv_norm_out(x))

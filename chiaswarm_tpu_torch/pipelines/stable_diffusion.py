@@ -42,6 +42,12 @@ vectors to the encoders whose widths they match (placeholder ids past the
 vocabulary); a `vae` names a model directory whose VAE encodes and decodes
 the job. A chained refiner gets none of them. An adapter that cannot be
 loaded or matches nothing raises ValueError, a fatal job error.
+
+A ControlNet (`controlnet_model_name`, a resident branch of this UNet's
+config, `controlnet`) adds its residuals to the UNet's skips and mid block
+on the steps of its guidance window, on txt2img, img2img and inpaint, and
+on every row of a coalesced pass; `controlnet_prepipeline_type` runs the
+QR two-stage chain, as in the JAX pipeline.
 """
 
 from __future__ import annotations
@@ -63,6 +69,7 @@ from ..embed_cache import EmbedCache
 from ..lora_cache import LoraCache, adapter_key
 from ..models import configs as cfgs
 from ..models.clip import CLIPTextEncoder
+from ..models.controlnet import ControlNetModel
 from ..models.lora import linear_index, match_factors
 from ..models.tokenizer import PlaceholderTokenizer, load_tokenizer
 from ..models.unet2d import UNet2DConditionModel
@@ -75,6 +82,7 @@ from ..weights import (
     load_checkpoint_,
     model_seed,
     random_init_,
+    require_weights_present,
 )
 from . import lora_runtime
 from .common import pad_bucket, split_by_counts
@@ -83,7 +91,7 @@ logger = logging.getLogger(__name__)
 
 # job arguments of the JAX pipeline whose features this slice lacks; a
 # job that sets one fails with a fatal envelope naming it
-_UNPORTED = ("controlnet_model_name", "upscale", "control_image")
+_UNPORTED = ("upscale",)
 
 # per-job add-ons a pipeline keeps resident, least recently used first out
 MAX_RESIDENT_TI = 4
@@ -208,6 +216,28 @@ def _pil_to_array(image: Image.Image, width: int, height: int) -> np.ndarray:
     return np.asarray(image, np.float32) / 127.5 - 1.0
 
 
+def control_window(start, end, steps: int) -> tuple[int, int]:
+    """A ControlNet's guidance window [lo, hi) in the solver's loop index,
+    as the JAX pipeline reckons it: lo = int(start x steps), hi =
+    ceil(end x steps), one step at least. The bounds are in user steps
+    while the loop runs over the solver's own index (from t_start for
+    img2img, doubled for Heun), as in JAX."""
+    lo = int(float(start) * steps)
+    return lo, max(int(np.ceil(float(end) * steps)), lo + 1)
+
+
+def _control_residuals(branch, scale: float, window, i: int, model_in, t_vec, context,
+                       control, added) -> dict:
+    """The UNet's ControlNet keywords at loop index i: the branch's
+    residuals inside the window, none outside it or at scale 0. The JAX
+    program runs the branch there too, at scale 0; a residual scaled by 0
+    adds exact zeros, so skipping it changes no bit of the image."""
+    if branch is None or scale == 0.0 or not window[0] <= i < window[1]:
+        return {}
+    down, mid = branch(model_in, t_vec, context, control, scale, added)
+    return {"down_residuals": down, "mid_residual": mid}
+
+
 def _mask_to_latent_array(mask: Image.Image, width: int, height: int,
                           factor: int) -> np.ndarray:
     """Mask PIL -> float32 [H/f, W/f, 1]; 1 = repaint, 0 = keep."""
@@ -247,6 +277,7 @@ class SDPipeline:
         otherwise). Encoded prompt rows are kept in `embed_cache` (the
         registry's; none otherwise)."""
         self.model_name = model_name
+        self.allow_random_init = allow_random_init
         self.embed_cache = embed_cache
         # the last encode's (hits, misses) of the cache, None when it was
         # bypassed
@@ -256,6 +287,8 @@ class SDPipeline:
         self.lora_cache = lora_cache or LoraCache()
         self._ti_cache: OrderedDict[str, tuple] = OrderedDict()
         self._vae_cache: OrderedDict[str, AutoencoderKL] = OrderedDict()
+        # resident ControlNet branches by name, as in the JAX pipeline
+        self._controlnets: dict[str, ControlNetModel] = {}
         self.device = resolve_device(device)
         self.dtype = dtype or serving_dtype(self.device)
         unet_cfg, clip_cfgs, vae_cfg, self.default_size, self.prediction_type = (
@@ -336,10 +369,11 @@ class SDPipeline:
     def release(self) -> int:
         """Drop the per-job state this pipeline keeps resident (its adapter
         stacks and prompt rows in the shared caches, textual-inversion
-        tables, custom VAEs),
-        as the registry evicts it. -> the adapter stacks' bytes freed."""
+        tables, custom VAEs, ControlNet branches), as the registry evicts
+        it. -> the adapter stacks' bytes freed."""
         self._ti_cache.clear()
         self._vae_cache.clear()
+        self._controlnets.clear()
         if self.embed_cache is not None:
             self.embed_cache.drop_model(self.model_name)
         return self.lora_cache.drop_model(self.model_name)
@@ -436,6 +470,38 @@ class SDPipeline:
             self._vae_cache.popitem(last=False)
         return vae
 
+    def controlnet(self, name: str) -> ControlNetModel:
+        """The resident ControlNet branch `name`, built on first use from
+        this UNet's config: its weights from `<model_root_dir>/<name>/*.safetensors`
+        (the folder itself, diffusers layout, as the JAX pipeline reads
+        it). Without files a production name raises MissingWeightsError (a
+        branch of zeros would ignore the control image without a word); a
+        test name, or a pipeline built with `allow_random_init`, gets
+        seeded weights whose residual convs are zero, so the branch is an
+        exact no-op, as JAX's random init of it is."""
+        branch = self._controlnets.get(name)
+        if branch is not None:
+            return branch
+        root = Path(self.model_root_dir).expanduser() / name if self.model_root_dir else None
+        files = sorted(root.glob("*.safetensors")) if root is not None and root.is_dir() else []
+        with torch.device("meta"):
+            branch = ControlNetModel(self.unet.config, cond_downscale=self.latent_factor)
+        branch = self._materialise(branch)
+        if files:
+            load_checkpoint_(branch, files, "controlnet")
+        else:
+            require_weights_present(
+                name, root, self.allow_random_init, component="ControlNet",
+                hint="Put its diffusers-layout safetensors under <model_root_dir>/<name>/, "
+                     "or serve a test/tiny ControlNet name.")
+            logger.warning("no safetensors under %s; zero-init ControlNet %s", root, name)
+            random_init_(branch, torch.Generator(device=self.device).manual_seed(
+                model_seed(name)))
+            branch.zero_residual_convs_()
+        branch.to(memory_format=torch.channels_last)
+        self._controlnets[name] = branch
+        return branch
+
     # --- stages ---
 
     def _xl_time_ids(self, height: int, width: int, aesthetic_score: float = 6.0) -> list:
@@ -528,6 +594,16 @@ class SDPipeline:
         pixels = ((pixels + 1.0) * 127.5).clamp(0.0, 255.0).round().to(torch.uint8)
         return pixels.permute(0, 2, 3, 1).cpu().numpy()
 
+    def _control_rows(self, control_image: Image.Image, width: int, height: int,
+                      rows: int) -> torch.Tensor:
+        """The control image at the canvas, in [0, 1] (a ControlNet's
+        conditioning range), as [rows, 3, H, W] on the device: every CFG
+        row of every image sees the same one."""
+        cond = (_pil_to_array(control_image, width, height) + 1.0) / 2.0
+        cond = torch.from_numpy(np.ascontiguousarray(cond.transpose(2, 0, 1)[None]))
+        return cond.to(self.device, self.dtype).expand(rows, -1, -1, -1).contiguous(
+            memory_format=torch.channels_last)
+
     def _latents(self, value, shape) -> torch.Tensor:
         """An injected latent-shaped array (numpy or tensor, NCHW) as f32 on
         the device."""
@@ -548,17 +624,31 @@ class SDPipeline:
             num_images_per_prompt: int = 1,
             scheduler_type: str = "DPMSolverMultistepScheduler",
             seed: int | None = None, image=None,
-            mask_image: Image.Image | None = None, strength: float = 0.75,
+            mask_image: Image.Image | None = None, strength: float | None = None,
             image_guidance_scale: float | None = None, aesthetic_score: float = 6.0,
             refiner: dict | None = None, registry=None, generator=None,
             latents=None, noise_fn=None, refiner_latents=None, refiner_noise_fn=None,
-            **kwargs):
+            prepipeline_latents=None, prepipeline_noise_fn=None, **kwargs):
         """One job -> (list of uint8 [H, W, 3] arrays, pipeline_config).
 
         `image` (one PIL image, or a list of them, one per output image)
-        starts img2img, or pix2pix on an edit checkpoint (guided by
-        `image_guidance_scale`, 1.5 unset); with `mask_image` inpaint
-        (white repaints). `aesthetic_score` is the refiner's fifth time id.
+        starts img2img (`strength` 0.75 unset), or pix2pix on an edit
+        checkpoint (guided by `image_guidance_scale`, 1.5 unset); with
+        `mask_image` inpaint (white repaints). `aesthetic_score` is the
+        refiner's fifth time id.
+        `controlnet_model_name` adds that ControlNet branch (`controlnet`)
+        to every UNet call of the guidance window: `control_image`, or
+        `image` when no control image is given (the txt2img ControlNet
+        convention: the job is then txt2img), conditions it at
+        `controlnet_conditioning_scale` (1.0) from step
+        int(`control_guidance_start` x steps) (0.0) up to
+        ceil(`control_guidance_end` x steps) (1.0, one step at least),
+        counted in the solver's loop index. Outside the window the branch
+        is not run: the JAX program runs it at scale 0 there, and a
+        residual scaled by 0 adds exact zeros, so the image is the same bit
+        for bit; likewise at scale 0. With `controlnet_prepipeline_type`
+        the job is the QR two-stage chain (`_run_qr_two_stage`), whose
+        first stage takes `prepipeline_latents` and `prepipeline_noise_fn`.
         `lora` {lora, weight_name, subfolder} (at `lora_scale`, else
         `cross_attention_kwargs["scale"]`, else 1.0), `textual_inversion`
         and `vae` are the job's adapters.
@@ -575,6 +665,29 @@ class SDPipeline:
         for key in _UNPORTED:
             if kwargs.get(key):
                 raise ValueError(f"{key!r} is not supported by chiaswarm_tpu_torch yet")
+        if (kwargs.get("controlnet_prepipeline_type") and kwargs.get("controlnet_model_name")
+                and mask_image is None):
+            # the txt2img ControlNet wire puts the QR image in `image`, so
+            # the chain sorts control and start image out itself
+            return self._run_qr_two_stage(
+                prompt, negative_prompt, pipeline_type, height=height, width=width,
+                strength=strength, image=image, seed=seed, generator=generator,
+                latents=latents, noise_fn=noise_fn, prepipeline_latents=prepipeline_latents,
+                prepipeline_noise_fn=prepipeline_noise_fn,
+                num_inference_steps=num_inference_steps, guidance_scale=guidance_scale,
+                num_images_per_prompt=num_images_per_prompt, scheduler_type=scheduler_type,
+                image_guidance_scale=image_guidance_scale, aesthetic_score=aesthetic_score,
+                refiner=refiner, registry=registry, refiner_latents=refiner_latents,
+                refiner_noise_fn=refiner_noise_fn, **kwargs)
+        strength = 0.75 if strength is None else float(strength)
+        controlnet_name = kwargs.get("controlnet_model_name")
+        control_image = kwargs.get("control_image")
+        if controlnet_name and control_image is None:
+            # the txt2img ControlNet convention: `image` is the control image
+            control_image, image = image, None
+        if controlnet_name and control_image is None:
+            raise ValueError("Controlnet specified but no control image provided")
+        cn_scale = float(kwargs.get("controlnet_conditioning_scale", 1.0))
         timings: dict[str, float] = {}
         # the adapters resolve before any work, so a bad one fails the job
         # at once
@@ -591,6 +704,7 @@ class SDPipeline:
         if lora is not None or ti_ref or vae is not self.vae:
             synchronize(self.device)
             timings["adapters_s"] = time.perf_counter() - t_adapters
+        branch = self.controlnet(controlnet_name) if controlnet_name else None
         steps = int(num_inference_steps)
         n = int(num_images_per_prompt)
         starts = None
@@ -601,6 +715,8 @@ class SDPipeline:
         guidance_scale = float(guidance_scale)
         if height is None and image is not None:
             width, height = image.size
+        if height is None and control_image is not None:
+            width, height = control_image.size
         height = int(height or self.default_size)
         width = int(width or self.default_size)
         height, width = (max(64, (d // 64) * 64) for d in (height, width))
@@ -619,7 +735,7 @@ class SDPipeline:
         cfg_rows = 3 if mode == "pix2pix" else 2
         t_start = 0
         if mode in ("img2img", "inpaint"):
-            t_start = min(max(int(steps * (1.0 - float(strength))), 0), steps - 1)
+            t_start = min(max(int(steps * (1.0 - strength)), 0), steps - 1)
         scheduler = get_scheduler(scheduler_type, **vars(SchedulerConfig(
             prediction_type=self.prediction_type,
             use_karras_sigmas=bool(kwargs.get("use_karras_sigmas", False)))))
@@ -671,9 +787,15 @@ class SDPipeline:
             m = _mask_to_latent_array(mask_image, width, height, self.latent_factor)
             mask = torch.from_numpy(m.transpose(2, 0, 1)[None]).to(self.device).expand(
                 n, 1, lh, lw)
+        control = window = None
+        if branch is not None:
+            control = self._control_rows(control_image, width, height, cfg_rows * n)
+            window = control_window(kwargs.get("control_guidance_start", 0.0),
+                                    kwargs.get("control_guidance_end", 1.0), steps)
 
         schedule = scheduler.schedule(steps)
         start, end = scheduler.loop_bounds(schedule, steps, t_start)
+        branch_calls = 0
         with (_Timer(self.device, timings, "denoise_s"),
               lora_runtime.applied(self.unet_index, stacks, lora_scale, cfg_rows * n)):
             if mode in ("img2img", "inpaint"):
@@ -698,7 +820,10 @@ class SDPipeline:
                 model_in = model_in.to(self.dtype).contiguous(memory_format=torch.channels_last)
                 t_vec = torch.full((cfg_rows * n,), float(schedule.timesteps[i]),
                                    device=self.device)
-                out = self.unet(model_in, t_vec, context, added_cond=added).float()
+                residuals = _control_residuals(branch, cn_scale, window, i, model_in, t_vec,
+                                               context, control, added)
+                branch_calls += bool(residuals)
+                out = self.unet(model_in, t_vec, context, added_cond=added, **residuals).float()
                 if mode == "pix2pix":
                     # dual guidance (InstructPix2Pix eq. 3)
                     out_u, out_i, out_c = out.chunk(3)
@@ -743,11 +868,13 @@ class SDPipeline:
             "model": self.model_name,
             "pipeline": pipeline_type,
             "scheduler": scheduler_type,
+            "controlnet": controlnet_name,
+            **({"controlnet_calls": branch_calls} if branch is not None else {}),
             "mode": mode,
             "steps": steps,
             "size": [width, height],
             "guidance_scale": guidance_scale,
-            **({"strength": float(strength), "t_start": t_start}
+            **({"strength": strength, "t_start": t_start}
                if mode in ("img2img", "inpaint") else {}),
             **({"image_guidance_scale": float(image_guidance_scale)}
                if mode == "pix2pix" else {}),
@@ -773,6 +900,45 @@ class SDPipeline:
         }
         return list(pixels), pipeline_config
 
+    def _run_qr_two_stage(self, prompt, negative_prompt, pipeline_type, *, height, width,
+                          strength, image, seed, generator, latents, noise_fn,
+                          prepipeline_latents, prepipeline_noise_fn, **kwargs):
+        """The QR-monster chain, as in the JAX pipeline: a plain txt2img
+        stage composes one image at half the canvas (64 at least), which is
+        upscaled (LANCZOS) and re-enters as the start image of the
+        ControlNet img2img stage at `strength` (0.9 unset), conditioned by
+        the QR image (`control_image`, else `image`). Both stages draw from
+        the job's generator in turn, or take injected noise: the first
+        `prepipeline_latents` / `prepipeline_noise_fn`, the second
+        `latents` / `noise_fn` (JAX splits the job's key in three and hands
+        the second and third to the stages)."""
+        kwargs.pop("controlnet_prepipeline_type", None)
+        height = int(height or self.default_size)
+        width = int(width or self.default_size)
+        strength = 0.9 if strength is None else float(strength)
+        cn_kwargs = {k: kwargs.pop(k) for k in (
+            "controlnet_model_name", "control_image", "controlnet_conditioning_scale",
+            "control_guidance_start", "control_guidance_end") if k in kwargs}
+        if cn_kwargs.get("control_image") is None and image is not None:
+            cn_kwargs["control_image"] = image
+        if cn_kwargs.get("control_image") is None:
+            raise ValueError("Controlnet specified but no control image provided")
+        gen = generator or torch.Generator(device=self.device).manual_seed(int(seed or 0))
+        t0 = time.perf_counter()
+        # one composition image is all the second stage reads
+        stage1, _ = self.run(prompt, negative_prompt, pipeline_type, generator=gen,
+                             height=max(height // 2, 64), width=max(width // 2, 64),
+                             latents=prepipeline_latents, noise_fn=prepipeline_noise_fn,
+                             **{**kwargs, "num_images_per_prompt": 1})
+        prepipeline_s = round(time.perf_counter() - t0, 3)
+        base = Image.fromarray(stage1[0]).resize((width, height), Image.LANCZOS)
+        images, config = self.run(prompt, negative_prompt, pipeline_type, generator=gen,
+                                  image=base, strength=strength, height=height, width=width,
+                                  latents=latents, noise_fn=noise_fn, **cn_kwargs, **kwargs)
+        config["prepipeline"] = "qr_two_stage"
+        config["timings"]["prepipeline_s"] = prepipeline_s
+        return images, config
+
     def _embed_cache_stamp(self) -> dict:
         """The envelope's `embed_cache` {hits, misses} of the job's (or the
         pass's) encode; nothing when the cache was off or bypassed."""
@@ -788,7 +954,10 @@ class SDPipeline:
                     scheduler_type: str = "DPMSolverMultistepScheduler",
                     use_karras_sigmas: bool = False, pipeline_type: str = "DiffusionPipeline",
                     strength: float = 0.75, lora_slots_max: int = 8,
-                    aesthetic_score: float = 6.0, latents=None, noise_fn=None):
+                    aesthetic_score: float = 6.0, controlnet_model_name: str | None = None,
+                    control_image=None, controlnet_conditioning_scale: float = 1.0,
+                    control_guidance_start: float = 0.0, control_guidance_end: float = 1.0,
+                    latents=None, noise_fn=None):
         """A coalesced txt2img or img2img group in one padded pass, the
         counterpart of the JAX pipeline's `run_batched` -> [(images,
         pipeline_config)], one per request, in order.
@@ -814,7 +983,12 @@ class SDPipeline:
         adapter is a slot, at most `lora_slots_max` per pass (past that,
         ValueError, and the members run alone). Conv-shaped factors and
         any rank are served, as by the solo path's delta over the matched
-        Linear modules."""
+        Linear modules.
+
+        A shared ControlNet (`controlnet_model_name`, one `control_image`
+        for the group, scale and window as in `run`) conditions every row
+        of the pass, padding rows too, as the JAX pass does: the branch
+        runs once a step over all of them."""
         timings: dict[str, float] = {}
         start_images = [r.get("image") for r in requests]
         i2i = any(im is not None for im in start_images)
@@ -915,10 +1089,20 @@ class SDPipeline:
                     rows.append(torch.zeros((pad_rows, *shape[1:]), device=self.device))
                 image_latents = torch.cat(rows)
 
+        branch = control = window = None
+        cn_scale = float(controlnet_conditioning_scale)
+        if controlnet_model_name:
+            if control_image is None:
+                raise ValueError("Controlnet specified but no control image provided")
+            branch = self.controlnet(controlnet_model_name)
+            control = self._control_rows(control_image, width, height, 2 * padded)
+            window = control_window(control_guidance_start, control_guidance_end, steps)
+
         scheduler = get_scheduler(scheduler_type, **vars(SchedulerConfig(
             prediction_type=self.prediction_type, use_karras_sigmas=bool(use_karras_sigmas))))
         schedule = scheduler.schedule(steps)
         start, end = scheduler.loop_bounds(schedule, steps, t_start)
+        branch_calls = 0
         hooks = (lora_runtime.applied_rows(self.unet_index, slot_stacks, gains)
                  if slot_stacks else nullcontext())
         with _Timer(self.device, timings, "denoise_s"), hooks:
@@ -933,7 +1117,11 @@ class SDPipeline:
                     memory_format=torch.channels_last)
                 t_vec = torch.full((2 * padded,), float(schedule.timesteps[i]),
                                    device=self.device)
-                out_u, out_c = self.unet(model_in, t_vec, context, added_cond=added).float().chunk(2)
+                residuals = _control_residuals(branch, cn_scale, window, i, model_in, t_vec,
+                                               context, control, added)
+                branch_calls += bool(residuals)
+                out_u, out_c = self.unet(model_in, t_vec, context, added_cond=added,
+                                         **residuals).float().chunk(2)
                 guided = out_u + float(guidance_scale) * (out_c - out_u)
                 noise = draw("step", i) if scheduler.uses_ancestral_noise else None
                 state, latents = scheduler.step(schedule, state, i, latents, guided, noise)
@@ -954,6 +1142,8 @@ class SDPipeline:
             "model": self.model_name,
             "pipeline": pipeline_type,
             "scheduler": scheduler_type,
+            "controlnet": controlnet_model_name,
+            **({"controlnet_calls": branch_calls} if branch is not None else {}),
             "mode": "img2img" if i2i else "txt2img",
             "steps": steps,
             "size": [width, height],

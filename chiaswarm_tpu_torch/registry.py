@@ -19,7 +19,13 @@ returns when the last reference goes.
 
 The registry owns the caches its pipelines share (the adapter caches of
 lora_cache.py, the encoded-prompt cache of embed_cache.py) and the roots a
-job's adapters resolve under.
+job's adapters and ControlNets resolve under.
+
+`PIPELINE_FAMILIES` is the JAX package's table of wire `pipeline_type`
+names for the two families the port serves, "sd" and "sdxl" (one
+resident pipeline serves every name of its model);
+`check_pipeline_type` refuses the names of other families and names that
+no table holds.
 """
 
 from __future__ import annotations
@@ -37,6 +43,35 @@ from .pipelines.stable_diffusion import SDPipeline
 logger = logging.getLogger(__name__)
 
 MAX_RESIDENT_PIPELINES = 4
+
+# wire name -> family, the SD and SDXL rows of the JAX package's table
+PIPELINE_FAMILIES: dict[str, str] = {
+    "DiffusionPipeline": "sd",
+    "StableDiffusionPipeline": "sd",
+    "StableDiffusionImg2ImgPipeline": "sd",
+    "StableDiffusionInpaintPipeline": "sd",
+    "StableDiffusionControlNetPipeline": "sd",
+    "StableDiffusionControlNetImg2ImgPipeline": "sd",
+    "StableDiffusionControlNetInpaintPipeline": "sd",
+    "StableDiffusionXLPipeline": "sdxl",
+    "StableDiffusionXLImg2ImgPipeline": "sdxl",
+    "StableDiffusionXLInpaintPipeline": "sdxl",
+    "StableDiffusionXLControlNetPipeline": "sdxl",
+    "StableDiffusionXLControlNetImg2ImgPipeline": "sdxl",
+    "StableDiffusionXLControlNetInpaintPipeline": "sdxl",
+    "StableDiffusionInstructPix2PixPipeline": "sd",
+    "StableDiffusionXLInstructPix2PixPipeline": "sdxl",
+    "AutoPipelineForText2Image": "sd",
+}
+
+
+def check_pipeline_type(pipeline_type: str) -> None:
+    """ValueError for a wire pipeline type the port does not serve. The
+    generic `AutoPipeline*` names resolve by model name, as in the JAX
+    package, where the pipeline is built."""
+    if pipeline_type not in PIPELINE_FAMILIES and not pipeline_type.startswith("AutoPipeline"):
+        raise ValueError(f"pipeline type {pipeline_type!r} is not ported to "
+                         "chiaswarm_tpu_torch yet")
 
 
 class Registry:

@@ -22,7 +22,7 @@ checkpoint loads without a rename; the loader makes only the fix-ups of
 chiaswarm_tpu/models/conversion.py (`checkpoint_key`, `checkpoint_tensor`).
 
 `from_jax_params` inverts chiaswarm_tpu/models/conversion.py's
-`convert_unet` / `convert_vae` / `convert_clip`: flax paths become
+`convert_unet` (a ControlNet's tree too) / `convert_vae` / `convert_clip`: flax paths become
 diffusers / transformers key names again, HWIO conv kernels become OIHW
 and Dense [in, out] kernels become Linear [out, in].
 """
@@ -268,6 +268,11 @@ def unet_state_dict(tree: dict) -> dict[str, torch.Tensor]:
     return _state_dict(tree, lambda name: name)
 
 
+# a ControlNet's tree has the UNet's names, and its `blocks_N` and
+# `controlnet_down_blocks_N` split into indices the same way
+controlnet_state_dict = unet_state_dict
+
+
 def vae_state_dict(tree: dict) -> dict[str, torch.Tensor]:
     return _state_dict(tree, _vae_name)
 
@@ -284,11 +289,13 @@ def clip_state_dict(tree: dict) -> dict[str, torch.Tensor]:
 
 
 def from_jax_params(tree: dict) -> dict:
-    """{"unet": tree, "text": [tree, ...], "vae": tree} (numpy leaves) ->
-    {"unet": state dict, "text": [state dict, ...], "vae": state dict}
-    in the port's (diffusers / transformers) key layout, f32."""
-    return {
-        "unet": unet_state_dict(tree["unet"]),
-        "text": [clip_state_dict(t) for t in tree["text"]],
-        "vae": vae_state_dict(tree["vae"]),
-    }
+    """{"unet": tree, "text": [tree, ...], "vae": tree, "cn": tree} (numpy
+    leaves; any of them) -> {"unet": state dict, "text": [state dict, ...],
+    "vae": state dict, "controlnet": state dict} in the port's (diffusers /
+    transformers) key layout, f32."""
+    convert = {"unet": ("unet", unet_state_dict), "vae": ("vae", vae_state_dict),
+               "cn": ("controlnet", controlnet_state_dict)}
+    out = {name: fn(tree[key]) for key, (name, fn) in convert.items() if key in tree}
+    if "text" in tree:
+        out["text"] = [clip_state_dict(t) for t in tree["text"]]
+    return out

@@ -10,7 +10,13 @@ package the images.
 `diffusion_batched_callback` is the coalesced counterpart (JAX
 `diffusion_batched_callback`): a group of jobs with one coalesce key runs
 as few padded passes as the device's capacity allows (usually one), and
-every job gets its own envelope.
+every job gets its own envelope. A group that shares a ControlNet shares
+its one control image (the txt2img ControlNet wire delivers it as
+`image`, which is then no start image), and its canvas is the control
+image's unless the jobs name one.
+
+A `pipeline_type` of a family the port does not serve is refused
+(registry.check_pipeline_type).
 
 The safety checker is a model of its own that the port does not have
 yet: envelopes say `nsfw_checked: false`, as the JAX package's
@@ -25,6 +31,7 @@ from ..capacity import coalesced_fit, default_canvas
 from ..models.configs import model_family
 from ..pipelines.common import chunk_by_rows
 from ..post_processors.output_processor import OutputProcessor
+from ..registry import check_pipeline_type
 
 
 def tiny_stand_in(model_name: str) -> str:
@@ -58,6 +65,7 @@ def diffusion_callback(device_identifier: str, model_name: str, *, registry, **k
     if kwargs.pop("test_tiny_model", False):
         model_name = tiny_stand_in(model_name)
     pipeline_type = kwargs.pop("pipeline_type", "DiffusionPipeline")
+    check_pipeline_type(pipeline_type)
     pipeline = registry.get_pipeline(model_name)
     images, pipeline_config = pipeline.run(pipeline_type=pipeline_type, registry=registry,
                                            **kwargs)
@@ -87,13 +95,27 @@ def diffusion_batched_callback(device_identifier: str, requests: list[dict], *, 
     model_name = shared["model_name"]
     if shared.get("test_tiny_model", False):
         model_name = tiny_stand_in(model_name)
+    pipeline_type = shared.get("pipeline_type", "DiffusionPipeline")
+    check_pipeline_type(pipeline_type)
+    # a shared ControlNet: the coalesce key holds every member to the same
+    # branch and control image
+    cn_name = shared.get("controlnet_model_name")
+    control_image = None
+    if cn_name:
+        control_image = (shared.get("control_image") if shared.get("control_image") is not None
+                         else shared.get("image"))
     height, width = shared.get("height"), shared.get("width")
-    if (height is None or width is None) and shared.get("image") is not None:
+    if (height is None or width is None) and cn_name and control_image is not None:
+        est_w, est_h = control_image.size
+    elif (height is None or width is None) and shared.get("image") is not None:
         # img2img formatting sized the start images to the explicit canvas
         est_w, est_h = shared["image"].size
     else:
         est_h = int(height or default_canvas(model_name))
         est_w = int(width or est_h)
+    if cn_name and (height is None or width is None):
+        # a ControlNet job alone takes the control image's canvas
+        height, width = est_h, est_w
     strength = shared.get("strength")
     envelopes, row_specs, counts = [], [], []
     for r in requests:
@@ -104,7 +126,7 @@ def diffusion_batched_callback(device_identifier: str, requests: list[dict], *, 
         row_specs.append({"prompt": r.get("prompt", ""),
                           "negative_prompt": r.get("negative_prompt", ""),
                           "seed": r.get("seed"), "num_images_per_prompt": n,
-                          "image": r.get("image"), "lora": r.get("lora"),
+                          "image": None if cn_name else r.get("image"), "lora": r.get("lora"),
                           "lora_scale": float(r.get("lora_scale", xattn.get("scale", 1.0))
                                               or 0.0)})
 
@@ -116,6 +138,13 @@ def diffusion_batched_callback(device_identifier: str, requests: list[dict], *, 
             counts[i] = row_specs[i]["num_images_per_prompt"] = max_rows
 
     pipeline = registry.get_pipeline(model_name)
+    cn_kwargs = {}
+    if cn_name:
+        cn_kwargs = {"controlnet_model_name": cn_name, "control_image": control_image,
+                     "controlnet_conditioning_scale": float(
+                         shared.get("controlnet_conditioning_scale", 1.0)),
+                     "control_guidance_start": float(shared.get("control_guidance_start", 0.0)),
+                     "control_guidance_end": float(shared.get("control_guidance_end", 1.0))}
     results = []
     for start, end in chunk_by_rows(counts, max_rows):
         results.extend(pipeline.run_batched(
@@ -124,9 +153,9 @@ def diffusion_batched_callback(device_identifier: str, requests: list[dict], *, 
             guidance_scale=float(shared.get("guidance_scale", 7.5)),
             scheduler_type=shared.get("scheduler_type", "DPMSolverMultistepScheduler"),
             use_karras_sigmas=bool(shared.get("use_karras_sigmas", False)),
-            pipeline_type=shared.get("pipeline_type", "DiffusionPipeline"),
+            pipeline_type=pipeline_type,
             strength=0.75 if strength is None else float(strength),
-            lora_slots_max=lora_slots_max))
+            lora_slots_max=lora_slots_max, **cn_kwargs))
 
     out = []
     for i, ((images, pipeline_config), (content_type, outputs)) in enumerate(

@@ -104,8 +104,26 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
    the delta's device time per UNet call is a profiler category of its own
    (SDXL and SD 1.5), one bf16 SDXL UNet call with the delta is held to
    phase 7's bound, and evicting SDXL must free its adapter stacks (and
-   the device memory of its weights, stacks, table and VAE). No served
-   bf16 attention may take the FMA kernel.
+   the device memory of its weights, stacks, table and VAE). Then the
+   batched path (`serve_batched_path`: coalesced SDXL and SD 1.5 passes,
+   each beside the same jobs served alone). Then the ControlNet path
+   (`serve_controlnet_path`), in a registry of its own over a temporary
+   root where three ControlNets are written from seeded tensors, every
+   conv nonzero, at the published configs of
+   lllyasviel/control_v11p_sd15_canny, monster-labs/
+   control_v1p_sd15_qrcode_monster and diffusers/controlnet-canny-sdxl-1.0:
+   SD 1.5 512^2 txt2img plain, with the canny preprocessor on a served
+   photo-like image, the same at scale 0 and with a zero-init branch (both
+   the plain image bit for bit), with the window 0.25-0.75 (16 branch
+   calls), img2img (0.75) and 4-channel inpaint with a control image; the
+   QR two-stage chain at 768^2 (the QR image served as the control image);
+   SDXL 1024^2 txt2img; four SDXL jobs sharing one ControlNet and control
+   image as one pass, and each alone. Launches are held to the UNet calls
+   plus the branch calls (14 attention and 27 GroupNorm a call for SD 1.x,
+   68 and 21 for SDXL); one bf16 ControlNet call of each model is held to
+   phase 7's bound and profiled; evicting SDXL must free its ControlNet's
+   device memory with it. No served bf16 attention may take the FMA
+   kernel.
 6. Each kernel at every shape any path launched it with: again held
    against its plain version, and timed (CUDA events) beside its plain
    version and one PyTorch library call computing the same function, each
@@ -983,6 +1001,39 @@ def start_image(size: int):
     return Image.fromarray((255 * rgb).astype(np.uint8))
 
 
+def photo_image(size: int):
+    """A photo-like procedural RGB image with edges for canny to find:
+    seeded discs of colour over stripes (a JPEG of it stays under the input
+    cap at 1024^2)."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(17)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    img = np.full((size, size, 3), 90.0, np.float32)
+    for _ in range(12):
+        cx, cy, r = rng.uniform(0, size, 2).tolist() + [rng.uniform(size / 16, size / 4)]
+        img[(xx - cx) ** 2 + (yy - cy) ** 2 < r * r] = rng.uniform(0, 255, 3)
+    img += 30 * np.sin(xx / (size / 40))[..., None] * np.array([1.0, 0.5, 0.2], np.float32)
+    return Image.fromarray(np.clip(img, 0, 255).astype(np.uint8))
+
+
+def qr_image(size: int):
+    """Black and white modules with three finder squares, as a QR code's
+    (the `qrcode` package is not on the card's machine)."""
+    import numpy as np
+    from PIL import Image
+
+    cells = np.random.default_rng(29).random((29, 29)) > 0.5
+    for r, c in ((0, 0), (0, 22), (22, 0)):
+        cells[r:r + 7, c:c + 7] = True
+        cells[r + 1:r + 6, c + 1:c + 6] = False
+        cells[r + 2:r + 5, c + 2:c + 5] = True
+    modules = np.pad(cells, 4)
+    image = Image.fromarray(np.where(modules, 0, 255).astype(np.uint8)).convert("RGB")
+    return image.resize((size, size), Image.NEAREST)
+
+
 def half_mask(size: int):
     """White (repaint) over the right half, black (keep) over the left."""
     from PIL import Image
@@ -1185,6 +1236,31 @@ def write_vae(model_dir: Path, pipe, seed: int, subfolder: str = "") -> int:
     folder = model_dir / subfolder
     folder.mkdir(parents=True, exist_ok=True)
     path = folder / "diffusion_pytorch_model.safetensors"
+    save_file(state, str(path))
+    return path.stat().st_size
+
+
+def write_controlnet(model_dir: Path, pipe, seed: int) -> int:
+    """A ControlNet of `pipe`'s UNet config (the control embedding sized to
+    its VAE's factor) with seeded random weights in every conv, the zero
+    convs and the embedding's output conv too (a branch of zeros would add
+    nothing and prove nothing), as fp16 diffusers-layout safetensors under
+    `model_dir` (a published ControlNet's folder holds its file at the
+    top). -> bytes."""
+    from safetensors.torch import save_file
+
+    from chiaswarm_tpu_torch.models.controlnet import ControlNetModel
+    from chiaswarm_tpu_torch.weights import random_init_
+
+    with torch.device("meta"):
+        branch = ControlNetModel(pipe.unet.config, cond_downscale=pipe.latent_factor)
+    branch = branch.to_empty(device=pipe.device).float()
+    random_init_(branch, torch.Generator(device=pipe.device).manual_seed(seed))
+    state = {k: v.detach().to("cpu", torch.float16).contiguous()
+             for k, v in branch.state_dict().items()}
+    del branch
+    model_dir.mkdir(parents=True, exist_ok=True)
+    path = model_dir / "diffusion_pytorch_model.safetensors"
     save_file(state, str(path))
     return path.stat().st_size
 
@@ -1496,18 +1572,23 @@ def _snapshot(counters: dict) -> dict:
 
 def serve_counted(smi: str, registry, jobs: list, per_call: dict, device: str = "cuda",
                   tag: str = "image", where: str = "image path",
-                  hold: bool = True) -> tuple[dict, dict]:
+                  hold: bool = True, cn_per_call: dict | None = None) -> tuple[dict, dict]:
     """Serve `jobs` [(kind, mode, job)] one at a time through the worker;
-    a job's `start_image_uri` / `mask_image_uri` of "start" / "mask" is
-    replaced by the smooth start image / half mask at the job's size,
-    served by the fake hive. Each job's kernel launches are counted and
-    held to its UNet calls x `per_call`[its model] {kernel: launches per
-    UNet call} plus one VAE encode (a job with a start image) and one
-    decode, and for a job with a `refiner` the refiner's UNet calls x
-    `per_call`[the refiner] plus its encode and decode; no bf16 attention
-    may take the FMA kernel -> ({kind: (1, {kernel: (launches, {shape:
-    launches})})}, served), served["jobs"] with each image's sha256. With
-    `hold` false the caller holds the launches itself (`hold_launches`)."""
+    a job's `start_image_uri` / `mask_image_uri` of "start" / "mask", and
+    its ControlNet's `control_image_uri` of "photo" / "qr", is replaced by
+    the smooth start image / half mask / photo-like image / QR-like image
+    at the job's size, served by the fake hive. Each job's kernel launches
+    are counted and held to its UNet calls x `per_call`[its model] {kernel:
+    launches per UNet call} plus one VAE encode (a job with a start image)
+    and one decode; for a job with a `refiner` the refiner's UNet calls x
+    `per_call`[the refiner] plus its encode and decode; for a ControlNet
+    job its branch calls (the loop indices from t_start in the guidance
+    window, none at scale 0) x `cn_per_call`[the ControlNet], and for the
+    QR chain its first stage's UNet calls and decode and the second
+    stage's encode. No bf16 attention may take the FMA kernel -> ({kind:
+    (1, {kernel: (launches, {shape: launches})})}, served), served["jobs"]
+    with each image's sha256. With `hold` false the caller holds the
+    launches itself (`hold_launches`)."""
     from chiaswarm_tpu_torch.external_resources import LIMITS
     from chiaswarm_tpu_torch.fake_hive import FakeHive
     from chiaswarm_tpu_torch.ops.flash_attention import COUNTER as FA_COUNTER
@@ -1522,11 +1603,15 @@ def serve_counted(smi: str, registry, jobs: list, per_call: dict, device: str = 
 
         def served_uri(which: str, size: int) -> str:
             if (which, size) not in served_files:
-                if which == "start":
-                    data = image_bytes(start_image(size), "JPEG")
+                if which in ("start", "photo"):
+                    data = image_bytes((start_image if which == "start" else photo_image)(size),
+                                       "JPEG")
                     check(len(data) < LIMITS.max_bytes,
-                          f"start image {len(data)} bytes over the input cap")
-                    uri = hive.enqueue_file(f"start-{size}.jpg", data, "image/jpeg")
+                          f"{which} image {len(data)} bytes over the input cap")
+                    uri = hive.enqueue_file(f"{which}-{size}.jpg", data, "image/jpeg")
+                elif which == "qr":
+                    uri = hive.enqueue_file(f"qr-{size}.png", image_bytes(qr_image(size), "PNG"),
+                                            "image/png")
                 else:
                     uri = hive.enqueue_file(f"mask-{size}.png",
                                             image_bytes(half_mask(size), "PNG"), "image/png")
@@ -1547,6 +1632,11 @@ def serve_counted(smi: str, registry, jobs: list, per_call: dict, device: str = 
             for key in ("start_image_uri", "mask_image_uri"):
                 if key in job:
                     job[key] = served_uri(job[key], job["height"])
+            cn = job.get("parameters", {}).get("controlnet")
+            if cn and cn.get("control_image_uri"):
+                job["parameters"] = {**job["parameters"], "controlnet": {
+                    **cn, "control_image_uri": served_uri(cn["control_image_uri"],
+                                                          job["height"])}}
             hive.enqueue(job)
             asyncio.run(worker.run(max_jobs=k + 1))
             after = _snapshot(counters)
@@ -1592,11 +1682,38 @@ def serve_counted(smi: str, registry, jobs: list, per_call: dict, device: str = 
                 predicted[name] += (refiner_calls * per_call[refiner["model_name"]][name]
                                     + ENCODE_LAUNCHES[name] + DECODE_LAUNCHES[name])
             check("refiner_s" in t, f"{job['id']}: no refiner_s in the timings")
+        cn = job.get("parameters", {}).get("controlnet")
+        branch_calls = stage1_calls = 0
+        if cn:
+            from chiaswarm_tpu_torch.pipelines.stable_diffusion import control_window
+
+            cn_name = cn.get("controlnet_model_name", "lllyasviel/control_v11p_sd15_canny")
+            t_start = cfg.get("t_start", 0)
+            lo, hi = control_window(cn.get("control_guidance_start", 0.0),
+                                    cn.get("control_guidance_end", 1.0), steps)
+            if float(cn.get("controlnet_conditioning_scale", 1.0)) != 0.0:
+                # the smoke's solvers step once per loop index, from t_start
+                branch_calls = sum(lo <= i < hi for i in range(t_start, steps))
+            check(cfg["controlnet"] == cn_name and cfg["controlnet_calls"] == branch_calls,
+                  f"{job['id']}: controlnet {cfg.get('controlnet')}, "
+                  f"{cfg.get('controlnet_calls')} branch calls, not {branch_calls}")
+            if (cn.get("parameters") or {}).get("controlnet_prepipeline_type"):
+                # the QR chain: a plain first stage, then the ControlNet
+                # img2img stage encodes its upscaled image
+                check(cfg.get("prepipeline") == "qr_two_stage", f"{job['id']}: no QR chain")
+                stage1_calls = steps
+                for name in predicted:
+                    predicted[name] += (stage1_calls * per_call[job["model_name"]][name]
+                                        + ENCODE_LAUNCHES[name] + DECODE_LAUNCHES[name])
+            for name in predicted:
+                predicted[name] += branch_calls * cn_per_call[cn_name][name]
         rows = 3 if mode == "pix2pix" else 2
         served["jobs"][job["id"]] = {"kind": kind, "mode": cfg["mode"], "model": cfg["model"],
                                      "size": size, "timings": t, "latents": cfg["latents"],
                                      "weights": cfg["weights"], "unet_calls": unet_calls,
                                      "refiner_unet_calls": refiner_calls,
+                                     "controlnet_calls": branch_calls,
+                                     "prepipeline_unet_calls": stage1_calls,
                                      "image_guidance_scale": cfg.get("image_guidance_scale"),
                                      "launches": counted, "predicted_launches": predicted,
                                      "adapter": {k: cfg[k] for k in ("lora_mode", "lora_scale",
@@ -1611,6 +1728,8 @@ def serve_counted(smi: str, registry, jobs: list, per_call: dict, device: str = 
             f"{t['unet_step_ms']:.1f} ms at CFG batch {rows}) + decode {t['decode_s']:.3f}s"
             + (f" + refiner {t['refiner_s']:.3f}s ({refiner_calls} UNet calls)"
                if refiner else "")
+            + (f" + first stage {t['prepipeline_s']:.3f}s ({stage1_calls} UNet calls)"
+               if stage1_calls else "")
             + f" + artifacts {t['encode_artifacts_s']:.3f}s; latents |max| "
             f"{cfg['latents']['absmax']:.3g}; pixels {int(image.min())}..{int(image.max())} "
             f"mean {float(image.mean()):.1f}")
@@ -1620,7 +1739,11 @@ def serve_counted(smi: str, registry, jobs: list, per_call: dict, device: str = 
             + (" + one encode" if encodes else "") + " + one decode"
             + (f" + {refiner_calls} refiner UNet calls x "
                f"{json.dumps(per_call[refiner['model_name']])} + one encode + one decode"
-               if refiner else "") + ")")
+               if refiner else "")
+            + (f" + {stage1_calls} first-stage UNet calls + one encode + one decode"
+               if stage1_calls else "")
+            + (f" + {branch_calls} ControlNet calls x {json.dumps(cn_per_call[cn_name])}"
+               if cn else "") + ")")
     log(f"[{tag}] {len(jobs)} jobs served in {served_s:.1f}s; attention routes "
         + json.dumps({f"{r} {str(dt)[6:]} D={d}": n for (r, dt, d), n in routes.items()}))
     if hold:
@@ -2187,8 +2310,9 @@ def serve_group(registry, jobs: list, device: str = "cuda", max_coalesce: int = 
                 files: dict | None = None) -> tuple[dict, dict, float]:
     """Every job of `jobs` queued before the worker's first poll, served
     through the worker (`max_coalesce` 1 serves each alone) with the
-    kernels' launches counted; a `start_image_uri` naming a key of `files`
-    {name: bytes} is served by the fake hive -> (envelopes by id, {kernel:
+    kernels' launches counted; a `start_image_uri` or a ControlNet's
+    `control_image_uri` naming a key of `files` {name: bytes} is served by
+    the fake hive -> (envelopes by id, {kernel:
     (launches, {shape: launches})}, wall seconds)."""
     from chiaswarm_tpu_torch.fake_hive import FakeHive
     from chiaswarm_tpu_torch.ops.flash_attention import COUNTER as FA_COUNTER
@@ -2202,6 +2326,11 @@ def serve_group(registry, jobs: list, device: str = "cuda", max_coalesce: int = 
                 for name, data in (files or {}).items()}
         jobs = [dict(job, **({"start_image_uri": uris[job["start_image_uri"]]}
                              if "start_image_uri" in job else {})) for job in jobs]
+        for job in jobs:
+            cn = job.get("parameters", {}).get("controlnet")
+            if cn and cn.get("control_image_uri") in uris:
+                job["parameters"] = {**job["parameters"], "controlnet": {
+                    **cn, "control_image_uri": uris[cn["control_image_uri"]]}}
         settings = Settings(sdaas_token="smoke-token", sdaas_uri=hive.uri,
                             worker_name="chip-smoke", model_root_dir=registry.model_root_dir,
                             lora_root_dir=registry.lora_root_dir or Settings.lora_root_dir,
@@ -2508,6 +2637,233 @@ def serve_batched_path(smi: str, xl_launches: dict, device: str = "cuda", sdxl: 
         shutil.rmtree(root, ignore_errors=True)
 
 
+# --- phase 5, the ControlNet path ---
+
+CN_SD15 = "lllyasviel/control_v11p_sd15_canny"
+CN_QR = "monster-labs/control_v1p_sd15_qrcode_monster"
+CN_SDXL = "diffusers/controlnet-canny-sdxl-1.0"
+# no files under the path's root: the branch starts as it is trained from,
+# every residual conv zero
+CN_ZERO = "smoke/zero-init-controlnet"
+# kernel launches of one ControlNet call: its down and mid blocks are the
+# UNet's. SD 1.x: 14 attention (6 transformer layers in the down blocks
+# and one in the mid block, a self- and a cross-attention each) and 27
+# GroupNorm (11 resnets of two, 5 transformers); SDXL: 68 attention (4 + 20
+# + 10 layers) and 21 GroupNorm (8 resnets of two, 5 transformers)
+SD_CN_LAUNCHES = {"flash_attention": 14, "group_norm": 27}
+XL_CN_LAUNCHES = {"flash_attention": 68, "group_norm": 21}
+
+
+def serve_controlnet_path(smi: str, xl_launches: dict, device: str = "cuda",
+                          sdxl: str = SDXL, sd15: str = SD15, size_xl: int = SIZE,
+                          size15: int = 512, size_qr: int = 768, steps: int = STEPS,
+                          pass_jobs: int = 4, hold: bool = True,
+                          fillers=("test/tiny-sd", "test/tiny-xl", "test/tiny-inpaint")
+                          ) -> tuple[dict, dict]:
+    """Phase 5, the ControlNet path: a registry of its own over a temporary
+    root holds SDXL and SD 1.5 on seeded random weights, and three
+    ControlNets are written there from seeded tensors in every conv
+    (`write_controlnet`: the canny ControlNets of SD 1.5 and SDXL and the QR
+    monster, at their published configs). Through the worker, with the
+    control, start and mask images served by the fake hive and each job's
+    launches held to its UNet calls plus its ControlNet calls (the loop
+    indices in the guidance window) x SD_CN_LAUNCHES or XL_CN_LAUNCHES:
+    SD 1.5 `size15`^2 txt2img plain, then with the canny preprocessor on
+    the served photo-like image, the same at scale 0 and with a zero-init
+    branch (both the plain image bit for bit), with the window 0.25-0.75,
+    img2img (strength 0.75, Euler ancestral) and 4-channel inpaint (DDIM)
+    with the control image; the QR two-stage chain at `size_qr`^2 (the QR
+    image served as the control image); SDXL `size_xl`^2 txt2img with its
+    canny ControlNet; then `pass_jobs` SDXL txt2img jobs sharing that
+    ControlNet and one control image as one coalesced pass, and the same
+    jobs each alone. Then one bf16 ControlNet call of each model through
+    the kernels against f32 on the plain path (phase 7's bound), its device
+    time by the profiler, and an eviction: `fillers` push SDXL out, and its
+    branch's device memory leaves with it. `hold` false only prints the
+    launches (the CPU rehearsal)."""
+    import gc
+    import shutil
+    import tempfile
+
+    from chiaswarm_tpu_torch.registry import Registry
+
+    on_card = torch.device(device).type == "cuda"
+
+    def allocated():
+        gc.collect()
+        return torch.cuda.memory_allocated() if on_card else 0
+
+    root = Path(tempfile.mkdtemp(prefix="chip-smoke-controlnet-"))
+    try:
+        registry = Registry(torch.device(device), str(root))
+        t0 = time.perf_counter()
+        pipes = {m: registry.get_pipeline(m, allow_random_init=True) for m in (sdxl, sd15)}
+        log(f"[controlnet] {sdxl} and {sd15} resident in a registry of their own in "
+            f"{time.perf_counter() - t0:.1f}s")
+        files = {}
+        for name, model, seed in ((CN_SD15, sd15, 61), (CN_QR, sd15, 62), (CN_SDXL, sdxl, 63)):
+            t0 = time.perf_counter()
+            files[name] = {"bytes": write_controlnet(root / name, pipes[model], seed),
+                           "write_s": time.perf_counter() - t0}
+            log(f"[controlnet] {name} for {model}: {files[name]['bytes']} bytes of fp16 "
+                f"safetensors written in {files[name]['write_s']:.2f}s")
+        common = {"negative_prompt": "blurry", "num_inference_steps": steps,
+                  "guidance_scale": 7.0, "content_type": "image/png"}
+        at15 = {**common, "model_name": sd15, "height": size15, "width": size15,
+                "prompt": "a lighthouse on a cliff at dusk"}
+        canny15 = {"controlnet_model_name": CN_SD15, "control_image_uri": "photo",
+                   "preprocessor": "canny"}
+
+        def txt15(job_id, seed=6000, **cn):
+            return {**at15, "id": job_id, "workflow": "txt2img", "seed": seed,
+                    "parameters": {"scheduler_type": "DPMSolverMultistepScheduler",
+                                   **({"controlnet": {**canny15, **cn}} if cn else {})}}
+
+        jobs15 = [
+            ("cn_sd15_plain", "txt2img", txt15("cn-sd15-plain")),
+            ("cn_sd15_txt2img", "txt2img", txt15("cn-sd15-txt2img", preprocessor="canny")),
+            ("cn_sd15_scale0", "txt2img", txt15("cn-sd15-scale0",
+                                                controlnet_conditioning_scale=0.0)),
+            ("cn_sd15_zero_init", "txt2img", txt15("cn-sd15-zero-init",
+                                                   controlnet_model_name=CN_ZERO)),
+            ("cn_sd15_window", "txt2img", txt15("cn-sd15-window", 6001,
+                                                control_guidance_start=0.25,
+                                                control_guidance_end=0.75)),
+            ("cn_sd15_img2img", "img2img", {
+                **at15, "id": "cn-sd15-img2img", "workflow": "img2img", "seed": 6002,
+                "strength": 0.75, "start_image_uri": "start",
+                "parameters": {"scheduler_type": "EulerAncestralDiscreteScheduler",
+                               "controlnet": {"controlnet_model_name": CN_SD15,
+                                              "control_image_uri": "photo"}}}),
+            ("cn_sd15_inpaint", "inpaint", {
+                **at15, "id": "cn-sd15-inpaint", "workflow": "inpaint", "seed": 6003,
+                "strength": 1.0, "start_image_uri": "start", "mask_image_uri": "mask",
+                "parameters": {"scheduler_type": "DDIMScheduler",
+                               "controlnet": {"controlnet_model_name": CN_SD15,
+                                              "control_image_uri": "photo"}}}),
+            ("cn_sd15_qr", "img2img", {
+                **at15, "id": "cn-sd15-qr", "workflow": "txt2img", "seed": 6004,
+                "height": size_qr, "width": size_qr, "prompt": "a walled garden in spring",
+                "parameters": {"scheduler_type": "DPMSolverMultistepScheduler",
+                               "controlnet": {"controlnet_model_name": CN_QR,
+                                              "control_image_uri": "qr",
+                                              "controlnet_conditioning_scale": 1.3,
+                                              "parameters": {"controlnet_prepipeline_type":
+                                                             "StableDiffusionPipeline"}}}}),
+        ]
+        cn_per_call = {CN_SD15: SD_CN_LAUNCHES, CN_QR: SD_CN_LAUNCHES, CN_ZERO: SD_CN_LAUNCHES,
+                       CN_SDXL: XL_CN_LAUNCHES}
+        paths, served = serve_counted(smi, registry, jobs15, {sd15: SD_UNET_LAUNCHES}, device,
+                                      tag="controlnet", where="ControlNet path", hold=False,
+                                      cn_per_call=cn_per_call)
+        xl_jobs = [("cn_sdxl_txt2img", "txt2img", {
+            **common, "id": "cn-sdxl-txt2img", "workflow": "txt2img", "model_name": sdxl,
+            "seed": 6100, "height": size_xl, "width": size_xl,
+            "prompt": "a lighthouse on a cliff at dusk",
+            "parameters": {"scheduler_type": "DPMSolverMultistepScheduler",
+                           "controlnet": {"controlnet_model_name": CN_SDXL,
+                                          "control_image_uri": "photo", "preprocessor": "canny"}}})]
+        xl_paths, xl_served = serve_counted(smi, registry, xl_jobs, {sdxl: xl_launches}, device,
+                                            tag="controlnet", where="ControlNet path",
+                                            hold=False, cn_per_call=cn_per_call)
+        paths.update(xl_paths)
+        served["jobs"].update(xl_served["jobs"])
+        served["served_s"] += xl_served["served_s"]
+        served["fma_bf16"].update(xl_served["fma_bf16"])
+        got = served["jobs"]
+        same = {kind: got[kind]["pixels_sha256"] == got["cn-sd15-plain"]["pixels_sha256"]
+                for kind in ("cn-sd15-txt2img", "cn-sd15-scale0", "cn-sd15-zero-init")}
+        log(f"[controlnet] SD 1.5 images equal to the plain job's bit for bit: "
+            f"{json.dumps(same)}")
+        check(same["cn-sd15-scale0"], "the ControlNet job at scale 0 differs from the plain job")
+        check(same["cn-sd15-zero-init"], "the zero-init ControlNet changed the plain image")
+        check(not same["cn-sd15-txt2img"], "the ControlNet left the SD 1.5 image unchanged")
+        if hold:
+            hold_launches(served, "ControlNet path")
+        else:
+            for job_id, job in got.items():
+                log(f"[controlnet] {job_id}: launches {job['launches']}, predicted "
+                    f"{job['predicted_launches']} (not held)")
+
+        # the shared ControlNet pass: one branch call a step over every row
+        shared = {**common, "workflow": "txt2img", "model_name": sdxl, "height": size_xl,
+                  "width": size_xl, "parameters": {
+                      "scheduler_type": "DPMSolverMultistepScheduler",
+                      "controlnet": {"controlnet_model_name": CN_SDXL,
+                                     "control_image_uri": "photo.jpg",
+                                     "preprocessor": "canny"}}}
+        pass_jobs = [dict(shared, id=f"cn-xl-pass-{i}", prompt=BATCH_PROMPTS[i],
+                          seed=6200 + i) for i in range(pass_jobs)]
+        photo = {"photo.jpg": image_bytes(photo_image(size_xl), "JPEG")}
+        per_call = {k: xl_launches[k] + XL_CN_LAUNCHES[k] for k in xl_launches}
+        results, launches, wall = serve_group(registry, pass_jobs, device, files=photo)
+        coalesced = check_group("sdxl_controlnet", pass_jobs, results, launches, wall, per_call,
+                                size_xl, True, hold)
+        solo_jobs = [dict(j, id=f"{j['id']}-alone") for j in pass_jobs]
+        results, solo_launches, wall = serve_group(registry, solo_jobs, device, max_coalesce=1,
+                                                   files=photo)
+        alone = check_group("sdxl_controlnet alone", solo_jobs, results, solo_launches, wall,
+                            per_call, size_xl, False, hold)
+        for cfg in (*coalesced["configs"].values(), *alone["configs"].values()):
+            check(cfg["controlnet"] == CN_SDXL and cfg["controlnet_calls"] == steps,
+                  f"pass member: controlnet {cfg.get('controlnet')}, "
+                  f"{cfg.get('controlnet_calls')} branch calls")
+        paths["cn_sdxl_pass"] = (len(pass_jobs), launches)
+        served["pass"] = {"pass": coalesced["row"], "alone": alone["row"]}
+        log(f"[controlnet] shared-ControlNet pass on {smi}: {coalesced['row']['images_per_s']:.3f}"
+            f" images/s coalesced against {alone['row']['images_per_s']:.3f} alone "
+            f"({coalesced['row']['images_per_s'] / alone['row']['images_per_s']:.2f}x); step "
+            f"{coalesced['row']['unet_step_ms']:.1f} ms against {alone['row']['unet_step_ms']:.1f}"
+            " ms a job alone (UNet and ControlNet)")
+
+        # one branch call of each model: numerics and device time
+        e2e, profile = {}, {}
+        for model, name, size in ((sd15, CN_SD15, size15), (sdxl, CN_SDXL, size_xl)):
+            branch = pipes[model].controlnet(name)
+            if on_card:
+                e2e[model] = end_to_end_bf16_check(pipes[model], size, ("controlnet",), 2,
+                                                   branch=branch)
+            profile[model] = profile_main_path(pipes[model], size, parts=("controlnet",),
+                                               branch=branch)
+            log_profile(profile[model], smi)
+            if on_card:
+                check_one_launch_per_call(profile[model])
+        served.update(files=files, e2e=e2e, profile=profile)
+
+        # an eviction on purpose: SDXL leaves with its ControlNet
+        branch_bytes = sum(t.numel() * t.element_size()
+                           for t in pipes[sdxl].controlnet(CN_SDXL).state_dict().values())
+        model_bytes = pipeline_bytes(pipes[sdxl])
+        del pipes, branch
+        registry.get_pipeline(sd15)
+        for filler in fillers[:-1]:
+            registry.get_pipeline(filler)
+        before = allocated()
+        fifth = registry.get_pipeline(fillers[-1])
+        after = allocated()
+        check(sdxl not in registry.resident_models(),
+              f"{sdxl} still resident: {registry.resident_models()}")
+        expected = model_bytes + branch_bytes - pipeline_bytes(fifth)
+        del fifth
+        served["eviction"] = {"model_bytes": model_bytes, "branch_bytes": branch_bytes,
+                              "allocated_before": before, "allocated_after": after,
+                              "fall": before - after, "expected_fall": expected}
+        log(f"[controlnet] {fillers[-1]} evicted {sdxl}: allocated {before} -> {after}, a fall "
+            f"of {before - after} against {expected} expected ({model_bytes} of weights and "
+            f"{branch_bytes} of its ControlNet, less {fillers[-1]}'s)")
+        if on_card:
+            # the caching allocator counts whole blocks, which round a
+            # tensor's bytes up (by up to a megabyte past a large one's)
+            freed = model_bytes + branch_bytes
+            check(expected - branch_bytes / 4 <= before - after <= expected + 0.02 * freed,
+                  f"allocated memory fell by {before - after} bytes, not about {expected}")
+        del registry
+        gc.collect()
+        return paths, served
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # --- phase 6 ---
 
 def measure(paths: dict, main: str = "txt2img") -> tuple[list[dict], dict]:
@@ -2671,15 +3027,32 @@ def adapter_context(adapter, rows: int):
     return delta
 
 
+def control_input(pipe, size: int, rows: int, seed: int = 4):
+    """A control image for one ControlNet call: [rows, 3, size, size] in
+    [0, 1], the pipeline's dtype, channels_last."""
+    gen = torch.Generator(device=pipe.device).manual_seed(seed)
+    cond = torch.rand((rows, 3, size, size), generator=gen, device=pipe.device)
+    return cond.to(pipe.dtype).contiguous(memory_format=torch.channels_last)
+
+
+def _residuals(out) -> torch.Tensor:
+    """A ControlNet call's (per-skip residuals, mid residual) as one flat
+    f32 tensor."""
+    down, mid = out
+    return torch.cat([r.float().reshape(-1) for r in (*down, mid)])
+
+
 def end_to_end_bf16_check(pipe, size: int = SIZE,
                           parts=("unet", "vae_decode", "vae_encode"), rows: int = 2,
-                          adapter=None) -> dict:
+                          adapter=None, branch=None) -> dict:
     """One UNet call (`rows` CFG rows), one VAE decode and one VAE encode
     (the named parts) at the shapes of `pipe`'s path at `size`, in bf16
     through the kernels, against the same weights in f32 on the plain path;
     the plain path in bf16 gives the error bf16 itself makes. `adapter`
     (matched factors, gain) applies its delta to the UNet call on all three
-    paths, from stacks in each path's dtype."""
+    paths, from stacks in each path's dtype. The part "controlnet" is one
+    call of `branch` (a ControlNet of `pipe`'s UNet) at the UNet call's
+    inputs and a control image, its residuals compared as one tensor."""
     import copy
 
     from chiaswarm_tpu_torch.device import synchronize
@@ -2693,12 +3066,15 @@ def end_to_end_bf16_check(pipe, size: int = SIZE,
     # the f32 reference sees the same bf16 input values, cast up
     up = added and {"text_embeds": added["text_embeds"].float(), "time_ids": added["time_ids"]}
     px = encode_input(pipe, size)
+    cond = control_input(pipe, size, rows) if branch is not None else None
     delta = adapter_context(adapter, rows)
     calls = (
         ("unet", pipe.unet, lambda m: m(x, t, ctx, added),
          lambda m: m(x.float(), t, ctx.float(), up)),
         ("vae_decode", pipe.vae, lambda m: m.decode(z), lambda m: m.decode(z.float())),
-        ("vae_encode", pipe.vae, lambda m: m.encode(px), lambda m: m.encode(px.float())))
+        ("vae_encode", pipe.vae, lambda m: m.encode(px), lambda m: m.encode(px.float())),
+        ("controlnet", branch, lambda m: _residuals(m(x, t, ctx, cond, 1.0, added)),
+         lambda m: _residuals(m(x.float(), t, ctx.float(), cond.float(), 1.0, up))))
     result = {}
     for name, module, call, call_f32 in calls:
         if name not in parts:
@@ -2723,7 +3099,7 @@ def end_to_end_bf16_check(pipe, size: int = SIZE,
         torch.cuda.empty_cache()
         result[name] = row
         log(f"[e2e] {pipe.model_name} {name} at {size}^2"
-            + (f" ({rows} CFG rows)" if name == "unet" else "")
+            + (f" ({rows} CFG rows)" if name in ("unet", "controlnet") else "")
             + (", LoRA delta active" if adapter is not None and name == "unet" else "")
             + ", bf16 through the kernels vs f32 plain "
             f"path: relative RMS err "
@@ -2812,15 +3188,17 @@ def profiled(fn, calls: int, device) -> tuple[dict, float, float, int, dict]:
 
 def profile_main_path(pipe, size: int = SIZE, steps: int = 3,
                       parts=("unet", "vae_decode", "vae_encode"), rows: int = 2,
-                      adapter=None) -> dict:
+                      adapter=None, branch=None) -> dict:
     """Phase 8: torch.profiler over a few UNet calls (`rows` CFG rows,
     size/8 latents), one VAE decode and one VAE encode (the named parts) of
     `pipe` at `size`: device time and launches by kernel category, each
     GroupNorm kernel by name, GroupNorm wrapper calls, and the device's
     busy share of the wall time. With `adapter` (matched factors, gain) the
     UNet calls carry its delta, whose kernels form a category of their
-    own."""
+    own. The part "controlnet" is a few calls of `branch` at the UNet
+    call's inputs."""
     x, t, ctx, added = unet_inputs(pipe, size, rows=rows)
+    cond = control_input(pipe, size, rows) if branch is not None else None
     delta = adapter_context(adapter, rows)
     lat = size // pipe.latent_factor
     z = torch.randn((1, pipe.latent_channels, lat, lat), device=pipe.device,
@@ -2830,7 +3208,8 @@ def profile_main_path(pipe, size: int = SIZE, steps: int = 3,
     result = {}
     for name, fn, calls in (("unet", lambda: pipe.unet(x, t, ctx, added_cond=added), steps),
                             ("vae_decode", lambda: pipe.vae.decode(z), 1),
-                            ("vae_encode", lambda: pipe.vae.encode(px), 1)):
+                            ("vae_encode", lambda: pipe.vae.encode(px), 1),
+                            ("controlnet", lambda: branch(x, t, ctx, cond, 1.0, added), steps)):
         if name not in parts:
             continue
         with delta(pipe.unet) if name == "unet" else nullcontext():
@@ -2877,7 +3256,8 @@ def log_profile(profile: dict, smi: str) -> None:
             continue
         attention_ms = p["categories_ms_launches"]["flash_attention kernel"][0]
         log(f"[profile] {p['model']} {name} ({p['size']}^2"
-            f"{', CFG batch %d' % p.get('rows', 2) if name == 'unet' else ''}) on {smi}: "
+            f"{', CFG batch %d' % p.get('rows', 2) if name in ('unet', 'controlnet') else ''}) "
+            f"on {smi}: "
             f"wall {p['wall_ms_per_call']:.2f} ms per call ({p['unprofiled_wall_ms_per_call']:.2f} "
             f"unprofiled), device busy {p['device_ms_per_call']:.2f} ms "
             f"({100 * p['busy_share']:.1f}% of the profiled wall); attention "
@@ -3004,9 +3384,10 @@ def main(argv=None) -> int:
         checkpoint_paths, checkpoint_served = serve_checkpoint_path(smi)
         adapter_paths, adapter_served = serve_adapter_path(smi, unet_launches)
         batched_paths, batched_served = serve_batched_path(smi, unet_launches)
+        cn_paths, cn_served = serve_controlnet_path(smi, unet_launches)
         summary, shapes = measure({"txt2img": (N_JOBS, launches), **image_paths, **sd_paths,
                                    **edit_paths, **checkpoint_paths, **adapter_paths,
-                                   **batched_paths})
+                                   **batched_paths, **cn_paths})
         # (model, registry, canvas, CFG rows, parts) of phases 7 and 8
         calls = [(SDXL, registry, SIZE, 2, ("unet", "vae_decode", "vae_encode")),
                  *((model, sd_registry, size, 2, ("unet",)) for model, size in SD_CANVASES),
@@ -3035,6 +3416,7 @@ def main(argv=None) -> int:
                  "edit_served": edit_served, "checkpoint_served": checkpoint_served,
                  "adapter_served": adapter_served, "batch_limits": limits,
                  "tiny_batched": tiny_batched, "batched_served": batched_served,
+                 "controlnet_served": cn_served,
                  "kernels": summary,
                  "shapes": shapes, "end_to_end_bf16": e2e, "profile": profile}, indent=1,
                 default=str))

@@ -134,8 +134,27 @@ KEY_JOBS = {
                                                         {"scale": 0.5}}}, True),
     "controlnet": ({**_TXT, "parameters": {"controlnet": {
         "controlnet_model_name": "lllyasviel/control_v11p_sd15_canny",
-        "control_image_uri": "http://h/c.png"}}}, False),
+        "control_image_uri": "http://h/c.png"}}}, True),
     "controlnet-bad": ({**_TXT, "parameters": {"controlnet": {"x": 1}}}, True),
+    "controlnet-window-preprocessor": ({**_TXT, "parameters": {
+        "pipeline_type": "StableDiffusionXLControlNetPipeline", "controlnet": {
+            "control_image_uri": "http://h/c.png", "preprocessor": "canny",
+            "controlnet_conditioning_scale": 0.7, "control_guidance_start": 0.25,
+            "control_guidance_end": 0.75}}}, True),
+    "controlnet-qr-chain": ({**_TXT, "parameters": {"controlnet": {
+        "control_image_uri": "http://h/qr.png",
+        "parameters": {"controlnet_prepipeline_type": "StableDiffusionPipeline"}}}}, True),
+    "controlnet-qr-contents": ({**_TXT, "parameters": {"controlnet": {
+        "qr_code_contents": "https://example.org"}}}, True),
+    "controlnet-start-image": ({**_I2I, "parameters": {"controlnet": {
+        "control_image_uri": "http://h/c.png"}}}, True),
+    "controlnet-no-uri": ({**_TXT, "parameters": {"controlnet": {
+        "controlnet_model_name": "x"}}}, True),
+    "controlnet-img2img-pipeline": ({**_TXT, "parameters": {
+        "pipeline_type": "StableDiffusionControlNetImg2ImgPipeline",
+        "controlnet": {"control_image_uri": "http://h/c.png"}}}, True),
+    "controlnet-lora": ({**_TXT, "lora": "style.safetensors", "parameters": {"controlnet": {
+        "control_image_uri": "http://h/c.png"}}}, True),
     "flux": ({**_TXT, "model_name": "black-forest-labs/FLUX.1-schnell",
               "num_inference_steps": 4, "guidance_scale": 0.0}, False),
     "kandinsky": ({**_TXT, "model_name": "kandinsky-community/kandinsky-2-2-decoder"}, True),
@@ -160,8 +179,8 @@ def test_coalesce_key_matches_jax(name, sdaas_root):
     if served:
         assert got == want
     else:
-        # JAX batches it (shared ControlNet, flux, denoise stage); the port
-        # cannot, so it runs alone
+        # JAX batches it (flux, denoise stage); the port cannot, so it runs
+        # alone
         assert want is not None and got is None
     for fn in ("job_rows", "is_interactive", "adapter_ref"):
         assert getattr(coalesce, fn)(job) == getattr(jax_coalesce, fn)(job), fn
@@ -178,6 +197,13 @@ def test_coalesce_key_table_covers_both_outcomes():
     assert keys["interactive"] == keys["txt2img"]
     assert keys["tiny-top-level"] == keys["tiny-in-parameters"] != keys["txt2img"]
     assert coalesce.placement_model(KEY_JOBS["tiny-top-level"][0]) == "test/tiny-xl"
+    # a shared ControlNet is an element of the key; its chains run alone
+    assert keys["controlnet"][13] == ("lllyasviel/control_v11p_sd15_canny", "http://h/c.png",
+                                      "", 1.0, 0.0, 1.0)
+    assert keys["controlnet-window-preprocessor"][13][2:] == ("canny", 0.7, 0.25, 0.75)
+    for name in ("controlnet-qr-chain", "controlnet-qr-contents", "controlnet-start-image",
+                 "controlnet-lora"):
+        assert keys[name] is None, name
 
 
 # --- the scheduler ---

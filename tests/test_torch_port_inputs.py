@@ -146,8 +146,10 @@ def test_pix2pix_strength_mapping(images):
 
 
 @pytest.mark.parametrize("job,match", [
-    ({"workflow": "img2img", "model_name": SDXL, "parameters": {"controlnet": {"x": 1}}},
-     "controlnet"),
+    # a ControlNet preprocessor that runs a model (depth estimation) waits
+    # for its model
+    ({"workflow": "img2img", "model_name": SDXL, "start_image_uri": "http://h/start.png",
+      "parameters": {"controlnet": {"preprocessor": "depth"}}}, "controlnet preprocessor"),
     ({"workflow": "img2img", "model_name": SDXL, "height": 2048, "width": 512},
      "max image size"),
 ])

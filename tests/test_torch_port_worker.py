@@ -9,7 +9,8 @@ its import purity.
 - Entry points run on the card unless told otherwise: without CUDA and
   without `device="cpu"` they raise.
 - The port imports nothing of JAX, flax or chiaswarm_tpu (this stands in
-  for lint rule SW001, whose scan does not cover the port).
+  for lint rule SW001, whose scan does not cover the port), nor OpenCV,
+  which the card's machine lacks.
 """
 
 import asyncio
@@ -125,7 +126,7 @@ def test_chip_smoke_refuses_without_cuda():
     assert '"ok"' not in proc.stdout
 
 
-_BLOCKED = re.compile(r"^\s*(import|from)\s+(jax|flax|chiaswarm_tpu)(\s|\.|$)", re.M)
+_BLOCKED = re.compile(r"^\s*(import|from)\s+(jax|flax|chiaswarm_tpu|cv2)(\s|\.|$)", re.M)
 
 
 def test_port_sources_import_no_jax():
@@ -141,14 +142,14 @@ def test_every_port_module_imports_with_jax_blocked():
     script = (
         "import sys\n"
         "before = set(sys.modules)\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'chiaswarm_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'chiaswarm_tpu', 'cv2'):\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for name in {modules + ['chip_smoke']!r}:\n"
         "    importlib.import_module(name)\n"
         "new = {m for m in set(sys.modules) - before if sys.modules[m] is not None}\n"
         "assert not [m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
-        "                                                  'chiaswarm_tpu')], new\n"
+        "                                                  'chiaswarm_tpu', 'cv2')], new\n"
     )
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
                           timeout=120, cwd=REPO)
