@@ -10,7 +10,8 @@ protected), and the same special cases of img2img: the instruct-pix2pix
 checkpoints take `strength * 5` as their image guidance scale, and the
 size-locked checkpoints get a 768 canvas. A job's `lora` resolves against
 the settings' `lora_root_dir` (loras.py); `textual_inversion`, `vae`,
-`lora_scale` and `cross_attention_kwargs` pass through from `parameters`.
+`lora_scale` and `cross_attention_kwargs` pass through from `parameters`,
+as does `upscale` (the SD-x2 stage the pipeline chains).
 
 A `parameters.controlnet` dict gives the ControlNet arguments, as in the
 JAX package's `format_controlnet_args`: the control image is the
@@ -42,7 +43,6 @@ MAX_SIZE = LIMITS.max_edge
 
 # job keys of workflows and features this slice does not serve
 _UNPORTED_KEYS = ("video_uri",)
-_UNPORTED_PARAMETERS = ("upscale",)
 # the JAX package's special cases of img2img
 _PIX2PIX_MODELS = {"timbrooks/instruct-pix2pix", "diffusers/sdxl-instructpix2pix-768"}
 _SIZE_LOCKED_MODELS = {"diffusers/sdxl-instructpix2pix-768",
@@ -84,9 +84,6 @@ def format_stable_diffusion_args(args: dict, workflow: str | None) -> dict:
         size = (args["width"], args["height"])  # PIL (width, height)
     args.setdefault("prompt", "")
     parameters = dict(args.pop("parameters", {}) or {})
-    for key in _UNPORTED_PARAMETERS:
-        if parameters.get(key):
-            raise ValueError(f"parameter {key!r} is not ported to chiaswarm_tpu_torch yet")
 
     if workflow == "img2img":
         format_img2img_args(args, parameters, size)

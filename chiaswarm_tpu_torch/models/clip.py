@@ -1,9 +1,10 @@
 """CLIP text encoders (torch.nn), the counterpart of
 chiaswarm_tpu/models/clip.py: causal transformer, penultimate hidden
-state for SDXL (`hidden_state_index=-2`) and the pooled projection of
-SDXL's second encoder. transformers' CLIPTextModel(WithProjection) key
-layout. Causal attention is a plain matmul + softmax, as in the JAX
-package (no kernel there either).
+state for SDXL (`hidden_state_index=-2`), the last layer's state before
+the final LayerNorm for the SD-x2 upscaler (`apply_final_norm=False`),
+and the pooled projection of SDXL's second encoder. transformers'
+CLIPTextModel(WithProjection) key layout. Causal attention is a plain
+matmul + softmax, as in the JAX package (no kernel there either).
 """
 
 from __future__ import annotations
@@ -26,6 +27,9 @@ class CLIPTextConfig:
     hidden_act: str = "gelu"  # gelu (SD2/XL) | quick_gelu (SD1.x ViT-L)
     # -1 = final layer norm output; -2 = input of the last layer
     hidden_state_index: int = -1
+    # False with index -1: the last layer's output before the final
+    # LayerNorm (the SD-x2 upscaler's conditioning); pooled keeps the norm
+    apply_final_norm: bool = True
     projection_dim: int = 0  # >0: pooled projection (SDXL encoder 2)
 
 
@@ -142,7 +146,10 @@ class CLIPTextEncoder(nn.Module):
             hidden = layer(hidden, causal)
         final = tm.final_layer_norm(hidden)
         collected.append(final)
-        out_hidden = final if cfg.hidden_state_index == -1 else collected[cfg.hidden_state_index]
+        if cfg.hidden_state_index == -1:
+            out_hidden = final if cfg.apply_final_norm else hidden
+        else:
+            out_hidden = collected[cfg.hidden_state_index]
 
         eos_idx = (input_ids == cfg.vocab_size - 1).int().argmax(dim=-1)
         pooled = final[torch.arange(b, device=final.device), eos_idx]

@@ -1,8 +1,9 @@
 """Resident Stable-Diffusion pipeline (SD 1.x, SD 2.x, SDXL base and
 refiner, the instruct-pix2pix edit checkpoints and the tiny test models):
 txt2img, img2img, pix2pix, 4-channel inpaint and dedicated (9-channel)
-inpaint, and the SDXL refiner chained after any of them; the counterpart
-of chiaswarm_tpu/pipelines/stable_diffusion.py.
+inpaint, and the SDXL refiner and the SD-x2 upscaler (pipelines/upscale.py)
+chained after any of them; the counterpart of
+chiaswarm_tpu/pipelines/stable_diffusion.py.
 
 Weights load once (from the model directory's safetensors, see
 weights.py) and stay on the device. A job runs the CLIP encoders over
@@ -62,6 +63,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from PIL import Image
 
 from ..device import device_label, resolve_device, serving_dtype, synchronize
@@ -77,6 +79,7 @@ from ..models.vae import AutoencoderKL
 from ..schedulers import SchedulerConfig, get_scheduler
 from ..weights import (
     TEXT_ENCODER_FOLDERS,
+    MissingWeightsError,
     checkpoint_folders,
     find_checkpoint,
     load_checkpoint_,
@@ -86,12 +89,12 @@ from ..weights import (
 )
 from . import lora_runtime
 from .common import pad_bucket, split_by_counts
+from .upscale import upscaler_name_for
+
+# the wire name the upscale stage resolves its pipeline by
+UPSCALE_PIPELINE = "StableDiffusionLatentUpscalePipeline"
 
 logger = logging.getLogger(__name__)
-
-# job arguments of the JAX pipeline whose features this slice lacks; a
-# job that sets one fails with a fatal envelope naming it
-_UNPORTED = ("upscale",)
 
 # per-job add-ons a pipeline keeps resident, least recently used first out
 MAX_RESIDENT_TI = 4
@@ -628,7 +631,8 @@ class SDPipeline:
             image_guidance_scale: float | None = None, aesthetic_score: float = 6.0,
             refiner: dict | None = None, registry=None, generator=None,
             latents=None, noise_fn=None, refiner_latents=None, refiner_noise_fn=None,
-            prepipeline_latents=None, prepipeline_noise_fn=None, **kwargs):
+            prepipeline_latents=None, prepipeline_noise_fn=None, upscale: bool = False,
+            upscale_latents=None, **kwargs):
         """One job -> (list of uint8 [H, W, 3] arrays, pipeline_config).
 
         `image` (one PIL image, or a list of them, one per output image)
@@ -654,7 +658,14 @@ class SDPipeline:
         and `vae` are the job's adapters.
         `refiner` {"model_name", "strength" (0.3)} re-enters the output into
         that model's pipeline, which `registry` resolves, as img2img with the
-        job's prompts, steps, guidance and scheduler.
+        job's prompts, steps, guidance and scheduler. `upscale` then chains
+        the SD-x2 upscaler (`upscaler_name_for` the model, resolved in
+        `registry` before the denoise, so that missing weights cost no
+        denoise): 20 unguided steps on the job's prompt and generator (or
+        `upscale_latents`, its initial draw), twice the canvas out. Where
+        the upscaler's weights are missing, the job is served all the same
+        by the latent-resize fallback (`_latent2x`), and says so, as the JAX
+        pipeline does.
         `generator` replaces the job's seeded generator; `latents` [N, C,
         H/8, W/8] the initial draw, and `noise_fn(kind, i, shape)` the draws
         of each step's ancestral noise ("step") and of inpaint's keep noise
@@ -662,9 +673,6 @@ class SDPipeline:
         refiner's stage."""
         if self.is_pix2pix and image is not None and kwargs.get("controlnet_model_name"):
             raise ValueError("ControlNet is not supported with instruct-pix2pix models")
-        for key in _UNPORTED:
-            if kwargs.get(key):
-                raise ValueError(f"{key!r} is not supported by chiaswarm_tpu_torch yet")
         if (kwargs.get("controlnet_prepipeline_type") and kwargs.get("controlnet_model_name")
                 and mask_image is None):
             # the txt2img ControlNet wire puts the QR image in `image`, so
@@ -678,7 +686,8 @@ class SDPipeline:
                 num_images_per_prompt=num_images_per_prompt, scheduler_type=scheduler_type,
                 image_guidance_scale=image_guidance_scale, aesthetic_score=aesthetic_score,
                 refiner=refiner, registry=registry, refiner_latents=refiner_latents,
-                refiner_noise_fn=refiner_noise_fn, **kwargs)
+                refiner_noise_fn=refiner_noise_fn, upscale=upscale,
+                upscale_latents=upscale_latents, **kwargs)
         strength = 0.75 if strength is None else float(strength)
         controlnet_name = kwargs.get("controlnet_model_name")
         control_image = kwargs.get("control_image")
@@ -689,6 +698,18 @@ class SDPipeline:
             raise ValueError("Controlnet specified but no control image provided")
         cn_scale = float(kwargs.get("controlnet_conditioning_scale", 1.0))
         timings: dict[str, float] = {}
+        upscaler = None
+        upscale_fallback = False
+        if upscale:
+            if registry is None:
+                raise ValueError("an upscale stage needs the worker's pipeline registry")
+            try:
+                upscaler = registry.get_pipeline(upscaler_name_for(self.model_name),
+                                                 pipeline_type=UPSCALE_PIPELINE)
+            except MissingWeightsError:
+                logger.warning("sd-x2 upscaler weights missing; falling back to latent-resize "
+                               "2x for this job")
+                upscale_fallback = True
         # the adapters resolve before any work, so a bad one fails the job
         # at once
         t_adapters = time.perf_counter()
@@ -862,6 +883,18 @@ class SDPipeline:
                 latents=refiner_latents, noise_fn=refiner_noise_fn)
             pixels = np.stack(refined)
             timings["refiner_s"] = time.perf_counter() - t0
+        if upscaler is not None:
+            # the learned SD-x2 stage, on the job's generator
+            t0 = time.perf_counter()
+            pixels = np.stack(upscaler.upscale(
+                [Image.fromarray(px) for px in pixels], prompt=prompt,
+                negative_prompt=negative_prompt, generator=gen, latents=upscale_latents))
+            timings["upscale_s"] = time.perf_counter() - t0
+            timings["upscale_step_ms"] = upscaler.last_timings["step_ms"]
+        elif upscale_fallback:
+            t0 = time.perf_counter()
+            pixels = np.stack([self._latent2x(px, width, height, vae) for px in pixels])
+            timings["upscale_s"] = time.perf_counter() - t0
         timings["pipeline_s"] = time.perf_counter() - t_job
 
         pipeline_config = {
@@ -878,6 +911,10 @@ class SDPipeline:
                if mode in ("img2img", "inpaint") else {}),
             **({"image_guidance_scale": float(image_guidance_scale)}
                if mode == "pix2pix" else {}),
+            # `size` stays the canvas asked for, as in JAX; the upscale
+            # stage doubles what comes out
+            **({"output_size": [2 * width, 2 * height], "upscaled": True} if upscale else {}),
+            **({"upscaler": "latent-resize-fallback"} if upscale_fallback else {}),
             # a pix2pix job on a checkpoint that is not an edit checkpoint
             # runs as plain img2img, and says so
             **({"approximated_as": "img2img"}
@@ -900,6 +937,15 @@ class SDPipeline:
         }
         return list(pixels), pipeline_config
 
+    def _latent2x(self, image: np.ndarray, width: int, height: int, vae) -> np.ndarray:
+        """The fallback of `upscale` where the SD-x2 upscaler has no
+        weights, as the JAX pipeline's `_latent2x_impl`: one image encoded,
+        its latents resized 2x bilinearly (half-pixel centres, edges
+        clamped), decoded -> uint8 [2H, 2W, 3]."""
+        z = self.encode_image(_pil_to_array(Image.fromarray(image), width, height)[None], vae)
+        return self.decode(F.interpolate(z, scale_factor=2.0, mode="bilinear",
+                                         align_corners=False), vae)[0]
+
     def _run_qr_two_stage(self, prompt, negative_prompt, pipeline_type, *, height, width,
                           strength, image, seed, generator, latents, noise_fn,
                           prepipeline_latents, prepipeline_noise_fn, **kwargs):
@@ -911,8 +957,11 @@ class SDPipeline:
         the job's generator in turn, or take injected noise: the first
         `prepipeline_latents` / `prepipeline_noise_fn`, the second
         `latents` / `noise_fn` (JAX splits the job's key in three and hands
-        the second and third to the stages)."""
+        the second and third to the stages). An `upscale` runs after each
+        stage, as in JAX (the first stage's 2x output is then the start
+        image's canvas); `upscale_latents` are the second stage's."""
         kwargs.pop("controlnet_prepipeline_type", None)
+        upscale_latents = kwargs.pop("upscale_latents", None)
         height = int(height or self.default_size)
         width = int(width or self.default_size)
         strength = 0.9 if strength is None else float(strength)
@@ -934,7 +983,8 @@ class SDPipeline:
         base = Image.fromarray(stage1[0]).resize((width, height), Image.LANCZOS)
         images, config = self.run(prompt, negative_prompt, pipeline_type, generator=gen,
                                   image=base, strength=strength, height=height, width=width,
-                                  latents=latents, noise_fn=noise_fn, **cn_kwargs, **kwargs)
+                                  latents=latents, noise_fn=noise_fn,
+                                  upscale_latents=upscale_latents, **cn_kwargs, **kwargs)
         config["prepipeline"] = "qr_two_stage"
         config["timings"]["prepipeline_s"] = prepipeline_s
         return images, config

@@ -22,10 +22,17 @@ lora_cache.py, the encoded-prompt cache of embed_cache.py) and the roots a
 job's adapters and ControlNets resolve under.
 
 `PIPELINE_FAMILIES` is the JAX package's table of wire `pipeline_type`
-names for the two families the port serves, "sd" and "sdxl" (one
-resident pipeline serves every name of its model);
+names for the families the port serves: "sd" and "sdxl" (one resident
+`SDPipeline` serves every name of its model) and "sd_upscale" (the SD-x2
+`LatentUpscalePipeline`, which a generic name reaches by a model name
+holding `latent-upscaler` or `tiny-upscaler`, as in JAX). A pipeline is
+kept under (model name, "upscaler" or "sd"), in the same LRU.
 `check_pipeline_type` refuses the names of other families and names that
 no table holds.
+
+The NSFW safety checker is a process singleton outside the LRU
+(pipelines/safety.py); `safety_checker()` gives it for the registry's
+device, model root and `safety_checker_model`.
 """
 
 from __future__ import annotations
@@ -38,7 +45,9 @@ import torch
 
 from .embed_cache import EmbedCache
 from .lora_cache import LoraCache
+from .pipelines.safety import DEFAULT_SAFETY_MODEL, get_checker
 from .pipelines.stable_diffusion import SDPipeline
+from .pipelines.upscale import LatentUpscalePipeline
 
 logger = logging.getLogger(__name__)
 
@@ -61,6 +70,7 @@ PIPELINE_FAMILIES: dict[str, str] = {
     "StableDiffusionXLControlNetInpaintPipeline": "sdxl",
     "StableDiffusionInstructPix2PixPipeline": "sd",
     "StableDiffusionXLInstructPix2PixPipeline": "sdxl",
+    "StableDiffusionLatentUpscalePipeline": "sd_upscale",
     "AutoPipelineForText2Image": "sd",
 }
 
@@ -74,45 +84,73 @@ def check_pipeline_type(pipeline_type: str) -> None:
                          "chiaswarm_tpu_torch yet")
 
 
+def is_upscaler(model_name: str, pipeline_type: str | None = None) -> bool:
+    """Whether the job's pipeline is the SD-x2 upscaler: by its wire name,
+    or, for the generic names, by the model's, as the JAX registry's
+    `_auto_family` tells it."""
+    if pipeline_type and pipeline_type in PIPELINE_FAMILIES and pipeline_type not in (
+            "DiffusionPipeline", "AutoPipelineForText2Image"):
+        return PIPELINE_FAMILIES[pipeline_type] == "sd_upscale"
+    name = model_name.lower()
+    return "latent-upscaler" in name or "tiny-upscaler" in name
+
+
 class Registry:
     def __init__(self, device, model_root_dir: str | None = None,
                  lora_root_dir: str | None = None, lora_cache: LoraCache | None = None,
-                 embed_cache: EmbedCache | None | bool = True):
+                 embed_cache: EmbedCache | None | bool = True,
+                 safety_checker_model: str = DEFAULT_SAFETY_MODEL):
         """`embed_cache` True gives a cache of the default 64 MiB; None or
-        False turns it off."""
+        False turns it off. `safety_checker_model` "" turns the checker
+        off."""
         self.device = device
         self.model_root_dir = model_root_dir
         self.lora_root_dir = lora_root_dir
+        self.safety_checker_model = safety_checker_model
         self.lora_cache = lora_cache or LoraCache()
         if embed_cache is True:
             embed_cache = EmbedCache(64 << 20)
         self.embed_cache = embed_cache if isinstance(embed_cache, EmbedCache) else None
-        self._pipelines: OrderedDict[str, SDPipeline] = OrderedDict()
+        self._pipelines: OrderedDict[tuple, SDPipeline | LatentUpscalePipeline] = OrderedDict()
         self._lock = threading.Lock()
 
-    def get_pipeline(self, model_name: str, allow_random_init: bool = False) -> SDPipeline:
-        """The resident pipeline for `model_name`, built on first use."""
+    def get_pipeline(self, model_name: str, allow_random_init: bool = False,
+                     pipeline_type: str | None = None):
+        """The resident pipeline for `model_name` (the upscaler where
+        `is_upscaler` says so, else an SDPipeline), built on first use."""
+        upscaler = is_upscaler(model_name, pipeline_type)
+        key = (model_name, "upscaler" if upscaler else "sd")
         with self._lock:
-            pipe = self._pipelines.get(model_name)
+            pipe = self._pipelines.get(key)
             if pipe is not None:
-                self._pipelines.move_to_end(model_name)
+                self._pipelines.move_to_end(key)
                 return pipe
-            pipe = SDPipeline(model_name, device=self.device,
-                              allow_random_init=allow_random_init,
-                              model_root_dir=self.model_root_dir,
-                              lora_root_dir=self.lora_root_dir, lora_cache=self.lora_cache,
-                              embed_cache=self.embed_cache)
-            self._pipelines[model_name] = pipe
+            if upscaler:
+                pipe = LatentUpscalePipeline(model_name, device=self.device,
+                                             allow_random_init=allow_random_init,
+                                             model_root_dir=self.model_root_dir)
+            else:
+                pipe = SDPipeline(model_name, device=self.device,
+                                  allow_random_init=allow_random_init,
+                                  model_root_dir=self.model_root_dir,
+                                  lora_root_dir=self.lora_root_dir, lora_cache=self.lora_cache,
+                                  embed_cache=self.embed_cache)
+            self._pipelines[key] = pipe
             evicted = [self._pipelines.popitem(last=False)
                        for _ in range(len(self._pipelines) - MAX_RESIDENT_PIPELINES)]
             for _, old in evicted:
                 old.release()
             if evicted:
-                logger.info("evicted resident pipelines %s", [name for name, _ in evicted])
+                logger.info("evicted resident pipelines %s", [key for key, _ in evicted])
                 if torch.device(self.device).type == "cuda":
                     torch.cuda.empty_cache()
             return pipe
 
     def resident_models(self) -> list[str]:
         with self._lock:
-            return sorted(self._pipelines)
+            return sorted({name for name, _ in self._pipelines})
+
+    def safety_checker(self):
+        """The process's safety checker for this registry's device, model
+        root and checker name (pipelines/safety.py `get_checker`)."""
+        return get_checker(self.safety_checker_model, self.model_root_dir, self.device)

@@ -33,6 +33,9 @@ class Settings:
     embed_cache_mb: int = 64
     # most distinct adapters one coalesced pass carries
     lora_slots_max: int = 8
+    # the NSFW safety checker feeding the envelope flag, a model directory
+    # under model_root_dir ("" disables it; pipelines/safety.py)
+    safety_checker_model: str = "CompVis/stable-diffusion-safety-checker"
 
 
 _ENV_OVERRIDES = {
@@ -47,6 +50,7 @@ _ENV_OVERRIDES = {
     "SDAAS_MAX_COALESCE": "max_coalesce",
     "CHIASWARM_EMBED_CACHE_MB": "embed_cache_mb",
     "CHIASWARM_LORA_SLOTS_MAX": "lora_slots_max",
+    "CHIASWARM_SAFETY_CHECKER_MODEL": "safety_checker_model",
 }
 
 

@@ -21,8 +21,14 @@ The port's modules use diffusers / transformers key names, so a
 checkpoint loads without a rename; the loader makes only the fix-ups of
 chiaswarm_tpu/models/conversion.py (`checkpoint_key`, `checkpoint_tensor`).
 
+The SD-x2 upscaler's configs are read off its checkpoint as the JAX
+package's `infer_k_upscaler_config` / `infer_vae_config` read them, from
+the tensors' shapes (`checkpoint_shapes`, no tensor loaded) and the
+folders' config.json.
+
 `from_jax_params` inverts chiaswarm_tpu/models/conversion.py's
-`convert_unet` (a ControlNet's tree too) / `convert_vae` / `convert_clip`: flax paths become
+`convert_unet` (a ControlNet's tree too) / `convert_vae` / `convert_clip`
+/ `convert_k_upscaler` / `convert_safety_checker`: flax paths become
 diffusers / transformers key names again, HWIO conv kernels become OIHW
 and Dense [in, out] kernels become Linear [out, in].
 """
@@ -39,7 +45,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from .models.k_upscaler import KUpscalerConfig
 from .models.layers import FusedGroupNorm
+from .models.vae import VAEConfig
 
 logger = logging.getLogger(__name__)
 
@@ -204,6 +212,77 @@ def load_checkpoint_(module: nn.Module, files: list[Path], folder: str,
     return sum(path.stat().st_size for path in files)
 
 
+def checkpoint_shapes(files: list[Path]) -> dict[str, tuple]:
+    """{key: shape} of the tensors in safetensors files, read from their
+    headers."""
+    from safetensors import SafetensorError, safe_open
+
+    shapes = {}
+    for path in files:
+        try:
+            with safe_open(str(path), framework="pt") as f:
+                for key in f.keys():
+                    shapes[key] = tuple(f.get_slice(key).get_shape())
+        except (SafetensorError, OSError) as e:
+            raise CheckpointError(f"{path}: unreadable safetensors file ({e})") from e
+    return shapes
+
+
+def infer_k_upscaler_config(shapes: dict, config_json: dict | None = None) -> KUpscalerConfig:
+    """The K-UNet's config from its checkpoint's shapes, as the JAX
+    package infers it: levels, widths and resnets from the down blocks'
+    conv1, where the cross- and self-attention are from the attn2 / attn1
+    keys, the q/k/v bias from the bias keys; head width and group size
+    from config.json (64 and 32 unset)."""
+    cj = config_json or {}
+    blocks: dict[int, int] = {}
+    layers = 1
+    cross, down_self, up_self = set(), set(), set()
+    for k in shapes:
+        if m := re.match(r"down_blocks\.(\d+)\.resnets\.(\d+)\.conv1\.weight", k):
+            blocks[int(m.group(1))] = int(shapes[k][0])
+            layers = max(layers, int(m.group(2)) + 1)
+        if m := re.match(r"down_blocks\.(\d+)\.attentions\.0\.attn2\.to_q\.", k):
+            cross.add(int(m.group(1)))
+        if m := re.match(r"down_blocks\.(\d+)\.attentions\.0\.attn1\.to_q\.", k):
+            down_self.add(int(m.group(1)))
+        if m := re.match(r"up_blocks\.(\d+)\.attentions\.0\.attn1\.to_q\.", k):
+            up_self.add(int(m.group(1)))
+    n = max(blocks) + 1
+    first = min(cross) if cross else 1
+    return KUpscalerConfig(
+        in_channels=int(shapes["conv_in.weight"][1]),
+        out_channels=int(shapes["conv_out.weight"][0]),
+        block_out_channels=tuple(blocks[i] for i in range(n)),
+        layers_per_block=layers,
+        cross_attention_dim=int(shapes[f"down_blocks.{first}.attentions.0.attn2.to_k.weight"][1]),
+        attention_head_dim=int(cj.get("attention_head_dim", 64)),
+        resnet_group_size=int(cj.get("resnet_group_size") or cj.get("norm_num_groups") or 32),
+        time_cond_proj_dim=int(shapes["time_embedding.cond_proj.weight"][1]),
+        cross_attention=tuple(i in cross for i in range(n)),
+        down_self_attention=tuple(i in down_self for i in range(n)),
+        up_self_attention=tuple(i in up_self for i in range(n)),
+        attention_bias=any(k.endswith("attn2.to_q.bias") for k in shapes))
+
+
+def infer_vae_config(shapes: dict, config_json: dict | None = None) -> VAEConfig:
+    """A VAE's config from its checkpoint's shapes; the scaling factor is
+    training metadata that only config.json holds (0.18215 unset)."""
+    blocks: dict[int, int] = {}
+    layers = 1
+    for k in shapes:
+        if m := re.match(r"encoder\.down_blocks\.(\d+)\.resnets\.(\d+)\.conv1\.weight", k):
+            blocks[int(m.group(1))] = int(shapes[k][0])
+            layers = max(layers, int(m.group(2)) + 1)
+    return VAEConfig(
+        in_channels=int(shapes["encoder.conv_in.weight"][1]),
+        latent_channels=int(shapes["decoder.conv_in.weight"][1]),
+        block_out_channels=tuple(blocks[i] for i in range(max(blocks) + 1)),
+        layers_per_block=layers,
+        scaling_factor=float((config_json or {}).get("scaling_factor", 0.18215)),
+        use_quant_conv="quant_conv.weight" in shapes)
+
+
 # --- JAX parameter tree -> port state dicts ---
 
 # torch module names that themselves end in _<digit> (the forward
@@ -288,13 +367,55 @@ def clip_state_dict(tree: dict) -> dict[str, torch.Tensor]:
     return out
 
 
+def _k_upscaler_name(name: str) -> str:
+    if name == "time_proj_weight":
+        return "time_proj.weight"
+    name = name.replace("time_embedding_cond_proj.", "time_embedding.cond_proj.")
+    name = re.sub(r"^time_embedding_linear\.(\d)\.", r"time_embedding.linear_\1.", name)
+    return re.sub(r"^(down|up)_blocks_(\d+)_(resnets|attentions)\.", r"\1_blocks.\2.\3.", name)
+
+
+def k_upscaler_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    return _state_dict(tree, _k_upscaler_name)
+
+
+_SAFETY_LAYER = {"q": "self_attn.q_proj", "k": "self_attn.k_proj", "v": "self_attn.v_proj",
+                 "out": "self_attn.out_proj", "fc1": "mlp.fc1", "fc2": "mlp.fc2",
+                 "ln1": "layer_norm1", "ln2": "layer_norm2"}
+
+
+def _safety_name(name: str) -> str:
+    tower = "vision_model.vision_model."
+    if name.startswith(("concept_embeds", "special_care_embeds")):
+        return name
+    name = name.removeprefix("vision.")
+    if name == "projection.weight":
+        return "visual_projection.weight"
+    if m := re.match(r"layer_(\d+)_(\w+?)\.(weight|bias)$", name):
+        return f"{tower}encoder.layers.{m.group(1)}.{_SAFETY_LAYER[m.group(2)]}.{m.group(3)}"
+    fixed = {"cls_embed": "embeddings.class_embedding",
+             "pos_embed": "embeddings.position_embedding.weight",
+             "patch_embed.weight": "embeddings.patch_embedding.weight"}
+    if name in fixed:
+        return tower + fixed[name]
+    return tower + name.replace("pre_ln.", "pre_layrnorm.").replace("post_ln.", "post_layernorm.")
+
+
+def safety_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    return _state_dict(tree, _safety_name)
+
+
 def from_jax_params(tree: dict) -> dict:
-    """{"unet": tree, "text": [tree, ...], "vae": tree, "cn": tree} (numpy
-    leaves; any of them) -> {"unet": state dict, "text": [state dict, ...],
-    "vae": state dict, "controlnet": state dict} in the port's (diffusers /
-    transformers) key layout, f32."""
+    """{"unet": tree, "text": [tree, ...], "vae": tree, "cn": tree,
+    "k_unet": tree, "safety": tree} (numpy leaves; any of them) ->
+    {"unet": state dict, "text": [state dict, ...], "vae": state dict,
+    "controlnet": state dict, "k_unet": state dict, "safety": state dict}
+    in the port's (diffusers / transformers) key layout, f32. "k_unet" is
+    the SD-x2 upscaler's UNet, "safety" the whole safety checker's tree."""
     convert = {"unet": ("unet", unet_state_dict), "vae": ("vae", vae_state_dict),
-               "cn": ("controlnet", controlnet_state_dict)}
+               "cn": ("controlnet", controlnet_state_dict),
+               "k_unet": ("k_unet", k_upscaler_state_dict),
+               "safety": ("safety", safety_state_dict)}
     out = {name: fn(tree[key]) for key, (name, fn) in convert.items() if key in tree}
     if "text" in tree:
         out["text"] = [clip_state_dict(t) for t in tree["text"]]

@@ -64,7 +64,7 @@ class Worker:
             self.device, self.settings.model_root_dir, self.settings.lora_root_dir,
             LoraCache(int(self.settings.lora_cache_mb) << 20,
                       int(self.settings.lora_operand_cache_mb) << 20),
-            from_settings(self.settings.embed_cache_mb))
+            from_settings(self.settings.embed_cache_mb), self.settings.safety_checker_model)
         self.hive = HiveClient(self.settings)
         self.poll_seconds = poll_seconds
         self.jobs_done = 0

@@ -16,11 +16,16 @@ its one control image (the txt2img ControlNet wire delivers it as
 image's unless the jobs name one.
 
 A `pipeline_type` of a family the port does not serve is refused
-(registry.check_pipeline_type).
+(registry.check_pipeline_type); `StableDiffusionLatentUpscalePipeline`
+(or a generic name on an upscaler's model name) serves the job with the
+SD-x2 upscaler, and an SD job's `upscale: true` chains it (the
+pipeline's run).
 
-The safety checker is a model of its own that the port does not have
-yet: envelopes say `nsfw_checked: false`, as the JAX package's
-`flag_images` does when no checker is available.
+The decoded images of every job, and of each member of a coalesced pass,
+go through the NSFW safety checker (pipelines/safety.py, resolved by the
+registry), as the JAX callbacks do: the envelope's `nsfw` and
+`nsfw_checked`, false and false when no checker is available; the check
+never fails a job.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import time
 from ..capacity import coalesced_fit, default_canvas
 from ..models.configs import model_family
 from ..pipelines.common import chunk_by_rows
+from ..pipelines.safety import flag_images
 from ..post_processors.output_processor import OutputProcessor
 from ..registry import check_pipeline_type
 
@@ -66,13 +72,15 @@ def diffusion_callback(device_identifier: str, model_name: str, *, registry, **k
         model_name = tiny_stand_in(model_name)
     pipeline_type = kwargs.pop("pipeline_type", "DiffusionPipeline")
     check_pipeline_type(pipeline_type)
-    pipeline = registry.get_pipeline(model_name)
+    pipeline = registry.get_pipeline(model_name, pipeline_type=pipeline_type)
     images, pipeline_config = pipeline.run(pipeline_type=pipeline_type, registry=registry,
                                            **kwargs)
 
     t0 = time.perf_counter()
-    pipeline_config["nsfw"] = False
-    pipeline_config["nsfw_checked"] = False
+    pipeline_config["nsfw"], pipeline_config["nsfw_checked"] = flag_images(
+        images, registry.safety_checker)
+    pipeline_config["timings"]["safety_s"] = round(time.perf_counter() - t0, 4)
+    t0 = time.perf_counter()
     processor = OutputProcessor(outputs, content_type)
     processor.add_outputs(images)
     results = processor.get_results()
@@ -161,8 +169,10 @@ def diffusion_batched_callback(device_identifier: str, requests: list[dict], *, 
     for i, ((images, pipeline_config), (content_type, outputs)) in enumerate(
             zip(results, envelopes)):
         t0 = time.perf_counter()
-        pipeline_config["nsfw"] = False
-        pipeline_config["nsfw_checked"] = False
+        pipeline_config["nsfw"], pipeline_config["nsfw_checked"] = flag_images(
+            images, registry.safety_checker)
+        pipeline_config["timings"]["safety_s"] = round(time.perf_counter() - t0, 4)
+        t0 = time.perf_counter()
         pipeline_config["batched_with"] = len(requests)
         if i in capped:
             pipeline_config["batch_capped"] = capped[i]

@@ -28,7 +28,12 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
    and an SDXL pix2pix one at 768^2 (3 CFG rows) and of an SDXL refiner
    UNet call at 1024^2 (GroupNorm at C = 384 to 3072), in bf16 and f32.
    Every bf16 attention call at D = 40, 64, 80, 160 or 512 must report the
-   tensor-core route, not the FMA kernel.
+   tensor-core route, not the FMA kernel. The upscale path's shapes
+   (`upscale_checks`): the safety checker's (B, 257, 16, 64), the K-UNet's
+   attention on the 2x latents of SD 1.5 and SDXL jobs, the upscaler
+   VAE's (1, 65536, 1, 512) (the plain version over query chunks, every
+   row against all keys) and GroupNorm up to (1, 2048, 2048, 256), in
+   bf16 and f32.
 4. Small-input reference: the tiny SDXL-shaped pipeline in f32 on the card
    (kernels) against the same weights and latents on the CPU (plain
    versions); the decoded uint8 images must agree within 2/255. At 64^2:
@@ -106,7 +111,7 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
    phase 7's bound, and evicting SDXL must free its adapter stacks (and
    the device memory of its weights, stacks, table and VAE). Then the
    batched path (`serve_batched_path`: coalesced SDXL and SD 1.5 passes,
-   each beside the same jobs served alone). Then the ControlNet path
+   each beside the same jobs served alone, at BATCHED_STEPS). Then the ControlNet path
    (`serve_controlnet_path`), in a registry of its own over a temporary
    root where three ControlNets are written from seeded tensors, every
    conv nonzero, at the published configs of
@@ -123,13 +128,26 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
    68 and 21 for SDXL); one bf16 ControlNet call of each model is held to
    phase 7's bound and profiled; evicting SDXL must free its ControlNet's
    device memory with it. No served bf16 attention may take the FMA
-   kernel.
+   kernel. Then the upscale and safety path (`serve_upscale_path`), in a
+   registry of its own over a temporary root where the SD-x2 upscaler
+   and the safety checker are written from seeded tensors at their
+   published widths and layouts: the checker called once directly (its
+   bf16 concept scores within SCORE_TOL of the f32 plain path's), then
+   SD 1.5 512^2 and SDXL 1024^2 txt2img plain and with `upscale`, a
+   standalone StableDiffusionLatentUpscalePipeline job and, once the
+   upscaler's folder is removed and the pipeline evicted, the
+   latent-resize fallback; every envelope `nsfw_checked`, 2x images,
+   launches held to the UNet calls, 20 K-UNet calls x 32 attention, the
+   upscaler's encode and decode and one checker call (24 attention); one
+   bf16 K-UNet call against f32 on the plain path, and the checker, the
+   K-UNet at both canvases and the 1024^2 and 2048^2 decodes profiled.
 6. Each kernel at every shape any path launched it with: again held
    against its plain version, and timed (CUDA events) beside its plain
    version and one PyTorch library call computing the same function, each
    also replayed from a CUDA graph (the device's own time, without the
    host's launch cost), the wrapper's host time per call (launched back
-   to back, unsynchronised), and its bound on the H100 (bytes over
+   to back, unsynchronised; both with fewer launches where one call is
+   long, to spend about 100 ms of device time each), and its bound on the H100 (bytes over
    3.35 TB/s or operations over the peak of their type, whichever is
    larger), with the achieved TFLOP/s and the share of the bound reached.
    A kernel's bound per job is the sum over its shapes of each shape's
@@ -151,7 +169,8 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
 The second-to-last lines are the `kernels` JSON object (per txt2img job,
 as before; `launches` over every served job; `by_job` per job of each
 kind) and the card's name and power limit; the last line is the
-`{"ok": true, ...}` object.
+`{"ok": true, ...}` object. Each phase's wall time is logged as it
+ends (`[time]` lines).
 `--detail PATH` also writes every measurement (per shape, per job, the
 profile) to PATH as JSON. `--group-norm-only` runs phases 1 and 2, then
 GroupNorm alone at the shapes of one UNet call and one VAE decode (its
@@ -197,6 +216,10 @@ TINY_V = "test/tiny-sd-v"
 SD_CANVASES = ((SD15, 512), (SD21, 768))
 N_JOBS = 3
 STEPS = 30
+# the batched path's depth: each group is served twice (coalesced, then
+# job by job), so it runs at half the steps to keep the whole smoke near
+# its time budget; launches and rates are per job at this depth
+BATCHED_STEPS = 15
 SIZE = 1024
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and flop/s by type
@@ -267,18 +290,29 @@ def device_probe() -> str:
 
 # --- timing and bounds ---
 
-def time_ms(fn, min_total_ms: float = 30.0, max_iters: int = 50) -> float:
-    """Mean device time of fn() over repeated launches (CUDA events),
-    after one warm-up call."""
-    fn()
+# the device time that graph_ms and host_ms spend on one shape at most,
+# launches allowing: phase 6 times about 300 shapes, some of them calls of
+# tens of ms
+TIMING_BUDGET_MS = 100.0
+
+
+def _once_ms(fn) -> float:
+    """One call of fn() timed by CUDA events, after the caller's warm-up."""
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     fn()
     end.record()
     torch.cuda.synchronize()
-    once = max(start.elapsed_time(end), 1e-3)
-    iters = int(min(max_iters, max(3, min_total_ms / once)))
+    return max(start.elapsed_time(end), 1e-3)
+
+
+def time_ms(fn, min_total_ms: float = 30.0, max_iters: int = 50) -> float:
+    """Mean device time of fn() over repeated launches (CUDA events),
+    after one warm-up call."""
+    fn()
+    iters = int(min(max_iters, max(3, min_total_ms / _once_ms(fn))))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
         fn()
@@ -288,15 +322,21 @@ def time_ms(fn, min_total_ms: float = 30.0, max_iters: int = 50) -> float:
 
 
 def graph_ms(fn, launches: int = 20, replays: int = 5) -> float:
-    """Mean device time of fn() captured `launches` times in a CUDA graph
-    and replayed: the kernel's own time, without the host's cost of
-    launching it (which time_ms includes when a launch is shorter than the
-    host's work per call)."""
+    """Mean device time of fn() captured up to `launches` times in a CUDA
+    graph and replayed up to `replays` times: the kernel's own time,
+    without the host's cost of launching it (which time_ms includes when a
+    launch is shorter than the host's work per call). A call that takes
+    longer than TIMING_BUDGET_MS / (launches * replays) is captured and
+    replayed fewer times, at least once: its launch cost is lost in its
+    length."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
+    once = _once_ms(fn)
+    launches = max(1, min(launches, int(TIMING_BUDGET_MS / replays / once)))
+    replays = max(1, min(replays, int(TIMING_BUDGET_MS / launches / once)))
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(launches):
@@ -315,8 +355,11 @@ def graph_ms(fn, launches: int = 20, replays: int = 5) -> float:
 def host_ms(fn, calls: int = 200) -> float:
     """Mean host time of one call of fn, launched back to back with no
     synchronisation (fewer calls than the launch queue holds, so the host
-    never waits for the card): the wrapper's own cost per call."""
+    never waits for the card): the wrapper's own cost per call. A call
+    that keeps the card busy longer than TIMING_BUDGET_MS / calls is
+    launched fewer times, at least 10."""
     fn()
+    calls = max(10, min(calls, int(TIMING_BUDGET_MS / _once_ms(fn))))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(calls):
@@ -364,12 +407,21 @@ def rms(t) -> float:
 
 
 def plain_attention(q, k, v):
-    """The plain version over chunks of the batch whose f32 logits stay
-    under 2 GiB (a coalesced pass's batch would need tens of GiB at once);
-    attention is independent per batch row, so the result is the same."""
+    """The plain version over chunks whose f32 logits stay under 2 GiB: of
+    the batch (a coalesced pass's batch would need tens of GiB at once)
+    and, where one batch row is past that (the 2048^2 decode's 65536
+    tokens: 16 GiB), of its queries, each chunk against all keys;
+    attention is independent per batch row and per query, so the result
+    is the same."""
     from chiaswarm_tpu_torch.ops.flash_attention import reference_attention
 
-    rows = max(1, (1 << 31) // (4 * q.shape[1] * q.shape[2] * k.shape[1]))
+    limit = 1 << 31
+    per_query = 4 * q.shape[2] * k.shape[1]
+    if per_query * q.shape[1] > limit:
+        step = max(1, limit // per_query)
+        return torch.cat([plain_attention(q[:, i:i + step], k, v)
+                          for i in range(0, q.shape[1], step)], dim=1)
+    rows = max(1, limit // (per_query * q.shape[1]))
     if rows >= q.shape[0]:
         return reference_attention(q, k, v)
     return torch.cat([reference_attention(q[i:i + rows], k[i:i + rows], v[i:i + rows])
@@ -487,9 +539,10 @@ def gn_case(x_shape, dtype, silu: bool, gen, timed: bool, eps: float = 1e-5,
     for i in range(0, x_shape[0], rows):
         ref = reference_group_norm(x[i:i + rows].to(wide), scale.to(wide), bias.to(wide), 32,
                                    eps, silu)
-        diff = (out[i:i + rows].to(wide) - ref).abs()
+        # in place: a 2048^2 VAE row is 4 GiB in f32 for each temporary
+        diff = out[i:i + rows].to(wide).sub_(ref).abs_()
         err = max(err, diff.max().item())
-        excess = max(excess, (diff - (atol + rtol * ref.abs())).max().item())
+        excess = max(excess, diff.sub_(ref.abs_().mul_(rtol).add_(atol)).max().item())
         del diff, ref
     row = {"x": list(x_shape), "dtype": str(dtype)[6:], "silu": silu, "eps": eps,
            "max_abs_err": err, "bound": f"{atol:g} + {rtol:.4g} |y|",
@@ -871,8 +924,14 @@ class Resident:
     def __init__(self, pipelines: dict):
         self.pipelines = pipelines
 
-    def get_pipeline(self, model_name: str, allow_random_init: bool = False):
+    def get_pipeline(self, model_name: str, allow_random_init: bool = False,
+                     pipeline_type: str | None = None):
         return self.pipelines[model_name]
+
+    def safety_checker(self):
+        from chiaswarm_tpu_torch.pipelines.safety import get_checker
+
+        return get_checker("", None, None)  # none: the envelopes say nsfw_checked false
 
 
 def write_checkpoint(pipe, model_dir: Path, dtype=None, legacy: bool = False) -> int:
@@ -1572,7 +1631,9 @@ def _snapshot(counters: dict) -> dict:
 
 def serve_counted(smi: str, registry, jobs: list, per_call: dict, device: str = "cuda",
                   tag: str = "image", where: str = "image path",
-                  hold: bool = True, cn_per_call: dict | None = None) -> tuple[dict, dict]:
+                  hold: bool = True, cn_per_call: dict | None = None,
+                  k_unet_per_call: dict | None = None,
+                  checker_per_call: dict | None = None) -> tuple[dict, dict]:
     """Serve `jobs` [(kind, mode, job)] one at a time through the worker;
     a job's `start_image_uri` / `mask_image_uri` of "start" / "mask", and
     its ControlNet's `control_image_uri` of "photo" / "qr", is replaced by
@@ -1585,7 +1646,14 @@ def serve_counted(smi: str, registry, jobs: list, per_call: dict, device: str = 
     job its branch calls (the loop indices from t_start in the guidance
     window, none at scale 0) x `cn_per_call`[the ControlNet], and for the
     QR chain its first stage's UNet calls and decode and the second
-    stage's encode. No bf16 attention may take the FMA kernel -> ({kind:
+    stage's encode. A job with `upscale` (and the standalone upscale job,
+    mode "upscale", whose model has no UNet calls) adds its upscaler's
+    K-UNet calls (UPSCALE_STEPS, or the standalone job's steps) x
+    `k_unet_per_call`, an encode and a decode; where the envelope says
+    `latent-resize-fallback`, an encode and a decode alone. A job whose
+    envelope says `nsfw_checked` adds one checker call, `checker_per_call`.
+    Upscaled images are twice the job's size. No bf16 attention may take
+    the FMA kernel -> ({kind:
     (1, {kernel: (launches, {shape: launches})})}, served), served["jobs"]
     with each image's sha256. With `hold` false the caller holds the
     launches itself (`hold_launches`)."""
@@ -1661,17 +1729,31 @@ def serve_counted(smi: str, registry, jobs: list, per_call: dict, device: str = 
         image = decode_artifact(r["artifacts"]["primary"])
         cfg, t = r["pipeline_config"], r["pipeline_config"]["timings"]
         size = job["height"]
+        standalone = mode == "upscale"
+        upscale = bool(job.get("parameters", {}).get("upscale")) or standalone
+        out = 2 * size if upscale else size
         check(cfg["mode"] == mode, f"{job['id']}: mode {cfg['mode']}, not {mode}")
-        check(image.shape == (size, size, 3), f"{job['id']}: image {image.shape}")
+        check(image.shape == (out, out, 3), f"{job['id']}: image {image.shape}")
         check(int(image.max()) != int(image.min()), f"{job['id']}: constant image")
         check(cfg["latents"]["finite"], f"{job['id']}: non-finite latents")
         steps = job["num_inference_steps"]
-        unet_calls = steps - cfg.get("t_start", 0)
+        unet_calls = 0 if standalone else steps - cfg.get("t_start", 0)
         counted = {name: launches for name, (launches, _) in paths[kind][1].items()}
         encodes = int("start_image_uri" in job)
-        predicted = {name: unet_calls * per_call[job["model_name"]][name]
+        predicted = {name: unet_calls * per_call.get(job["model_name"], {}).get(name, 0)
                      + encodes * ENCODE_LAUNCHES[name] + DECODE_LAUNCHES[name]
                      for name in counted}
+        k_unet_calls = 0
+        if upscale:
+            fallback = cfg.get("upscaler") == "latent-resize-fallback"
+            k_unet_calls = 0 if fallback else steps if standalone else UPSCALE_STEPS
+            for name in predicted:
+                predicted[name] += (k_unet_calls * (k_unet_per_call or {}).get(name, 0)
+                                    + (0 if standalone else ENCODE_LAUNCHES[name]
+                                       + DECODE_LAUNCHES[name]))
+        if cfg.get("nsfw_checked"):
+            for name in predicted:
+                predicted[name] += (checker_per_call or {}).get(name, 0)
         refiner = job.get("parameters", {}).get("refiner")
         refiner_calls = 0
         if refiner:
@@ -1709,7 +1791,13 @@ def serve_counted(smi: str, registry, jobs: list, per_call: dict, device: str = 
                 predicted[name] += branch_calls * cn_per_call[cn_name][name]
         rows = 3 if mode == "pix2pix" else 2
         served["jobs"][job["id"]] = {"kind": kind, "mode": cfg["mode"], "model": cfg["model"],
-                                     "size": size, "timings": t, "latents": cfg["latents"],
+                                     "size": size, "output": out, "timings": t,
+                                     "latents": cfg["latents"],
+                                     "nsfw": cfg.get("nsfw"),
+                                     "nsfw_checked": cfg.get("nsfw_checked"),
+                                     "upscaler": cfg.get("upscaler"),
+                                     "output_size": cfg.get("output_size"),
+                                     "k_unet_calls": k_unet_calls,
                                      "weights": cfg["weights"], "unet_calls": unet_calls,
                                      "refiner_unet_calls": refiner_calls,
                                      "controlnet_calls": branch_calls,
@@ -1721,11 +1809,20 @@ def serve_counted(smi: str, registry, jobs: list, per_call: dict, device: str = 
                                                  if k in cfg},
                                      "pixels_sha256": hashlib.sha256(image.tobytes()).hexdigest()}
         log(f"[{tag}] {job['id']} ({cfg['mode']}, {cfg['scheduler']}, {cfg['model']}, "
-            f"{size}^2, weights {cfg['weights']}) on {smi}: job {t['job_s']:.3f}s = text_encode "
-            f"{t['text_encode_s']:.3f}s"
+            f"{size}^2" + (f" -> {out}^2" if upscale else "") + f", weights {cfg['weights']}) "
+            f"on {smi}: job {t['job_s']:.3f}s = text_encode {t['text_encode_s']:.3f}s"
             + (f" + image_encode {t['image_encode_s']:.3f}s" if "image_encode_s" in t else "")
-            + f" + denoise {t['denoise_s']:.3f}s ({unet_calls} UNet calls, step "
-            f"{t['unet_step_ms']:.1f} ms at CFG batch {rows}) + decode {t['decode_s']:.3f}s"
+            + (f" + denoise {t['denoise_s']:.3f}s ({steps} K-UNet calls, step "
+               f"{t['step_ms']:.1f} ms)" if standalone else
+               f" + denoise {t['denoise_s']:.3f}s ({unet_calls} UNet calls, step "
+               f"{t['unet_step_ms']:.1f} ms at CFG batch {rows})")
+            + f" + decode {t['decode_s']:.3f}s"
+            + (f" + upscale {t['upscale_s']:.3f}s ({k_unet_calls} K-UNet calls"
+               + (f", step {t['upscale_step_ms']:.1f} ms" if "upscale_step_ms" in t else "")
+               + (", latent-resize fallback" if cfg.get("upscaler") else "") + ")"
+               if "upscale_s" in t else "")
+            + (f" + safety check {t['safety_s']:.3f}s (nsfw {cfg['nsfw']})"
+               if cfg.get("nsfw_checked") else "")
             + (f" + refiner {t['refiner_s']:.3f}s ({refiner_calls} UNet calls)"
                if refiner else "")
             + (f" + first stage {t['prepipeline_s']:.3f}s ({stage1_calls} UNet calls)"
@@ -1735,8 +1832,12 @@ def serve_counted(smi: str, registry, jobs: list, per_call: dict, device: str = 
             f"mean {float(image.mean()):.1f}")
         log(f"[{tag}] {job['id']} kernel launches: counted {json.dumps(counted)}, predicted "
             f"{json.dumps(predicted)} ({unet_calls} UNet calls x "
-            f"{json.dumps(per_call[job['model_name']])}"
+            f"{json.dumps(per_call.get(job['model_name'], {}))}"
             + (" + one encode" if encodes else "") + " + one decode"
+            + (f" + {k_unet_calls} K-UNet calls x {json.dumps(k_unet_per_call)}"
+               + ("" if standalone else " + one encode + one decode") if upscale else "")
+            + (f" + one checker call {json.dumps(checker_per_call)}"
+               if cfg.get("nsfw_checked") else "")
             + (f" + {refiner_calls} refiner UNet calls x "
                f"{json.dumps(per_call[refiner['model_name']])} + one encode + one decode"
                if refiner else "")
@@ -2425,11 +2526,11 @@ def check_group(name: str, jobs: list, results: dict, launches: dict, wall: floa
 
 def serve_batched_path(smi: str, xl_launches: dict, device: str = "cuda", sdxl: str = SDXL,
                        sd15: str = SD15, size_xl: int = SIZE, size15: int = 512,
-                       steps: int = STEPS, big_jobs: int = 8, big_images: int = 8,
+                       steps: int = BATCHED_STEPS, big_jobs: int = 8, big_images: int = 8,
                        hold: bool = True) -> tuple[dict, dict]:
     """Phase 5, the batched path: coalesced groups served through the fake
     hive and the worker (every job queued before the first poll), in
-    registries of their own on seeded random weights, 30 steps, DPM++ 2M
+    registries of their own on seeded random weights, `steps` steps, DPM++ 2M
     unless named, each group checked (`check_group`) and then served again
     with each job alone, for the images per second and step time of both.
     SDXL 1024^2: four txt2img jobs (one pass of 4 rows); three with counts
@@ -2864,6 +2965,448 @@ def serve_controlnet_path(smi: str, xl_launches: dict, device: str = "cuda",
         shutil.rmtree(root, ignore_errors=True)
 
 
+# --- the upscale and safety path (phase 3 checks, phase 5 serving) ---
+
+UPSCALER = "stabilityai/sd-x2-latent-upscaler"
+CHECKER = "CompVis/stable-diffusion-safety-checker"
+# the chained upscale's steps (the pipeline's default, as in JAX)
+UPSCALE_STEPS = 20
+# kernel launches of one K-UNet call (4 cross-attention blocks at each of
+# the three attention levels on the way down and up, the deepest level's
+# with a self-attention too; its AdaGroupNorm is no GroupNorm kernel) and
+# of one checker call (24 ViT layers, any number of images)
+K_UNET_LAUNCHES = {"flash_attention": 32, "group_norm": 0}
+CHECKER_LAUNCHES = {"flash_attention": 24, "group_norm": 0}
+
+
+def k_unet_attention_shapes(side: int, rows: int = 1) -> Counter:
+    """{(q shape, kv shape, dtype): launches} of one bf16 K-UNet call on
+    `side`^2 latents (twice the job's) at the published config
+    (KUpscalerConfig): one cross-attention a layer where the level has
+    cross-attention, with a self-attention too where the config says;
+    on the way up each level's last block has the next lower level's
+    width, as its resnet narrows. 77 context tokens."""
+    from chiaswarm_tpu_torch.models.k_upscaler import KUpscalerConfig
+
+    cfg = KUpscalerConfig()
+    widths, layers, d = cfg.block_out_channels, cfg.layers_per_block, cfg.attention_head_dim
+    shapes = Counter()
+
+    def add(level, width, self_attention, count):
+        q = (rows, (side >> level) ** 2, width // d, d)
+        shapes[(q, (rows, 77, width // d, d), torch.bfloat16)] += count
+        if self_attention:
+            shapes[(q, q, torch.bfloat16)] += count
+
+    for i in range(len(widths)):
+        if cfg.cross_attention[i]:
+            add(i, widths[i], cfg.down_self_attention[i], layers)
+    for lvl in range(len(widths)):
+        i = len(widths) - 1 - lvl
+        if cfg.cross_attention[i]:
+            add(i, widths[i], cfg.up_self_attention[lvl], layers - 1)
+            add(i, widths[max(i - 1, 0)], cfg.up_self_attention[lvl], 1)
+    return shapes
+
+
+def vae_norms(size: int, decode: bool) -> list:
+    """Every distinct GroupNorm call (x, silu, eps) of one SD VAE decode to
+    (or encode from) a `size`^2 image, batch 1: the mid block's resnets and
+    attention norm, each up (down) block's resnets, the output norm."""
+    s = size // 8
+    if decode:
+        shapes = [(s, 512), (2 * s, 512), (4 * s, 512), (4 * s, 256), (8 * s, 256),
+                  (8 * s, 128)]
+    else:
+        shapes = [(8 * s, 128), (4 * s, 128), (4 * s, 256), (2 * s, 256), (2 * s, 512),
+                  (s, 512)]
+    return [((1, n, n, c), True, 1e-6) for n, c in shapes] + [((1, s, s, 512), False, 1e-6)]
+
+
+def upscale_checks(gen) -> None:
+    """Phase 3 at the shapes of the upscale and safety path, in bf16 and
+    f32: the checker's self-attention (B, 257, 16, 64) for one and two
+    images (257 rows: ragged in both Q and KV tiles); the K-UNet's
+    attention on the 2x latents of an SD 1.5 512^2 job (128^2) and of an
+    SDXL 1024^2 job (256^2); the upscaler VAE's mid-block attention at
+    4096, 16384 and 65536 tokens (the 2048^2 decode), compared over query
+    chunks of the plain version, every row against all keys; and every
+    GroupNorm call of its encode from 512^2 and 1024^2 and its decode to
+    1024^2 and 2048^2 (up to [1, 2048, 2048, 256], 2^31 bytes in bf16).
+    Each bf16 attention call must report the tensor-core route."""
+    attention = Counter({((b, 257, 16, 64), (b, 257, 16, 64), torch.bfloat16): 1
+                         for b in (1, 2)})
+    attention.update(k_unet_attention_shapes(128))
+    attention.update(k_unet_attention_shapes(256))
+    for tokens in (4096, 16384, 65536):
+        q = (1, tokens, 1, 512)
+        attention[(q, q, torch.bfloat16)] += 1
+    for q_shape, k_shape, _ in attention:
+        for dtype in (torch.bfloat16, torch.float32):
+            row = attention_case(q_shape, k_shape, dtype, gen, timed=False)
+            log(f"[check] flash_attention q{q_shape} kv{k_shape} {row['dtype']} route "
+                f"{row['route']} (upscale path): max_abs_err {row['max_abs_err']:.3g}"
+                + (f", RMS err {row['rms_err']:.3g}" if "rms_err" in row else "")
+                + f" (bound {row['bound']})")
+    norms = {}
+    for size, decode in ((512, False), (1024, False), (1024, True), (2048, True)):
+        norms.update(dict.fromkeys(vae_norms(size, decode)))
+    for x_shape, silu, eps in norms:
+        for dtype in (torch.bfloat16, torch.float32):
+            row = gn_case(x_shape, dtype, silu, gen, timed=False, eps=eps)
+            log(f"[check] group_norm x{x_shape} {row['dtype']} silu={silu} eps {eps:g} "
+                f"(upscale path): max_abs_err {row['max_abs_err']:.3g} (bound {row['bound']})"
+                + (f", on chip: {row['on_chip']}" if "on_chip" in row else ""))
+            torch.cuda.empty_cache()
+
+
+def write_upscaler(pipe, repo: Path, scheduler: dict | None = None, dtype=None) -> int:
+    """A LatentUpscalePipeline's weights as diffusers-layout safetensors
+    under `repo` (unet/, text_encoder/, vae/, each with the config.json
+    whose fields the loader reads; fp16 unless `dtype`), and
+    `scheduler/scheduler_config.json` when given. -> bytes."""
+    from safetensors.torch import save_file
+
+    clip = pipe.text_encoder.config
+    parts = {"unet": (pipe.unet, {"attention_head_dim": pipe.unet.config.attention_head_dim,
+                                  "resnet_group_size": pipe.unet.config.resnet_group_size}),
+             "text_encoder": (pipe.text_encoder, {
+                 "vocab_size": clip.vocab_size, "hidden_size": clip.hidden_size,
+                 "num_hidden_layers": clip.num_layers, "num_attention_heads": clip.num_heads,
+                 "hidden_act": clip.hidden_act}),
+             "vae": (pipe.vae, {"scaling_factor": pipe.vae.config.scaling_factor})}
+    nbytes = 0
+    for sub, (module, config) in parts.items():
+        (repo / sub).mkdir(parents=True, exist_ok=True)
+        state = {k: v.detach().to("cpu", dtype or torch.float16).contiguous()
+                 for k, v in module.state_dict().items()}
+        path = repo / sub / ("model.safetensors" if sub == "text_encoder"
+                             else "diffusion_pytorch_model.safetensors")
+        save_file(state, str(path))
+        (repo / sub / "config.json").write_text(json.dumps(config))
+        nbytes += path.stat().st_size
+    if scheduler is not None:
+        (repo / "scheduler").mkdir(parents=True, exist_ok=True)
+        (repo / "scheduler" / "scheduler_config.json").write_text(json.dumps(scheduler))
+    return nbytes
+
+
+def write_checker(model_dir: Path, config, seed: int, device) -> int:
+    """A safety checker of `config` with seeded weights (the concept and
+    special-care embeddings N(0, 1), thresholds 0.5) as fp16 safetensors in
+    the published layout, `position_ids` included, under `model_dir`.
+    -> bytes."""
+    from safetensors.torch import save_file
+
+    from chiaswarm_tpu_torch.models.safety import SafetyChecker
+    from chiaswarm_tpu_torch.pipelines.safety import init_random_
+
+    with torch.device("meta"):
+        model = SafetyChecker(config)
+    model = model.to_empty(device=device).float()
+    init_random_(model, torch.Generator(device=device).manual_seed(seed))
+    state = {k: v.detach().to("cpu", torch.float16).contiguous()
+             for k, v in model.state_dict().items()}
+    positions = (config.image_size // config.patch_size) ** 2 + 1
+    state["vision_model.vision_model.embeddings.position_ids"] = torch.arange(positions)[None]
+    del model
+    model_dir.mkdir(parents=True, exist_ok=True)
+    path = model_dir / "model.safetensors"
+    save_file(state, str(path))
+    return path.stat().st_size
+
+
+# the sd-x2-latent-upscaler's scheduler config as published
+UPSCALER_SCHEDULER = {"_class_name": "EulerDiscreteScheduler", "beta_end": 0.012,
+                      "beta_schedule": "scaled_linear", "beta_start": 0.00085,
+                      "num_train_timesteps": 1000, "prediction_type": "sample",
+                      "steps_offset": 1}
+
+
+def serve_upscale_path(smi: str, xl_launches: dict, device: str = "cuda", sdxl: str = SDXL,
+                       sd15: str = SD15, size_xl: int = SIZE, size15: int = 512,
+                       steps: int = STEPS, up_steps: int = UPSCALE_STEPS, hold: bool = True,
+                       seed_upscaler: str = UPSCALER, checker: str = CHECKER,
+                       fillers=("test/tiny-sd", "test/tiny-xl")) -> tuple[dict, dict]:
+    """Phase 5, the upscale and safety path: a registry of its own over a
+    temporary root, where the SD-x2 upscaler (`seed_upscaler`'s
+    pipeline on seeded weights, at the published widths unless a test name
+    is given) is written under UPSCALER and the safety checker `checker`
+    (ViT-L/14 unless a test name) from seeded tensors, both in their
+    published layouts, and read back by the registry; SDXL and SD 1.5 on
+    seeded random weights. The checker is called once directly (any
+    exception fails the run), its concept scores through the kernels in
+    bf16 against the plain path in f32. Then through the worker, each
+    job's launches held to its UNet calls, its upscaler's K-UNet calls x
+    K_UNET_LAUNCHES with one encode and one decode, and one checker call:
+    SD 1.5 `size15`^2 txt2img plain and with `upscale` (2x out), SDXL
+    `size_xl`^2 the same, a standalone StableDiffusionLatentUpscalePipeline
+    job on a served `size15`^2 start image; every envelope must say
+    `nsfw_checked: true` and none `latent-resize-fallback`. Then the
+    upscaler's folder is removed, `fillers` evict it, and one more SD 1.5
+    upscale job must be served 2x through the latent-resize fallback and
+    say so. Before that, one bf16 K-UNet call through the kernels against
+    f32 on the plain path (phase 7's bound), and torch.profiler over a
+    checker call, a K-UNet call at both canvases and the upscaler's decode
+    to `size_xl` and to twice it. `hold` false only prints the launches
+    (the CPU rehearsal)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from chiaswarm_tpu_torch.models.safety import TINY_SAFETY, SafetyConfig
+    from chiaswarm_tpu_torch.pipelines.upscale import LatentUpscalePipeline
+    from chiaswarm_tpu_torch.registry import Registry
+    from chiaswarm_tpu_torch.weights import is_test_model
+
+    on_card = torch.device(device).type == "cuda"
+    pipeline_type = "StableDiffusionLatentUpscalePipeline"
+    root = Path(tempfile.mkdtemp(prefix="chip-smoke-upscale-"))
+    try:
+        registry = Registry(torch.device(device), str(root), safety_checker_model=checker)
+        t0 = time.perf_counter()
+        pipes = {m: registry.get_pipeline(m, allow_random_init=True) for m in (sdxl, sd15)}
+        log(f"[upscale] {sdxl} and {sd15} resident in a registry of their own in "
+            f"{time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        seeded = LatentUpscalePipeline(seed_upscaler, device=device, allow_random_init=True)
+        files = {"upscaler_bytes": write_upscaler(seeded, root / UPSCALER, UPSCALER_SCHEDULER),
+                 "upscaler_write_s": time.perf_counter() - t0}
+        del seeded
+        gc.collect()
+        t0 = time.perf_counter()
+        files["checker_bytes"] = write_checker(
+            root / checker, TINY_SAFETY if is_test_model(checker) else SafetyConfig(), 71,
+            device)
+        files["checker_write_s"] = time.perf_counter() - t0
+        upscaler = registry.get_pipeline(UPSCALER, pipeline_type=pipeline_type)
+        check(upscaler.weights_source == "checkpoint",
+              f"{UPSCALER}: weights {upscaler.weights_source}")
+        files["upscaler_load"] = upscaler.checkpoint
+        t0 = time.perf_counter()
+        nsfw = registry.safety_checker()
+        files["checker_load_s"] = time.perf_counter() - t0
+        check(nsfw.available and nsfw.weights_source == "checkpoint",
+              f"{checker} did not load from its checkpoint")
+        log(f"[upscale] {UPSCALER} written in {files['upscaler_write_s']:.2f}s "
+            f"({files['upscaler_bytes']} bytes of fp16 safetensors) and loaded in "
+            f"{upscaler.checkpoint['load_s']:.2f}s (K-UNet widths "
+            f"{upscaler.unet.config.block_out_channels}); {checker} written in "
+            f"{files['checker_write_s']:.2f}s ({files['checker_bytes']} bytes), loaded in "
+            f"{files['checker_load_s']:.2f}s; "
+            f"{torch.cuda.memory_allocated() / 2**30 if on_card else 0:.1f} GiB allocated")
+
+        # the checker called directly, outside flag_images (which swallows
+        # every exception by design): it must run, on the card's kernels
+        images = [start_image(size15), photo_image(size15)]
+        scores, flags = nsfw.scores(images)
+        served = {"files": files, "checker_direct": {"flags": flags,
+                                                     "scores": scores.tolist()}}
+        if on_card:
+            served["checker_e2e"] = checker_bf16_check(nsfw, images)
+        log(f"[upscale] the checker on two images: flags {flags}, concept scores "
+            f"{np.round(scores, 4).tolist()}")
+
+        common = {"negative_prompt": "blurry", "num_inference_steps": steps,
+                  "guidance_scale": 7.0, "content_type": "image/png",
+                  "prompt": "a lighthouse on a cliff at dusk"}
+
+        def txt(job_id, model, size, seed, **params):
+            return {**common, "id": job_id, "workflow": "txt2img", "model_name": model,
+                    "height": size, "width": size, "seed": seed,
+                    "parameters": {"scheduler_type": "DPMSolverMultistepScheduler", **params}}
+
+        jobs = [
+            ("up_sd15_plain", "txt2img", txt("up-sd15-plain", sd15, size15, 7000)),
+            ("up_sd15", "txt2img", txt("up-sd15", sd15, size15, 7001, upscale=True)),
+            ("up_sdxl_plain", "txt2img", txt("up-sdxl-plain", sdxl, size_xl, 7002)),
+            ("up_sdxl", "txt2img", txt("up-sdxl", sdxl, size_xl, 7003, upscale=True)),
+            ("up_standalone", "upscale", {
+                **common, "id": "up-standalone", "workflow": "img2img", "model_name": UPSCALER,
+                "height": size15, "width": size15, "seed": 7004, "start_image_uri": "photo",
+                "num_inference_steps": up_steps, "parameters": {"pipeline_type": pipeline_type}}),
+        ]
+        per_call = {sd15: SD_UNET_LAUNCHES, sdxl: xl_launches}
+        paths, got = serve_counted(smi, registry, jobs, per_call, device, tag="upscale",
+                                   where="upscale path", hold=False,
+                                   k_unet_per_call=K_UNET_LAUNCHES,
+                                   checker_per_call=CHECKER_LAUNCHES)
+        for job_id, job in got["jobs"].items():
+            check(job["nsfw_checked"] is True, f"{job_id}: nsfw_checked {job['nsfw_checked']}")
+            check(job["upscaler"] is None, f"{job_id}: upscaler {job['upscaler']}")
+        check(got["jobs"]["up-sdxl"]["output_size"] == [2 * size_xl] * 2,
+              f"up-sdxl: output_size {got['jobs']['up-sdxl']['output_size']}")
+
+        # one K-UNet call, the checker and the decodes: numerics and time
+        if on_card:
+            served["e2e"] = k_unet_bf16_check(upscaler, size15)
+        served["profile"] = profile_upscale(upscaler, nsfw, images, size15, size_xl, smi,
+                                            on_card)
+
+        # the weightless upscaler: its folder removed and the pipeline
+        # evicted, a job falls back to the latent resize, and says so
+        shutil.rmtree(root / UPSCALER)
+        del upscaler
+        for model in (sd15, sdxl, *fillers):
+            registry.get_pipeline(model)
+        check(UPSCALER not in registry.resident_models(),
+              f"{UPSCALER} still resident: {registry.resident_models()}")
+        fallback_paths, fallback = serve_counted(
+            smi, registry, [("up_fallback", "txt2img", txt("up-fallback", sd15, size15, 7005,
+                                                           upscale=True))],
+            per_call, device, tag="upscale", where="upscale path", hold=False,
+            k_unet_per_call=K_UNET_LAUNCHES, checker_per_call=CHECKER_LAUNCHES)
+        job = fallback["jobs"]["up-fallback"]
+        check(job["upscaler"] == "latent-resize-fallback" and job["output"] == 2 * size15,
+              f"up-fallback: upscaler {job['upscaler']}, output {job['output']}")
+        check(job["nsfw_checked"] is True, "up-fallback: not checked")
+        paths.update(fallback_paths)
+        got["jobs"].update(fallback["jobs"])
+        got["fma_bf16"].update(fallback["fma_bf16"])
+        if hold:
+            hold_launches(got, "upscale path")
+        else:
+            for job_id, job in got["jobs"].items():
+                log(f"[upscale] {job_id}: launches {job['launches']}, predicted "
+                    f"{job['predicted_launches']} (not held)")
+        served.update(got)
+        del pipes, nsfw, registry
+        gc.collect()
+        return paths, served
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def k_unet_inputs(pipe, size: int, dtype=None, seed: int = 5):
+    """(x, t, context, timestep condition) of one K-UNet call on the 2x
+    latents of a `size`^2 job: 8 channels, the timestep of a mid sigma."""
+    from chiaswarm_tpu_torch.pipelines.upscale import _timestep_condition
+
+    dtype = dtype or pipe.dtype
+    gen = torch.Generator(device=pipe.device).manual_seed(seed)
+    cfg = pipe.unet.config
+    side = 2 * size // pipe.latent_factor
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=pipe.device).to(dtype)
+
+    x = randn(1, cfg.in_channels, side, side).contiguous(memory_format=torch.channels_last)
+    cond = _timestep_condition(cfg.time_cond_proj_dim,
+                               randn(1, pipe.text_encoder.config.hidden_size))
+    return x, torch.full((1,), 0.5, device=pipe.device), randn(1, 77, cfg.cross_attention_dim), cond
+
+
+def k_unet_bf16_check(pipe, size: int) -> dict:
+    """One bf16 K-UNet call on the 2x latents of a `size`^2 job through the
+    kernels, against the same weights in f32 on the plain path: the
+    relative RMS error at most E2E_RATIO x the plain path's in bf16."""
+    import copy
+
+    x, t, ctx, cond = k_unet_inputs(pipe, size)
+    with torch.inference_mode():
+        kernels = pipe.unet(x, t, ctx, cond).float()
+        with plain_path():
+            plain = pipe.unet(x, t, ctx, cond).float()
+            wide = copy.deepcopy(pipe.unet).float()
+            exact = wide(x.float(), t, ctx.float(), cond.float())
+            del wide
+        torch.cuda.synchronize()
+    scale = rms(exact)
+    row = {"rel_rms_err": rms(kernels - exact) / scale,
+           "plain_bf16_rel_rms_err": rms(plain - exact) / scale,
+           "finite": bool(torch.isfinite(kernels).all())}
+    log(f"[e2e] {pipe.model_name} K-UNet call on {2 * size // pipe.latent_factor}^2 latents, "
+        f"bf16 through the kernels vs f32 plain path: relative RMS err "
+        f"{row['rel_rms_err']:.4g}; plain path in bf16: {row['plain_bf16_rel_rms_err']:.4g} "
+        f"(bound {E2E_RATIO}x that)")
+    check(row["finite"], "K-UNet: non-finite output through the kernels")
+    check(row["rel_rms_err"] <= E2E_RATIO * row["plain_bf16_rel_rms_err"],
+          f"K-UNet: bf16 kernel path error {row['rel_rms_err']} > {E2E_RATIO} x the plain "
+          f"bf16 path's {row['plain_bf16_rel_rms_err']}")
+    return row
+
+
+# the checker's concept scores through the kernels (bf16) against the
+# plain path in f32: cosines less thresholds, each within this many
+# units (the bf16 tower's embeddings carry about 2^-8 relative error)
+SCORE_TOL = 0.02
+
+
+def checker_bf16_check(checker, images) -> dict:
+    """The checker's concept scores and its tower's embeddings in bf16
+    through the kernels against the same weights in f32 on the plain path:
+    the embeddings' relative RMS error at most E2E_RATIO x the plain
+    path's in bf16, every score within SCORE_TOL, and the same flags
+    wherever a score is farther than SCORE_TOL from its threshold."""
+    import copy
+
+    from chiaswarm_tpu_torch.models.safety import CLIPVisionEncoder
+
+    px = checker.pixels(images)
+    model = checker.model
+    with torch.inference_mode():
+        kernels = model(px)
+        embed = CLIPVisionEncoder.forward(model, px).float()
+        with plain_path():
+            plain = CLIPVisionEncoder.forward(model, px).float()
+            wide = copy.deepcopy(model).float()
+            exact_scores = wide(px.float())
+            exact = CLIPVisionEncoder.forward(wide, px.float())
+            del wide
+        torch.cuda.synchronize()
+    scale = rms(exact)
+    err = (kernels[0] - exact_scores[0]).abs().max().item()
+    sure = (exact_scores[0].abs() > SCORE_TOL).all(dim=-1)
+    row = {"embed_rel_rms_err": rms(embed - exact) / scale,
+           "plain_bf16_embed_rel_rms_err": rms(plain - exact) / scale,
+           "score_max_abs_err": err,
+           "flags": kernels[1].tolist(), "f32_flags": exact_scores[1].tolist()}
+    log(f"[e2e] safety checker on {len(images)} images, bf16 through the kernels vs f32 "
+        f"plain path: embeddings relative RMS err {row['embed_rel_rms_err']:.4g} (plain bf16 "
+        f"{row['plain_bf16_embed_rel_rms_err']:.4g}, bound {E2E_RATIO}x that); concept scores "
+        f"max abs err {err:.4g} (bound {SCORE_TOL}); flags {row['flags']} (f32 "
+        f"{row['f32_flags']})")
+    check(row["embed_rel_rms_err"] <= E2E_RATIO * row["plain_bf16_embed_rel_rms_err"],
+          f"checker embeddings: bf16 kernel path error {row['embed_rel_rms_err']} > {E2E_RATIO}"
+          f" x the plain bf16 path's {row['plain_bf16_embed_rel_rms_err']}")
+    check(err <= SCORE_TOL, f"checker concept scores off by {err} > {SCORE_TOL}")
+    check(bool((kernels[1] == exact_scores[1])[sure].all()),
+          f"checker flags {row['flags']} against f32 {row['f32_flags']}")
+    return row
+
+
+def profile_upscale(upscaler, checker, images, size15: int, size_xl: int, smi: str,
+                    on_card: bool) -> dict:
+    """Phase 8 for the upscale path: one checker call (per image), a few
+    K-UNet calls on the 2x latents of a `size15`^2 and a `size_xl`^2 job,
+    and the upscaler VAE's decode to `size_xl`^2 and to twice it."""
+    px = checker.pixels(images[:1])
+    # part: (fn, calls, canvas, model)
+    fns = {"checker": (lambda: checker.model(px), 3, checker.config.image_size,
+                       checker.model_name)}
+    for size in (size15, size_xl):
+        x, t, ctx, cond = k_unet_inputs(upscaler, size)
+        fns[f"k_unet_{2 * size}"] = (lambda x=x, t=t, ctx=ctx, cond=cond:
+                                     upscaler.unet(x, t, ctx, cond), 3, 2 * size,
+                                     upscaler.model_name)
+    for out in (size_xl, 2 * size_xl):
+        z = torch.randn((1, upscaler.latent_channels, out // upscaler.latent_factor,
+                         out // upscaler.latent_factor), device=upscaler.device,
+                        generator=torch.Generator(device=upscaler.device).manual_seed(3))
+        z = z.to(upscaler.dtype).contiguous(memory_format=torch.channels_last)
+        fns[f"vae_decode_{out}"] = (lambda z=z: upscaler.vae.decode(z), 1, out,
+                                    upscaler.model_name)
+    profile = {}
+    for name, (fn, calls, canvas, model) in fns.items():
+        profile.update(profile_fns(model, canvas, 1, {name: (fn, calls)}, upscaler.device))
+    log_profile(profile, smi)
+    if on_card:
+        check_one_launch_per_call(profile)
+    return profile
+
+
 # --- phase 6 ---
 
 def measure(paths: dict, main: str = "txt2img") -> tuple[list[dict], dict]:
@@ -2982,22 +3525,27 @@ def unet_inputs(pipe, size: int = SIZE, dtype=None, seed: int = 2, rows: int = 2
 
 @contextmanager
 def plain_path():
-    """Route the UNet's and the VAE's attention and GroupNorm to the plain
+    """Route the attention of the UNet, the VAE, the K-UNet and the safety
+    checker, and the GroupNorm of the UNet and the VAE, to the plain
     PyTorch versions, on the card, for the duration."""
-    from chiaswarm_tpu_torch.models import layers, vae
+    from chiaswarm_tpu_torch.models import k_upscaler, layers, safety, vae
     from chiaswarm_tpu_torch.ops.flash_attention import reference_attention
     from chiaswarm_tpu_torch.ops.group_norm import reference_group_norm
 
     def plain_group_norm(x, scale, bias, *, groups=32, eps=1e-5, act=None):
         return reference_group_norm(x, scale, bias, groups, eps, act == "silu")
 
-    saved = layers.dot_product_attention, vae.dot_product_attention, layers.group_norm
-    layers.dot_product_attention = vae.dot_product_attention = reference_attention
+    attending = (layers, vae, k_upscaler, safety)
+    saved = [m.dot_product_attention for m in attending], layers.group_norm
+    for module in attending:
+        module.dot_product_attention = reference_attention
     layers.group_norm = plain_group_norm
     try:
         yield
     finally:
-        layers.dot_product_attention, vae.dot_product_attention, layers.group_norm = saved
+        for module, fn in zip(attending, saved[0]):
+            module.dot_product_attention = fn
+        layers.group_norm = saved[1]
 
 
 def encode_input(pipe, size: int = SIZE):
@@ -3205,16 +3753,29 @@ def profile_main_path(pipe, size: int = SIZE, steps: int = 3,
                     generator=torch.Generator(device=pipe.device).manual_seed(3))
     z = z.to(pipe.dtype).contiguous(memory_format=torch.channels_last)
     px = encode_input(pipe, size)
+    fns = {name: fn_calls for name, fn_calls in (
+        ("unet", (lambda: pipe.unet(x, t, ctx, added_cond=added), steps)),
+        ("vae_decode", (lambda: pipe.vae.decode(z), 1)),
+        ("vae_encode", (lambda: pipe.vae.encode(px), 1)),
+        ("controlnet", (lambda: branch(x, t, ctx, cond, 1.0, added), steps))) if name in parts}
+    return profile_fns(pipe.model_name, size, rows, fns, pipe.device,
+                       lambda name: delta(pipe.unet) if name == "unet" else nullcontext(),
+                       adapter is not None)
+
+
+def profile_fns(model: str, size: int, rows: int, fns: dict, device, around=None,
+                adapter: bool = False) -> dict:
+    """torch.profiler over {part: (fn, calls)}: device time and launches by
+    kernel category, each GroupNorm kernel by name, GroupNorm wrapper
+    calls, and the device's busy share of the wall time, per call of each
+    part; `around(part)` is a context each part's calls run in, and with
+    `adapter` the "unet" part's delta kernels form a category of their
+    own."""
     result = {}
-    for name, fn, calls in (("unet", lambda: pipe.unet(x, t, ctx, added_cond=added), steps),
-                            ("vae_decode", lambda: pipe.vae.decode(z), 1),
-                            ("vae_encode", lambda: pipe.vae.encode(px), 1),
-                            ("controlnet", lambda: branch(x, t, ctx, cond, 1.0, added), steps)):
-        if name not in parts:
-            continue
-        with delta(pipe.unet) if name == "unet" else nullcontext():
+    for name, (fn, calls) in fns.items():
+        with around(name) if around else nullcontext():
             kernels, plain_wall_ms, wall_ms, gn_calls, delta_kernels = profiled(
-                fn, calls, pipe.device)
+                fn, calls, device)
         categories = {label: [0.0, 0.0] for label, _ in _CATEGORIES}
         categories["other (elementwise, norms, copies)"] = [0.0, 0.0]
 
@@ -3226,7 +3787,7 @@ def profile_main_path(pipe, size: int = SIZE, steps: int = 3,
         for kernel, (ms, n) in kernels.items():
             categories[category(kernel)][0] += ms
             categories[category(kernel)][1] += n
-        if adapter is not None and name == "unet":
+        if adapter and name == "unet":
             # the delta's kernels leave the category their names put them in
             categories[LORA_CATEGORY] = [0.0, 0.0]
             for kernel, (ms, n) in delta_kernels.items():
@@ -3235,7 +3796,7 @@ def profile_main_path(pipe, size: int = SIZE, steps: int = 3,
                     categories[label][1] += sign * n
         device_ms = sum(ms for ms, _ in kernels.values())
         result[name] = {
-            "model": pipe.model_name, "size": size, "rows": rows,
+            "model": model, "size": size, "rows": rows,
             "calls": calls, "unprofiled_wall_ms_per_call": plain_wall_ms,
             "wall_ms_per_call": wall_ms, "device_ms_per_call": device_ms,
             "busy_share": device_ms / wall_ms if wall_ms else None,
@@ -3337,7 +3898,14 @@ def main(argv=None) -> int:
     parser.add_argument("--attention-only", action="store_true",
                         help="phases 1, 2, 3 and 6 for attention alone (no result line)")
     opts = parser.parse_args(argv)
-    started = time.perf_counter()
+    started = last = time.perf_counter()
+
+    def mark(phase: str) -> None:
+        nonlocal last
+        now = time.perf_counter()
+        log(f"[time] {phase}: {now - last:.1f}s (at {now - started:.1f}s)")
+        last = now
+
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs the card",
               file=sys.stderr)
@@ -3363,31 +3931,48 @@ def main(argv=None) -> int:
         if opts.attention_only:
             attention_only(smi, opts.detail)
             return 0
+        mark("phases 1-2 build")
         kernel_checks()
+        mark("phase 3 kernel checks")
         limits = batched_checks(torch.Generator(device="cuda").manual_seed(2))
+        mark("phase 3 batched checks")
+        upscale_checks(torch.Generator(device="cuda").manual_seed(3))
+        mark("phase 3 upscale checks")
         tiny_reference_check()
         tiny_sd = tiny_sd_checks()
         tiny_image = tiny_image_checks()
         tiny_edit = tiny_edit_checks()
         tiny_adapters = tiny_adapter_checks()
         tiny_batched = tiny_batched_checks()
+        mark("phase 4 tiny checks")
         launches, served, registry = serve_main_path(smi)
         unet_launches = {name: (count / N_JOBS - DECODE_LAUNCHES[name]) / STEPS
                          for name, (count, _) in launches.items()}
+        mark("phase 5 main path")
         image_paths, image_served = serve_image_path(smi, registry, unet_launches)
+        mark("phase 5 image path")
         # the SD models in a registry of their own: with the SDXL base, its
         # inpaint checkpoint, the refiner and the SDXL edit checkpoint, each
         # registry holds four, so nothing is evicted by accident
         sd_registry = Registry(torch.device("cuda"), registry.model_root_dir)
         sd_paths, sd_served = serve_sd_path(smi, sd_registry)
+        mark("phase 5 SD path")
         edit_paths, edit_served = serve_edit_path(smi, registry, sd_registry, unet_launches)
+        mark("phase 5 edit path")
         checkpoint_paths, checkpoint_served = serve_checkpoint_path(smi)
+        mark("phase 5 checkpoint path")
         adapter_paths, adapter_served = serve_adapter_path(smi, unet_launches)
+        mark("phase 5 adapter path")
         batched_paths, batched_served = serve_batched_path(smi, unet_launches)
+        mark("phase 5 batched path")
         cn_paths, cn_served = serve_controlnet_path(smi, unet_launches)
+        mark("phase 5 ControlNet path")
+        up_paths, up_served = serve_upscale_path(smi, unet_launches)
+        mark("phase 5 upscale path")
         summary, shapes = measure({"txt2img": (N_JOBS, launches), **image_paths, **sd_paths,
                                    **edit_paths, **checkpoint_paths, **adapter_paths,
-                                   **batched_paths, **cn_paths})
+                                   **batched_paths, **cn_paths, **up_paths})
+        mark("phase 6 measure")
         # (model, registry, canvas, CFG rows, parts) of phases 7 and 8
         calls = [(SDXL, registry, SIZE, 2, ("unet", "vae_decode", "vae_encode")),
                  *((model, sd_registry, size, 2, ("unet",)) for model, size in SD_CANVASES),
@@ -3396,6 +3981,7 @@ def main(argv=None) -> int:
         e2e, profile = {}, {}
         for model, reg, size, rows, parts in calls:
             e2e[model] = end_to_end_bf16_check(reg.get_pipeline(model), size, parts, rows)
+        mark("phase 7 end to end")
         for model, reg, size, rows, parts in calls:
             profile[model] = profile_main_path(reg.get_pipeline(model), size, parts=parts,
                                                rows=rows)
@@ -3406,6 +3992,7 @@ def main(argv=None) -> int:
         for part in profile.values():
             log_profile(part, smi)
             check_one_launch_per_call(part)
+        mark("phase 8 profile")
         if opts.detail:
             path = Path(opts.detail)
             path.parent.mkdir(parents=True, exist_ok=True)
@@ -3416,7 +4003,7 @@ def main(argv=None) -> int:
                  "edit_served": edit_served, "checkpoint_served": checkpoint_served,
                  "adapter_served": adapter_served, "batch_limits": limits,
                  "tiny_batched": tiny_batched, "batched_served": batched_served,
-                 "controlnet_served": cn_served,
+                 "controlnet_served": cn_served, "upscale_served": up_served,
                  "kernels": summary,
                  "shapes": shapes, "end_to_end_bf16": e2e, "profile": profile}, indent=1,
                 default=str))

@@ -139,6 +139,10 @@ def test_every_port_module_imports_with_jax_blocked():
     modules = [m.name for m in pkgutil.walk_packages(chiaswarm_tpu_torch.__path__,
                                                      "chiaswarm_tpu_torch.")]
     assert "chiaswarm_tpu_torch.worker" in modules
+    # the upscale and safety slice's modules are among those imported
+    assert {"chiaswarm_tpu_torch.models.safety", "chiaswarm_tpu_torch.pipelines.safety",
+            "chiaswarm_tpu_torch.models.k_upscaler",
+            "chiaswarm_tpu_torch.pipelines.upscale"} <= set(modules)
     script = (
         "import sys\n"
         "before = set(sys.modules)\n"
