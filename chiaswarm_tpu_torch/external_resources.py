@@ -33,6 +33,9 @@ class FetchLimits:
 
 
 LIMITS = FetchLimits()
+# earlier jobs' results, which may be larger than an input: a 2048² PNG
+# (the largest output, an upscaled 1024² job) holds at most 12 MiB of pixels
+RESULT_LIMITS = FetchLimits(max_bytes=32 * 1024 * 1024)
 
 
 def is_blank(s) -> bool:
@@ -84,6 +87,14 @@ def _decode_image(raw: bytes, size: tuple[int, int] | None,
     return image
 
 
+def _check_scheme(uri: str) -> None:
+    scheme = urllib.parse.urlsplit(uri).scheme
+    if scheme not in ("http", "https"):
+        # urllib would also open file: and ftp: URIs, which aiohttp (the
+        # JAX package's client) refuses
+        raise InputRejected(f"Refusing input URI with scheme '{scheme}'.")
+
+
 def _open(uri: str, method: str, timeout: float):
     request = urllib.request.Request(uri, method=method, headers={"user-agent": USER_AGENT})
     return urllib.request.urlopen(request, timeout=timeout)
@@ -95,11 +106,7 @@ def get_image(uri: str | None, size: tuple[int, int] | None,
     call it off the event loop."""
     if is_blank(uri):
         return None
-    scheme = urllib.parse.urlsplit(uri).scheme
-    if scheme not in ("http", "https"):
-        # urllib would also open file: and ftp: URIs, which aiohttp (the
-        # JAX package's client) refuses
-        raise InputRejected(f"Refusing input URI with scheme '{scheme}'.")
+    _check_scheme(uri)
     # probe first so obviously bad inputs are rejected without a body
     # transfer; the streaming cap below is the authoritative guard
     with _open(uri, "HEAD", limits.timeout_s) as probe:
@@ -108,6 +115,18 @@ def get_image(uri: str | None, size: tuple[int, int] | None,
     with _open(uri, "GET", limits.timeout_s) as response:
         raw = _read_capped(response, limits)
     return _decode_image(raw, size, limits)
+
+
+def download_images(image_urls: list[str]) -> list[Image.Image]:
+    """The images of earlier jobs' results (the stitch workflow's inputs,
+    which the hive names), in order, each body capped at
+    `RESULT_LIMITS.max_bytes`. Blocks."""
+    images = []
+    for url in image_urls:
+        _check_scheme(url)
+        with _open(url, "GET", RESULT_LIMITS.timeout_s) as response:
+            images.append(Image.open(BytesIO(_read_capped(response, RESULT_LIMITS))))
+    return images
 
 
 def get_qrcode_image(qr_code_contents: str, size: tuple[int, int] | None) -> Image.Image:

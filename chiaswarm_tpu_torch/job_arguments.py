@@ -1,6 +1,7 @@
 """Job JSON -> (workload callback, normalized kwargs), for the workflows
-the port serves: `echo` and the SD family's `txt2img`, `img2img` and
-`inpaint`.
+the port serves: `echo`, `stitch` (the images of earlier jobs' results,
+fetched here, into one mosaic) and the SD family's `txt2img`, `img2img`
+and `inpaint`.
 
 Same defaults and precedence as chiaswarm_tpu/job_arguments.py (30 steps,
 DPMSolverMultistepScheduler, the 1024 canvas cap, the img2img and inpaint
@@ -17,26 +18,32 @@ A `parameters.controlnet` dict gives the ControlNet arguments, as in the
 JAX package's `format_controlnet_args`: the control image is the
 fetched `control_image_uri`, a QR code of `qr_code_contents` (which
 overrides it), or the start image; a `preprocessor` turns the start image
-(else the control image) into the condition image; the txt2img
-ControlNet pipelines take the control image as `image`, the others as
-`control_image`, and an img2img start image is cropped to the control
-image's size. The ControlNet pipeline types are chosen by `large_model`.
+(else the control image) into the condition image, its detector running
+on the worker's device under the settings' model root; a preprocessor
+whose learned detector has no weights there, so that a classical
+stand-in answered, is listed in `degraded_preprocessors`, which the
+envelope carries. The txt2img ControlNet pipelines take the control
+image as `image`, the others as `control_image`, and an img2img start
+image is cropped to the control image's size. The ControlNet pipeline
+types are chosen by `large_model`.
 
 A workflow or feature that is not ported yet raises ValueError naming it,
-which the worker turns into a fatal envelope; so does a preprocessor that
-runs a model. Input images are fetched, and preprocessed, here
-(`get_image` blocks: the worker formats a job on its executor thread).
+which the worker turns into a fatal envelope. Input images are fetched,
+and preprocessed, here (`get_image` blocks: the worker formats a job on
+its executor thread).
 """
 
 from __future__ import annotations
 
-from .external_resources import LIMITS, get_image, get_qrcode_image, is_blank
+from .external_resources import LIMITS, download_images, get_image, get_qrcode_image, is_blank
 from .loras import resolve_lora
-from .pre_processors.controlnet import preprocess_image
+from .pipelines.aux_models import Detectors
+from .pre_processors.controlnet import is_degraded_preprocessor, preprocess_image
 from .pre_processors.image_utils import center_crop_resize, resize_square
 from .settings import Settings, load_settings
 from .workflows.diffusion import diffusion_callback
 from .workflows.echo import echo_callback
+from .workflows.stitch import stitch_callback
 
 DEFAULT_SCHEDULER = "DPMSolverMultistepScheduler"
 MAX_SIZE = LIMITS.max_edge
@@ -54,16 +61,21 @@ _PROTECTED_ARGS = frozenset({"model_name", "prompt", "negative_prompt", "image",
                              "workflow", "id"})
 
 
-def format_args(job: dict, settings: Settings | None = None):
+def format_args(job: dict, settings: Settings | None = None, device=None):
     """-> (callback, kwargs). `settings` (read from disk when not given)
-    supplies the root a bare LoRA name resolves under."""
+    supplies the root a bare LoRA name resolves under and the model root
+    of the preprocessors' detectors, which run on `device` (the card when
+    None)."""
     args = dict(job)
+    settings = settings or load_settings()
     if "lora" in args:
-        root = (settings or load_settings()).lora_root_dir
-        args["lora"] = resolve_lora(args["lora"], root)
+        args["lora"] = resolve_lora(args["lora"], settings.lora_root_dir)
     workflow = args.pop("workflow", None)
     if workflow == "echo":
         return echo_callback, args
+    if workflow == "stitch":
+        args["images"] = download_images([j["resultUri"] for j in args["jobs"]])
+        return stitch_callback, args
     if workflow not in (None, "txt2img", "img2img", "inpaint"):
         raise ValueError(f"workflow {workflow!r} is not ported to chiaswarm_tpu_torch yet")
     for key in _UNPORTED_KEYS:
@@ -72,10 +84,12 @@ def format_args(job: dict, settings: Settings | None = None):
     model_name = args.get("model_name", "")
     if model_name.startswith("DeepFloyd/"):
         raise ValueError("DeepFloyd IF is not ported to chiaswarm_tpu_torch yet")
-    return diffusion_callback, format_stable_diffusion_args(args, workflow)
+    detectors = Detectors.from_settings(settings, "cuda" if device is None else device)
+    return diffusion_callback, format_stable_diffusion_args(args, workflow, detectors)
 
 
-def format_stable_diffusion_args(args: dict, workflow: str | None) -> dict:
+def format_stable_diffusion_args(args: dict, workflow: str | None,
+                                 detectors: Detectors) -> dict:
     size = None
     if "height" in args and "width" in args:
         if args["height"] > MAX_SIZE or args["width"] > MAX_SIZE:
@@ -86,11 +100,11 @@ def format_stable_diffusion_args(args: dict, workflow: str | None) -> dict:
     parameters = dict(args.pop("parameters", {}) or {})
 
     if workflow == "img2img":
-        format_img2img_args(args, parameters, size)
+        format_img2img_args(args, parameters, size, detectors)
     elif workflow == "inpaint" or "mask_image_uri" in args:
-        format_inpaint_args(args, parameters, size)
+        format_inpaint_args(args, parameters, size, detectors)
     elif workflow == "txt2img":
-        format_txt2img_args(args, parameters, size)
+        format_txt2img_args(args, parameters, size, detectors)
 
     args.setdefault("num_inference_steps", 30)
     args["pipeline_type"] = parameters.pop("pipeline_type", "DiffusionPipeline")
@@ -111,16 +125,16 @@ def format_stable_diffusion_args(args: dict, workflow: str | None) -> dict:
     return args
 
 
-def format_txt2img_args(args: dict, parameters: dict, size) -> None:
+def format_txt2img_args(args: dict, parameters: dict, size, detectors: Detectors) -> None:
     if "controlnet" in parameters:
         parameters.setdefault(
             "pipeline_type",
             "StableDiffusionXLControlNetPipeline" if parameters.get("large_model", False)
             else "StableDiffusionControlNetPipeline")
-        format_controlnet_args(args, parameters, None, size)
+        format_controlnet_args(args, parameters, None, size, detectors)
 
 
-def format_inpaint_args(args: dict, parameters: dict, size) -> None:
+def format_inpaint_args(args: dict, parameters: dict, size, detectors: Detectors) -> None:
     # the inpaint pipeline type is chosen before img2img's setup, whose
     # own default would otherwise claim the slot
     large = parameters.get("large_model", False)
@@ -134,20 +148,20 @@ def format_inpaint_args(args: dict, parameters: dict, size) -> None:
             "pipeline_type",
             "StableDiffusionXLInpaintPipeline" if large else "StableDiffusionInpaintPipeline")
     # inpaint inherits img2img's setup, since it has a start image
-    format_img2img_args(args, parameters, size)
+    format_img2img_args(args, parameters, size, detectors)
     args["mask_image"] = get_image(args.pop("mask_image_uri"), size)
     args.pop("height", None)
     args.pop("width", None)
     if "controlnet" in parameters:
-        format_controlnet_args(args, parameters, None, size)
+        format_controlnet_args(args, parameters, None, size, detectors)
 
 
-def format_img2img_args(args: dict, parameters: dict, size) -> None:
+def format_img2img_args(args: dict, parameters: dict, size, detectors: Detectors) -> None:
     start_image = get_image(args.pop("start_image_uri", None), size)
     if size is None and start_image is not None:
         size = start_image.size
     if "controlnet" in parameters:
-        format_controlnet_args(args, parameters, start_image, size)
+        format_controlnet_args(args, parameters, start_image, size, detectors)
         parameters.setdefault(
             "pipeline_type",
             "StableDiffusionXLControlNetImg2ImgPipeline" if parameters.get("large_model", False)
@@ -178,7 +192,17 @@ def format_img2img_args(args: dict, parameters: dict, size) -> None:
     args["image"] = start_image
 
 
-def format_controlnet_args(args: dict, parameters: dict, start_image, size) -> None:
+def _preprocess(args: dict, image, preprocessor: str, detectors: Detectors) -> object:
+    """The condition image, and the preprocessor listed in
+    `degraded_preprocessors` when a stand-in made it."""
+    control_image = preprocess_image(image, preprocessor, detectors=detectors)
+    if is_degraded_preprocessor(preprocessor, detectors):
+        args.setdefault("degraded_preprocessors", []).append(preprocessor)
+    return control_image
+
+
+def format_controlnet_args(args: dict, parameters: dict, start_image, size,
+                           detectors: Detectors) -> None:
     controlnet = parameters.pop("controlnet")
     control_image = get_image(controlnet.get("control_image_uri"), size)
     args["save_preprocessed_input"] = True
@@ -191,9 +215,9 @@ def format_controlnet_args(args: dict, parameters: dict, start_image, size) -> N
         if start_image is None:
             start_image = control_image
     elif start_image is not None and not is_blank(controlnet.get("preprocessor")):
-        control_image = preprocess_image(start_image, controlnet["preprocessor"])
+        control_image = _preprocess(args, start_image, controlnet["preprocessor"], detectors)
     elif control_image is not None and not is_blank(controlnet.get("preprocessor")):
-        control_image = preprocess_image(control_image, controlnet["preprocessor"])
+        control_image = _preprocess(args, control_image, controlnet["preprocessor"], detectors)
     elif control_image is None:
         control_image = start_image
     if control_image is None:

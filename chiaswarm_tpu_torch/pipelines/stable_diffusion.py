@@ -248,6 +248,29 @@ def _mask_to_latent_array(mask: Image.Image, width: int, height: int,
     return (np.asarray(mask, np.float32)[..., None] / 255.0 > 0.5).astype(np.float32)
 
 
+def is_out_of_memory(e: BaseException) -> bool:
+    """torch's out-of-memory error, or an error whose text says memory ran
+    out (the JAX pipeline matches "emory")."""
+    return isinstance(e, torch.OutOfMemoryError) or "emory" in str(e)
+
+
+def fold_seed(seed: int | None, index: int) -> int:
+    """A seed of its own for row `index` of a job seeded with `seed`."""
+    return (int(seed or 0) * 0x9E3779B1 + 0x632BE5AB * (index + 1)) % (1 << 63)
+
+
+def _row_noise(noise_fn, index: int, rows: int):
+    """Injected noise for one row of `rows`: `noise_fn`'s draw for the
+    whole batch, row `index` of it."""
+    if noise_fn is None:
+        return None
+
+    def one(kind, i, shape):
+        return noise_fn(kind, i, (rows, *shape[1:]))[index:index + 1]
+
+    return one
+
+
 class _Timer:
     """Wall time of a stage that ends with the device idle."""
 
@@ -658,7 +681,9 @@ class SDPipeline:
         and `vae` are the job's adapters.
         `refiner` {"model_name", "strength" (0.3)} re-enters the output into
         that model's pipeline, which `registry` resolves, as img2img with the
-        job's prompts, steps, guidance and scheduler. `upscale` then chains
+        job's prompts, steps, guidance and scheduler; where that batched call
+        runs out of memory, each image is refined alone on a generator of its
+        own (`fold_seed`), as the JAX pipeline falls back. `upscale` then chains
         the SD-x2 upscaler (`upscaler_name_for` the model, resolved in
         `registry` before the denoise, so that missing weights cost no
         denoise): 20 unguided steps on the job's prompt and generator (or
@@ -875,12 +900,39 @@ class SDPipeline:
                 raise ValueError("a refiner stage needs the worker's pipeline registry")
             t0 = time.perf_counter()
             refiner_pipe = registry.get_pipeline(refiner["model_name"])
-            refined, _ = refiner_pipe.run(
-                prompt=prompt, negative_prompt=negative_prompt,
-                strength=float(refiner.get("strength", 0.3)), num_inference_steps=steps,
-                guidance_scale=guidance_scale, scheduler_type=scheduler_type,
-                image=[Image.fromarray(px) for px in pixels], generator=gen,
-                latents=refiner_latents, noise_fn=refiner_noise_fn)
+            refiner_kw = dict(prompt=prompt, negative_prompt=negative_prompt,
+                              strength=float(refiner.get("strength", 0.3)),
+                              num_inference_steps=steps, guidance_scale=guidance_scale,
+                              scheduler_type=scheduler_type)
+            refined = None
+            try:
+                refined, _ = refiner_pipe.run(
+                    image=[Image.fromarray(px) for px in pixels], generator=gen,
+                    latents=refiner_latents, noise_fn=refiner_noise_fn, **refiner_kw)
+            except Exception as e:  # noqa: BLE001 — only an out-of-memory error falls back
+                if not is_out_of_memory(e):
+                    raise
+                # the message as text: a log record kept by a handler would
+                # otherwise keep the error, and with it the failed batch
+                logger.warning("batched refiner out of memory (%s); refining image by image",
+                               str(e))
+            if refined is None:
+                # the JAX pipeline's fallback: one image at a time, each on
+                # a generator of its own (the job's seed folded with its
+                # index). It runs after the handler, whose error's traceback
+                # held the failed batch's frames and with them its tensors.
+                if self.device.type == "cuda":
+                    torch.cuda.empty_cache()
+                refined = []
+                for idx, px in enumerate(pixels):
+                    out, _ = refiner_pipe.run(
+                        image=[Image.fromarray(px)],
+                        generator=torch.Generator(device=self.device).manual_seed(
+                            fold_seed(seed, idx)),
+                        latents=None if refiner_latents is None else refiner_latents[idx:idx + 1],
+                        noise_fn=_row_noise(refiner_noise_fn, idx, len(pixels)), **refiner_kw)
+                    refined.extend(out)
+                timings["refiner_one_by_one"] = len(pixels)
             pixels = np.stack(refined)
             timings["refiner_s"] = time.perf_counter() - t0
         if upscaler is not None:
@@ -959,9 +1011,11 @@ class SDPipeline:
         `latents` / `noise_fn` (JAX splits the job's key in three and hands
         the second and third to the stages). An `upscale` runs after each
         stage, as in JAX (the first stage's 2x output is then the start
-        image's canvas); `upscale_latents` are the second stage's."""
+        image's canvas); `upscale_latents` are the second stage's,
+        `prepipeline_upscale_latents` the first's."""
         kwargs.pop("controlnet_prepipeline_type", None)
         upscale_latents = kwargs.pop("upscale_latents", None)
+        stage1_upscale_latents = kwargs.pop("prepipeline_upscale_latents", None)
         height = int(height or self.default_size)
         width = int(width or self.default_size)
         strength = 0.9 if strength is None else float(strength)
@@ -978,6 +1032,7 @@ class SDPipeline:
         stage1, _ = self.run(prompt, negative_prompt, pipeline_type, generator=gen,
                              height=max(height // 2, 64), width=max(width // 2, 64),
                              latents=prepipeline_latents, noise_fn=prepipeline_noise_fn,
+                             upscale_latents=stage1_upscale_latents,
                              **{**kwargs, "num_images_per_prompt": 1})
         prepipeline_s = round(time.perf_counter() - t0, 3)
         base = Image.fromarray(stage1[0]).resize((width, height), Image.LANCZOS)

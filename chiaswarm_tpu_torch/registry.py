@@ -75,6 +75,30 @@ PIPELINE_FAMILIES: dict[str, str] = {
 }
 
 
+# model-name keywords (substrings of a lowercased model name) of each family
+# of the JAX package's table (its family dispatch by model name, and the
+# audio, video and captioning models it serves), for the families that
+# PIPELINE_FAMILIES does not hold yet
+FAMILY_KEYWORDS: dict[str, tuple[str, ...]] = {
+    "sd": (), "sdxl": (), "sd_upscale": (),
+    "kandinsky": ("kandinsky",), "kandinsky_prior": ("kandinsky",),
+    "kandinsky3": ("kandinsky",), "cascade": ("cascade",), "cascade_prior": ("cascade",),
+    "flux": ("flux",), "deepfloyd_if": ("deepfloyd",),
+    "audioldm": ("audioldm",), "audioldm2": ("audioldm",), "bark": ("suno/bark",),
+    "animatediff": ("animatediff", "text-to-video"), "i2vgenxl": ("i2vgen",),
+    "svd": ("stable-video-diffusion",), "blip": ("blip",),
+}
+
+
+def unconverted_family_keywords() -> list[str]:
+    """The keywords of every family the port does not serve, sorted, for
+    the worker's `unconverted_families` advertisement; a family that lands
+    in PIPELINE_FAMILIES drops out."""
+    served = set(PIPELINE_FAMILIES.values())
+    return sorted({kw for family, kws in FAMILY_KEYWORDS.items() if family not in served
+                   for kw in kws})
+
+
 def check_pipeline_type(pipeline_type: str) -> None:
     """ValueError for a wire pipeline type the port does not serve. The
     generic `AutoPipeline*` names resolve by model name, as in the JAX

@@ -36,6 +36,10 @@ class Settings:
     # the NSFW safety checker feeding the envelope flag, a model directory
     # under model_root_dir ("" disables it; pipelines/safety.py)
     safety_checker_model: str = "CompVis/stable-diffusion-safety-checker"
+    # the detectors of the `depth` and `openpose` preprocessors, model
+    # directories under model_root_dir (pipelines/aux_models.py)
+    depth_model: str = "Intel/dpt-large"
+    pose_model: str = "lllyasviel/ControlNet-openpose"
 
 
 _ENV_OVERRIDES = {
@@ -51,6 +55,8 @@ _ENV_OVERRIDES = {
     "CHIASWARM_EMBED_CACHE_MB": "embed_cache_mb",
     "CHIASWARM_LORA_SLOTS_MAX": "lora_slots_max",
     "CHIASWARM_SAFETY_CHECKER_MODEL": "safety_checker_model",
+    "CHIASWARM_DEPTH_MODEL": "depth_model",
+    "CHIASWARM_POSE_MODEL": "pose_model",
 }
 
 

@@ -28,9 +28,16 @@ folders' config.json.
 
 `from_jax_params` inverts chiaswarm_tpu/models/conversion.py's
 `convert_unet` (a ControlNet's tree too) / `convert_vae` / `convert_clip`
-/ `convert_k_upscaler` / `convert_safety_checker`: flax paths become
-diffusers / transformers key names again, HWIO conv kernels become OIHW
-and Dense [in, out] kernels become Linear [out, in].
+/ `convert_k_upscaler` / `convert_safety_checker`, and the detectors'
+`convert_dpt` / `convert_hed` / `convert_openpose_body` /
+`convert_pidinet` / `convert_mlsd` / `convert_lineart` /
+`convert_zoedepth` / `convert_upernet` (and the tiny PoseNet's tree):
+flax paths become diffusers / transformers / upstream key names again,
+HWIO conv kernels become OIHW, Dense [in, out] kernels become Linear
+[out, in]. Where a JAX converter folds BatchNorms or re-parameterises
+kernels, the inverse gives that folded form, which the port's detectors
+load as well as the published one. `load_detector_state_` is the
+detectors' strict loader.
 """
 
 from __future__ import annotations
@@ -411,7 +418,10 @@ def from_jax_params(tree: dict) -> dict:
     {"unet": state dict, "text": [state dict, ...], "vae": state dict,
     "controlnet": state dict, "k_unet": state dict, "safety": state dict}
     in the port's (diffusers / transformers) key layout, f32. "k_unet" is
-    the SD-x2 upscaler's UNet, "safety" the whole safety checker's tree."""
+    the SD-x2 upscaler's UNet, "safety" the whole safety checker's tree.
+    A detector's tree under its DETECTOR_STATE_DICTS name ("dpt", "hed",
+    "openpose_body", "pose_net", "pidinet", "mlsd", "lineart",
+    "zoedepth", "upernet") gives its state dict under the same name."""
     convert = {"unet": ("unet", unet_state_dict), "vae": ("vae", vae_state_dict),
                "cn": ("controlnet", controlnet_state_dict),
                "k_unet": ("k_unet", k_upscaler_state_dict),
@@ -419,4 +429,228 @@ def from_jax_params(tree: dict) -> dict:
     out = {name: fn(tree[key]) for key, (name, fn) in convert.items() if key in tree}
     if "text" in tree:
         out["text"] = [clip_state_dict(t) for t in tree["text"]]
+    for name, fn in DETECTOR_STATE_DICTS.items():
+        if name in tree:
+            out[name] = fn(tree[name])
     return out
+
+
+# --- the preprocessors' detectors (pipelines/aux_models.py) ---
+
+_CONV_T = "convT"          # a transposed conv: flax (kh, kw, in, out) -> torch (in, out, kh, kw)
+_CONV_T_FLIP = "convT_flip"  # the same, its kernel flipped (JAX's input-dilated conv)
+
+
+def _detector_state(tree: dict, name_of) -> dict[str, torch.Tensor]:
+    """A detector's flax tree -> {port key: f32 tensor}. `name_of(path)`
+    maps a "/"-joined flax module path to the port's module name, and may
+    return (name, kind) where a kernel needs a special layout; a leaf that
+    is not kernel/scale/bias keeps its name under the module."""
+    out = {}
+    for path, leaf, value in _flatten(tree):
+        named = name_of("/".join(path), leaf)
+        name, kind = named if isinstance(named, tuple) else (named, None)
+        value = np.asarray(value, np.float32)
+        if leaf == "kernel" and kind == _CONV_T:
+            key, value = f"{name}.weight", value.transpose(2, 3, 0, 1)
+        elif leaf == "kernel" and kind == _CONV_T_FLIP:
+            key, value = f"{name}.weight", np.flip(value.transpose(2, 3, 0, 1), (2, 3))
+        elif leaf in ("kernel", "scale", "bias"):
+            new_leaf, value = _tensor(leaf, value)
+            key = f"{name}.{new_leaf}" if name else new_leaf
+        else:
+            key = name if kind == "full" else (f"{name}.{leaf}" if name else leaf)
+        out[key] = torch.from_numpy(np.array(value, dtype=np.float32, order="C"))
+    return out
+
+
+_DPT_LAYER = {"q": "attention.attention.query", "k": "attention.attention.key",
+              "v": "attention.attention.value", "out": "attention.output.dense",
+              "fc1": "intermediate.dense", "fc2": "output.dense", "ln1": "layernorm_before",
+              "ln2": "layernorm_after"}
+_DPT_RCU = {"rcu1/conv1": "residual_layer1.convolution1",
+            "rcu1/conv2": "residual_layer1.convolution2",
+            "rcu2/conv1": "residual_layer2.convolution1",
+            "rcu2/conv2": "residual_layer2.convolution2"}
+
+
+def dpt_state_dict(tree: dict, n_taps: int = 4) -> dict[str, torch.Tensor]:
+    """Inverse of chiaswarm_tpu's `convert_dpt` (transformers' DPT names)."""
+
+    def name_of(path: str, leaf: str):
+        if path == "" and leaf == "cls_token":
+            return "dpt.embeddings.cls_token", "full"
+        if path == "" and leaf == "pos_embed":
+            return "dpt.embeddings.position_embeddings", "full"
+        if path == "patch_embed":
+            return "dpt.embeddings.patch_embeddings.projection"
+        if m := re.match(r"layer_(\d+)/(\w+)$", path):
+            return f"dpt.encoder.layer.{m.group(1)}.{_DPT_LAYER[m.group(2)]}"
+        if m := re.match(r"reassemble_(\d)_(readout|project|resize)$", path):
+            k, part = int(m.group(1)), m.group(2)
+            stage = "neck.reassemble_stage"
+            if part == "readout":
+                return f"{stage}.readout_projects.{k}.0"
+            if part == "project":
+                return f"{stage}.layers.{k}.projection"
+            return f"{stage}.layers.{k}.resize", (_CONV_T if k < 2 else None)
+        if m := re.match(r"conv_(\d)$", path):
+            return f"neck.convs.{m.group(1)}"
+        if m := re.match(r"fusion_(\d)_(rcu\d/conv\d|project)$", path):
+            j = n_taps - 1 - int(m.group(1))
+            part = "projection" if m.group(2) == "project" else _DPT_RCU[m.group(2)]
+            return f"neck.fusion_stage.layers.{j}.{part}"
+        head = {"head_conv1": 0, "head_conv2": 2, "head_conv3": 4}
+        return f"head.head.{head[path]}"
+
+    return _detector_state(tree, name_of)
+
+
+def hed_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """Inverse of `convert_hed` (ControlNetHED's names)."""
+    return _detector_state(tree, lambda path, leaf: ".".join(
+        _split_index(p) for p in path.split("/")) if path else "")
+
+
+def openpose_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """Inverse of `convert_openpose_body` (pytorch-openpose's prefixed names)."""
+    return _detector_state(tree, lambda path, leaf: path.replace("/", "."))
+
+
+def pose_net_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """The tiny PoseNet's flax tree (auto-named Conv_N, _ResBlock_N) -> the port's."""
+
+    def name_of(path: str, leaf: str):
+        path = re.sub(r"_ResBlock_(\d+)", r"res.\1", path)
+        return re.sub(r"Conv_(\d+)", r"conv.\1", path).replace("/", ".")
+
+    return _detector_state(tree, name_of)
+
+
+def pidinet_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """Inverse of `convert_pidinet`: the plain (re-parameterised) kernels,
+    under the checkpoint's names."""
+
+    def name_of(path: str, leaf: str):
+        path = re.sub(r"^(dilations|attentions)_(\d)", r"\1.\2", path)
+        path = re.sub(r"^conv_reduces_(\d)", r"conv_reduces.\1.conv", path)
+        return path.replace("/", ".")
+
+    return _detector_state(tree, name_of)
+
+
+def mlsd_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """Inverse of `convert_mlsd`: the folded convs, under the checkpoint's names."""
+    expanded = {int(k.split("_")[1]) for k, v in tree.items()
+                if k.startswith("features_") and "expand" in v}
+
+    def name_of(path: str, leaf: str):
+        if path == "features_0/conv":
+            return "backbone.features.0.0"
+        if m := re.match(r"features_(\d+)/(expand/conv|depthwise/conv|project)$", path):
+            idx, part = int(m.group(1)), m.group(2)
+            if idx in expanded:
+                part = {"expand/conv": "0.0", "depthwise/conv": "1.0", "project": "2"}[part]
+            else:
+                part = {"depthwise/conv": "0.0", "project": "1"}[part]
+            return f"backbone.features.{idx}.conv.{part}"
+        if m := re.match(r"block(\d+)/conv(\d)$", path):
+            blk, conv = m.groups()
+            return f"block{blk}.conv{conv}" + ("" if conv == "3" else ".0")
+        raise KeyError(path)
+
+    return _detector_state(tree, name_of)
+
+
+def lineart_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """Inverse of `convert_lineart` (the transposed convs un-flipped)."""
+    fixed = {"model0_conv": "model0.1", "model1_conv0": "model1.0", "model1_conv1": "model1.3",
+             "model3_conv0": ("model3.0", _CONV_T_FLIP),
+             "model3_conv1": ("model3.3", _CONV_T_FLIP), "model4_conv": "model4.1"}
+
+    def name_of(path: str, leaf: str):
+        if m := re.match(r"res_(\d+)_conv([01])$", path):
+            return f"model2.{m.group(1)}.conv_block.{1 if m.group(2) == '0' else 5}"
+        return fixed[path]
+
+    return _detector_state(tree, name_of)
+
+
+def zoedepth_state_dict(tree: dict, reassemble_factors=(4, 2, 1, 0.5)) -> dict[str, torch.Tensor]:
+    """Inverse of `convert_zoedepth` (transformers' names)."""
+    convt = {f"neck/reassemble_stage/layers_{i}/resize"
+             for i, f in enumerate(reassemble_factors) if f > 1}
+
+    def name_of(path: str, leaf: str):
+        name = ".".join(_split_index(p) for p in path.split("/"))
+        name = re.sub(r"\.readout_projects\.(\d+)\.proj$", r".readout_projects.\1.0", name)
+        if leaf == "relative_position_bias":
+            return f"{name}.relative_position_bias.relative_position_bias_table", "full"
+        return name, (_CONV_T if path in convt else None)
+
+    return _detector_state(tree, name_of)
+
+
+def upernet_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """Inverse of `convert_upernet`: the folded decode-head convs, under
+    transformers' names."""
+
+    def name_of(path: str, leaf: str):
+        stages = "backbone.encoder.stages"
+        if path == "patch_embeddings":
+            return "backbone.embeddings.patch_embeddings"
+        if path == "embeddings_norm":
+            return "backbone.embeddings.layernorm"
+        if m := re.match(r"downsample_(norm|conv)_(\d)$", path):
+            return f"{stages}.{m.group(2)}.downsampling_layer.{0 if m.group(1) == 'norm' else 1}"
+        if m := re.match(r"stage_(\d+)_layer_(\d+)(?:/(\w+))?$", path):
+            base = f"{stages}.{m.group(1)}.layers.{m.group(2)}"
+            if m.group(3) is None:
+                return f"{base}.layer_scale_parameter", "full"
+            return f"{base}.{'layernorm' if m.group(3) == 'norm' else m.group(3)}"
+        if m := re.match(r"feature_norm_(\d)$", path):
+            return f"backbone.hidden_states_norms.stage{int(m.group(1)) + 1}"
+        if m := re.match(r"(psp|lateral|fpn)_(\d)/conv$", path):
+            kind, i = m.groups()
+            return {"psp": f"decode_head.psp_modules.{i}.1.conv",
+                    "lateral": f"decode_head.lateral_convs.{i}.conv",
+                    "fpn": f"decode_head.fpn_convs.{i}.conv"}[kind]
+        if path in ("bottleneck/conv", "fpn_bottleneck/conv"):
+            return "decode_head." + path.replace("/", ".")
+        if path == "classifier":
+            return "decode_head.classifier"
+        raise KeyError(path)
+
+    return _detector_state(tree, name_of)
+
+
+DETECTOR_STATE_DICTS = {"dpt": dpt_state_dict, "hed": hed_state_dict,
+                        "openpose_body": openpose_state_dict, "pose_net": pose_net_state_dict,
+                        "pidinet": pidinet_state_dict, "mlsd": mlsd_state_dict,
+                        "lineart": lineart_state_dict, "zoedepth": zoedepth_state_dict,
+                        "upernet": upernet_state_dict}
+
+
+@torch.no_grad()
+def load_detector_state_(module: nn.Module, state: dict, source: str, ignore=None) -> None:
+    """Copy `state` ({key: tensor or array}) into `module`'s parameters, cast
+    to their dtype: a strict load (CheckpointError for a key the module
+    lacks, unless `ignore` matches it or is True; a shape that differs; a
+    parameter that `state` lacks)."""
+    targets = module.state_dict()
+    loaded = set()
+    for key, value in state.items():
+        if key not in targets:
+            if ignore is True or (ignore is not None and ignore.search(key)):
+                continue
+            raise CheckpointError(f"{source}: unexpected key {key!r}")
+        tensor = torch.as_tensor(np.asarray(value) if not torch.is_tensor(value) else value)
+        if tuple(tensor.shape) != tuple(targets[key].shape):
+            raise CheckpointError(f"{source}: {key!r} has shape {tuple(tensor.shape)}, the "
+                                  f"module's {tuple(targets[key].shape)}")
+        targets[key].copy_(tensor)
+        loaded.add(key)
+    missing = sorted(set(targets) - loaded)
+    if missing:
+        raise CheckpointError(f"{source}: {len(missing)} parameters in no file, e.g. "
+                              f"{missing[:3]}")

@@ -3,7 +3,10 @@ envelopes.
 
 The core loop of chiaswarm_tpu/worker.py with the same wire shapes:
 bearer auth, `worker_version`, a capability advertisement with the GPU in
-the legacy `gpu`/`memory` keys as well as `chips`/`hbm_gb`, and result
+the legacy `gpu`/`memory` keys as well as `chips`/`hbm_gb` (and
+`unconverted_families`, the model-name keywords of the families the port
+does not serve yet, which the repo's hive matches against a job's model
+name before it hands the job out), and result
 envelopes {id, artifacts (b64 + sha256), nsfw, worker_version,
 pipeline_config (with timings), fatal_error on unrecoverable jobs}.
 
@@ -45,7 +48,7 @@ from .hive import HiveClient, HiveError
 from .job_arguments import format_args
 from .lora_cache import LoraCache
 from .post_processors.output_processor import exception_image, fatal_exception_response
-from .registry import Registry
+from .registry import Registry, unconverted_family_keywords
 from .settings import load_settings
 from .workflows.diffusion import diffusion_batched_callback, diffusion_callback
 
@@ -104,6 +107,9 @@ class Worker:
             "backend": "torch",
             "resident_models": ",".join(self.registry.resident_models()),
             "jobs_completed": self.jobs_done,
+            # model-name keywords of the families this worker cannot serve,
+            # which a capability-aware hive does not hand it
+            "unconverted_families": ",".join(unconverted_family_keywords()),
         }
 
     def execute(self, job: dict) -> dict:
@@ -111,7 +117,7 @@ class Worker:
         own failure: ValueError/TypeError give a fatal envelope, anything
         else an error-image artifact the hive may retry)."""
         try:
-            callback, args = format_args(job, self.settings)
+            callback, args = format_args(job, self.settings, self.device)
         except Exception as e:  # noqa: BLE001 — malformed job: never resubmit
             logger.exception("format_args failed for job %s", job.get("id"))
             return fatal_exception_response(e, job.get("id"), job)
@@ -153,7 +159,7 @@ class Worker:
         prepared: dict[int, tuple] = {}
         for k, job in enumerate(jobs):
             try:
-                prepared[k] = format_args(job, self.settings)
+                prepared[k] = format_args(job, self.settings, self.device)
             except Exception as e:  # noqa: BLE001 — a malformed member: its own fatal envelope
                 logger.exception("format_args failed for job %s", job.get("id"))
                 envelopes[k] = fatal_exception_response(e, job.get("id"), job)

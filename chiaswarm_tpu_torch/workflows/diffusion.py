@@ -21,6 +21,10 @@ A `pipeline_type` of a family the port does not serve is refused
 SD-x2 upscaler, and an SD job's `upscale: true` chains it (the
 pipeline's run).
 
+A job whose condition image a classical stand-in made carries the
+preprocessor's name in the envelope's `degraded_preprocessors`, alone or
+coalesced, as in the JAX callbacks.
+
 The decoded images of every job, and of each member of a coalesced pass,
 go through the NSFW safety checker (pipelines/safety.py, resolved by the
 registry), as the JAX callbacks do: the envelope's `nsfw` and
@@ -68,6 +72,8 @@ def tiny_stand_in(model_name: str) -> str:
 def diffusion_callback(device_identifier: str, model_name: str, *, registry, **kwargs):
     content_type = kwargs.pop("content_type", "image/jpeg")
     outputs = kwargs.pop("outputs", ["primary"])
+    # condition images that a classical stand-in made (job_arguments)
+    degraded = kwargs.pop("degraded_preprocessors", None)
     if kwargs.pop("test_tiny_model", False):
         model_name = tiny_stand_in(model_name)
     pipeline_type = kwargs.pop("pipeline_type", "DiffusionPipeline")
@@ -75,6 +81,8 @@ def diffusion_callback(device_identifier: str, model_name: str, *, registry, **k
     pipeline = registry.get_pipeline(model_name, pipeline_type=pipeline_type)
     images, pipeline_config = pipeline.run(pipeline_type=pipeline_type, registry=registry,
                                            **kwargs)
+    if degraded:
+        pipeline_config["degraded_preprocessors"] = degraded
 
     t0 = time.perf_counter()
     pipeline_config["nsfw"], pipeline_config["nsfw_checked"] = flag_images(
@@ -174,6 +182,8 @@ def diffusion_batched_callback(device_identifier: str, requests: list[dict], *, 
         pipeline_config["timings"]["safety_s"] = round(time.perf_counter() - t0, 4)
         t0 = time.perf_counter()
         pipeline_config["batched_with"] = len(requests)
+        if requests[i].get("degraded_preprocessors"):
+            pipeline_config["degraded_preprocessors"] = requests[i]["degraded_preprocessors"]
         if i in capped:
             pipeline_config["batch_capped"] = capped[i]
         processor = OutputProcessor(outputs, content_type)

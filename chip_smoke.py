@@ -33,7 +33,9 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
    attention on the 2x latents of SD 1.5 and SDXL jobs, the upscaler
    VAE's (1, 65536, 1, 512) (the plain version over query chunks, every
    row against all keys) and GroupNorm up to (1, 2048, 2048, 256), in
-   bf16 and f32.
+   bf16 and f32. DPT-large's attention, (1, 577, 16, 64) in bf16 and f32
+   (`preprocessor_checks`; 577 rows leave the last Q and KV tiles
+   ragged), bf16 on the tensor-core route.
 4. Small-input reference: the tiny SDXL-shaped pipeline in f32 on the card
    (kernels) against the same weights and latents on the CPU (plain
    versions); the decoded uint8 images must agree within 2/255. At 64^2:
@@ -141,6 +143,23 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
    upscaler's encode and decode and one checker call (24 attention); one
    bf16 K-UNet call against f32 on the plain path, and the checker, the
    K-UNet at both canvases and the 1024^2 and 2048^2 decodes profiled.
+   Then the preprocessor path (`serve_preprocessor_path`), in a registry
+   of its own over a temporary root where every detector of the
+   ControlNet preprocessors is written from seeded tensors at its
+   published widths and in its published layout (DPT-large, HED, the
+   openpose body network, PiDiNet, M-LSD, LineArt, ZoeDepth, UperNet
+   ConvNeXt-small) beside the depth ControlNets of SD 1.5 and SDXL: each
+   detector alone (load seconds and bytes, resident bytes, device ms and
+   attention launches a call, its bf16 output through the kernels
+   against f32 on the plain path within E2E_RATIO x the plain bf16
+   path's error); one SD 1.5 512^2 ControlNet job per preprocessor name
+   and a plain one, launches held to the plain job's plus the
+   detector's (24 attention launches for DPT); an SDXL 1024^2 depth job;
+   a stitch job; then a degraded root: a depth job without DPT ends in a
+   fatal envelope, scribble without HED is served by the Laplacian
+   unflagged, mlsd, lineart, segmentation and (DPT back) zoe depth by
+   their stand-ins with `degraded_preprocessors`, and M-LSD's file put
+   back serves the next mlsd job (the mtime negative cache).
 6. Each kernel at every shape any path launched it with: again held
    against its plain version, and timed (CUDA events) beside its plain
    version and one PyTorch library call computing the same function, each
@@ -1633,7 +1652,9 @@ def serve_counted(smi: str, registry, jobs: list, per_call: dict, device: str = 
                   tag: str = "image", where: str = "image path",
                   hold: bool = True, cn_per_call: dict | None = None,
                   k_unet_per_call: dict | None = None,
-                  checker_per_call: dict | None = None) -> tuple[dict, dict]:
+                  checker_per_call: dict | None = None,
+                  detector_launches: dict | None = None,
+                  settings_kw: dict | None = None) -> tuple[dict, dict]:
     """Serve `jobs` [(kind, mode, job)] one at a time through the worker;
     a job's `start_image_uri` / `mask_image_uri` of "start" / "mask", and
     its ControlNet's `control_image_uri` of "photo" / "qr", is replaced by
@@ -1652,8 +1673,13 @@ def serve_counted(smi: str, registry, jobs: list, per_call: dict, device: str = 
     `k_unet_per_call`, an encode and a decode; where the envelope says
     `latent-resize-fallback`, an encode and a decode alone. A job whose
     envelope says `nsfw_checked` adds one checker call, `checker_per_call`.
-    Upscaled images are twice the job's size. No bf16 attention may take
-    the FMA kernel -> ({kind:
+    Upscaled images are twice the job's size. A ControlNet job with a
+    `preprocessor` adds its detector's launches, `detector_launches`[the
+    preprocessor] (none where it has no entry); `settings_kw` overrides the
+    worker's settings (the detectors' `model_root_dir`, the registry's
+    unless given, `depth_model`, `pose_model`), and each job's
+    `degraded_preprocessors` is kept in served["jobs"]. No bf16
+    attention may take the FMA kernel -> ({kind:
     (1, {kernel: (launches, {shape: launches})})}, served), served["jobs"]
     with each image's sha256. With `hold` false the caller holds the
     launches itself (`hold_launches`)."""
@@ -1686,10 +1712,11 @@ def serve_counted(smi: str, registry, jobs: list, per_call: dict, device: str = 
                 served_files[(which, size)] = uri
             return served_files[(which, size)]
 
-        settings = Settings(sdaas_token="smoke-token", sdaas_uri=hive.uri,
-                            worker_name="chip-smoke", model_root_dir=registry.model_root_dir,
-                            lora_root_dir=registry.lora_root_dir or Settings.lora_root_dir,
-                            max_coalesce=1)
+        settings = Settings(**{"sdaas_token": "smoke-token", "sdaas_uri": hive.uri,
+                               "worker_name": "chip-smoke",
+                               "model_root_dir": registry.model_root_dir,
+                               "lora_root_dir": registry.lora_root_dir or Settings.lora_root_dir,
+                               "max_coalesce": 1, **(settings_kw or {})})
         worker = Worker(settings=settings, device=device, registry=registry, poll_seconds=0.05)
         FA_COUNTER.reset()
         GN_COUNTER.reset()
@@ -1789,6 +1816,10 @@ def serve_counted(smi: str, registry, jobs: list, per_call: dict, device: str = 
                                         + ENCODE_LAUNCHES[name] + DECODE_LAUNCHES[name])
             for name in predicted:
                 predicted[name] += branch_calls * cn_per_call[cn_name][name]
+            preprocessor = cn.get("preprocessor")
+            if preprocessor:
+                for name in predicted:
+                    predicted[name] += (detector_launches or {}).get(preprocessor, {}).get(name, 0)
         rows = 3 if mode == "pix2pix" else 2
         served["jobs"][job["id"]] = {"kind": kind, "mode": cfg["mode"], "model": cfg["model"],
                                      "size": size, "output": out, "timings": t,
@@ -1803,6 +1834,8 @@ def serve_counted(smi: str, registry, jobs: list, per_call: dict, device: str = 
                                      "controlnet_calls": branch_calls,
                                      "prepipeline_unet_calls": stage1_calls,
                                      "image_guidance_scale": cfg.get("image_guidance_scale"),
+                                     "preprocessor": (cn or {}).get("preprocessor"),
+                                     "degraded_preprocessors": cfg.get("degraded_preprocessors"),
                                      "launches": counted, "predicted_launches": predicted,
                                      "adapter": {k: cfg[k] for k in ("lora_mode", "lora_scale",
                                                                    "lora_modules", "operand_cache")
@@ -1844,7 +1877,10 @@ def serve_counted(smi: str, registry, jobs: list, per_call: dict, device: str = 
             + (f" + {stage1_calls} first-stage UNet calls + one encode + one decode"
                if stage1_calls else "")
             + (f" + {branch_calls} ControlNet calls x {json.dumps(cn_per_call[cn_name])}"
-               if cn else "") + ")")
+               if cn else "")
+            + (f" + the {cn['preprocessor']} detector "
+               f"{json.dumps((detector_launches or {}).get(cn['preprocessor'], {}))}"
+               if cn and cn.get("preprocessor") else "") + ")")
     log(f"[{tag}] {len(jobs)} jobs served in {served_s:.1f}s; attention routes "
         + json.dumps({f"{r} {str(dt)[6:]} D={d}": n for (r, dt, d), n in routes.items()}))
     if hold:
@@ -2408,13 +2444,15 @@ def _grid(n: int, size: int) -> tuple:
 
 
 def serve_group(registry, jobs: list, device: str = "cuda", max_coalesce: int = 8,
-                files: dict | None = None) -> tuple[dict, dict, float]:
+                files: dict | None = None,
+                settings_kw: dict | None = None) -> tuple[dict, dict, float]:
     """Every job of `jobs` queued before the worker's first poll, served
     through the worker (`max_coalesce` 1 serves each alone) with the
-    kernels' launches counted; a `start_image_uri` or a ControlNet's
-    `control_image_uri` naming a key of `files` {name: bytes} is served by
-    the fake hive -> (envelopes by id, {kernel:
-    (launches, {shape: launches})}, wall seconds)."""
+    kernels' launches counted; a `start_image_uri`, a ControlNet's
+    `control_image_uri` or a stitch job's `resultUri` naming a key of
+    `files` {name: bytes} is served by the fake hive; `settings_kw`
+    overrides the worker's settings (as serve_counted's) -> (envelopes by
+    id, {kernel: (launches, {shape: launches})}, wall seconds)."""
     from chiaswarm_tpu_torch.fake_hive import FakeHive
     from chiaswarm_tpu_torch.ops.flash_attention import COUNTER as FA_COUNTER
     from chiaswarm_tpu_torch.ops.group_norm import COUNTER as GN_COUNTER
@@ -2432,10 +2470,14 @@ def serve_group(registry, jobs: list, device: str = "cuda", max_coalesce: int = 
             if cn and cn.get("control_image_uri") in uris:
                 job["parameters"] = {**job["parameters"], "controlnet": {
                     **cn, "control_image_uri": uris[cn["control_image_uri"]]}}
-        settings = Settings(sdaas_token="smoke-token", sdaas_uri=hive.uri,
-                            worker_name="chip-smoke", model_root_dir=registry.model_root_dir,
-                            lora_root_dir=registry.lora_root_dir or Settings.lora_root_dir,
-                            max_coalesce=max_coalesce)
+            if job.get("workflow") == "stitch":
+                job["jobs"] = [dict(j, resultUri=uris.get(j["resultUri"], j["resultUri"]))
+                               for j in job["jobs"]]
+        settings = Settings(**{"sdaas_token": "smoke-token", "sdaas_uri": hive.uri,
+                               "worker_name": "chip-smoke",
+                               "model_root_dir": registry.model_root_dir,
+                               "lora_root_dir": registry.lora_root_dir or Settings.lora_root_dir,
+                               "max_coalesce": max_coalesce, **(settings_kw or {})})
         worker = Worker(settings=settings, device=device, registry=registry, poll_seconds=0.05)
         hive.enqueue(*jobs)
         FA_COUNTER.reset()
@@ -2963,6 +3005,542 @@ def serve_controlnet_path(smi: str, xl_launches: dict, device: str = "cuda",
         return paths, served
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# --- the preprocessors' detectors (phase 3 checks, phase 5 serving) ---
+
+DPT_MODEL = "Intel/dpt-large"
+POSE_MODEL = "lllyasviel/ControlNet-openpose"
+ANNOTATORS = "lllyasviel/Annotators"
+ZOE_MODEL = "Intel/zoedepth-nyu"
+UPERNET_MODEL = "openmmlab/upernet-convnext-small"
+CN_DEPTH = "lllyasviel/control_v11f1p_sd15_depth"
+CN_DEPTH_XL = "diffusers/controlnet-depth-sdxl-1.0"
+# the annotators' published file names under ANNOTATORS
+HED_FILE = "ControlNetHED.pth"
+PIDINET_FILE = "table5_pidinet.pth"
+MLSD_FILE = "mlsd_large_512_fp32.pth"
+LINEART_FILE = "sk_model.pth"
+
+
+def seeded_detector(factory, seed: int, device="cpu") -> torch.nn.Module:
+    """`factory()` in f32 on `device` with seeded weights: every matrix and
+    kernel N(0, 1/fan_in), LayerNorm scales N(1, 0.1), layer-scale lambdas
+    N(0.1, 0.02), tokens and position tables N(0, 0.02), biases and other
+    vectors N(0, 0.1), so that no branch is zero and no norm is the
+    identity."""
+    with torch.device("meta"):
+        module = factory()
+    module = module.to_empty(device=device).float()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            owner = module.get_submodule(name.rsplit(".", 1)[0]) if "." in name else module
+            leaf = name.rsplit(".", 1)[-1]
+            if isinstance(owner, torch.nn.LayerNorm) and leaf == "weight":
+                p.normal_(1.0, 0.1, generator=gen)
+            elif leaf in ("lambda_1", "lambda_2", "layer_scale_parameter"):
+                p.normal_(0.1, 0.02, generator=gen)
+            elif leaf in ("cls_token", "position_embeddings"):
+                p.normal_(0.0, 0.02, generator=gen)
+            elif p.ndim >= 2:
+                p.normal_(0.0, p[0].numel() ** -0.5, generator=gen)
+            else:
+                p.normal_(0.0, 0.1, generator=gen)
+    return module
+
+
+def _cpu_state(module, dtype=torch.float32) -> dict:
+    return {k: v.detach().to("cpu", dtype).contiguous() for k, v in module.state_dict().items()}
+
+
+def _batchnorm(channels: int, gen: torch.Generator) -> dict:
+    return {"weight": torch.rand(channels, generator=gen) + 0.5,
+            "bias": torch.randn(channels, generator=gen) * 0.1,
+            "running_mean": torch.randn(channels, generator=gen) * 0.1,
+            "running_var": torch.rand(channels, generator=gen) + 0.5,
+            "num_batches_tracked": torch.tensor(0)}
+
+
+def published_mlsd(folded: dict, seed: int) -> dict:
+    """M-LSD's published state from a folded one: each conv followed by a
+    BatchNorm at the next index (the trunk's convs without bias), the
+    head's last conv as it is."""
+    import re
+
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for key, w in folded.items():
+        if not key.endswith(".weight"):
+            continue
+        conv = key[:-len(".weight")]
+        out[key] = w
+        m = re.match(r"(.*\.)(\d+)$", conv)
+        if m is None:  # block23.conv3
+            out[f"{conv}.bias"] = folded[f"{conv}.bias"]
+            continue
+        if not conv.startswith("backbone."):
+            out[f"{conv}.bias"] = folded[f"{conv}.bias"]
+        bn = f"{m.group(1)}{int(m.group(2)) + 1}"
+        out.update({f"{bn}.{k}": v for k, v in _batchnorm(w.shape[0], gen).items()})
+    return out
+
+
+def published_upernet(folded: dict, seed: int) -> dict:
+    """UperNet's published state from a folded one: each decode-head conv
+    (not the classifier) without bias and followed by its BatchNorm, and
+    an auxiliary-head tensor, which the loaders drop."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for key, v in folded.items():
+        if key.startswith("decode_head.") and key.endswith(".conv.bias"):
+            continue
+        out[key] = v
+        if key.startswith("decode_head.") and key.endswith(".conv.weight"):
+            module = key[:-len(".conv.weight")]
+            out.update({f"{module}.batch_norm.{k}": t
+                        for k, t in _batchnorm(v.shape[0], gen).items()})
+    out["auxiliary_head.classifier.weight"] = torch.randn(4, 8, 1, 1, generator=gen)
+    return out
+
+
+def published_pidinet(state: dict, seed: int) -> dict:
+    """PiDiNet's published checkpoint from a seeded state: raw 3x3 kernels
+    for the 'rd' blocks, under DataParallel's `module.` prefix in a
+    `state_dict` wrapper, as table5_pidinet.pth is."""
+    from chiaswarm_tpu_torch.models import pidinet
+
+    gen = torch.Generator().manual_seed(seed)
+    raw = dict(state)
+    for name, layer, _, _ in pidinet._blocks():
+        if pidinet.CARV4[layer] == "rd":
+            w = raw[f"{name}.conv1.weight"]
+            raw[f"{name}.conv1.weight"] = torch.randn(w.shape[0], 1, 3, 3, generator=gen) / 3.0
+    return {"state_dict": {f"module.{k}": v for k, v in raw.items()}}
+
+
+def write_detectors(root: Path, seed: int = 0, *, tiny: bool = False, depth_model: str = DPT_MODEL,
+                    pose_model: str = POSE_MODEL, device="cpu", skip=()) -> dict:
+    """Every detector of the preprocessors from seeded tensors, in its
+    published layout under `root`: transformers safetensors (fp16, with the
+    keys the graph does not read) and config.json for DPT, ZoeDepth and
+    UperNet (its BatchNorms unfolded); lllyasviel's f32 pickles under
+    Annotators (ControlNetHED.pth, table5_pidinet.pth with raw pixel-
+    difference kernels, mlsd_large_512_fp32.pth with its BatchNorms,
+    sk_model.pth) and the pose model's body_pose_model.pth with flat
+    caffe-style keys. `tiny` writes the tiny configs (TINY_DPT, TINY_HED,
+    TINY_LINEART, TINY_ZOE, TINY_UPERNET; PiDiNet and M-LSD have one
+    width); a test pose name gets no file. `skip` leaves detectors out
+    ("dpt", "hed", "pose", "pidinet", "mlsd", "lineart", "zoe",
+    "upernet"). -> {detector: bytes}."""
+    from safetensors.torch import save_file
+
+    from chiaswarm_tpu_torch.models import depth, hed, lineart, mlsd, pidinet, pose
+    from chiaswarm_tpu_torch.models import segmentation as seg
+    from chiaswarm_tpu_torch.models import zoedepth as zoe
+    from chiaswarm_tpu_torch.weights import is_test_model
+
+    def safetensors(name: str, state: dict, config: dict) -> int:
+        folder = root / name
+        folder.mkdir(parents=True, exist_ok=True)
+        save_file({k: v.to(torch.float16) if v.is_floating_point() else v
+                   for k, v in state.items()}, str(folder / "model.safetensors"))
+        (folder / "config.json").write_text(json.dumps(config))
+        return (folder / "model.safetensors").stat().st_size
+
+    def pickle(name: str, file: str, state: dict) -> int:
+        (root / name).mkdir(parents=True, exist_ok=True)
+        torch.save(state, str(root / name / file))
+        return (root / name / file).stat().st_size
+
+    written = {}
+    if "dpt" not in skip:
+        cfg = depth.TINY_DPT if tiny else depth.DPTConfig()
+        state = _cpu_state(seeded_detector(lambda: depth.DPTDepthModel(cfg), seed, device))
+        d = cfg.hidden_size
+        # published keys the graph leaves unread
+        state["dpt.layernorm.weight"], state["dpt.layernorm.bias"] = torch.ones(d), torch.zeros(d)
+        for conv in ("convolution1", "convolution2"):
+            prefix = f"neck.fusion_stage.layers.0.residual_layer1.{conv}"
+            state[f"{prefix}.weight"] = torch.zeros(cfg.fusion_dim, cfg.fusion_dim, 3, 3)
+            state[f"{prefix}.bias"] = torch.zeros(cfg.fusion_dim)
+        written["dpt"] = safetensors(depth_model, state, {"model_type": "dpt",
+                                                          "hidden_size": d})
+    if "hed" not in skip:
+        state = _cpu_state(seeded_detector(
+            lambda: hed.HEDNet(hed.TINY_HED if tiny else hed.HEDConfig()), seed + 1, device))
+        # the learned mean near mid-grey, He-scaled convs (so that 13 ReLU
+        # layers keep the scale of their input) and small projections: edge
+        # logits of a few units, so the sigmoid neither saturates on 0..255
+        # input nor sits flat at one half
+        state["norm"] = state["norm"] * 10.0 + 127.5
+        for key in [k for k in state if ".convs." in k and k.endswith(".weight")]:
+            state[key] = state[key] * 2.0 ** 0.5
+        for key in [k for k in state if ".projection." in k]:
+            state[key] = state[key] / 64.0
+        written["hed"] = pickle(ANNOTATORS, HED_FILE, state)
+    if "pose" not in skip and not is_test_model(pose_model):
+        # kernels 1.6x the seeded scale: the 17 ReLU stages then keep the
+        # heatmaps' scale, and the PAF grouping finds a figure to draw
+        state = {k: v * 1.6 if k.endswith(".weight") else v for k, v in
+                 _cpu_state(seeded_detector(pose.OpenposeBody, seed + 2, device)).items()}
+        written["pose"] = pickle(pose_model, "body_pose_model.pth",
+                                 {k.split(".", 1)[1]: v for k, v in state.items()})
+    if "pidinet" not in skip:
+        state = _cpu_state(seeded_detector(pidinet.PiDiNet, seed + 3, device))
+        written["pidinet"] = pickle(ANNOTATORS, PIDINET_FILE, published_pidinet(state, seed + 3))
+    if "mlsd" not in skip:
+        state = _cpu_state(seeded_detector(mlsd.MLSDNet, seed + 4, device))
+        written["mlsd"] = pickle(ANNOTATORS, MLSD_FILE, published_mlsd(state, seed + 4))
+    if "lineart" not in skip:
+        cfg = lineart.TINY_LINEART if tiny else lineart.LineartConfig()
+        written["lineart"] = pickle(ANNOTATORS, LINEART_FILE, _cpu_state(seeded_detector(
+            lambda: lineart.LineartGenerator(cfg), seed + 5, device)))
+    if "zoe" not in skip:
+        cfg = zoe.TINY_ZOE if tiny else zoe.ZoeConfig()
+        written["zoe"] = safetensors(ZOE_MODEL, _cpu_state(seeded_detector(
+            lambda: zoe.ZoeDepthModel(cfg), seed + 6, device)), zoe.config_json(cfg))
+    if "upernet" not in skip:
+        cfg = seg.TINY_UPERNET if tiny else seg.UperNetConfig()
+        state = _cpu_state(seeded_detector(lambda: seg.UperNetSegmenter(cfg), seed + 7, device))
+        written["upernet"] = safetensors(UPERNET_MODEL, published_upernet(state, seed + 7),
+                                         seg.config_json(cfg))
+    return written
+
+
+# DPT-large's attention: (1, 577, 16, 64) a call, 24 calls; the other
+# detectors launch no kernel (ZoeDepth's attention, with its relative
+# position bias, is plain torch, as in the JAX package)
+DPT_ATTENTION = ((1, 577, 16, 64), (1, 577, 16, 64))
+DPT_LAUNCHES = {"flash_attention": 24, "group_norm": 0}
+PREPROCESSORS = ("depth", "normal bae", "depth estimator", "scribble", "soft edge", "openpose",
+                 "mlsd", "lineart", "zoe depth", "segmentation")
+# the kernels' launches of one condition image, by preprocessor (with every
+# detector's weights present)
+PREPROCESSOR_LAUNCHES = {name: DPT_LAUNCHES for name in ("depth", "normal bae",
+                                                         "depth estimator")}
+
+
+def preprocessor_checks(gen) -> None:
+    """Phase 3 at DPT-large's attention shape, (1, 577, 16, 64) in bf16 and
+    f32 (577 rows fill no tile: the last Q and KV tiles are ragged); bf16
+    must take the tensor-core route (`wgmma-d64`)."""
+    q, k = DPT_ATTENTION
+    for dtype in (torch.bfloat16, torch.float32):
+        row = attention_case(q, k, dtype, gen, timed=False)
+        if dtype == torch.bfloat16:
+            check(row["route"] in (None, "wgmma-d64"),
+                  f"DPT attention bf16 took route {row['route']}, not wgmma-d64")
+        log(f"[check] flash_attention q{q} kv{k} {row['dtype']} route {row['route']} "
+            f"(DPT-large): max_abs_err {row['max_abs_err']:.3g}"
+            + (f", RMS err {row['rms_err']:.3g}" if "rms_err" in row else "")
+            + f" (bound {row['bound']})")
+
+
+def _flat(out) -> torch.Tensor:
+    """A detector network's output(s) as one f32 vector."""
+    outs = out if isinstance(out, (list, tuple)) else [out]
+    return torch.cat([o.float().reshape(-1) for o in outs])
+
+
+def detector_checks(det, image, smi: str, on_card: bool) -> dict:
+    """Step 3 of the preprocessor path, each detector alone at its published
+    widths: built from its files (load seconds, bytes on disk, resident
+    device bytes), then one call on `image`'s input: its output in bf16
+    through the kernels against the same weights in f32 on the plain path,
+    the relative RMS error at most E2E_RATIO x that of the plain path in
+    bf16 (the rule of the UNet and VAE checks); the ms of a call by CUDA
+    events over back-to-back calls (host gaps included: not device time)
+    and its attention launches (24 for DPT)."""
+    import copy
+
+    from chiaswarm_tpu_torch.ops.flash_attention import COUNTER as FA_COUNTER
+    from chiaswarm_tpu_torch.weights import is_test_model
+
+    rows = {}
+    for kind in ("depth", "hed", "pose", "pidinet", "mlsd", "lineart", "zoe", "segmenter"):
+        allocated = torch.cuda.memory_allocated() if on_card else 0
+        t0 = time.perf_counter()
+        detector = getattr(det, kind)()
+        load_s = time.perf_counter() - t0
+        check(detector is not None and (detector.weights_source == "checkpoint"
+                                        or is_test_model(getattr(detector, "model_name", ""))),
+              f"the {kind} detector did not load its files")
+        resident = (torch.cuda.memory_allocated() - allocated) if on_card else 0
+        source = Path(detector.source)
+        file_bytes = (sum(f.stat().st_size for f in source.glob("*.safetensors"))
+                      if source.is_dir() else source.stat().st_size if source.exists() else 0)
+        px = detector.pixels(detector.prepare(image))
+        with torch.inference_mode():
+            before = FA_COUNTER.launches
+            kernels = _flat(detector.model(px))
+            launches = FA_COUNTER.launches - before
+            with plain_path():
+                plain = _flat(detector.model(px))
+                wide = copy.deepcopy(detector.model).float()
+                exact = _flat(wide(px.float()))
+                del wide
+            ms = time_ms(lambda: detector.model(px), min_total_ms=50.0, max_iters=10) \
+                if on_card else float("nan")
+        scale = rms(exact)
+        row = {"load_s": load_s, "file_bytes": file_bytes, "param_bytes": detector.param_bytes,
+               "resident_bytes": resident, "event_ms": ms, "attention_launches": launches,
+               "input": list(px.shape), "dtype": str(detector.dtype)[6:],
+               "rel_rms_err": rms(kernels - exact) / scale,
+               "plain_bf16_rel_rms_err": rms(plain - exact) / scale,
+               "finite": bool(torch.isfinite(kernels).all())}
+        rows[kind] = row
+        log(f"[detector] {kind} ({type(detector.model).__name__}, input {row['input']} "
+            f"{row['dtype']}) on {smi}: loaded in {load_s:.2f}s from {file_bytes} bytes, "
+            f"resident {resident} device bytes ({detector.param_bytes} of parameters); "
+            f"{ms:.3f} ms a call by events, {launches} attention launches a call; relative RMS "
+            f"err {row['rel_rms_err']:.4g} against f32 (plain bf16 "
+            f"{row['plain_bf16_rel_rms_err']:.4g}, bound {E2E_RATIO}x that)")
+        check(row["finite"], f"the {kind} detector's output is not finite")
+        if on_card:
+            check(row["rel_rms_err"] <= E2E_RATIO * row["plain_bf16_rel_rms_err"] + 1e-7,
+                  f"{kind}: bf16 kernel path error {row['rel_rms_err']} > {E2E_RATIO} x the "
+                  f"plain bf16 path's {row['plain_bf16_rel_rms_err']}")
+            check(launches == (DPT_LAUNCHES["flash_attention"] if kind == "depth" else 0),
+                  f"{kind}: {launches} attention launches a call")
+    return rows
+
+
+def serve_preprocessor_path(smi: str, xl_launches: dict, device: str = "cuda",
+                            sdxl: str = SDXL, sd15: str = SD15, size15: int = 512,
+                            size_xl: int = SIZE, steps: int = STEPS, tiny: bool = False,
+                            hold: bool = True) -> tuple[dict, dict]:
+    """Phase 5, the preprocessors that run a model: a registry of its own
+    over a temporary root holds SD 1.5 and SDXL on seeded random weights,
+    the depth ControlNets of both (lllyasviel/control_v11f1p_sd15_depth,
+    diffusers/controlnet-depth-sdxl-1.0 configs) and every detector in
+    its published layout (`write_detectors`; `tiny` for the CPU rehearsal).
+    Each detector alone (`detector_checks`); then, through the worker,
+    one SD 1.5 `size15`^2 ControlNet txt2img job on the served photo-like
+    image per name of PREPROCESSORS and a plain ControlNet job beside
+    them, and an SDXL `size_xl`^2 depth job: each envelope checked as the
+    ControlNet path checks it, its launches the plain ControlNet job's
+    plus the detector's, no `degraded_preprocessors`. Then a stitch job
+    of three served images. Then a degraded root read by the detectors:
+    without DPT a depth job ends in a fatal envelope naming the weights;
+    without HED scribble is served by the Laplacian, not flagged; mlsd,
+    lineart and segmentation by their stand-ins, flagged; with DPT copied
+    in, zoe depth by DPT, flagged; with M-LSD's file copied in, the next
+    mlsd job by M-LSD (the mtime negative cache), not flagged."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from PIL import Image
+
+    from chiaswarm_tpu_torch import job_arguments
+    from chiaswarm_tpu_torch.pipelines import aux_models
+    from chiaswarm_tpu_torch.pre_processors.controlnet import preprocess_image
+    from chiaswarm_tpu_torch.registry import Registry
+
+    on_card = torch.device(device).type == "cuda"
+    root = Path(tempfile.mkdtemp(prefix="chip-smoke-preprocessors-"))
+    degraded = Path(tempfile.mkdtemp(prefix="chip-smoke-degraded-"))
+    try:
+        registry = Registry(torch.device(device), str(root))
+        pipes = {m: registry.get_pipeline(m, allow_random_init=True) for m in (sdxl, sd15)}
+        files = {}
+        for name, model, seed in ((CN_DEPTH, sd15, 81), (CN_DEPTH_XL, sdxl, 82)):
+            files[name] = write_controlnet(root / name, pipes[model], seed)
+        # the tiny rehearsal's detectors: test names, which the loaders size
+        # as tiny
+        names = ({"depth_model": "test/tiny-dpt", "pose_model": "test/tiny-pose"} if tiny
+                 else {"depth_model": DPT_MODEL, "pose_model": POSE_MODEL})
+        t0 = time.perf_counter()
+        written = write_detectors(root, 90, tiny=tiny, device=device, **names)
+        log(f"[preprocessor] detectors written from seeded tensors in "
+            f"{time.perf_counter() - t0:.1f}s: {json.dumps(written)} bytes")
+        det = aux_models.Detectors(device, str(root), **names)
+        photo = photo_image(size15)
+        detectors = detector_checks(det, photo, smi, on_card)
+
+        def as_served(side):
+            """The photo-like image as a job's worker decodes it (served as JPEG)."""
+            return Image.open(io.BytesIO(image_bytes(photo_image(side), "JPEG"))).convert("RGB")
+
+        condition_s, direct = {}, {}
+        for name in PREPROCESSORS:
+            preprocess_image(photo, name, detectors=det)  # warm
+            t0 = time.perf_counter()
+            cond = np.asarray(preprocess_image(photo, name, detectors=det))
+            condition_s[name] = time.perf_counter() - t0
+            direct[(name, size15)] = np.asarray(preprocess_image(as_served(size15), name,
+                                                                 detectors=det))
+            log(f"[preprocessor] {name} condition image {cond.shape} on {smi}: "
+                f"{condition_s[name]:.4f}s (host and device, warm); {int(cond.min())}.."
+                f"{int(cond.max())}, mean {float(cond.mean()):.1f}")
+            # random weights may find no figure: a black pose map is then right
+            check(cond.shape == (size15, size15, 3) and (
+                name == "openpose" or int(cond.max()) != int(cond.min())),
+                f"the {name} condition image is {cond.shape}, {cond.min()}..{cond.max()}")
+
+        common = {"negative_prompt": "blurry", "num_inference_steps": steps,
+                  "guidance_scale": 7.0, "content_type": "image/png"}
+
+        def cn_job(job_id, model, size, cn_name, preprocessor=None, seed=7000):
+            cn = {"controlnet_model_name": cn_name, "control_image_uri": "photo"}
+            if preprocessor:
+                cn["preprocessor"] = preprocessor
+            return {**common, "id": job_id, "workflow": "txt2img", "model_name": model,
+                    "seed": seed, "height": size, "width": size,
+                    "prompt": "a lighthouse on a cliff at dusk",
+                    "parameters": {"scheduler_type": "DPMSolverMultistepScheduler",
+                                   "controlnet": cn}}
+
+        kind_of = {name: "pre_" + name.replace(" ", "_") for name in PREPROCESSORS}
+        jobs15 = [("pre_plain_controlnet", "txt2img",
+                   cn_job("pre-plain", sd15, size15, CN_DEPTH))]
+        jobs15 += [(kind_of[name], "txt2img",
+                    cn_job(f"pre-{kind_of[name][4:]}", sd15, size15, CN_DEPTH, name))
+                   for name in PREPROCESSORS]
+        cn_per_call = {CN_DEPTH: SD_CN_LAUNCHES, CN_DEPTH_XL: XL_CN_LAUNCHES}
+        direct[("depth", size_xl)] = np.asarray(preprocess_image(as_served(size_xl), "depth",
+                                                                 detectors=det))
+        # the condition image each served job's arguments carry (the
+        # envelope does not carry it: ROADMAP §3), recorded where the
+        # worker formats the job
+        received, preprocess = {}, job_arguments._preprocess
+
+        def recording(args, image, preprocessor, detectors):
+            out = preprocess(args, image, preprocessor, detectors)
+            received.setdefault((preprocessor, image.width), []).append(np.asarray(out))
+            return out
+
+        job_arguments._preprocess = recording
+        try:
+            paths, served = serve_counted(smi, registry, jobs15, {sd15: SD_UNET_LAUNCHES},
+                                          device, tag="preprocessor", where="preprocessor path",
+                                          hold=False, cn_per_call=cn_per_call,
+                                          detector_launches=PREPROCESSOR_LAUNCHES,
+                                          settings_kw=names)
+            xl_jobs = [("pre_sdxl_depth", "txt2img",
+                        cn_job("pre-sdxl-depth", sdxl, size_xl, CN_DEPTH_XL, "depth", 7100))]
+            xl_paths, xl_served = serve_counted(smi, registry, xl_jobs, {sdxl: xl_launches},
+                                                device, tag="preprocessor",
+                                                where="preprocessor path", hold=False,
+                                                cn_per_call=cn_per_call,
+                                                detector_launches=PREPROCESSOR_LAUNCHES,
+                                                settings_kw=names)
+        finally:
+            job_arguments._preprocess = preprocess
+        agreement = {}
+        for (name, side), want in direct.items():
+            got_images = received.get((name, side), [])
+            check(got_images, f"no served {side}^2 job received a {name} condition image")
+            for got_image in got_images:
+                diff = np.abs(got_image.astype(int) - want.astype(int))
+                share = float((diff == 0).mean())
+                agreement[f"{name} {side}"] = min(share, agreement.get(f"{name} {side}", 1.0))
+                check(got_image.shape == want.shape and int(diff.max()) <= 1
+                      and share >= 0.999,
+                      f"the served {name} job's condition image is not the preprocessor's: "
+                      f"{share:.5f} of pixels equal, max diff {int(diff.max())}")
+        log(f"[preprocessor] served condition images against direct calls on the decoded "
+            f"input, share of pixels equal: {json.dumps(agreement)}")
+        paths.update(xl_paths)
+        served["jobs"].update(xl_served["jobs"])
+        served["fma_bf16"].update(xl_served["fma_bf16"])
+        got = served["jobs"]
+        plain = got["pre-plain"]["launches"]
+        for job_id, job in got.items():
+            check(not job["degraded_preprocessors"],
+                  f"{job_id}: degraded_preprocessors {job['degraded_preprocessors']}")
+            if on_card and job["model"] == sd15 and job["preprocessor"]:
+                extra = PREPROCESSOR_LAUNCHES.get(job["preprocessor"], {})
+                want = {k: plain[k] + extra.get(k, 0) for k in plain}
+                check(job["launches"] == want, f"{job_id}: launches {job['launches']}, not the "
+                      f"plain ControlNet job's {plain} plus the detector's {extra}")
+        if hold:
+            hold_launches(served, "preprocessor path")
+        else:
+            for job_id, job in got.items():
+                log(f"[preprocessor] {job_id}: launches {job['launches']}, predicted "
+                    f"{job['predicted_launches']} (not held)")
+
+        # stitch: three images the fake hive serves, one mosaic
+        tiles = {f"tile-{i}.jpg": image_bytes(photo_image(96 + 64 * i), "JPEG")
+                 for i in range(3)}
+        stitch = {"id": "pre-stitch", "workflow": "stitch", "model_name": "none",
+                  "content_type": "image/png",
+                  "jobs": [{"id": f"src-{i}", "resultUri": name}
+                           for i, name in enumerate(tiles)]}
+        results, _, wall = serve_group(registry, [stitch], device, max_coalesce=1, files=tiles)
+        env = results["pre-stitch"]
+        check(not env.get("fatal_error"), f"stitch: {env['pipeline_config']}")
+        mosaic = decode_artifact(env["artifacts"]["primary"])
+        cfg = env["pipeline_config"]
+        check(mosaic.shape == (512, 512, 3) and (cfg["rows"], cfg["cols"]) == (2, 2)
+              and [r["job_id"] for r in cfg["image_map"]] == ["src-0", "src-1", "src-2"],
+              f"stitch: mosaic {mosaic.shape}, {cfg}")
+        served["stitch"] = {"wall_s": wall, "rows": cfg["rows"], "cols": cfg["cols"]}
+        log(f"[preprocessor] stitch job on {smi}: {wall:.2f}s, a {mosaic.shape[1]}x"
+            f"{mosaic.shape[0]} mosaic of {len(tiles)} tiles")
+
+        # the degraded root: detectors absent, then arriving
+        photo_file = {"photo.jpg": image_bytes(photo, "JPEG")}
+        fatal = cn_job("pre-no-dpt", sd15, size15, CN_DEPTH, "depth", 7200)
+        fatal["parameters"]["controlnet"]["control_image_uri"] = "photo.jpg"
+        results, _, _ = serve_group(registry, [fatal], device, max_coalesce=1, files=photo_file,
+                                    settings_kw={"model_root_dir": str(degraded)})
+        env = results["pre-no-dpt"]
+        error = env["pipeline_config"].get("error", "")
+        check(env.get("fatal_error") is True and "Intel/dpt-large" in error
+              and "not present" in error, f"depth without DPT: {env['pipeline_config']}")
+        log(f"[preprocessor] depth without DPT: fatal envelope, {error!r}")
+        expect = {"scribble": None, "mlsd": ["mlsd"], "lineart": ["lineart"],
+                  "segmentation": ["segmentation"]}
+        degraded_jobs = [(f"degraded_{name}", "txt2img",
+                          cn_job(f"degraded-{name}", sd15, size15, CN_DEPTH, name, 7300 + i))
+                         for i, name in enumerate(expect)]
+        d_paths, d_served = serve_counted(smi, registry, degraded_jobs, {sd15: SD_UNET_LAUNCHES},
+                                          device, tag="degraded", where="degraded root",
+                                          hold=hold, cn_per_call=cn_per_call,
+                                          settings_kw={**names, "model_root_dir": str(degraded)})
+        shutil.copytree(root / names["depth_model"], degraded / names["depth_model"])
+        zoe_jobs = [("degraded_zoe_depth", "txt2img",
+                     cn_job("degraded-zoe-depth", sd15, size15, CN_DEPTH, "zoe depth", 7400))]
+        z_paths, z_served = serve_counted(smi, registry, zoe_jobs, {sd15: SD_UNET_LAUNCHES},
+                                          device, tag="degraded", where="degraded root",
+                                          hold=hold, cn_per_call=cn_per_call,
+                                          detector_launches={"zoe depth": DPT_LAUNCHES},
+                                          settings_kw={**names, "model_root_dir": str(degraded)})
+        (degraded / ANNOTATORS).mkdir(parents=True, exist_ok=True)
+        shutil.copy(root / ANNOTATORS / MLSD_FILE, degraded / ANNOTATORS / MLSD_FILE)
+        back_jobs = [("degraded_mlsd_back", "txt2img",
+                      cn_job("degraded-mlsd-back", sd15, size15, CN_DEPTH, "mlsd", 7500))]
+        b_paths, b_served = serve_counted(smi, registry, back_jobs, {sd15: SD_UNET_LAUNCHES},
+                                          device, tag="degraded", where="degraded root",
+                                          hold=hold, cn_per_call=cn_per_call,
+                                          settings_kw={**names, "model_root_dir": str(degraded)})
+        expect.update({"zoe depth": ["zoe depth"], "mlsd-back": None})
+        flags = {}
+        for part in (d_served, z_served, b_served):
+            for job_id, job in part["jobs"].items():
+                flags[job_id.removeprefix("degraded-").replace("zoe-depth", "zoe depth")] = \
+                    job["degraded_preprocessors"]
+        log(f"[preprocessor] degraded root: degraded_preprocessors {json.dumps(flags)}")
+        check(flags == expect, f"degraded_preprocessors {flags}, not {expect}")
+        for part in (d_paths, z_paths, b_paths):
+            paths.update(part)
+        served["degraded"] = flags
+        served["detectors"] = detectors
+        served["condition_s"] = condition_s
+        served["condition_agreement"] = agreement
+        served["files"] = {**files, **written}
+        del pipes, registry
+        gc.collect()
+        return paths, served
+    finally:
+        aux_models.clear()
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(degraded, ignore_errors=True)
 
 
 # --- the upscale and safety path (phase 3 checks, phase 5 serving) ---
@@ -3525,17 +4103,17 @@ def unet_inputs(pipe, size: int = SIZE, dtype=None, seed: int = 2, rows: int = 2
 
 @contextmanager
 def plain_path():
-    """Route the attention of the UNet, the VAE, the K-UNet and the safety
-    checker, and the GroupNorm of the UNet and the VAE, to the plain
-    PyTorch versions, on the card, for the duration."""
-    from chiaswarm_tpu_torch.models import k_upscaler, layers, safety, vae
+    """Route the attention of the UNet, the VAE, the K-UNet, the safety
+    checker and DPT, and the GroupNorm of the UNet and the VAE, to the
+    plain PyTorch versions, on the card, for the duration."""
+    from chiaswarm_tpu_torch.models import depth, k_upscaler, layers, safety, vae
     from chiaswarm_tpu_torch.ops.flash_attention import reference_attention
     from chiaswarm_tpu_torch.ops.group_norm import reference_group_norm
 
     def plain_group_norm(x, scale, bias, *, groups=32, eps=1e-5, act=None):
         return reference_group_norm(x, scale, bias, groups, eps, act == "silu")
 
-    attending = (layers, vae, k_upscaler, safety)
+    attending = (layers, vae, k_upscaler, safety, depth)
     saved = [m.dot_product_attention for m in attending], layers.group_norm
     for module in attending:
         module.dot_product_attention = reference_attention
@@ -3938,6 +4516,8 @@ def main(argv=None) -> int:
         mark("phase 3 batched checks")
         upscale_checks(torch.Generator(device="cuda").manual_seed(3))
         mark("phase 3 upscale checks")
+        preprocessor_checks(torch.Generator(device="cuda").manual_seed(4))
+        mark("phase 3 preprocessor checks")
         tiny_reference_check()
         tiny_sd = tiny_sd_checks()
         tiny_image = tiny_image_checks()
@@ -3969,9 +4549,11 @@ def main(argv=None) -> int:
         mark("phase 5 ControlNet path")
         up_paths, up_served = serve_upscale_path(smi, unet_launches)
         mark("phase 5 upscale path")
+        pre_paths, pre_served = serve_preprocessor_path(smi, unet_launches)
+        mark("phase 5 preprocessor path")
         summary, shapes = measure({"txt2img": (N_JOBS, launches), **image_paths, **sd_paths,
                                    **edit_paths, **checkpoint_paths, **adapter_paths,
-                                   **batched_paths, **cn_paths, **up_paths})
+                                   **batched_paths, **cn_paths, **up_paths, **pre_paths})
         mark("phase 6 measure")
         # (model, registry, canvas, CFG rows, parts) of phases 7 and 8
         calls = [(SDXL, registry, SIZE, 2, ("unet", "vae_decode", "vae_encode")),
@@ -4004,6 +4586,7 @@ def main(argv=None) -> int:
                  "adapter_served": adapter_served, "batch_limits": limits,
                  "tiny_batched": tiny_batched, "batched_served": batched_served,
                  "controlnet_served": cn_served, "upscale_served": up_served,
+                 "preprocessor_served": pre_served,
                  "kernels": summary,
                  "shapes": shapes, "end_to_end_bf16": e2e, "profile": profile}, indent=1,
                 default=str))

@@ -10,8 +10,8 @@
 - The preprocessors: canny equal to JAX's (OpenCV) pixel for pixel on three
   seeded photo-like images and a PIL-drawn shape image, shuffle within 2
   levels on 99% of pixels (measured: 1 level at most, on 0.01% of them),
-  tile, crop, center crop and pix2pix equal; the names that run a model
-  refused.
+  tile, crop, center crop and pix2pix equal (the names that run a model
+  are held in test_torch_port_preprocessors.py).
 - Job arguments of ControlNet jobs against JAX's `format_args`, each side
   fetching from the port's fake hive; the wire's pipeline types (the six
   ControlNet ones among them) against JAX's family table.
@@ -31,7 +31,8 @@
   (4-channel) ControlNet fails in both packages, and a zero-init branch
   built from its config serves it.
 - The worker through the fake hive: a ControlNet job, a shared-ControlNet
-  pair in one pass, the QR chain, a refusal.
+  pair in one pass, the QR chain, and a depth job without DPT's weights
+  (a fatal envelope).
 
 Each JAX program compiles once: every JAX job below is a distinct program
 (mode, window, scheduler, adapter), and the module fixture keeps the
@@ -268,12 +269,6 @@ def test_geometric_preprocessors_equal_jax(name):
     got = pre.preprocess_image(image, name)
     assert got.size == want.size
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-
-@pytest.mark.parametrize("name", pre.MODEL_BACKED + ("Normal-BAE",))
-def test_model_backed_preprocessors_are_refused(name):
-    with pytest.raises(ValueError, match="runs a model that chiaswarm_tpu_torch does not port"):
-        pre.preprocess_image(Image.new("RGB", (8, 8)), name)
 
 
 def test_unknown_preprocessor_is_refused_like_jax():
@@ -741,5 +736,7 @@ def test_worker_serves_controlnet_jobs(env):
     # the chain's default strength, 0.9
     assert qr["strength"] == 0.9 and qr["t_start"] == 0
     assert _image(results["qr"]).shape == (SIZE, SIZE, 3)
+    # DPT's weights are not under the model root: the job fails, as in JAX
     assert results["depth"]["fatal_error"] is True
-    assert "controlnet preprocessor 'depth'" in results["depth"]["pipeline_config"]["error"]
+    assert ("depth model weights for 'Intel/dpt-large' are not present"
+            in results["depth"]["pipeline_config"]["error"])

@@ -32,6 +32,7 @@ import asyncio
 import base64
 import dataclasses
 import io
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -260,6 +261,63 @@ def test_refiner_needs_a_registry():
     pipe = SDPipeline("test/tiny-xl", device="cpu")
     with pytest.raises(ValueError, match="registry"):
         pipe.run(prompt="x", num_inference_steps=2, refiner={"model_name": "test/tiny-xl"})
+
+
+@pytest.mark.parametrize("error", [torch.OutOfMemoryError("CUDA out of memory. Tried to "
+                                                           "allocate 2.00 GiB"),
+                                   RuntimeError("RESOURCE_EXHAUSTED: Out of memory")])
+def test_refiner_falls_back_to_one_image_at_a_time(error):
+    """The JAX pipeline's fallback (stable_diffusion.py:2397-2413): the
+    batched refiner call runs out of memory, and each image is refined
+    alone on a generator of its own; with the refiner's draws injected,
+    each image is the image of a one-image job on the same draws (within a
+    level: the base stage ran two rows), and the envelope has the same
+    keys, plus `refiner_one_by_one`. Any other error is raised."""
+    registry = Registry(torch.device("cpu"), None)
+    pipe = registry.get_pipeline("test/tiny-xl")
+    refiner = registry.get_pipeline("test/tiny-xl-refiner")
+    run, calls, held = refiner.run, [], []
+
+    def flaky(*args, **kwargs):
+        calls.append(len(kwargs["image"]))
+        if len(calls) == 1:
+            # what a batched call holds when it runs out of memory: the
+            # retries must start with it freed
+            activations = torch.empty(1 << 16)
+            held.append(weakref.ref(activations))
+            raise type(error)(*error.args)
+        assert held[0]() is None, "the failed batch's tensors outlived its error"
+        return run(*args, **kwargs)
+
+    g = torch.Generator().manual_seed(3)
+    lat = SIZE // 2  # the tiny VAE halves a side
+    latents, refiner_latents = (torch.randn(2, 4, lat, lat, generator=g) for _ in range(2))
+    job = dict(prompt="a harbour", num_inference_steps=3, height=SIZE, width=SIZE, seed=5,
+               refiner={"model_name": "test/tiny-xl-refiner", "strength": 0.5},
+               registry=registry)
+    refiner.run = flaky
+    try:
+        images, config = pipe.run(num_images_per_prompt=2, latents=latents,
+                                  refiner_latents=refiner_latents, **job)
+    finally:
+        refiner.run = run
+    assert calls == [2, 1, 1] and config["timings"]["refiner_one_by_one"] == 2
+    for i in range(2):
+        one, one_cfg = pipe.run(num_images_per_prompt=1, latents=latents[i:i + 1],
+                                refiner_latents=refiner_latents[i:i + 1], **job)
+        assert np.abs(np.asarray(images[i], int) - np.asarray(one[0], int)).max() <= 1
+        assert set(one_cfg) == set(config)
+        assert set(config["timings"]) - set(one_cfg["timings"]) == {"refiner_one_by_one"}
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("a fault of another kind")
+
+    refiner.run = broken
+    try:
+        with pytest.raises(RuntimeError, match="another kind"):
+            pipe.run(num_images_per_prompt=2, **job)
+    finally:
+        refiner.run = run
 
 
 # --- the worker ---

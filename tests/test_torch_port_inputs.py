@@ -8,6 +8,9 @@ input-fetch limits.
   include the instruct-pix2pix checkpoints (strength x 5 becomes the image
   guidance scale; `diffusers/sdxl-instructpix2pix-768` gets a 768 canvas
   unless the job is a tiny-model job) and a `refiner` parameter.
+- The stitch workflow against the JAX package's: both fetch the same
+  result images from the fake hive; the mosaic is equal pixel for pixel,
+  and the image map, rows and columns too.
 - `external_resources.get_image` against the port's fake hive: a start
   image bounded to the job's size or the global edge, and the refusals of
   the JAX package's limits: a body over the 3 MiB cap (announced by HEAD,
@@ -146,10 +149,10 @@ def test_pix2pix_strength_mapping(images):
 
 
 @pytest.mark.parametrize("job,match", [
-    # a ControlNet preprocessor that runs a model (depth estimation) waits
-    # for its model
-    ({"workflow": "img2img", "model_name": SDXL, "start_image_uri": "http://h/start.png",
-      "parameters": {"controlnet": {"preprocessor": "depth"}}}, "controlnet preprocessor"),
+    # the Kandinsky ControlNet (its depth hint) waits for the Kandinsky family
+    ({"workflow": "img2img", "model_name": "kandinsky-community/kandinsky-2-2-controlnet-depth",
+      "start_image_uri": "http://h/start.png", "parameters": {"controlnet": {}}},
+     "Kandinsky family is not ported"),
     ({"workflow": "img2img", "model_name": SDXL, "height": 2048, "width": 512},
      "max image size"),
 ])
@@ -198,3 +201,47 @@ def test_get_image_refusals(hive):
         external_resources._read_capped(stream, limits)
     assert len(external_resources._read_capped(io.BytesIO(b"\0" * limits.max_bytes),
                                                limits)) == limits.max_bytes
+
+
+def test_stitch_matches_jax(hive):
+    import base64
+
+    import numpy as np
+
+    colors = ((200, 30, 40), (20, 180, 90), (250, 250, 10))
+    sizes = ((300, 200), (128, 256), (256, 256))
+    jobs = [{"id": f"job-{i}", "resultUri": hive.enqueue_file(f"r{i}.png", _png(size, c),
+                                                              "image/png")}
+            for i, (size, c) in enumerate(zip(sizes, colors))]
+    job = {"id": "st-1", "workflow": "stitch", "model_name": "none", "jobs": jobs,
+           "content_type": "image/png"}
+    jax_cb, jax_args = asyncio.run(jax_job_arguments.format_args(copy.deepcopy(job),
+                                                                 JaxSettings(), "cpu"))
+    cb, args = job_arguments.format_args(copy.deepcopy(job))
+    want, want_cfg = jax_cb("cpu", "none", **{k: v for k, v in jax_args.items()
+                                               if k != "model_name"})
+    got, cfg = cb("cpu", "none", **{k: v for k, v in args.items() if k != "model_name"})
+    assert cfg == want_cfg and (cfg["rows"], cfg["cols"]) == (2, 2)
+    assert [r["job_id"] for r in cfg["image_map"]] == ["job-0", "job-1", "job-2"]
+
+    def pixels(artifacts):
+        blob = base64.b64decode(artifacts["primary"]["blob"])
+        return np.asarray(Image.open(io.BytesIO(blob)).convert("RGB"))
+
+    assert pixels(got).shape == (512, 512, 3)
+    np.testing.assert_array_equal(pixels(got), pixels(want))
+
+
+def test_stitch_refuses_a_local_result_uri(hive, tmp_path):
+    """A stitch job's result URIs are fetched over http(s) only: a `file:`
+    URI naming a readable image on the worker's disk is refused, as
+    aiohttp (the JAX package's client) refuses it."""
+    local = tmp_path / "secret.png"
+    local.write_bytes(_png((64, 64)))
+    remote = hive.enqueue_file("r0.png", _png((64, 64)), "image/png")
+    jobs = [{"id": "job-0", "resultUri": remote},
+            {"id": "job-1", "resultUri": local.as_uri()}]
+    job = {"id": "st-2", "workflow": "stitch", "model_name": "none", "jobs": jobs}
+    with pytest.raises(external_resources.InputRejected, match="scheme 'file'"):
+        job_arguments.format_args(copy.deepcopy(job))
+    assert len(external_resources.download_images([remote])) == 1

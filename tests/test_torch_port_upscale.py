@@ -340,6 +340,46 @@ def test_txt2img_with_upscale_matches_jax(stages, monkeypatch):
     assert (config["nsfw"], config["nsfw_checked"]) == (False, False)
 
 
+def test_qr_two_stage_with_upscale_matches_jax(stages, monkeypatch):
+    """The QR two-stage chain with `upscale`: JAX hands the job's arguments
+    to both stages, so the first stage's image is upscaled 2x (then resized
+    to the canvas, LANCZOS) and the second's is too. Each stage's draws
+    are JAX's (split(key(seed), 3)[1] to the first, [2] to the second;
+    each stage's upscale from fold_in(its own rest key, 0x5d2)), the
+    ControlNet nonzero, the images within 2/255 (the ControlNet file's
+    QR-chain bound)."""
+    ref_sd, _, port_sd, port_up, models = stages
+    monkeypatch.setattr(jax_up, "upscaler_name_for", lambda name: UPSCALER)
+    cn = "test/qr-controlnet"
+    _chip_smoke().write_controlnet(models / cn, port_sd, seed=81)
+    seed = 14
+    qr = Image.fromarray(np.where(np.indices((SIZE, SIZE)).sum(0) % 16 < 8, 255, 0)
+                         .astype(np.uint8)).convert("RGB")
+    job = dict(prompt="a walled garden", negative_prompt="blurry", num_inference_steps=2,
+               height=SIZE, width=SIZE, guidance_scale=6.0, strength=0.5, image=qr,
+               controlnet_model_name=cn, controlnet_conditioning_scale=0.8,
+               controlnet_prepipeline_type="StableDiffusionPipeline", upscale=True)
+    want, want_cfg = ref_sd.run(rng=jax.random.key(seed), **job)
+    _, k1, k2 = jax.random.split(jax.random.key(seed), 3)
+
+    def draws(key):
+        rest, init_rng, _ = jax.random.split(key, 3)
+        init = np.asarray(jax.random.normal(init_rng, (1, SIZE // 2, SIZE // 2, 4), jnp.float32))
+        return init.transpose(0, 3, 1, 2), _upscale_noise(jax.random.fold_in(rest, 0x5D2))
+
+    pre_latents, pre_upscale = draws(k1)
+    latents, upscale_latents = draws(k2)
+    registry = _Registry({"test/tiny-sd": port_sd, TINY_UPSCALER: port_up})
+    got, cfg = port_sd.run(registry=registry, seed=seed, latents=latents,
+                           upscale_latents=upscale_latents, prepipeline_latents=pre_latents,
+                           prepipeline_upscale_latents=pre_upscale, **job)
+    assert cfg["prepipeline"] == want_cfg["prepipeline"] == "qr_two_stage"
+    for field in ("size", "output_size", "upscaled", "mode"):
+        assert cfg[field] == want_cfg[field], field
+    assert cfg["output_size"] == [2 * SIZE, 2 * SIZE] and cfg["controlnet"] == cn
+    _close(got[0], want[0])
+
+
 def test_latent2x_matches_jax(stages):
     ref_sd, _, port_sd, _, _ = stages
     image = np.asarray(start_image())

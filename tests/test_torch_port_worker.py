@@ -11,6 +11,9 @@ its import purity.
 - The port imports nothing of JAX, flax or chiaswarm_tpu (this stands in
   for lint rule SW001, whose scan does not cover the port), nor OpenCV,
   which the card's machine lacks.
+- The poll's `unconverted_families`, parsed by the repo's hive
+  (`hive_server.dispatch.WorkerDirectory.observe`), keeps Kandinsky, flux
+  and AudioLDM jobs from the port and admits every model it serves.
 """
 
 import asyncio
@@ -143,6 +146,13 @@ def test_every_port_module_imports_with_jax_blocked():
     assert {"chiaswarm_tpu_torch.models.safety", "chiaswarm_tpu_torch.pipelines.safety",
             "chiaswarm_tpu_torch.models.k_upscaler",
             "chiaswarm_tpu_torch.pipelines.upscale"} <= set(modules)
+    # and the preprocessors' detectors, their OpenCV stand-ins and stitch
+    assert {f"chiaswarm_tpu_torch.models.{m}" for m in (
+        "depth", "hed", "pose", "pidinet", "mlsd", "lineart", "zoedepth", "segmentation",
+        "resize")} | {"chiaswarm_tpu_torch.pipelines.aux_models",
+                      "chiaswarm_tpu_torch.pre_processors.imgproc",
+                      "chiaswarm_tpu_torch.pre_processors.depth_estimator",
+                      "chiaswarm_tpu_torch.workflows.stitch"} <= set(modules)
     script = (
         "import sys\n"
         "before = set(sys.modules)\n"
@@ -158,3 +168,35 @@ def test_every_port_module_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
                           timeout=120, cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+REFUSED = ("kandinsky-community/kandinsky-2-2-decoder", "black-forest-labs/FLUX.1-schnell",
+           "cvssp/audioldm-s-full-v2")
+SERVED = ("runwayml/stable-diffusion-v1-5", "stabilityai/stable-diffusion-2-1",
+          "stabilityai/stable-diffusion-2-1-base", "stabilityai/stable-diffusion-xl-base-1.0",
+          "stabilityai/stable-diffusion-xl-refiner-1.0", "runwayml/stable-diffusion-inpainting",
+          "diffusers/stable-diffusion-xl-1.0-inpainting-0.1", "timbrooks/instruct-pix2pix",
+          "diffusers/sdxl-instructpix2pix-768", "stabilityai/sd-x2-latent-upscaler",
+          "test/tiny-sd", "test/tiny-sd-v", "test/tiny-xl", "test/tiny-inpaint",
+          "test/tiny-xl-inpaint", "test/tiny-pix2pix", "test/tiny-xl-pix2pix",
+          "test/tiny-xl-refiner", "test/tiny-upscaler")
+
+
+def test_unconverted_families_gate_the_hive(tmp_path):
+    from chiaswarm_tpu.hive_server.dispatch import WorkerDirectory
+
+    hive = FakeHive(token="tok")
+    try:
+        settings = Settings(sdaas_token="tok", sdaas_uri=hive.uri, worker_name="port-gate",
+                            model_root_dir=str(tmp_path / "models"))
+        worker = worker_mod.Worker(settings=settings, device="cpu", poll_seconds=0.01)
+        hive.enqueue({"id": "echo-1", "workflow": "echo", "model_name": "none", "prompt": "x"})
+        asyncio.run(asyncio.wait_for(worker.run(max_jobs=1), timeout=60))
+    finally:
+        hive.close()
+    info = WorkerDirectory(ttl_s=60).observe(hive.polls[0])
+    assert info.unconverted and all(k == k.lower() for k in info.unconverted)
+    for model in REFUSED:
+        assert not info.can_run(model), model
+    for model in SERVED:
+        assert info.can_run(model), model
