@@ -1,6 +1,7 @@
-"""How many images one coalesced pass may hold on the device: the pieces
-of chiaswarm_tpu/chips/requirements.py that batching reads, for the
-port's one device.
+"""How many images one coalesced pass may hold on the device, and how
+much free memory a pipeline needs before the registry builds it
+(`resident_bytes`): the pieces of chiaswarm_tpu/chips/requirements.py
+that batching and residency read, for the port's one device.
 
 Memory: every family has a parameter footprint and a per-image activation
 estimate at 1024² (the JAX package's tables, copied), scaled by canvas
@@ -25,7 +26,7 @@ import functools
 
 import torch
 
-from .models.configs import model_family
+from .models.configs import auto_family, model_family
 from .ops.group_norm import max_batch_rows
 from .weights import is_test_model
 
@@ -66,18 +67,13 @@ CEILING = 256
 
 
 def _family_key(model_name: str) -> str:
-    name = model_name.lower()
-    if "flux" in name:
-        return "flux"
-    if "kandinsky-3" in name or "kandinsky3" in name:
-        return "kandinsky3"
-    if "kandinsky" in name:
-        return "kandinsky"
-    if "cascade" in name:
-        return "cascade"
-    if name.startswith("deepfloyd/"):
-        return "deepfloyd_if"
-    return model_family(model_name)
+    """Capacity bucket: the name's family (configs.auto_family), a prior
+    charged as its decoder, and the SD families by model_family's finer
+    split."""
+    family = auto_family(model_name)
+    if family in ("sd", "sdxl", "sd_upscale"):
+        return model_family(model_name)
+    return family.removesuffix("_prior")
 
 
 def _area_scale(height: int, width: int | None = None) -> float:
@@ -110,6 +106,27 @@ def fit_batch(device, model_name: str, batch: int, size: int, width: int | None 
     if free < per_image:
         return 0
     return min(batch, int(free / per_image))
+
+
+def resident_bytes(device, model_name: str) -> int:
+    """The device memory a pipeline of `model_name` needs to be built and
+    serve one image at its family's canvas: its parameter footprint and
+    one image's activations; 0 off the card and for the tiny test models."""
+    if torch.device(device).type != "cuda" or is_test_model(model_name):
+        return 0
+    fam = _family_key(model_name)
+    size = default_canvas(model_name)
+    gib = (FAMILY_PARAMS_GB.get(fam, _DEFAULT_PARAMS_GB)
+           + FAMILY_ACT_GB_PER_IMAGE.get(fam, _DEFAULT_ACT_GB) * _area_scale(size))
+    return int(gib * (1 << 30))
+
+
+def free_bytes(device) -> int:
+    """The device memory a new allocation can take: the driver's free
+    memory and the blocks the caching allocator holds unused."""
+    device = torch.device(device)
+    return (torch.cuda.mem_get_info(device)[0] + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
 
 
 def kernel_image_limit(device) -> int | None:

@@ -14,17 +14,18 @@ package's, element for element, the shared ControlNet element among them
 (jobs with one ControlNet branch and one control image coalesce; a
 ControlNet job with a start image, a QR chain or QR contents runs
 alone). It is None wherever the JAX key is None, and also for what the
-port cannot serve in a pass: flux (a later slice), stage jobs (no stage
-graph yet) and the job keys job_arguments refuses. The port has one adapter route,
-the runtime delta (pipelines/lora_runtime.py), so adapter jobs always
-coalesce, as in the JAX package with `lora_runtime_delta` at its
-default.
+port cannot serve in a pass: stage jobs (no stage graph yet) and the job
+keys job_arguments refuses. Flux coalesces as in JAX: txt2img only, no
+ControlNet, no adapter, a Flux wire name, explicit steps and guidance.
+The port has one adapter route, the runtime delta
+(pipelines/lora_runtime.py), so adapter jobs always coalesce, as in the
+JAX package with `lora_runtime_delta` at its default.
 """
 
 from __future__ import annotations
 
 from .job_arguments import _UNPORTED_KEYS
-from .models.configs import model_family
+from .models.configs import auto_family
 
 # wire pipeline_type strings whose txt2img semantics the pass reproduces
 _BATCHABLE_PIPELINE_TYPES = {
@@ -42,6 +43,14 @@ _BATCHABLE_I2I_PIPELINE_TYPES = {
     "StableDiffusionImg2ImgPipeline",
     "StableDiffusionXLImg2ImgPipeline",
     "AutoPipelineForImage2Image",
+}
+
+# txt2img wire names the coalesced Flux pass reproduces (no CFG rows)
+_BATCHABLE_FLUX_PIPELINE_TYPES = {
+    None,
+    "DiffusionPipeline",
+    "FluxPipeline",
+    "AutoPipelineForText2Image",
 }
 
 # txt2img ControlNet wire names whose batched semantics the shared
@@ -182,15 +191,10 @@ def _controlnet_component(job: dict, params: dict, workflow: str) -> tuple | Non
 
 
 def _family(model: str) -> str | None:
-    """The JAX package's `_auto_family` for the SD families ("sd",
-    "sdxl"), from the port's own `model_family`; None for every family the
-    port's pass does not serve."""
-    name = model.lower()
-    if any(mark in name for mark in ("kandinsky", "cascade", "flux", "tiny-if",
-                                     "latent-upscaler", "tiny-upscaler")) \
-            or name.startswith("deepfloyd/"):
-        return None
-    return "sdxl" if "xl" in model_family(model) else "sd"
+    """The model's family (configs.auto_family) where it has a coalesced
+    pass ("sd", "sdxl", "flux"); None for every other family."""
+    family = auto_family(model)
+    return family if family in ("sd", "sdxl", "flux") else None
 
 
 def coalesce_key(job: dict) -> tuple | None:
@@ -221,6 +225,16 @@ def coalesce_key(job: dict) -> tuple | None:
         family = _family(model)
         if family is None:
             return None
+        if family == "flux":
+            # flow-matching txt2img only, and explicit steps and guidance:
+            # the solo defaults depend on the variant (schnell's 4 steps)
+            if workflow != "txt2img" or cn is not None or adapter_ref(job) is not None:
+                return None
+            if params.get("pipeline_type") not in _BATCHABLE_FLUX_PIPELINE_TYPES:
+                return None
+            if any(params.get(k, job.get(k)) is None
+                   for k in ("num_inference_steps", "guidance_scale")):
+                return None
 
         # canvas: explicit dims, else the model-pinned default; jobs on the
         # family default share the None bucket
@@ -235,8 +249,10 @@ def coalesce_key(job: dict) -> tuple | None:
         if workflow == "txt2img":
             if "start_image_uri" in job or "strength" in job:
                 return None
-            # the ControlNet element checked its own pipeline types
-            if cn is None and params.get("pipeline_type") not in _BATCHABLE_PIPELINE_TYPES:
+            # the ControlNet element and the Flux branch checked their own
+            # pipeline types
+            if cn is None and family != "flux" and (
+                    params.get("pipeline_type") not in _BATCHABLE_PIPELINE_TYPES):
                 return None
         else:
             # per-request start images at a shared explicit canvas

@@ -20,12 +20,13 @@
 // full tile (no masked column, positive scale) the scale folds into the
 // exponent's FMA and no mask is applied. Three paths:
 //
-//   - bf16, D in {40, 64, 80, 160} (every UNet attention of SDXL, SD 2.x
-//     and SD 1.x): `flash_fwd_wgmma<D>`, warp specialised, one template
-//     over the head width (its tiles per width are at `WgTiles`). One
-//     producer warpgroup (one thread issues TMA loads, the rest give their
+//   - bf16, D in {40, 64, 80, 128, 160} (every UNet attention of SDXL,
+//     SD 2.x and SD 1.x, and Flux's joint attention at D = 128):
+//     `flash_fwd_wgmma<D>`, warp specialised, one template over the head
+//     width (its tiles per width are at `WgTiles`). One producer
+//     warpgroup (one thread issues TMA loads, the rest give their
 //     registers away with setmaxnreg) and three consumer warpgroups (two
-//     at D = 80 and 160), each owning 64 of the CTA's query rows, so
+//     at D = 80, 128 and 160), each owning 64 of the CTA's query rows, so
 //     every K/V tile feeds 192 (128) rows. K and V tiles of 128 rows (64
 //     at D = 160) move through a 3-stage ring in shared memory, each stage
 //     with a full barrier for K, one for V and one empty barrier, so
@@ -52,8 +53,8 @@
 //     columns) fill shared memory; K and V have their own barriers, so
 //     K of tile j+1 loads during P.V of tile j and V of tile j+1 during
 //     S of tile j+1.
-//   - every other case (f32 inputs, other bf16 head widths up to 512, such
-//     as D = 128): an FMA kernel in plain f32, no TF32, so f32 meets the
+//   - every other case (f32 inputs, other bf16 head widths up to 512): an
+//     FMA kernel in plain f32, no TF32, so f32 meets the
 //     2e-5 bound of the reference test; 16-byte loads fill the tiles. It is
 //     right, not fast.
 //
@@ -202,13 +203,13 @@ __device__ __forceinline__ void row_sums(float& l0, float& l1, float& inv0, floa
 }
 
 // ---------------------------------------------------------------------
-// bf16, D in {40, 64, 80, 160}: one warp-specialised kernel, a template
+// bf16, D in {40, 64, 80, 128, 160}: one warp-specialised kernel, a template
 // over the head width
 // ---------------------------------------------------------------------
 
 // Tiles for each head width. A row of Q, K or V loads as ceil(D / 64)
 // boxes of 64 columns (one 128-byte swizzle atom each); TMA writes zeros
-// past D, so S = Q.K^T needs only ceil(D / 16) k16 slices (3, 4, 5, 10),
+// past D, so S = Q.K^T needs only ceil(D / 16) k16 slices (3, 4, 5, 8, 10),
 // a compile-time count: a wgmma under a branch would be serialised.
 //
 // P.V runs n64 wgmmas over whole boxes, so it computes 64 / 128 / 192
@@ -223,7 +224,7 @@ __device__ __forceinline__ void row_sums(float& l0, float& l1, float& inv0, floa
 //
 // Registers (ptxas -v for sm_90a): every instance builds with 0 bytes of
 // spill stores and loads; ptxas reports the launch allotment (128
-// registers a thread at D = 40 and 64, 168 at 80 and 160), and the
+// registers a thread at D = 40 and 64, 168 at 80, 128 and 160), and the
 // consumers run at the setmaxnreg counts below.
 template <int D>
 struct WgTiles;
@@ -249,6 +250,15 @@ struct WgTiles<80> {
   static constexpr int kConsumers = 2, kBN = 128, kStages = 3;
   static constexpr uint32_t kProducerRegs = 40, kConsumerRegs = 232;
 };
+
+// D = 128 (Flux's 24 heads of its 3072-wide joint attention): two whole
+// boxes a row, as D = 80 has, with no padded columns; the same tiles (two
+// consumers at 232 registers: S 64, P 32, the two-box accumulator 64) and
+// the same 224 KB of shared memory. P.V computes exactly the head width,
+// so a score costs twice the products of D = 64 for the same exp2: the
+// tensor cores, not the SFU, bound this width.
+template <>
+struct WgTiles<128> : WgTiles<80> {};
 
 // D = 160 (SD 1.x's third level and mid block): three boxes a row; 128-row
 // K and V tiles would be 96 KB a stage, so 64-row tiles (S 32 registers,
@@ -660,7 +670,7 @@ flash_fwd_wgmma512(const __grid_constant__ CUtensorMap tq, const __grid_constant
 }
 
 // ---------------------------------------------------------------------
-// FMA kernel: f32 math for any D <= DMAX (f32 inputs, and bf16 at D=512)
+// FMA kernel: f32 math for any D <= DMAX (f32 inputs, and bf16 at the other widths)
 // ---------------------------------------------------------------------
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -850,7 +860,7 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Tensors are contiguous [B, S, H, D].
 // *route is set to the kernel that takes the call: the head width of the
-// tensor-core kernel (40, 64, 80, 160 or 512), or 0 for the FMA kernel.
+// tensor-core kernel (40, 64, 80, 128, 160 or 512), or 0 for the FMA kernel.
 // Returns a cudaError_t (0 = success); 1 (cudaErrorInvalidValue) for a
 // dtype/D the kernels do not take (the Python wrapper checks first) or a
 // tensor map the driver refuses.
@@ -860,7 +870,7 @@ int fa_forward(const void* q, const void* k, const void* v, void* o, int B, int 
   *route = 0;
   if (D < 1 || D > 512 || Sq < 1 || Skv < 1) return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
-    if (D == 40 || D == 64 || D == 80 || D == 160 || D == 512) *route = D;
+    if (D == 40 || D == 64 || D == 80 || D == 128 || D == 160 || D == 512) *route = D;
     switch (D) {
       case 40:
         return (int)launch_wg<40>(q, k, v, o, B, Sq, Skv, H, scale, s);
@@ -868,6 +878,8 @@ int fa_forward(const void* q, const void* k, const void* v, void* o, int B, int 
         return (int)launch_wg<64>(q, k, v, o, B, Sq, Skv, H, scale, s);
       case 80:
         return (int)launch_wg<80>(q, k, v, o, B, Sq, Skv, H, scale, s);
+      case 128:
+        return (int)launch_wg<128>(q, k, v, o, B, Sq, Skv, H, scale, s);
       case 160:
         return (int)launch_wg<160>(q, k, v, o, B, Sq, Skv, H, scale, s);
       case 512:

@@ -12,7 +12,9 @@ checkpoints take `strength * 5` as their image guidance scale, and the
 size-locked checkpoints get a 768 canvas. A job's `lora` resolves against
 the settings' `lora_root_dir` (loras.py); `textual_inversion`, `vae`,
 `lora_scale` and `cross_attention_kwargs` pass through from `parameters`,
-as does `upscale` (the SD-x2 stage the pipeline chains).
+as does `upscale` (the SD-x2 stage the pipeline chains). A Flux job's
+wire arguments (`pipeline_type: FluxPipeline`, `max_sequence_length`,
+`guidance_scale`) pass through from `parameters` as well.
 
 A `parameters.controlnet` dict gives the ControlNet arguments, as in the
 JAX package's `format_controlnet_args`: the control image is the

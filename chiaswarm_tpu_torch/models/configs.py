@@ -1,10 +1,14 @@
 """Model configurations the port serves: SD 1.x, SD 2.x, SDXL base and
-refiner, and the tiny stand-ins of the hermetic tests. Copied from
-chiaswarm_tpu/models/configs.py (the port imports nothing of the JAX
-package); the other families wait for their slices of the port.
+refiner, Flux (its MMDiT transformer, T5-XXL and the 16-channel VAE; its
+CLIP is SD 1.x's CLIP-L), and the tiny stand-ins of the hermetic tests.
+Copied from chiaswarm_tpu/models/configs.py, flux.py and t5.py (the port
+imports nothing of the JAX package); the other families wait for their
+slices of the port.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 from .clip import CLIPTextConfig
 from .unet2d import UNet2DConfig
@@ -68,6 +72,62 @@ SDXL_REFINER_UNET = UNet2DConfig(
 
 SD_VAE = VAEConfig()
 SDXL_VAE = VAEConfig(scaling_factor=0.13025)
+# Flux: 16-channel latents, shifted and scaled, no 1x1 quant convs
+# (black-forest-labs/FLUX.1-* AutoencoderKL config)
+FLUX_VAE = VAEConfig(latent_channels=16, scaling_factor=0.3611, shift_factor=0.1159,
+                     use_quant_conv=False)
+
+
+# --- Flux (black-forest-labs/FLUX.1-dev and -schnell) ---
+@dataclasses.dataclass(frozen=True)
+class FluxConfig:
+    in_channels: int = 64  # 16 latent channels x 2x2 patch
+    hidden_size: int = 3072
+    num_heads: int = 24
+    depth_double: int = 19
+    depth_single: int = 38
+    mlp_ratio: float = 4.0
+    context_dim: int = 4096  # T5-XXL d_model
+    pooled_dim: int = 768  # CLIP-L pooled
+    guidance_embed: bool = True  # dev's distilled guidance; schnell: False
+    axes_dims_rope: tuple[int, ...] = (16, 56, 56)
+    theta: int = 10_000
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+
+TINY_FLUX = FluxConfig(
+    in_channels=16,  # 4 latent channels x 2x2 patch (tiny VAE)
+    hidden_size=32,
+    num_heads=2,
+    depth_double=1,
+    depth_single=1,
+    context_dim=32,
+    pooled_dim=32,
+    guidance_embed=True,
+    axes_dims_rope=(4, 6, 6),
+)
+
+
+# --- T5 encoders (Flux's T5-XXL) ---
+@dataclasses.dataclass(frozen=True)
+class T5Config:
+    vocab_size: int = 32128
+    d_model: int = 4096
+    d_kv: int = 64
+    num_heads: int = 64
+    d_ff: int = 10240
+    num_layers: int = 24
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    layer_norm_epsilon: float = 1e-6
+
+
+# the tiny config keeps every structural feature
+TINY_T5 = T5Config(vocab_size=1000, d_model=32, d_kv=8, num_heads=4, d_ff=64, num_layers=2)
+
 
 # --- tiny configs for hermetic tests / test_tiny_model jobs ---
 TINY_UNET = UNet2DConfig(
@@ -113,3 +173,25 @@ def model_family(model_name: str) -> str:
     if "stable-diffusion-2" in name or name.endswith("-v2-1") or "768" in name:
         return "sd21"
     return "sd15"
+
+
+def auto_family(model_name: str) -> str:
+    """The family a model name belongs to, as the JAX registry's
+    `_auto_family` tells it: "flux", "sd_upscale", "sdxl" or "sd" for the
+    families the port serves, else the later families' names. The one
+    place that maps a name to a family: the registry, the coalesce key,
+    the capacity tables and the SD configs all ask it."""
+    name = model_name.lower()
+    if "kandinsky-3" in name or "kandinsky3" in name:
+        return "kandinsky3"
+    if "kandinsky" in name:
+        return "kandinsky_prior" if "prior" in name else "kandinsky"
+    if "cascade" in name:
+        return "cascade_prior" if "prior" in name else "cascade"
+    if "flux" in name:
+        return "flux"
+    if name.startswith("deepfloyd/") or "tiny-if" in name:
+        return "deepfloyd_if"
+    if "latent-upscaler" in name or "tiny-upscaler" in name:
+        return "sd_upscale"
+    return "sdxl" if "xl" in model_family(model_name) else "sd"

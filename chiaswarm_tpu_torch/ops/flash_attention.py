@@ -41,7 +41,7 @@ COUNTER = LaunchCounter()
 
 MAX_HEAD_DIM = 512
 # bf16 head widths that run on the tensor cores (wgmma fed by TMA)
-TENSOR_CORE_WIDTHS = (40, 64, 80, 160, 512)
+TENSOR_CORE_WIDTHS = (40, 64, 80, 128, 160, 512)
 FA_FORWARD_ARGS = [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, FLOAT, INT, PTR, PTR]
 # fa_forward, bound when the library first loads
 _forward = None

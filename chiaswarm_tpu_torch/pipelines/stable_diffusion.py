@@ -100,9 +100,6 @@ logger = logging.getLogger(__name__)
 MAX_RESIDENT_TI = 4
 MAX_RESIDENT_VAES = 2
 
-# model-name marks of families (and their tiny stand-ins) of later slices
-_LATER_FAMILIES = ("flux", "kandinsky", "cascade")
-
 
 def config_prediction_type(model_name: str, model_root_dir: str | None) -> str | None:
     """`prediction_type` from the checkpoint's scheduler config
@@ -139,7 +136,11 @@ def family_configs(model_name: str, model_root_dir: str | None = None):
     checkpoint: its UNet takes 9 channels (latents, mask, masked-image
     latents)."""
     name = model_name.lower()
-    if any(family in name for family in _LATER_FAMILIES):
+    family = cfgs.auto_family(model_name)
+    if family == "flux":
+        raise ValueError(f"{model_name}: a Flux model, which FluxPipeline (pipelines/flux.py) "
+                         "serves, not SDPipeline")
+    if family not in ("sd", "sdxl"):
         raise ValueError(f"{model_name}: this family is not ported to "
                          "chiaswarm_tpu_torch yet")
     if "tiny" in name:

@@ -11,11 +11,14 @@ read each checkpoint's scheduler config (the prediction type) under
 
 At most MAX_RESIDENT_PIPELINES stay resident, as in the JAX package: a
 build past the limit evicts the least recently used pipeline (a fetch
-refreshes its recency). An eviction releases the pipeline's adapter
-stacks, textual-inversion tables and custom VAEs and drops the registry's
-reference; a job that still runs on the evicted pipeline keeps it (and
-what the job itself holds) alive until it ends, and its device memory
-returns when the last reference goes.
+refreshes its recency). On the card a build first evicts least recently
+used pipelines until the new model's footprint and one image fit in the
+free device memory (capacity.resident_bytes), so a Flux bundle (31.4
+GiB) can join a worker that serves SDXL too. An eviction releases the
+pipeline's adapter stacks, textual-inversion tables and custom VAEs and
+drops the registry's reference; a job that still runs on the evicted
+pipeline keeps it (and what the job itself holds) alive until it ends,
+and its device memory returns when the last reference goes.
 
 The registry owns the caches its pipelines share (the adapter caches of
 lora_cache.py, the encoded-prompt cache of embed_cache.py) and the roots a
@@ -23,10 +26,12 @@ job's adapters and ControlNets resolve under.
 
 `PIPELINE_FAMILIES` is the JAX package's table of wire `pipeline_type`
 names for the families the port serves: "sd" and "sdxl" (one resident
-`SDPipeline` serves every name of its model) and "sd_upscale" (the SD-x2
-`LatentUpscalePipeline`, which a generic name reaches by a model name
-holding `latent-upscaler` or `tiny-upscaler`, as in JAX). A pipeline is
-kept under (model name, "upscaler" or "sd"), in the same LRU.
+`SDPipeline` serves every name of its model), "sd_upscale" (the SD-x2
+`LatentUpscalePipeline`) and "flux" (`FluxPipeline`). The generic names
+(`DiffusionPipeline`, `AutoPipeline*`) resolve by model name, as the JAX
+registry's `_auto_family` (configs.auto_family; `job_family`). A
+pipeline is kept under (model name, "flux", "upscaler" or "sd"), in the
+same LRU.
 `check_pipeline_type` refuses the names of other families and names that
 no table holds.
 
@@ -37,14 +42,18 @@ device, model root and `safety_checker_model`.
 
 from __future__ import annotations
 
+import gc
 import logging
 import threading
 from collections import OrderedDict
 
 import torch
 
+from .capacity import free_bytes, resident_bytes
 from .embed_cache import EmbedCache
 from .lora_cache import LoraCache
+from .models.configs import auto_family
+from .pipelines.flux import FluxPipeline
 from .pipelines.safety import DEFAULT_SAFETY_MODEL, get_checker
 from .pipelines.stable_diffusion import SDPipeline
 from .pipelines.upscale import LatentUpscalePipeline
@@ -53,7 +62,7 @@ logger = logging.getLogger(__name__)
 
 MAX_RESIDENT_PIPELINES = 4
 
-# wire name -> family, the SD and SDXL rows of the JAX package's table
+# wire name -> family, the SD, SDXL and Flux rows of the JAX package's table
 PIPELINE_FAMILIES: dict[str, str] = {
     "DiffusionPipeline": "sd",
     "StableDiffusionPipeline": "sd",
@@ -72,6 +81,7 @@ PIPELINE_FAMILIES: dict[str, str] = {
     "StableDiffusionXLInstructPix2PixPipeline": "sdxl",
     "StableDiffusionLatentUpscalePipeline": "sd_upscale",
     "AutoPipelineForText2Image": "sd",
+    "FluxPipeline": "flux",
 }
 
 
@@ -108,15 +118,16 @@ def check_pipeline_type(pipeline_type: str) -> None:
                          "chiaswarm_tpu_torch yet")
 
 
-def is_upscaler(model_name: str, pipeline_type: str | None = None) -> bool:
-    """Whether the job's pipeline is the SD-x2 upscaler: by its wire name,
-    or, for the generic names, by the model's, as the JAX registry's
-    `_auto_family` tells it."""
-    if pipeline_type and pipeline_type in PIPELINE_FAMILIES and pipeline_type not in (
+def job_family(model_name: str, pipeline_type: str | None = None) -> str:
+    """"flux", "sd_upscale" or "sd" (SD and SDXL) for a job: by its wire
+    name, or, for the generic names (and none), by the model's
+    (configs.auto_family, as the JAX registry's `_auto_family`)."""
+    if pipeline_type in PIPELINE_FAMILIES and pipeline_type not in (
             "DiffusionPipeline", "AutoPipelineForText2Image"):
-        return PIPELINE_FAMILIES[pipeline_type] == "sd_upscale"
-    name = model_name.lower()
-    return "latent-upscaler" in name or "tiny-upscaler" in name
+        family = PIPELINE_FAMILIES[pipeline_type]
+    else:
+        family = auto_family(model_name)
+    return family if family in ("flux", "sd_upscale") else "sd"
 
 
 class Registry:
@@ -135,21 +146,28 @@ class Registry:
         if embed_cache is True:
             embed_cache = EmbedCache(64 << 20)
         self.embed_cache = embed_cache if isinstance(embed_cache, EmbedCache) else None
-        self._pipelines: OrderedDict[tuple, SDPipeline | LatentUpscalePipeline] = OrderedDict()
+        self._pipelines: OrderedDict[tuple, SDPipeline | LatentUpscalePipeline | FluxPipeline] = (
+            OrderedDict())
         self._lock = threading.Lock()
 
     def get_pipeline(self, model_name: str, allow_random_init: bool = False,
                      pipeline_type: str | None = None):
-        """The resident pipeline for `model_name` (the upscaler where
-        `is_upscaler` says so, else an SDPipeline), built on first use."""
-        upscaler = is_upscaler(model_name, pipeline_type)
-        key = (model_name, "upscaler" if upscaler else "sd")
+        """The resident pipeline for `model_name` (a FluxPipeline or the
+        upscaler where `job_family` says so, else an SDPipeline), built on
+        first use."""
+        family = job_family(model_name, pipeline_type)
+        key = (model_name, {"flux": "flux", "sd_upscale": "upscaler"}.get(family, "sd"))
         with self._lock:
             pipe = self._pipelines.get(key)
             if pipe is not None:
                 self._pipelines.move_to_end(key)
                 return pipe
-            if upscaler:
+            evicted = self._make_room(model_name)
+            if family == "flux":
+                pipe = FluxPipeline(model_name, device=self.device,
+                                    allow_random_init=allow_random_init,
+                                    model_root_dir=self.model_root_dir)
+            elif family == "sd_upscale":
                 pipe = LatentUpscalePipeline(model_name, device=self.device,
                                              allow_random_init=allow_random_init,
                                              model_root_dir=self.model_root_dir)
@@ -160,15 +178,31 @@ class Registry:
                                   lora_root_dir=self.lora_root_dir, lora_cache=self.lora_cache,
                                   embed_cache=self.embed_cache)
             self._pipelines[key] = pipe
-            evicted = [self._pipelines.popitem(last=False)
-                       for _ in range(len(self._pipelines) - MAX_RESIDENT_PIPELINES)]
-            for _, old in evicted:
-                old.release()
+            while len(self._pipelines) > MAX_RESIDENT_PIPELINES:
+                evicted.append(self._evict())
             if evicted:
-                logger.info("evicted resident pipelines %s", [key for key, _ in evicted])
+                logger.info("evicted resident pipelines %s", evicted)
                 if torch.device(self.device).type == "cuda":
                     torch.cuda.empty_cache()
             return pipe
+
+    def _evict(self) -> tuple:
+        """Release the least recently used pipeline and drop the
+        registry's reference -> its key."""
+        key, old = self._pipelines.popitem(last=False)
+        old.release()
+        return key
+
+    def _make_room(self, model_name: str) -> list[tuple]:
+        """Evict least recently used pipelines until `model_name`'s
+        resident footprint and one image (capacity.resident_bytes: nothing
+        off the card) fit in the device's free memory -> the evicted keys."""
+        need = resident_bytes(self.device, model_name)
+        evicted = []
+        while need and self._pipelines and free_bytes(self.device) < need:
+            evicted.append(self._evict())
+            gc.collect()
+        return evicted
 
     def resident_models(self) -> list[str]:
         with self._lock:

@@ -1,10 +1,11 @@
 """Diffusion schedulers by wire name: every SD solver of the JAX package's
-registry (chiaswarm_tpu/schedulers/__init__.py), with its aliases.
+registry (chiaswarm_tpu/schedulers/__init__.py), with its aliases, and
+Flux's flow-matching Euler (`FlowMatchEulerScheduler`, also under
+diffusers' name `FlowMatchEulerDiscreteScheduler`).
 
-The flow-matching solver (flux) and Stable Cascade's ratio-space DDPM
-come with the families that use them (ROADMAP.md); asking for either
-raises, naming that slice, and an unknown name raises as in the JAX
-package.
+Stable Cascade's ratio-space DDPM comes with the family that uses it
+(ROADMAP.md); asking for it raises, naming that slice, and an unknown
+name raises as in the JAX package.
 """
 
 from .common import Schedule, SchedulerConfig
@@ -15,6 +16,7 @@ from .solvers import (
     DPMSolverMultistepScheduler,
     EulerAncestralDiscreteScheduler,
     EulerDiscreteScheduler,
+    FlowMatchEulerScheduler,
     HeunDiscreteScheduler,
     LCMScheduler,
     UniPCMultistepScheduler,
@@ -33,12 +35,12 @@ SCHEDULERS = {
     "LMSDiscreteScheduler": EulerDiscreteScheduler,
     "HeunDiscreteScheduler": HeunDiscreteScheduler,
     "LCMScheduler": LCMScheduler,
+    "FlowMatchEulerScheduler": FlowMatchEulerScheduler,
+    "FlowMatchEulerDiscreteScheduler": FlowMatchEulerScheduler,
 }
 
 # wire names of the JAX registry whose solver comes with a later slice
 LATER_SLICE = {
-    "FlowMatchEulerDiscreteScheduler": "flux",
-    "FlowMatchEulerScheduler": "flux",
     "DDPMWuerstchenScheduler": "Stable Cascade",
 }
 
@@ -57,6 +59,7 @@ def get_scheduler(name: str, **config):
 __all__ = [
     "Schedule", "SchedulerConfig", "SCHEDULERS", "LATER_SLICE", "get_scheduler",
     "BaseScheduler", "DDIMScheduler", "DDPMScheduler", "DPMSolverMultistepScheduler",
-    "EulerAncestralDiscreteScheduler", "EulerDiscreteScheduler", "HeunDiscreteScheduler",
+    "EulerAncestralDiscreteScheduler", "EulerDiscreteScheduler", "FlowMatchEulerScheduler",
+    "HeunDiscreteScheduler",
     "LCMScheduler", "UniPCMultistepScheduler",
 ]

@@ -332,3 +332,29 @@ class LCMScheduler(BaseScheduler):
             return state, denoised
         return state, (float(np.sqrt(abar_next)) * denoised
                        + float(np.sqrt(_ONE - abar_next)) * noise)
+
+
+# --- flow matching (Flux) ---
+
+class FlowMatchEulerScheduler(BaseScheduler):
+    """Rectified-flow Euler for Flux's MMDiT: x_s = (1 - s) x0 + s eps, the
+    model predicts the velocity eps - x0; sigmas are a linspace from 1 to
+    1/n, time-warped by `shift` (s' = shift s / (1 + (shift - 1) s)), then
+    a final 0, in f32 as the JAX package computes them. The step is
+    x + (sigma[i+1] - sigma[i]) v, the difference taken in f32."""
+
+    def schedule(self, num_steps: int) -> Schedule:
+        shift = self.config.shift
+        s = np.linspace(1.0, 1.0 / num_steps, num_steps)
+        s = shift * s / (1.0 + (shift - 1.0) * s)
+        sigmas = np.concatenate([s, [0.0]]).astype(np.float32)
+        return Schedule(timesteps=(s * self.config.num_train_timesteps).astype(np.float32),
+                        sigmas=sigmas, init_noise_sigma=1.0, num_steps=num_steps)
+
+    def step(self, schedule, state, i, sample, model_output, noise=None):
+        dt = _f32(schedule.sigmas[i + 1]) - _f32(schedule.sigmas[i])
+        return state, sample + float(dt) * model_output
+
+    def add_noise(self, schedule, x0, noise, i):
+        s = _f32(schedule.sigmas[i])
+        return float(_ONE - s) * x0 + float(s) * noise

@@ -26,9 +26,16 @@ package's `infer_k_upscaler_config` / `infer_vae_config` read them, from
 the tensors' shapes (`checkpoint_shapes`, no tensor loaded) and the
 folders' config.json.
 
+Flux's model directory holds `transformer/` (diffusers'
+FluxTransformer2DModel names, which the port's module keeps),
+`text_encoder_2/` (T5, transformers' names; `encoder.embed_tokens` is the
+tied `shared` table), `text_encoder/` (CLIP-L) and `vae/`, as the JAX
+FluxPipeline's `_convert_params` reads them (`FLUX_FOLDERS`).
+
 `from_jax_params` inverts chiaswarm_tpu/models/conversion.py's
 `convert_unet` (a ControlNet's tree too) / `convert_vae` / `convert_clip`
-/ `convert_k_upscaler` / `convert_safety_checker`, and the detectors'
+/ `convert_k_upscaler` / `convert_safety_checker` / `convert_flux` /
+`convert_t5`, and the detectors'
 `convert_dpt` / `convert_hed` / `convert_openpose_body` /
 `convert_pidinet` / `convert_mlsd` / `convert_lineart` /
 `convert_zoedepth` / `convert_upernet` (and the tiny PoseNet's tree):
@@ -54,12 +61,15 @@ from torch import nn
 
 from .models.k_upscaler import KUpscalerConfig
 from .models.layers import FusedGroupNorm
+from .models.t5 import RMSNorm
 from .models.vae import VAEConfig
 
 logger = logging.getLogger(__name__)
 
 # a checkpoint's text-encoder folders, by the encoder's position
 TEXT_ENCODER_FOLDERS = ("text_encoder", "text_encoder_2")
+# a Flux model directory's folders: the transformer, T5, CLIP-L, the VAE
+FLUX_FOLDERS = ("transformer", "text_encoder_2", "text_encoder", "vae")
 
 
 class MissingWeightsError(ValueError):
@@ -107,13 +117,16 @@ def model_seed(model_name: str) -> int:
 
 @torch.no_grad()
 def random_init_(module: nn.Module, generator: torch.Generator) -> None:
-    """Seeded init in parameter order: norms 1/0, biases 0, embeddings
-    N(0, 0.02) (positions 0.01, as the JAX package), every other weight
-    N(0, 1/fan_in) (LeCun normal, flax's Dense/Conv default)."""
+    """Seeded init in parameter order: norms 1/0 (RMSNorm scales 1),
+    biases 0, embeddings N(0, 0.02) (positions 0.01, as the JAX package),
+    every other weight N(0, 1/fan_in) (LeCun normal, flax's Dense/Conv
+    default). It draws in the parameters' own dtype and device, so a
+    module materialised in bf16 on the card is seeded there, with no f32
+    copy anywhere."""
     for name, p in module.named_parameters():
         owner_name, leaf = name.rsplit(".", 1) if "." in name else ("", name)
         owner = module.get_submodule(owner_name)
-        if isinstance(owner, (nn.LayerNorm, FusedGroupNorm)):
+        if isinstance(owner, (nn.LayerNorm, FusedGroupNorm, RMSNorm)):
             p.fill_(1.0 if leaf == "weight" else 0.0)
         elif isinstance(owner, nn.Embedding):
             std = 0.01 if owner_name.endswith("position_embedding") else 0.02
@@ -158,10 +171,13 @@ def checkpoint_key(key: str, folder: str, text_layers: int | None = None) -> str
     """A checkpoint key -> the port's, or None for one that is dropped:
     `position_ids` buffers, and text-encoder layers past the config's
     `text_layers` (SD 2.x's OpenCLIP-H files hold 24, the port runs 23).
+    T5's `encoder.embed_tokens` is its tied `shared` table.
     The VAE's legacy attention names (query/key/value/proj_attn) become
     diffusers' (to_q/to_k/to_v/to_out.0)."""
     if key.endswith("position_ids"):
         return None
+    if key == "encoder.embed_tokens.weight":
+        return "shared.weight"  # T5's token table, tied to `shared`
     if text_layers is not None:
         layer = _TEXT_LAYER.match(key)
         if layer and int(layer.group(1)) >= text_layers:
@@ -412,20 +428,130 @@ def safety_state_dict(tree: dict) -> dict[str, torch.Tensor]:
     return _state_dict(tree, _safety_name)
 
 
+def _dense(out: dict, name: str, node: dict) -> None:
+    """A flax Dense {kernel [in, out], bias} -> Linear `name`.weight / .bias."""
+    out[f"{name}.weight"] = np.asarray(node["kernel"]).T
+    if "bias" in node:
+        out[f"{name}.bias"] = np.asarray(node["bias"])
+
+
+def _split_dense(out: dict, names: list[str], node: dict, widths: list[int]) -> None:
+    """A fused flax Dense -> Linears `names`, its output columns cut in
+    `widths` in order (the inverse of convert_flux's fusions)."""
+    cuts = np.cumsum(widths)[:-1]
+    for name, w in zip(names, np.split(np.asarray(node["kernel"]).T, cuts, axis=0)):
+        out[f"{name}.weight"] = w
+    if "bias" in node:
+        for name, b in zip(names, np.split(np.asarray(node["bias"]), cuts)):
+            out[f"{name}.bias"] = b
+
+
+_FLUX_TOP = {"img_in": "x_embedder", "txt_in": "context_embedder",
+             "final_layer_linear": "proj_out"}
+_FLUX_MLP = {"time_in": "timestep_embedder", "vector_in": "text_embedder",
+             "guidance_in": "guidance_embedder"}
+_FLUX_DOUBLE = {"img_mod": "norm1.linear", "txt_mod": "norm1_context.linear",
+                "img_attn_proj": "attn.to_out.0", "txt_attn_proj": "attn.to_add_out",
+                "img_mlp_0": "ff.net.0.proj", "img_mlp_2": "ff.net.2",
+                "txt_mlp_0": "ff_context.net.0.proj", "txt_mlp_2": "ff_context.net.2"}
+
+
+def flux_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """Inverse of `convert_flux`: the fused `*_attn_qkv` back into to_q /
+    to_k / to_v (the text stream's add_q_proj / add_k_proj / add_v_proj),
+    a single block's `linear1` into to_q / to_k / to_v / proj_mlp, and
+    `final_layer_mod`'s (shift, scale) halves into norm_out.linear's
+    (scale, shift)."""
+    out: dict[str, np.ndarray] = {}
+    for key, node in tree.items():
+        if key in _FLUX_TOP:
+            _dense(out, _FLUX_TOP[key], node)
+        elif key in _FLUX_MLP:
+            base = f"time_text_embed.{_FLUX_MLP[key]}"
+            _dense(out, f"{base}.linear_1", node["in_layer"])
+            _dense(out, f"{base}.linear_2", node["out_layer"])
+        elif key == "final_layer_mod":
+            # output rows (shift; scale) -> (scale; shift)
+            _dense(out, "norm_out.linear", node)
+            for leaf in ("weight", "bias"):
+                if (name := f"norm_out.linear.{leaf}") in out:
+                    shift, scale = np.split(out[name], 2)
+                    out[name] = np.concatenate([scale, shift])
+        elif m := re.match(r"double_blocks_(\d+)$", key):
+            base = f"transformer_blocks.{m.group(1)}"
+            for sub, leaves in node.items():
+                if sub in _FLUX_DOUBLE:
+                    _dense(out, f"{base}.{_FLUX_DOUBLE[sub]}",
+                           leaves["lin"] if sub.endswith("_mod") else leaves)
+                elif sub.endswith("_attn_qkv"):
+                    names = (("to_q", "to_k", "to_v") if sub == "img_attn_qkv"
+                             else ("add_q_proj", "add_k_proj", "add_v_proj"))
+                    width = np.asarray(leaves["kernel"]).shape[1] // 3
+                    _split_dense(out, [f"{base}.attn.{n}" for n in names], leaves, [width] * 3)
+                elif sub.endswith("_attn_norm"):
+                    q, k = (("norm_q", "norm_k") if sub == "img_attn_norm"
+                            else ("norm_added_q", "norm_added_k"))
+                    out[f"{base}.attn.{q}.weight"] = np.asarray(leaves["query_scale"])
+                    out[f"{base}.attn.{k}.weight"] = np.asarray(leaves["key_scale"])
+        elif m := re.match(r"single_blocks_(\d+)$", key):
+            base = f"single_transformer_blocks.{m.group(1)}"
+            _dense(out, f"{base}.norm.linear", node["modulation"]["lin"])
+            _dense(out, f"{base}.proj_out", node["linear2"])
+            hidden = np.asarray(node["linear2"]["kernel"]).shape[1]
+            fused = np.asarray(node["linear1"]["kernel"]).shape[1]
+            _split_dense(out, [f"{base}.attn.to_q", f"{base}.attn.to_k", f"{base}.attn.to_v",
+                               f"{base}.proj_mlp"], node["linear1"],
+                         [hidden] * 3 + [fused - 3 * hidden])
+            out[f"{base}.attn.norm_q.weight"] = np.asarray(node["norm"]["query_scale"])
+            out[f"{base}.attn.norm_k.weight"] = np.asarray(node["norm"]["key_scale"])
+        else:
+            raise KeyError(f"flux tree: unexpected {key!r}")
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
+
+
+def t5_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """Inverse of `convert_t5` (transformers' T5EncoderModel names)."""
+    out: dict[str, np.ndarray] = {}
+    for path, leaf, value in _flatten(tree):
+        value = np.asarray(value)
+        if path == ("token_embedding",):
+            out["shared.weight"] = value
+            continue
+        if path == ("final_norm",):
+            out["encoder.final_layer_norm.weight"] = value
+            continue
+        base = f"encoder.block.{int(path[0].split('_')[1])}.layer"
+        sub = path[1:]
+        if sub == ("attn_norm",):
+            out[f"{base}.0.layer_norm.weight"] = value
+        elif sub == ("attention",) and leaf == "relative_attention_bias":
+            out[f"{base}.0.SelfAttention.relative_attention_bias.weight"] = value
+        elif sub[0] == "attention":
+            out[f"{base}.0.SelfAttention.{sub[1]}.weight"] = value.T
+        elif sub == ("ff_norm",):
+            out[f"{base}.1.layer_norm.weight"] = value
+        else:
+            out[f"{base}.1.DenseReluDense.{sub[0]}.weight"] = value.T
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
+
+
 def from_jax_params(tree: dict) -> dict:
     """{"unet": tree, "text": [tree, ...], "vae": tree, "cn": tree,
-    "k_unet": tree, "safety": tree} (numpy leaves; any of them) ->
-    {"unet": state dict, "text": [state dict, ...], "vae": state dict,
-    "controlnet": state dict, "k_unet": state dict, "safety": state dict}
-    in the port's (diffusers / transformers) key layout, f32. "k_unet" is
-    the SD-x2 upscaler's UNet, "safety" the whole safety checker's tree.
+    "k_unet": tree, "safety": tree, "flux": tree, "t5": tree} (numpy
+    leaves; any of them) -> {"unet": state dict, "text": [state dict, ...],
+    "vae": state dict, "controlnet": state dict, "k_unet": state dict,
+    "safety": state dict, "flux": state dict, "t5": state dict} in the
+    port's (diffusers / transformers) key layout, f32. "k_unet" is the
+    SD-x2 upscaler's UNet, "safety" the whole safety checker's tree,
+    "flux" Flux's transformer and "t5" its T5 encoder.
     A detector's tree under its DETECTOR_STATE_DICTS name ("dpt", "hed",
     "openpose_body", "pose_net", "pidinet", "mlsd", "lineart",
     "zoedepth", "upernet") gives its state dict under the same name."""
     convert = {"unet": ("unet", unet_state_dict), "vae": ("vae", vae_state_dict),
                "cn": ("controlnet", controlnet_state_dict),
                "k_unet": ("k_unet", k_upscaler_state_dict),
-               "safety": ("safety", safety_state_dict)}
+               "safety": ("safety", safety_state_dict),
+               "flux": ("flux", flux_state_dict), "t5": ("t5", t5_state_dict)}
     out = {name: fn(tree[key]) for key, (name, fn) in convert.items() if key in tree}
     if "text" in tree:
         out["text"] = [clip_state_dict(t) for t in tree["text"]]

@@ -6,7 +6,9 @@ bearer auth, `worker_version`, a capability advertisement with the GPU in
 the legacy `gpu`/`memory` keys as well as `chips`/`hbm_gb` (and
 `unconverted_families`, the model-name keywords of the families the port
 does not serve yet, which the repo's hive matches against a job's model
-name before it hands the job out), and result
+name before it hands the job out; and `flux_runnable`, whether
+FLUX.1-dev's bundle and one 1024^2 image fit the device resident, by
+capacity.py's tables), and result
 envelopes {id, artifacts (b64 + sha256), nsfw, worker_version,
 pipeline_config (with timings), fatal_error on unrecoverable jobs}.
 
@@ -41,7 +43,7 @@ import time
 
 from . import __version__
 from .batching import BatchScheduler
-from .capacity import coalesce_rows_limit, default_canvas
+from .capacity import coalesce_rows_limit, default_canvas, fit_batch
 from .device import device_label, memory_gb, resolve_device
 from .embed_cache import from_settings
 from .hive import HiveClient, HiveError
@@ -54,6 +56,8 @@ from .workflows.diffusion import diffusion_batched_callback, diffusion_callback
 
 logger = logging.getLogger(__name__)
 
+# the model whose resident fit `flux_runnable` advertises
+FLUX_DEV = "black-forest-labs/FLUX.1-dev"
 POLL_SECONDS = 11.0
 ERROR_BACKOFF_SECONDS = 121.0
 
@@ -110,6 +114,7 @@ class Worker:
             # model-name keywords of the families this worker cannot serve,
             # which a capability-aware hive does not hand it
             "unconverted_families": ",".join(unconverted_family_keywords()),
+            "flux_runnable": int(fit_batch(self.device, FLUX_DEV, 1, 1024) >= 1),
         }
 
     def execute(self, job: dict) -> dict:

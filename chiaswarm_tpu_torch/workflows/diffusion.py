@@ -1,6 +1,9 @@
-"""Stable-diffusion-family workload callback, the counterpart of
-chiaswarm_tpu/workflows/diffusion.py `diffusion_callback`: resolve the
-resident pipeline, run the job (txt2img, or img2img, pix2pix and inpaint
+"""Diffusion workload callback (the SD family and Flux), the counterpart
+of chiaswarm_tpu/workflows/diffusion.py `diffusion_callback`: resolve the
+resident pipeline (registry.job_family: a `FluxPipeline` job, or a generic
+one on a Flux model name, runs on the FluxPipeline, whose txt2img reads
+`max_sequence_length` and `guidance_scale` and ignores the SD family's
+other arguments), run the job (txt2img, or img2img, pix2pix and inpaint
 with the start image and mask that job_arguments fetched; a `refiner`
 stage resolves its pipeline in the same registry; the job's `lora`,
 `textual_inversion` and `vae` go to the pipeline, whose ValueError for an
@@ -153,7 +156,7 @@ def diffusion_batched_callback(device_identifier: str, requests: list[dict], *, 
             capped[i] = {"requested": n, "served": max_rows}
             counts[i] = row_specs[i]["num_images_per_prompt"] = max_rows
 
-    pipeline = registry.get_pipeline(model_name)
+    pipeline = registry.get_pipeline(model_name, pipeline_type=pipeline_type)
     cn_kwargs = {}
     if cn_name:
         cn_kwargs = {"controlnet_model_name": cn_name, "control_image": control_image,

@@ -35,12 +35,15 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
    row against all keys) and GroupNorm up to (1, 2048, 2048, 256), in
    bf16 and f32. DPT-large's attention, (1, 577, 16, 64) in bf16 and f32
    (`preprocessor_checks`; 577 rows leave the last Q and KV tiles
-   ragged), bf16 on the tensor-core route.
+   ragged), bf16 on the tensor-core route. Flux's joint attention at
+   D = 128 (`flux_checks`): (1, 4608, 24, 128), (1, 4352, 24, 128),
+   (2, 2816, 24, 128) and a coalesced (4, 4608, 24, 128) in bf16 and f32,
+   and the D = 128 tile edges; every bf16 call on `wgmma-d128`.
 4. Small-input reference: the tiny SDXL-shaped pipeline in f32 on the card
    (kernels) against the same weights and latents on the CPU (plain
    versions); the decoded uint8 images must agree within 2/255. At 64^2:
    tiny-xl img2img, 4-channel inpaint and test/tiny-xl-inpaint (9
-   channels), and one 4-step inpaint job for every ported solver wire
+   channels), and one 4-step inpaint job for every SD solver wire
    name, with the same injected noise on both sides. For 4-channel
    inpaint on the card, the latents that reach the decode must equal the
    encoded clean latents bit for bit where the mask keeps the image.
@@ -59,7 +62,10 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
    cross_attention_kwargs.scale; test/tiny-sd with a PEFT LoRA whose
    proj_in / proj_out factors are 1x1 convs (skipped, the same count on both
    devices); a dual-encoder and a diffusers textual inversion; a custom VAE
-   on a tiny-sd img2img job.
+   on a tiny-sd img2img job. test/tiny-flux and test/tiny-flux-schnell
+   (`tiny_flux_checks`), written as diffusers safetensors and loaded from
+   them, card (f32, kernels) against CPU (plain) within 2/255, a job of two
+   images and a coalesced pass of two.
 5. Main path: a fake hive on localhost, the port's worker, and the
    full-width stabilityai/stable-diffusion-xl-base-1.0 pipeline on seeded
    random weights; three 1024^2 30-step DPM++ 2M txt2img jobs and one echo
@@ -160,7 +166,31 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
    unflagged, mlsd, lineart, segmentation and (DPT back) zoe depth by
    their stand-ins with `degraded_preprocessors`, and M-LSD's file put
    back serves the next mlsd job (the mtime negative cache).
-6. Each kernel at every shape any path launched it with: again held
+   After phase 8, Flux joins the main path's registry while its SDXL
+   pipelines, the SD registry, the detectors and the checker are still
+   resident (`serve_flux_beside_sd`): one FLUX.1-schnell 4-step job, the
+   SDXL base staying resident; then one FLUX.1-dev 4-step job, whose
+   bundle is larger than the free memory before its build, so the build
+   succeeds only because the registry evicts least recently used
+   pipelines by bytes first. Allocated and free memory and the resident
+   models are printed before and after each; launches held as below.
+   The Flux path (`serve_flux_path`) runs next, once the SD
+   registries, the detectors and the checker are released (allocated
+   memory printed before and after): black-forest-labs/FLUX.1-dev's full
+   bundle (transformer, T5-XXL, CLIP-L, 16-channel VAE; 33.7 GB in bf16,
+   seeded random weights drawn on the card), two 1024^2 28-step jobs
+   through the worker, one at a time (the worker's first poll must
+   advertise `flux_runnable` 1 and not name flux among
+   `unconverted_families`), then four jobs with explicit steps
+   and guidance as one coalesced pass, and its first job alone; every
+   envelope checked as the SD path's, launches held to 57 attention
+   launches a transformer call plus one decode an image (1 attention, 30
+   GroupNorm); one full-width transformer call in bf16 through the
+   kernels held to f32 on the plain path, block by block, within
+   E2E_RATIO x the plain bf16 path's error, and profiled; then dev
+   released and black-forest-labs/FLUX.1-schnell built for one 4-step job
+   at 256 T5 tokens. Resident and peak bytes are printed.
+6. After the Flux path: each kernel at every shape any path launched it with: again held
    against its plain version, and timed (CUDA events) beside its plain
    version and one PyTorch library call computing the same function, each
    also replayed from a CUDA graph (the device's own time, without the
@@ -187,7 +217,8 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
 
 The second-to-last lines are the `kernels` JSON object (per txt2img job,
 as before; `launches` over every served job; `by_job` per job of each
-kind) and the card's name and power limit; the last line is the
+kind; attention's `routes`, the launches of each route over every served
+job) and the card's name and power limit; the last line is the
 `{"ok": true, ...}` object. Each phase's wall time is logged as it
 ends (`[time]` lines).
 `--detail PATH` also writes every measurement (per shape, per job, the
@@ -240,6 +271,11 @@ STEPS = 30
 # its time budget; launches and rates are per job at this depth
 BATCHED_STEPS = 15
 SIZE = 1024
+FLUX_DEV = "black-forest-labs/FLUX.1-dev"
+FLUX_SCHNELL = "black-forest-labs/FLUX.1-schnell"
+# FLUX.1-dev's and FLUX.1-schnell's published step counts
+FLUX_DEV_STEPS = 28
+FLUX_SCHNELL_STEPS = 4
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and flop/s by type
 HBM_BYTES_S = 3.35e12
@@ -749,6 +785,52 @@ def attention_checks(gen) -> None:
             + f" (bound {row['bound']})")
 
 
+# Flux's joint attention: 24 heads of 128 over the T5 tokens and the 2x2
+# patches of the 16-channel latents, one call in each of the 19 double and
+# 38 single blocks of a transformer call. Plain numbers, as UNET_ATTENTION
+# (`--attention-only` runs on trees without the Flux modules).
+FLUX_HEADS, FLUX_HEAD_DIM, FLUX_BLOCKS = 24, 128, 19 + 38
+
+
+def flux_tokens(size: int = SIZE, txt: int = 512) -> int:
+    """Joint-attention tokens of a Flux call at size^2: the T5 tokens, then
+    one per 2x2 patch of the size/8 latents."""
+    return txt + (size // 16) ** 2
+
+
+def flux_attention_shape(rows: int = 1, size: int = SIZE, txt: int = 512) -> tuple:
+    q = (rows, flux_tokens(size, txt), FLUX_HEADS, FLUX_HEAD_DIM)
+    return q, q, torch.bfloat16
+
+
+def flux_checks(gen) -> None:
+    """Phase 3 for Flux: its joint attention at D = 128, in bf16 and f32,
+    at 1024^2 with 512 T5 tokens (4608 rows), with 256 (4352, schnell's
+    shorter context), two images at 768^2 (2816) and a coalesced pass of
+    four at 1024^2; and the edges of the D = 128 tiles (128 query rows
+    and 128 KV rows): lengths that are not multiples of a tile, 77 KV rows,
+    a query shorter than 64 rows, B*H of 1. Each bf16 call must report the
+    tensor-core route, `wgmma-d128`."""
+    bf, f32 = torch.bfloat16, torch.float32
+    d = FLUX_HEAD_DIM
+    shapes = [flux_attention_shape(1), flux_attention_shape(1, txt=256),
+              flux_attention_shape(2, 768), flux_attention_shape(4)]
+    attention = [(q, k, dtype) for q, k, _ in shapes for dtype in (bf, f32)]
+    attention += [((2, 1000, 8, d), (2, 77, 8, d), bf), ((2, 1000, 8, d), (2, 1000, 8, d), bf),
+                  ((2, 1000, 8, d), (2, 4095, 8, d), bf), ((2, 40, 8, d), (2, 77, 8, d), bf),
+                  ((2, 40, 8, d), (2, 4096, 8, d), bf), ((1, 40, 1, d), (1, 1000, 1, d), bf),
+                  ((1, 200, 1, d), (1, 77, 1, d), f32), ((1, 1000, 1, d), (1, 4095, 1, d), f32)]
+    for q_shape, k_shape, dtype in attention:
+        row = attention_case(q_shape, k_shape, dtype, gen, timed=False)
+        if dtype == bf:
+            check(row["route"] in (None, "wgmma-d128"),
+                  f"flash_attention {q_shape} bf16: route {row['route']}, not wgmma-d128")
+        log(f"[check] flash_attention q{q_shape} kv{k_shape} {row['dtype']} route {row['route']} "
+            f"(flux): max_abs_err {row['max_abs_err']:.3g}"
+            + (f", RMS err {row['rms_err']:.3g}" if "rms_err" in row else "")
+            + f" (bound {row['bound']})")
+
+
 def edit_checks(gen) -> None:
     """Phase 3 for the pix2pix and refiner calls: every attention and
     GroupNorm shape of an SD 1.5 pix2pix UNet call at 512^2 and an SDXL one
@@ -1130,15 +1212,16 @@ def image_bytes(image, fmt: str) -> bytes:
 def tiny_image_checks(device: str = "cuda", size: int = 64, steps: int = 4) -> dict:
     """Phase 4 for the image modes: the tiny pipelines in f32 on `device`
     against the same weights on the CPU, with the same initial latents and
-    injected step and keep noise; every ported solver wire name runs one
-    4-channel inpaint job. On `device`, each 4-channel inpaint job's
+    injected step and keep noise; every SD solver wire name (the
+    registry's, without Flux's flow-matching names) runs one 4-channel
+    inpaint job. On `device`, each 4-channel inpaint job's
     latents that reach the decode must equal the encoded clean latents bit
     for bit where the mask keeps the image (captured by wrapping the
     pipeline's encode_image and decode)."""
     import numpy as np
 
     from chiaswarm_tpu_torch.pipelines.stable_diffusion import SDPipeline, _mask_to_latent_array
-    from chiaswarm_tpu_torch.schedulers import SCHEDULERS
+    from chiaswarm_tpu_torch.schedulers import SCHEDULERS, FlowMatchEulerScheduler
 
     pairs = {}
     for model in ("test/tiny-xl", "test/tiny-xl-inpaint"):
@@ -1166,7 +1249,7 @@ def tiny_image_checks(device: str = "cuda", size: int = 64, steps: int = 4) -> d
              dict(scheduler_type="UniPCMultistepScheduler", mask_image=mask))]
     jobs += [("inpaint", "test/tiny-xl", dict(scheduler_type=name, mask_image=mask,
                                               strength=0.6))
-             for name in SCHEDULERS]
+             for name, cls in SCHEDULERS.items() if cls is not FlowMatchEulerScheduler]
     captured = {}
 
     def capture(name, fn):
@@ -2444,15 +2527,16 @@ def _grid(n: int, size: int) -> tuple:
 
 
 def serve_group(registry, jobs: list, device: str = "cuda", max_coalesce: int = 8,
-                files: dict | None = None,
-                settings_kw: dict | None = None) -> tuple[dict, dict, float]:
+                files: dict | None = None, settings_kw: dict | None = None,
+                polls: list | None = None) -> tuple[dict, dict, float]:
     """Every job of `jobs` queued before the worker's first poll, served
     through the worker (`max_coalesce` 1 serves each alone) with the
     kernels' launches counted; a `start_image_uri`, a ControlNet's
     `control_image_uri` or a stitch job's `resultUri` naming a key of
     `files` {name: bytes} is served by the fake hive; `settings_kw`
-    overrides the worker's settings (as serve_counted's) -> (envelopes by
-    id, {kernel: (launches, {shape: launches})}, wall seconds)."""
+    overrides the worker's settings (as serve_counted's); `polls`, where
+    given, receives the worker's polls -> (envelopes by id, {kernel:
+    (launches, {shape: launches})}, wall seconds)."""
     from chiaswarm_tpu_torch.fake_hive import FakeHive
     from chiaswarm_tpu_torch.ops.flash_attention import COUNTER as FA_COUNTER
     from chiaswarm_tpu_torch.ops.group_norm import COUNTER as GN_COUNTER
@@ -2491,6 +2575,8 @@ def serve_group(registry, jobs: list, device: str = "cuda", max_coalesce: int = 
                if k[0] == "fma" and k[1] == torch.bfloat16}
         results = hive.wait_for_results(len(jobs), timeout=30)
         check(hive.auth_failures == 0, "the hive refused the worker's bearer token")
+        if polls is not None:
+            polls.extend(hive.polls)
     finally:
         hive.close()
     check(not fma, f"bf16 attention took the FMA kernel on the batched path: {fma}")
@@ -3987,6 +4073,445 @@ def profile_upscale(upscaler, checker, images, size15: int, size_xl: int, smi: s
 
 # --- phase 6 ---
 
+# --- Flux ---
+
+def write_flux(pipe, model_dir: Path, dtype=None) -> int:
+    """A FluxPipeline's weights in the diffusers layout the JAX package's
+    `_convert_params` reads: transformer/, text_encoder_2/ (T5),
+    text_encoder/ (CLIP-L), vae/, one safetensors file each (in `dtype`,
+    the pipeline's unset). -> bytes written."""
+    from safetensors.torch import save_file
+
+    from chiaswarm_tpu_torch.weights import FLUX_FOLDERS
+
+    nbytes = 0
+    for folder, module in zip(FLUX_FOLDERS, (pipe.transformer, pipe.t5, pipe.clip, pipe.vae)):
+        (model_dir / folder).mkdir(parents=True, exist_ok=True)
+        path = model_dir / folder / "model.safetensors"
+        save_file({k: v.detach().to("cpu", dtype or v.dtype).contiguous()
+                   for k, v in module.state_dict().items()}, str(path))
+        nbytes += path.stat().st_size
+    return nbytes
+
+
+def tiny_flux_checks(device: str = "cuda", size: int = 64, steps: int = 4) -> dict:
+    """Phase 4 for Flux: test/tiny-flux and test/tiny-flux-schnell, seeded,
+    written as safetensors under a temporary model root and loaded from
+    there in f32 on `device` (the kernels on the card) and on the CPU
+    (plain versions): one job of two images and one coalesced pass of two
+    requests with the same injected latents on both, the uint8 images
+    within 2/255. -> {model: max pixel diffs}."""
+    import tempfile
+
+    import numpy as np
+
+    from chiaswarm_tpu_torch.pipelines.flux import FluxPipeline
+
+    result = {}
+    with tempfile.TemporaryDirectory() as root:
+        for model in ("test/tiny-flux", "test/tiny-flux-schnell"):
+            write_flux(FluxPipeline(model, device="cpu"), Path(root) / model)
+            cpu = FluxPipeline(model, device="cpu", model_root_dir=root)
+            card = FluxPipeline(model, device=device, dtype=torch.float32, model_root_dir=root)
+            check(cpu.weights_source == card.weights_source == "checkpoint",
+                  f"{model}: weights {cpu.weights_source}, {card.weights_source}")
+            lat = size // cpu.latent_factor
+            latents = torch.randn((2, lat, lat, cpu.latent_channels),
+                                  generator=torch.Generator().manual_seed(8))
+            kw = dict(num_inference_steps=steps, height=size, width=size,
+                      num_images_per_prompt=2, latents=latents)
+            want, _ = cpu.run("a red cube", **kw)
+            got, config = card.run("a red cube", **kw)
+            diff = max(int(np.abs(g.astype(np.int16) - w.astype(np.int16)).max())
+                       for g, w in zip(got, want))
+            requests = [{"prompt": "a red cube", "seed": 1}, {"prompt": "a blue sphere",
+                                                              "seed": 2}]
+            # the same draw on both (a CUDA generator draws other numbers)
+            kw = dict(num_inference_steps=steps, height=size, width=size, guidance_scale=3.5,
+                      latents=torch.randn((2, lat, lat, cpu.latent_channels),
+                                          generator=torch.Generator().manual_seed(9)))
+            want = cpu.run_batched(requests, **kw)
+            got = card.run_batched(requests, **kw)
+            batched = max(int(np.abs(g[0][0].astype(np.int16) - w[0][0].astype(np.int16)).max())
+                          for g, w in zip(got, want))
+            log(f"[tiny] {model} {size}^2 f32 ({config['steps']} steps, weights "
+                f"{config['weights']}), card (kernels) vs CPU (plain): max pixel diff {diff}/255, "
+                f"coalesced pass of two {batched}/255 (bound 2/255)")
+            check(diff <= 2 and batched <= 2, f"{model} card vs CPU pixel diff {diff}, "
+                  f"{batched} > 2")
+            result[model] = {"diff": diff, "batched_diff": batched}
+    return result
+
+
+def flux_inputs(pipe, size: int = SIZE, rows: int = 1, seed: int = 6, dtype=None):
+    """(img, img_ids, txt, txt_ids, t, pooled, guidance) for one Flux
+    transformer call at size^2 with 512 T5 tokens: random patchified
+    latents, context and pooled vector, flow time 0.5, guidance 3.5."""
+    from chiaswarm_tpu_torch.models.flux import patchify
+
+    cfg, dev = pipe.transformer.config, pipe.device
+    dtype = dtype or pipe.dtype
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lat = size // pipe.latent_factor
+    latents = torch.randn((rows, lat, lat, pipe.latent_channels), generator=gen, device=dev)
+    img, img_ids = patchify(latents.to(dtype))
+    txt = torch.randn((rows, 512, cfg.context_dim), generator=gen, device=dev).to(dtype)
+    pooled = torch.randn((rows, cfg.pooled_dim), generator=gen, device=dev).to(dtype)
+    txt_ids = torch.zeros((rows, 512, 3), dtype=torch.int32, device=dev)
+    t = torch.full((rows,), 0.5, device=dev)
+    return img, img_ids, txt, txt_ids, t, pooled, torch.full((rows,), 3.5, device=dev)
+
+
+class _F32Block(torch.nn.Module):
+    """A transformer block run in f32 on a copy made for the one call and
+    dropped after it: the f32 reference of a full-width transformer holds
+    one block's f32 weights at a time."""
+
+    def __init__(self, block):
+        super().__init__()
+        self.block = [block]  # not a submodule: the shell's .float() must not copy it
+
+    def forward(self, *args):
+        import copy
+
+        wide = copy.deepcopy(self.block[0]).float()
+        out = wide(*args)
+        del wide
+        return out
+
+
+def flux_f32_reference(transformer):
+    """The transformer's f32 twin for a plain-path reference: its small
+    top-level modules copied to f32, its blocks run through `_F32Block`."""
+    import dataclasses
+
+    from chiaswarm_tpu_torch.models.flux import FluxTransformer
+
+    cfg = dataclasses.replace(transformer.config, depth_double=0, depth_single=0)
+    with torch.device("meta"):
+        shell = FluxTransformer(cfg)
+    shell = shell.to_empty(device=transformer.x_embedder.weight.device).eval()
+    top = {k: v for k, v in transformer.state_dict().items() if "transformer_blocks." not in k}
+    shell.load_state_dict(top)
+    shell.config = transformer.config
+    shell.transformer_blocks = torch.nn.ModuleList(
+        [_F32Block(b) for b in transformer.transformer_blocks])
+    shell.single_transformer_blocks = torch.nn.ModuleList(
+        [_F32Block(b) for b in transformer.single_transformer_blocks])
+    return shell
+
+
+def flux_bf16_check(pipe, size: int = SIZE) -> dict:
+    """Phase 7 for Flux: one full-width transformer call at size^2 in bf16
+    through the kernels against the same weights in f32 on the plain path,
+    block by block (each block's f32 copy made in turn: an f32 copy of the
+    whole transformer, 47.6 GB, does not fit beside the bf16 bundle); the
+    plain path in bf16 gives the error bf16 itself makes. The relative RMS
+    error may be at most E2E_RATIO x that."""
+    from chiaswarm_tpu_torch.device import synchronize
+
+    check(pipe.dtype == torch.bfloat16, f"the Flux path runs {pipe.dtype}, not bf16")
+    inputs = flux_inputs(pipe, size)
+    with torch.inference_mode():
+        kernels = pipe.transformer(*inputs).float()
+        with plain_path():
+            plain = pipe.transformer(*inputs).float()
+            shell = flux_f32_reference(pipe.transformer)
+            wide_inputs = [x.float() if x.is_floating_point() else x for x in inputs]
+            exact = shell(*wide_inputs).float()
+            del shell
+        synchronize(pipe.device)
+    scale = rms(exact)
+    row = {"rel_rms_err": rms(kernels - exact) / scale,
+           "plain_bf16_rel_rms_err": rms(plain - exact) / scale,
+           "finite": bool(torch.isfinite(kernels).all()), "output_rms": scale}
+    del kernels, plain, exact
+    torch.cuda.empty_cache()
+    log(f"[e2e] {pipe.model_name} transformer at {size}^2 (1 row, 512 T5 tokens), bf16 through "
+        f"the kernels vs f32 plain path (block by block): relative RMS err "
+        f"{row['rel_rms_err']:.4g}; plain path in bf16: {row['plain_bf16_rel_rms_err']:.4g} "
+        f"(bound {E2E_RATIO}x that); f32 output RMS {scale:.4g}")
+    check(row["finite"], "flux transformer: non-finite output through the kernels")
+    check(row["rel_rms_err"] <= E2E_RATIO * row["plain_bf16_rel_rms_err"],
+          f"flux transformer: bf16 kernel path error {row['rel_rms_err']} > {E2E_RATIO} x the "
+          f"plain bf16 path's {row['plain_bf16_rel_rms_err']}")
+    return row
+
+
+def flux_job(job_id: str, model: str, steps: int, seed: int, size: int = SIZE,
+             guidance: float = 3.5, prompt: str = "a lighthouse on a cliff at dusk",
+             max_sequence_length: int | None = 512) -> dict:
+    """A FluxPipeline txt2img job as the hive sends it; without
+    `max_sequence_length` in its parameters the job may coalesce."""
+    params = {"pipeline_type": "FluxPipeline"}
+    if max_sequence_length is not None:
+        params["max_sequence_length"] = max_sequence_length
+    return {"id": job_id, "workflow": "txt2img", "model_name": model,
+            "prompt": f"{prompt}, study {seed}", "height": size, "width": size,
+            "num_inference_steps": steps, "guidance_scale": guidance, "seed": seed,
+            "content_type": "image/png", "parameters": params}
+
+
+def check_flux_envelopes(jobs: list, results: dict, launches: dict, size: int,
+                         coalesced: bool, hold: bool, smi: str, per_call: dict) -> dict:
+    """Every envelope of a served Flux group (sha256, a decodable image
+    that is not constant, finite latents, txt2img on the flow-matching
+    solver at the job's steps and guidance; `batched_with` / `batch_rows`
+    / `padded_rows` for a pass), and its launches held to the prediction:
+    `per_call`, a transformer call's launches (one joint attention in each
+    block, 57 at full depth; no GroupNorm), and one VAE decode an image
+    (one attention, 30 GroupNorm). -> {"jobs": {id: ...},
+    "launches", "predicted", "job_s", "images_per_s"}."""
+    import numpy as np
+
+    from chiaswarm_tpu_torch.pipelines.common import pad_bucket
+
+    out = {"jobs": {}}
+    for offset, job in enumerate(jobs):
+        r = results[job["id"]]
+        cfg = r["pipeline_config"]
+        check(not r.get("fatal_error") and "error" not in cfg, f"{job['id']}: {cfg}")
+        image = decode_artifact(r["artifacts"]["primary"])
+        check(image.shape == (size, size, 3), f"{job['id']}: image {image.shape}")
+        check(int(image.max()) != int(image.min()), f"{job['id']}: constant image")
+        check(cfg["latents"]["finite"], f"{job['id']}: non-finite latents")
+        check(cfg["mode"] == "txt2img" and cfg["scheduler"] == "FlowMatchEulerScheduler"
+              and cfg["steps"] == job["num_inference_steps"]
+              and cfg["guidance_scale"] == job["guidance_scale"] and cfg["model"] == job[
+                  "model_name"] and cfg["pipeline"] == "FluxPipeline",
+              f"{job['id']}: envelope {cfg}")
+        if coalesced:
+            check(cfg.get("batched_with") == len(jobs) and cfg["batch_rows"] == [offset, 1]
+                  and cfg["padded_rows"] == pad_bucket(len(jobs)),
+                  f"{job['id']}: batched_with {cfg.get('batched_with')}, batch_rows "
+                  f"{cfg.get('batch_rows')}, padded_rows {cfg.get('padded_rows')}")
+        else:
+            check("batched_with" not in cfg, f"{job['id']} alone: {cfg.get('batched_with')}")
+        t = cfg["timings"]
+        out["jobs"][job["id"]] = {"timings": t, "latents": cfg["latents"],
+                                  "pixels_sha256": hashlib.sha256(image.tobytes()).hexdigest(),
+                                  "image": image}
+        log(f"[flux] {job['id']} ({cfg['model']}, {size}^2, {cfg['steps']} steps, guidance "
+            f"{cfg['guidance_scale']}, max_sequence_length {cfg['max_sequence_length']}"
+            + (f", pass of {cfg['batched_with']}" if coalesced else "") + f") on {smi}: job "
+            f"{t['job_s']:.3f}s = text_encode {t['text_encode_s']:.3f}s + denoise "
+            f"{t['denoise_s']:.3f}s (transformer step {t['transformer_step_ms']:.1f} ms) + decode "
+            f"{t['decode_s']:.3f}s + artifacts {t['encode_artifacts_s']:.3f}s; latents |max| "
+            f"{cfg['latents']['absmax']:.3g}; pixels {int(image.min())}..{int(image.max())} mean "
+            f"{float(image.mean()):.1f}")
+    steps = jobs[0]["num_inference_steps"]
+    images = len(jobs)
+    calls = 1 if coalesced else images
+    predicted = {k: calls * steps * per_call[k] + images * DECODE_LAUNCHES[k]
+                 for k in per_call}
+    counted = {k: v[0] for k, v in launches.items()}
+    log(f"[flux] kernel launches: counted {json.dumps(counted)}, predicted "
+        f"{json.dumps(predicted)} ({calls} x {steps} transformer calls x "
+        f"{json.dumps(per_call)} + {images} decodes)")
+    if hold:
+        check(counted == predicted, f"flux: launches {counted} != predicted {predicted}")
+        for name, count in counted.items():
+            check(count > 0, f"{name} was never launched on the Flux path")
+    configs = [results[j["id"]]["pipeline_config"] for j in jobs]
+    job_s = configs[0]["timings"]["job_s"] if coalesced else sum(
+        c["timings"]["job_s"] for c in configs)
+    out.update(launches=counted, predicted=predicted, job_s=job_s,
+               images_per_s=images / job_s,
+               step_ms=float(np.mean([c["timings"]["transformer_step_ms"] for c in configs])))
+    return out
+
+
+def _allocated_gib(device: str) -> float:
+    return torch.cuda.memory_allocated() / 2**30 if device == "cuda" else 0.0
+
+
+def _flux_joins(smi: str, registry, model: str, job_id: str, seed: int, device: str,
+                size: int, steps: int, hold: bool) -> dict:
+    """`model` built into `registry` beside what it holds, and one
+    `steps`-step job served through the worker (launches held), with the
+    allocated and free bytes, the bundle's need (capacity.resident_bytes)
+    and the resident models before and after printed -> its row."""
+    from chiaswarm_tpu_torch.capacity import free_bytes, resident_bytes
+
+    before = registry.resident_models()
+    row = {"allocated_gib_before": _allocated_gib(device), "resident_before": before,
+           "free_gib_before": free_bytes(device) / 2**30 if device == "cuda" else 0.0,
+           "need_gib": resident_bytes(device, model) / 2**30}
+    t0 = time.perf_counter()
+    pipe = registry.get_pipeline(model, allow_random_init=True, pipeline_type="FluxPipeline")
+    row["build_s"] = time.perf_counter() - t0
+    row["bundle_gib"] = sum(p.numel() * p.element_size() for m in (
+        pipe.transformer, pipe.t5, pipe.clip, pipe.vae) for p in m.parameters()) / 2**30
+    # one joint attention in each block, no GroupNorm
+    per_call = {"flash_attention": pipe.config.depth_double + pipe.config.depth_single,
+                "group_norm": 0}
+    del pipe
+    row["allocated_gib_built"] = _allocated_gib(device)
+    job = flux_job(job_id, model, steps, seed, size, guidance=0.0 if "schnell" in model else 3.5,
+                   max_sequence_length=256)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    results, launches, wall = serve_group(registry, [job], device, max_coalesce=1)
+    row.update(check_flux_envelopes([job], results, launches, size, False, hold, smi, per_call))
+    row["jobs"][job_id].pop("image")
+    after = registry.resident_models()
+    row.update(wall_s=wall, resident_after=after, evicted=sorted(set(before) - set(after)),
+               allocated_gib_after=_allocated_gib(device),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else 0.0)
+    log(f"[flux] {model} joins {len(before)} resident pipelines ({', '.join(before)}): "
+        f"{row['allocated_gib_before']:.2f} GiB allocated and {row['free_gib_before']:.2f} GiB "
+        f"free before, {row['need_gib']:.2f} GiB needed; its {row['bundle_gib']:.2f} GiB bundle "
+        f"built in {row['build_s']:.1f}s ({row['allocated_gib_built']:.2f} GiB allocated), "
+        f"evicted {row['evicted']}; one {steps}-step job in {wall:.1f}s, peak "
+        f"{row['peak_gib']:.2f} GiB; {row['allocated_gib_after']:.2f} GiB allocated after, "
+        f"resident {after}")
+    check(model in after, f"{model} is not resident after its job: {after}")
+    return row
+
+
+def serve_flux_beside_sd(smi: str, registry, device: str = "cuda", sdxl: str = SDXL,
+                         schnell: str = FLUX_SCHNELL, dev: str = FLUX_DEV, size: int = SIZE,
+                         steps: int = FLUX_SCHNELL_STEPS, hold: bool = True) -> dict:
+    """Flux joining the main path's registry while its SDXL pipelines, the
+    SD registry, the detectors and the checker are still resident, as in
+    a worker that serves both families. First FLUX.1-schnell, one
+    `steps`-step job: the SDXL base, the most recently used, must stay.
+    Then FLUX.1-dev, one `steps`-step job: the two Flux bundles and the
+    SDXL pipelines do not fit together, and on the card the free memory
+    before its build must be less than its bundle, so the build succeeds
+    only because the registry evicts by bytes first (`Registry._make_room`;
+    a count eviction comes after a build). -> {"schnell": row, "dev":
+    row}."""
+    served = {"schnell": _flux_joins(smi, registry, schnell, "flux-beside-sdxl", 4300, device,
+                                     size, steps, hold)}
+    check(sdxl in served["schnell"]["resident_after"],
+          f"{sdxl} was evicted for {schnell}: {served['schnell']['resident_after']}")
+    served["dev"] = _flux_joins(smi, registry, dev, "flux-dev-joins", 4301, device, size,
+                                steps, hold)
+    if device == "cuda":
+        row = served["dev"]
+        check(row["free_gib_before"] < row["bundle_gib"] and row["evicted"],
+              f"{dev}: {row['free_gib_before']:.2f} GiB free before its "
+              f"{row['bundle_gib']:.2f} GiB bundle, evicted {row['evicted']}: the step did not "
+              "exercise the eviction by bytes")
+    return served
+
+
+def serve_flux_path(smi: str, device: str = "cuda", dev: str = FLUX_DEV,
+                    schnell: str = FLUX_SCHNELL, size: int = SIZE,
+                    dev_steps: int = FLUX_DEV_STEPS, schnell_steps: int = FLUX_SCHNELL_STEPS,
+                    hold: bool = True) -> tuple[dict, dict]:
+    """Phase 5, the Flux path, in a registry of its own (nothing else may
+    be resident: the caller releases the earlier paths' models first):
+    FLUX.1-dev's full bundle on seeded random weights; two 1024^2 28-step
+    jobs through the worker, one at a time; one coalesced pass of four
+    jobs with explicit steps and guidance, queued before the worker's
+    first poll; the same four jobs' first, served alone, beside it; then
+    one full-width transformer call held to f32 on the plain path
+    (`flux_bf16_check`) and profiled; then dev released and
+    FLUX.1-schnell's bundle built for one 4-step job. Resident and peak
+    bytes are printed. -> ({job kind: (jobs, {kernel: (launches, {shape:
+    launches})})}, served)."""
+    import gc
+
+    import numpy as np
+
+    from chiaswarm_tpu_torch.registry import Registry
+
+    served = {"allocated_gib_before": _allocated_gib(device)}
+    paths = {}
+    registry = Registry(torch.device(device), str(ROOT / ".no-models"))
+    t0 = time.perf_counter()
+    pipe = registry.get_pipeline(dev, allow_random_init=True, pipeline_type="FluxPipeline")
+    served["dev_resident_s"] = time.perf_counter() - t0
+    served["dev_resident_gib"] = _allocated_gib(device)
+    log(f"[flux] {dev} resident in {served['dev_resident_s']:.1f}s (seeded random weights, "
+        f"{pipe.dtype}, {sum(p.numel() for p in pipe.transformer.parameters()) / 1e9:.2f} B "
+        f"transformer and {sum(p.numel() for p in pipe.t5.parameters()) / 1e9:.2f} B T5 "
+        f"parameters): {served['allocated_gib_before']:.2f} GiB allocated before, "
+        f"{served['dev_resident_gib']:.2f} GiB after")
+
+    def run_group(name, jobs, coalesced, polls=None):
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        results, launches, wall = serve_group(registry, jobs, device,
+                                              max_coalesce=8 if coalesced else 1, polls=polls)
+        # one joint attention in each block, no GroupNorm
+        cfg = registry.get_pipeline(jobs[0]["model_name"], pipeline_type="FluxPipeline").config
+        per_call = {"flash_attention": cfg.depth_double + cfg.depth_single, "group_norm": 0}
+        row = check_flux_envelopes(jobs, results, launches, size, coalesced, hold, smi,
+                                   per_call)
+        row["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else 0.0
+        row["wall_s"] = wall
+        log(f"[flux] {name}: {len(jobs)} jobs in {wall:.1f}s served, {row['images_per_s']:.4f} "
+            f"images/s by job_s, transformer step {row['step_ms']:.1f} ms; peak "
+            f"{row['peak_gib']:.2f} GiB allocated")
+        paths[name] = (len(jobs) if not coalesced else 1, launches)
+        served[name] = row
+        return row
+
+    solo, polls = [], []
+    for i in range(2):
+        solo.append(run_group(f"flux_dev_{i}", [flux_job(f"flux-dev-{i}", dev, dev_steps,
+                                                         4000 + i, size)], False, polls))
+    advertised = {k: polls[0].get(k) for k in ("flux_runnable", "unconverted_families")}
+    log(f"[flux] the worker's first poll advertises {json.dumps(advertised)}")
+    check(int(advertised["flux_runnable"] or 0) == 1
+          and "flux" not in str(advertised["unconverted_families"]).split(","),
+          f"the poll advertises {advertised}, not flux_runnable 1 without flux unconverted")
+    served["advertised"] = advertised
+    pass_jobs = [flux_job(f"flux-pass-{i}", dev, dev_steps, 4100 + i, size,
+                          max_sequence_length=None) for i in range(4)]
+    from chiaswarm_tpu_torch.coalesce import coalesce_key
+
+    check(len({coalesce_key(j) for j in pass_jobs}) == 1 and coalesce_key(pass_jobs[0]),
+          "the Flux pass's jobs do not share one coalesce key")
+    coalesced = run_group("flux_dev_pass", pass_jobs, True)
+    twin = run_group("flux_dev_pass_twin", [dict(pass_jobs[0], id="flux-pass-twin")], False)
+    diff = int(np.abs(coalesced["jobs"]["flux-pass-0"]["image"].astype(np.int16)
+                      - twin["jobs"]["flux-pass-twin"]["image"].astype(np.int16)).max())
+    alone_rate = 1.0 / float(np.mean([r["job_s"] for r in (*solo, twin)]))
+    served["pass_vs_alone"] = {"pass_images_per_s": coalesced["images_per_s"],
+                               "alone_images_per_s": alone_rate,
+                               "first_row_vs_alone_max_pixel_diff": diff}
+    log(f"[flux] coalesced pass of 4: {coalesced['images_per_s']:.4f} images/s against "
+        f"{alone_rate:.4f} alone ({coalesced['images_per_s'] / alone_rate:.2f}x); its first "
+        f"row against the same job alone: max pixel diff {diff}/255 (bf16 at another batch "
+        "width; not held)")
+    for row in served.values():
+        if isinstance(row, dict):
+            for job in row.get("jobs", {}).values():
+                job.pop("image", None)
+    if device == "cuda":
+        served["e2e"] = flux_bf16_check(pipe, size)
+        inputs = flux_inputs(pipe, size)
+        served["profile"] = profile_fns(dev, size, 1, {
+            "transformer": (lambda: pipe.transformer(*inputs), 2)}, pipe.device)
+        log_profile(served["profile"], smi)
+        check_one_launch_per_call(served["profile"])
+        del inputs
+    del pipe
+    registry = None
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    served["dev_released_gib"] = _allocated_gib(device)
+    registry = Registry(torch.device(device), str(ROOT / ".no-models"))
+    t0 = time.perf_counter()
+    registry.get_pipeline(schnell, allow_random_init=True, pipeline_type="FluxPipeline")
+    log(f"[flux] {dev} released: {served['dev_released_gib']:.2f} GiB allocated; {schnell} "
+        f"resident in {time.perf_counter() - t0:.1f}s: {_allocated_gib(device):.2f} GiB")
+    run_group("flux_schnell", [flux_job("flux-schnell-0", schnell, schnell_steps, 4200, size,
+                                        guidance=0.0, max_sequence_length=256)], False)
+    registry = None
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    served["allocated_gib_after"] = _allocated_gib(device)
+    log(f"[flux] path done: {served['allocated_gib_after']:.2f} GiB allocated after")
+    return paths, served
+
+
 def measure(paths: dict, main: str = "txt2img") -> tuple[list[dict], dict]:
     """Phase 6 for {job kind: (jobs, {kernel: (launches, {shape key:
     launches})})} counted over `jobs` jobs of each kind: every shape that
@@ -4001,8 +4526,8 @@ def measure(paths: dict, main: str = "txt2img") -> tuple[list[dict], dict]:
         shapes = Counter()
         for _, launches in paths.values():
             shapes.update(launches[name][1])
-        rows = []
-        for key, _ in sorted(shapes.items(), key=lambda kv: -kv[1]):
+        rows, routes = [], Counter()
+        for key, count in sorted(shapes.items(), key=lambda kv: -kv[1]):
             if name == "flash_attention":
                 q_shape, k_shape, dtype = key
                 row = attention_case(tuple(q_shape), tuple(k_shape), dtype, gen, timed=True)
@@ -4011,6 +4536,8 @@ def measure(paths: dict, main: str = "txt2img") -> tuple[list[dict], dict]:
                 row = gn_case(x_shape, getattr(torch, dtype), silu, gen, timed=True, eps=eps)
             row["launches_per_job"] = {kind: launches[name][1].get(key, 0) / jobs
                                        for kind, (jobs, launches) in paths.items()}
+            if row.get("route"):
+                routes[f"{row['route']} {row['dtype']}"] += count
             rows.append(row)
             row["tflops"] = row["flops"] / row["ms"] / 1e9
             row["share_of_bound"] = row["bound_ms"] / row["ms"]
@@ -4057,6 +4584,8 @@ def measure(paths: dict, main: str = "txt2img") -> tuple[list[dict], dict]:
             "name": name, "route": "cuda", **KERNELS[name],
             "launches": sum(launches[name][0] for _, launches in paths.values()),
             "max_abs_err": max(r["max_abs_err"] for r in rows), **top, "by_job": by_job,
+            # every route the served paths launched, by its launches
+            **({"routes": dict(routes)} if routes else {}),
         })
         detail[name] = rows
     return summary, detail
@@ -4104,16 +4633,17 @@ def unet_inputs(pipe, size: int = SIZE, dtype=None, seed: int = 2, rows: int = 2
 @contextmanager
 def plain_path():
     """Route the attention of the UNet, the VAE, the K-UNet, the safety
-    checker and DPT, and the GroupNorm of the UNet and the VAE, to the
-    plain PyTorch versions, on the card, for the duration."""
-    from chiaswarm_tpu_torch.models import depth, k_upscaler, layers, safety, vae
+    checker, DPT and the Flux transformer, and the GroupNorm of the UNet
+    and the VAE, to the plain PyTorch versions, on the card, for the
+    duration."""
+    from chiaswarm_tpu_torch.models import depth, flux, k_upscaler, layers, safety, vae
     from chiaswarm_tpu_torch.ops.flash_attention import reference_attention
     from chiaswarm_tpu_torch.ops.group_norm import reference_group_norm
 
     def plain_group_norm(x, scale, bias, *, groups=32, eps=1e-5, act=None):
         return reference_group_norm(x, scale, bias, groups, eps, act == "silu")
 
-    attending = (layers, vae, k_upscaler, safety, depth)
+    attending = (layers, vae, k_upscaler, safety, depth, flux)
     saved = [m.dot_product_attention for m in attending], layers.group_norm
     for module in attending:
         module.dot_product_attention = reference_attention
@@ -4450,16 +4980,23 @@ def group_norm_only(smi: str, detail: str | None) -> None:
 
 
 def attention_only(smi: str, detail: str | None) -> None:
-    """Attention alone: the checks of phase 3, then phase 6 at the shapes
-    of one UNet call and one VAE decode of each model in UNET_ATTENTION
-    (per job: STEPS UNet calls and one decode)."""
+    """Attention alone: the checks of phase 3 (Flux's too), then phase 6 at
+    the shapes of one UNet call and one VAE decode of each model in
+    UNET_ATTENTION (per job: STEPS UNet calls and one decode) and of a
+    FLUX.1-dev 1024^2 job (FLUX_DEV_STEPS transformer calls and one
+    decode)."""
     attention_checks(torch.Generator(device="cuda").manual_seed(0))
+    flux_checks(torch.Generator(device="cuda").manual_seed(5))
     paths = {}
     for model in UNET_ATTENTION:
         per_job = Counter({key: n * STEPS for key, n in attention_shapes(model).items()})
         per_job[vae_attention_shape(model)] += 1
         paths[f"{model} txt2img"] = (1, {"flash_attention": (sum(per_job.values()),
                                                              dict(per_job))})
+    # a FLUX.1-dev 1024^2 job: 28 transformer calls and one decode
+    per_job = Counter({flux_attention_shape(): FLUX_BLOCKS * FLUX_DEV_STEPS,
+                       vae_attention_shape("sdxl"): 1})
+    paths["flux txt2img"] = (1, {"flash_attention": (sum(per_job.values()), dict(per_job))})
     summary, shapes = measure(paths, main="sdxl txt2img")
     if detail:
         path = Path(detail)
@@ -4512,6 +5049,8 @@ def main(argv=None) -> int:
         mark("phases 1-2 build")
         kernel_checks()
         mark("phase 3 kernel checks")
+        flux_checks(torch.Generator(device="cuda").manual_seed(5))
+        mark("phase 3 flux checks")
         limits = batched_checks(torch.Generator(device="cuda").manual_seed(2))
         mark("phase 3 batched checks")
         upscale_checks(torch.Generator(device="cuda").manual_seed(3))
@@ -4524,6 +5063,7 @@ def main(argv=None) -> int:
         tiny_edit = tiny_edit_checks()
         tiny_adapters = tiny_adapter_checks()
         tiny_batched = tiny_batched_checks()
+        tiny_flux = tiny_flux_checks()
         mark("phase 4 tiny checks")
         launches, served, registry = serve_main_path(smi)
         unet_launches = {name: (count / N_JOBS - DECODE_LAUNCHES[name]) / STEPS
@@ -4551,10 +5091,6 @@ def main(argv=None) -> int:
         mark("phase 5 upscale path")
         pre_paths, pre_served = serve_preprocessor_path(smi, unet_launches)
         mark("phase 5 preprocessor path")
-        summary, shapes = measure({"txt2img": (N_JOBS, launches), **image_paths, **sd_paths,
-                                   **edit_paths, **checkpoint_paths, **adapter_paths,
-                                   **batched_paths, **cn_paths, **up_paths, **pre_paths})
-        mark("phase 6 measure")
         # (model, registry, canvas, CFG rows, parts) of phases 7 and 8
         calls = [(SDXL, registry, SIZE, 2, ("unet", "vae_decode", "vae_encode")),
                  *((model, sd_registry, size, 2, ("unet",)) for model, size in SD_CANVASES),
@@ -4575,6 +5111,33 @@ def main(argv=None) -> int:
             log_profile(part, smi)
             check_one_launch_per_call(part)
         mark("phase 8 profile")
+        flux_beside = serve_flux_beside_sd(smi, registry)
+        mark("phase 5 Flux beside SDXL")
+        # the Flux path measures with the card to itself: the SD registries
+        # (the Flux bundles above with them), the detectors and the
+        # safety checker go first
+        from chiaswarm_tpu_torch.pipelines import aux_models, safety
+
+        del registry, sd_registry, calls, reg
+        aux_models.clear()
+        safety._CHECKER = safety._CHECKER_KEY = None
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        alive = Counter(type(o).__name__ for o in gc.get_objects()
+                        if type(o).__name__ in ("SDPipeline", "LatentUpscalePipeline",
+                                                "Registry"))
+        check(_allocated_gib("cuda") < 8.0,
+              f"{_allocated_gib('cuda'):.1f} GiB still allocated before the Flux path "
+              f"(alive: {dict(alive)})")
+        flux_paths, flux_served = serve_flux_path(smi)
+        mark("phase 5 Flux path (with its phases 7 and 8)")
+        summary, shapes = measure({"txt2img": (N_JOBS, launches), **image_paths, **sd_paths,
+                                   **edit_paths, **checkpoint_paths, **adapter_paths,
+                                   **batched_paths, **cn_paths, **up_paths, **pre_paths,
+                                   **flux_paths})
+        mark("phase 6 measure")
         if opts.detail:
             path = Path(opts.detail)
             path.parent.mkdir(parents=True, exist_ok=True)
@@ -4586,7 +5149,8 @@ def main(argv=None) -> int:
                  "adapter_served": adapter_served, "batch_limits": limits,
                  "tiny_batched": tiny_batched, "batched_served": batched_served,
                  "controlnet_served": cn_served, "upscale_served": up_served,
-                 "preprocessor_served": pre_served,
+                 "preprocessor_served": pre_served, "tiny_flux": tiny_flux,
+                 "flux_beside_sdxl": flux_beside, "flux_served": flux_served,
                  "kernels": summary,
                  "shapes": shapes, "end_to_end_bf16": e2e, "profile": profile}, indent=1,
                 default=str))

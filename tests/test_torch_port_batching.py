@@ -4,8 +4,8 @@ the JAX package, on the CPU.
 - The row helpers (`pad_bucket`, `split_by_counts`, `chunk_by_rows`)
   against JAX's over a table of counts: equal.
 - `coalesce_key` against JAX's over a table of raw jobs: equal wherever
-  the port serves the job; None wherever JAX's is None or the port refuses
-  the feature (ControlNet, flux, stage jobs).
+  the port serves the job (flux since the Flux slice); None wherever JAX's
+  is None or the port refuses the feature (stage jobs).
 - `BatchScheduler`: the same sequence of `put` gives the same groups, in
   the same order and with the same flush reasons, as JAX's.
 - The embedding cache: LRU under its byte cap, rows counted; a cached
@@ -156,7 +156,7 @@ KEY_JOBS = {
     "controlnet-lora": ({**_TXT, "lora": "style.safetensors", "parameters": {"controlnet": {
         "control_image_uri": "http://h/c.png"}}}, True),
     "flux": ({**_TXT, "model_name": "black-forest-labs/FLUX.1-schnell",
-              "num_inference_steps": 4, "guidance_scale": 0.0}, False),
+              "num_inference_steps": 4, "guidance_scale": 0.0}, True),
     "kandinsky": ({**_TXT, "model_name": "kandinsky-community/kandinsky-2-2-decoder"}, True),
     "deepfloyd": ({**_TXT, "model_name": "DeepFloyd/IF-I-XL-v1.0"}, True),
     "stage-denoise": ({**_TXT, "stage": {"name": "denoise"}}, False),
@@ -179,7 +179,7 @@ def test_coalesce_key_matches_jax(name, sdaas_root):
     if served:
         assert got == want
     else:
-        # JAX batches it (flux, denoise stage); the port cannot, so it runs
+        # JAX batches it (a denoise stage); the port cannot, so it runs
         # alone
         assert want is not None and got is None
     for fn in ("job_rows", "is_interactive", "adapter_ref"):

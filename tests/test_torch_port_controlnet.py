@@ -286,8 +286,8 @@ def test_pipeline_families_match_jax(pipeline_type):
     check_pipeline_type(pipeline_type)
 
 
-@pytest.mark.parametrize("pipeline_type", ["KandinskyV22ControlnetPipeline", "FluxPipeline",
-                                           "NoSuchPipeline"])
+@pytest.mark.parametrize("pipeline_type", ["KandinskyV22ControlnetPipeline",
+                                           "StableCascadePriorPipeline", "NoSuchPipeline"])
 def test_unported_pipeline_types_are_refused(pipeline_type):
     with pytest.raises(ValueError, match="is not ported to chiaswarm_tpu_torch"):
         check_pipeline_type(pipeline_type)

@@ -40,6 +40,10 @@ def _rand(shape, seed, scale=1.0, shift=0.0):
     (2, 256, 256, 2, 40, None), (2, 256, 77, 2, 40, None), (2, 130, 256, 2, 40, None),
     (2, 256, 256, 2, 80, None), (2, 256, 77, 2, 80, None), (1, 130, 77, 2, 80, None),
     (2, 128, 128, 2, 160, None), (2, 128, 77, 2, 160, None), (1, 130, 130, 1, 160, None),
+    # Flux's head width (24 heads of 128 in its joint attention): self-
+    # attention, 77 keys, a ragged query and ragged keys
+    (1, 256, 256, 2, 128, None), (2, 256, 77, 2, 128, None), (1, 130, 256, 2, 128, None),
+    (1, 256, 200, 1, 128, None),
 ])
 def test_attention_plain_matches_jax_kernel(b, sq, skv, h, d, scale):
     q, k, v = _rand((b, sq, h, d), 0), _rand((b, skv, h, d), 1), _rand((b, skv, h, d), 2)

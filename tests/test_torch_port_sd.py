@@ -120,10 +120,10 @@ def test_formerly_refused_names_are_served(name, match, model_root):
 
 
 @pytest.mark.parametrize("name,match", [
-    ("black-forest-labs/FLUX.1-schnell", "not ported"),
+    ("black-forest-labs/FLUX.1-schnell", "FluxPipeline"),
     ("kandinsky-community/kandinsky-2-2-decoder", "not ported"),
     ("stabilityai/stable-cascade", "not ported"),
-    ("test/tiny-flux", "not ported"),
+    ("test/tiny-flux", "FluxPipeline"),
 ])
 def test_later_families_raise(name, match, model_root):
     with pytest.raises(ValueError, match=match):

@@ -79,7 +79,7 @@ from chiaswarm_tpu_torch.pipelines.upscale import (
     LatentUpscalePipeline,
     upscaler_name_for,
 )
-from chiaswarm_tpu_torch.registry import Registry, is_upscaler
+from chiaswarm_tpu_torch.registry import Registry, job_family
 from chiaswarm_tpu_torch.settings import Settings
 from chiaswarm_tpu_torch.weights import MissingWeightsError, from_jax_params
 from chiaswarm_tpu_torch.workflows.diffusion import diffusion_callback
@@ -418,7 +418,7 @@ def test_upscaler_family_as_jax(name, pipeline_type):
         family = jax_registry._auto_family(name)
     else:
         family = jax_registry.family_of(pipeline_type)
-    assert is_upscaler(name, pipeline_type) == (family == "sd_upscale")
+    assert (job_family(name, pipeline_type) == "sd_upscale") == (family == "sd_upscale")
 
 
 def test_upscaler_name_for_matches_jax():

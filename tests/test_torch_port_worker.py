@@ -12,8 +12,8 @@ its import purity.
   for lint rule SW001, whose scan does not cover the port), nor OpenCV,
   which the card's machine lacks.
 - The poll's `unconverted_families`, parsed by the repo's hive
-  (`hive_server.dispatch.WorkerDirectory.observe`), keeps Kandinsky, flux
-  and AudioLDM jobs from the port and admits every model it serves.
+  (`hive_server.dispatch.WorkerDirectory.observe`), keeps Kandinsky and
+  AudioLDM jobs from the port and admits every model it serves (Flux too).
 """
 
 import asyncio
@@ -153,6 +153,9 @@ def test_every_port_module_imports_with_jax_blocked():
                       "chiaswarm_tpu_torch.pre_processors.imgproc",
                       "chiaswarm_tpu_torch.pre_processors.depth_estimator",
                       "chiaswarm_tpu_torch.workflows.stitch"} <= set(modules)
+    # and the Flux slice's
+    assert {"chiaswarm_tpu_torch.models.flux", "chiaswarm_tpu_torch.models.t5",
+            "chiaswarm_tpu_torch.pipelines.flux"} <= set(modules)
     script = (
         "import sys\n"
         "before = set(sys.modules)\n"
@@ -170,7 +173,7 @@ def test_every_port_module_imports_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr[-2000:]
 
 
-REFUSED = ("kandinsky-community/kandinsky-2-2-decoder", "black-forest-labs/FLUX.1-schnell",
+REFUSED = ("kandinsky-community/kandinsky-2-2-decoder", "stabilityai/stable-cascade",
            "cvssp/audioldm-s-full-v2")
 SERVED = ("runwayml/stable-diffusion-v1-5", "stabilityai/stable-diffusion-2-1",
           "stabilityai/stable-diffusion-2-1-base", "stabilityai/stable-diffusion-xl-base-1.0",
@@ -179,7 +182,8 @@ SERVED = ("runwayml/stable-diffusion-v1-5", "stabilityai/stable-diffusion-2-1",
           "diffusers/sdxl-instructpix2pix-768", "stabilityai/sd-x2-latent-upscaler",
           "test/tiny-sd", "test/tiny-sd-v", "test/tiny-xl", "test/tiny-inpaint",
           "test/tiny-xl-inpaint", "test/tiny-pix2pix", "test/tiny-xl-pix2pix",
-          "test/tiny-xl-refiner", "test/tiny-upscaler")
+          "test/tiny-xl-refiner", "test/tiny-upscaler", "black-forest-labs/FLUX.1-schnell",
+          "black-forest-labs/FLUX.1-dev", "test/tiny-flux", "test/tiny-flux-schnell")
 
 
 def test_unconverted_families_gate_the_hive(tmp_path):
