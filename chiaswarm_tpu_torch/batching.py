@@ -14,7 +14,8 @@ interactive job of another key dispatches ("preempt": the one device is
 contended, so linger luck must not decide who goes first), or at
 `flush_all()` / `close()` ("shutdown"). The device takes items in FIFO
 order with `get()`; `task_done()` and `full()` gate the poll loop as an
-asyncio.Queue would.
+asyncio.Queue would. `cancel(job_id)` drops a job the hive cancelled while
+it is still held here, lingering or released and not yet taken.
 
 Left out, as the port has one device and no gang-scheduling hive: the
 dispatch board's placement matching (`claim`) and `put_gang` (the port
@@ -161,6 +162,42 @@ class BatchScheduler:
                         len(group["jobs"]), group["rows"], key[0], reason,
                         time.monotonic() - group["opened"])
         self._release(group["jobs"], reason)
+
+    def cancel(self, job_id) -> bool:
+        """Drop a job the hive cancelled while it is held here: a member of
+        an open group (a group left empty goes, with its timer) or of a
+        released item not yet taken (an item left empty goes). True when
+        found; the job leaves the outstanding count, and no envelope is
+        ever built for it. A job already taken by the device is not here:
+        the cancel registry (cancel.py) reaches it."""
+        job_id = str(job_id)
+        for key, group in list(self._pending.items()):
+            for job in group["jobs"]:
+                if str(job.get("id")) != job_id:
+                    continue
+                group["jobs"].remove(job)
+                group["rows"] -= job_rows(job)
+                # an adapter may be shared by a surviving member
+                group["adapters"] = {a for a in map(adapter_ref, group["jobs"])
+                                     if a is not None}
+                self._outstanding -= 1
+                if not group["jobs"]:
+                    group["timer"].cancel()
+                    del self._pending[key]
+                logger.info("cancelled lingering job %s before it ran", job_id)
+                return True
+        for entry in list(self._board):
+            for job in entry["jobs"]:
+                if str(job.get("id")) != job_id:
+                    continue
+                entry["jobs"].remove(job)
+                self._ready_jobs -= 1
+                self._outstanding -= 1
+                if not entry["jobs"]:
+                    self._board.remove(entry)
+                logger.info("cancelled released job %s before it ran", job_id)
+                return True
+        return False
 
     def flush_all(self) -> None:
         """Release every lingering group now."""

@@ -5,10 +5,31 @@ advertised and the auth header it carried. Files queued with
 `enqueue_file` are served without auth under /files/<name> (HEAD answers
 their Content-Type and Content-Length), so a job's `start_image_uri` and
 `mask_image_uri` can point at them.
+
+What the repo's hive (chiaswarm_tpu/hive_server) does for a chunked pass,
+in small:
+
+- a poll with `cancel_only=1` (the worker's heartbeat while its device is
+  busy) is handed no job;
+- `cancel(job_id)` revokes a job: the next reply carries it in `cancels`
+  (once); `cancel_after_first_partial(job_id)` does so as soon as the
+  job's first checkpoint or preview arrives, and `cancel_on_heartbeat(job_id,
+  n)` on the n-th cancel-only poll from now, which let a caller cancel a
+  pass in its middle;
+- POST /api/jobs/{id}/checkpoint and /preview store the blob under its
+  sha256 (served back by GET /api/artifacts/<sha256>) and record the
+  partial; the newest checkpoint of a job is kept;
+- `redeliver(job)` queues a job again as a redelivery: handed to a poller
+  that advertised `resume_capable`, it carries the `resume` offer {href,
+  step, signature} of the job's newest checkpoint; `put_checkpoint` plants
+  one (a blob cut under another program signature, say).
 """
 
 from __future__ import annotations
 
+import base64
+import binascii
+import hashlib
 import json
 import threading
 import time
@@ -24,6 +45,21 @@ class FakeHive:
         self.polls: list[dict] = []
         self.auth_failures = 0
         self.files: dict[str, tuple[bytes, str]] = {}
+        # sha256 -> blob, for checkpoints and previews
+        self.artifacts: dict[str, bytes] = {}
+        # every checkpoint or preview POST, in arrival order
+        self.partials: list[dict] = []
+        # job id -> its newest checkpoint {step, sha256, signature, bytes}
+        self.checkpoints: dict[str, dict] = {}
+        # revocations for the next reply, and those armed on a first partial
+        self.pending_cancels: list[str] = []
+        self.cancel_on_partial: set[str] = set()
+        # job id -> cancel-only polls still to come before its revocation
+        self.cancel_on_polls: dict[str, int] = {}
+        # job id -> time.monotonic() when a reply carried its cancel
+        self.cancels_sent: dict[str, float] = {}
+        # the ids queued as redeliveries
+        self._redelivered: set[str] = set()
         self._cond = threading.Condition()
         hive = self
 
@@ -48,6 +84,14 @@ class FakeHive:
                 if with_body:
                     self.wfile.write(body)
 
+            def _bytes(self, body: bytes, content_type: str, with_body: bool) -> None:
+                self.send_response(200)
+                self.send_header("Content-Type", content_type)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                if with_body:
+                    self.wfile.write(body)
+
             def _file(self, with_body: bool) -> bool:
                 """Serve /files/<name>; False for any other path."""
                 path = urllib.parse.urlparse(self.path).path
@@ -58,13 +102,7 @@ class FakeHive:
                 if found is None:
                     self._reply(404, {"message": "no such file"}, with_body)
                     return True
-                body, content_type = found
-                self.send_response(200)
-                self.send_header("Content-Type", content_type)
-                self.send_header("Content-Length", str(len(body)))
-                self.end_headers()
-                if with_body:
-                    self.wfile.write(body)
+                self._bytes(*found, with_body)
                 return True
 
             def do_HEAD(self):
@@ -75,31 +113,101 @@ class FakeHive:
                 if self._file(with_body=True):
                     return
                 url = urllib.parse.urlparse(self.path)
+                if url.path.startswith("/api/artifacts/"):
+                    if not self._authorized():
+                        return
+                    with hive._cond:
+                        blob = hive.artifacts.get(url.path[len("/api/artifacts/"):])
+                    if blob is None:
+                        return self._reply(404, {"message": "no such artifact"})
+                    return self._bytes(blob, "application/octet-stream", True)
                 if url.path != "/api/work":
                     return self._reply(404, {"message": "not found"})
                 if not self._authorized():
                     return
                 params = dict(urllib.parse.parse_qsl(url.query))
-                with hive._cond:
-                    hive.polls.append(params)
-                    jobs, hive.jobs = hive.jobs, []
-                self._reply(200, {"jobs": jobs})
+                reply = hive._work(params)
+                self._reply(200, reply)
 
             def do_POST(self):
-                if self.path != "/api/results":
+                path = urllib.parse.urlparse(self.path).path
+                parts = path.strip("/").split("/")
+                if path != "/api/results" and not (
+                        len(parts) == 4 and parts[:2] == ["api", "jobs"]
+                        and parts[3] in ("checkpoint", "preview")):
                     return self._reply(404, {"message": "not found"})
                 if not self._authorized():
                     return
                 length = int(self.headers.get("Content-Length", 0))
-                result = json.loads(self.rfile.read(length))
+                body = json.loads(self.rfile.read(length))
+                if path != "/api/results":
+                    status, ack = hive._partial(parts[3], urllib.parse.unquote(parts[2]), body)
+                    return self._reply(status, ack)
                 with hive._cond:
-                    hive.results.append(result)
+                    hive.results.append(body)
                     hive._cond.notify_all()
-                self._reply(200, {"ok": True, "id": result.get("id")})
+                self._reply(200, {"ok": True, "id": body.get("id")})
 
         self._server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
         self._thread = threading.Thread(target=self._server.serve_forever, daemon=True)
         self._thread.start()
+
+    def _work(self, params: dict) -> dict:
+        """One /work reply: the queued jobs (none to a cancel-only poll),
+        resume offers on redeliveries to resume-capable pollers, and the
+        pending revocations."""
+        with self._cond:
+            self.polls.append(params)
+            jobs = []
+            if params.get("cancel_only") != "1":
+                jobs, self.jobs = self.jobs, []
+            else:
+                for job_id in list(self.cancel_on_polls):
+                    self.cancel_on_polls[job_id] -= 1
+                    if self.cancel_on_polls[job_id] <= 0:
+                        del self.cancel_on_polls[job_id]
+                        self.pending_cancels.append(job_id)
+            handed = []
+            for job in jobs:
+                job_id = str(job.get("id"))
+                ck = self.checkpoints.get(job_id)
+                if (job_id in self._redelivered and ck is not None
+                        and params.get("resume_capable") == "1"):
+                    job = {**job, "resume": {"href": f"/api/artifacts/{ck['sha256']}",
+                                             "step": ck["step"], "signature": ck["signature"]}}
+                self._redelivered.discard(job_id)
+                handed.append(job)
+            reply = {"jobs": handed}
+            if self.pending_cancels:
+                reply["cancels"], self.pending_cancels = sorted(set(self.pending_cancels)), []
+                now = time.monotonic()
+                for job_id in reply["cancels"]:
+                    self.cancels_sent.setdefault(job_id, now)
+            return reply
+
+    def _partial(self, kind: str, job_id: str, body: dict) -> tuple[int, dict]:
+        try:
+            blob = base64.b64decode(body["blob"], validate=True)
+        except (KeyError, TypeError, binascii.Error, ValueError):
+            return 400, {"message": "body must carry a base64 `blob`"}
+        step = int(body.get("step", 0))
+        if kind == "checkpoint":
+            self.put_checkpoint(job_id, blob, step, str(body.get("signature", "")))
+        digest = hashlib.sha256(blob).hexdigest()
+        with self._cond:
+            self.artifacts[digest] = blob
+            record = {"kind": kind, "job_id": job_id, "step": step, "sha256": digest,
+                      "bytes": len(blob), "at": time.monotonic(),
+                      **{k: body[k] for k in ("signature", "content_type", "worker_name")
+                         if k in body}}
+            self.partials.append(record)
+            if job_id in self.cancel_on_partial:
+                self.cancel_on_partial.discard(job_id)
+                self.pending_cancels.append(job_id)
+            self._cond.notify_all()
+        if kind == "checkpoint":
+            return 200, {"status": "ok", "step": step, "sha256": digest}
+        return 200, {"status": "ok", "step": step, "href": f"/api/artifacts/{digest}"}
 
     @property
     def uri(self) -> str:
@@ -108,6 +216,39 @@ class FakeHive:
     def enqueue(self, *jobs: dict) -> None:
         with self._cond:
             self.jobs.extend(jobs)
+
+    def put_checkpoint(self, job_id: str, blob: bytes, step: int, signature: str) -> str:
+        """Keep `blob` as `job_id`'s newest checkpoint; returns its sha256."""
+        digest = hashlib.sha256(blob).hexdigest()
+        with self._cond:
+            self.artifacts[digest] = bytes(blob)
+            self.checkpoints[str(job_id)] = {"step": int(step), "sha256": digest,
+                                             "signature": signature, "bytes": len(blob)}
+        return digest
+
+    def redeliver(self, job: dict) -> None:
+        """Queue `job` again as a redelivery, offering its newest checkpoint
+        to a resume-capable poller."""
+        with self._cond:
+            self._redelivered.add(str(job.get("id")))
+            self.jobs.append(dict(job))
+
+    def cancel(self, job_id: str) -> None:
+        """Revoke `job_id` on the next reply."""
+        with self._cond:
+            self.pending_cancels.append(str(job_id))
+
+    def cancel_after_first_partial(self, job_id: str) -> None:
+        """Revoke `job_id` on the first reply after its first checkpoint or
+        preview arrives."""
+        with self._cond:
+            self.cancel_on_partial.add(str(job_id))
+
+    def cancel_on_heartbeat(self, job_id: str, polls: int = 1) -> None:
+        """Revoke `job_id` on the `polls`-th cancel-only poll from now (the
+        worker polls so only while its device is busy)."""
+        with self._cond:
+            self.cancel_on_polls[str(job_id)] = int(polls)
 
     def enqueue_file(self, name: str, data: bytes, content_type: str) -> str:
         """Serve `data` under /files/<name>; returns its URI."""

@@ -1,15 +1,20 @@
-"""Hive REST client: GET /api/work, POST /api/results.
+"""Hive REST client: GET /api/work, POST /api/results, and the partial
+uploads and artifact fetch of a chunked pass.
 
 The wire shapes of chiaswarm_tpu/hive.py (bearer auth, `worker_version`
 and `worker_name` plus the capability advertisement on the poll's query,
 the result envelope as the JSON body), over stdlib `urllib`. The calls
 block; the worker runs them in a thread so its event loop stays free.
-Failover across several hives, epochs and partial uploads are later
-slices.
+Each `/work` reply's `cancels` (the hive's revocations of this worker's
+leases) is kept in `last_cancels` until the next poll. `post_partial`
+(a checkpoint or a preview, POST /api/jobs/{id}/{kind}) and
+`fetch_artifact` (a resume offer's blob) are best effort: every failure
+returns None. Failover across several hives and epochs are later slices.
 """
 
 from __future__ import annotations
 
+import http.client
 import json
 import logging
 import urllib.error
@@ -39,6 +44,8 @@ class HiveClient:
     def __init__(self, settings):
         self.settings = settings
         self.base = api_base(settings.sdaas_uri)
+        # the job ids the last /work reply revoked
+        self.last_cancels: list[str] = []
 
     def _headers(self) -> dict[str, str]:
         return {
@@ -55,7 +62,8 @@ class HiveClient:
         except urllib.error.HTTPError as e:
             detail = e.read().decode("utf-8", "replace")[:200]
             raise HiveError(f"{method} {url}: HTTP {e.code} {detail}") from e
-        except (urllib.error.URLError, OSError, json.JSONDecodeError) as e:
+        except (urllib.error.URLError, http.client.HTTPException, OSError,
+                json.JSONDecodeError) as e:
             raise HiveError(f"{method} {url}: {e}") from e
 
     def ask_for_work(self, capabilities: dict[str, Any]) -> list[dict]:
@@ -66,7 +74,10 @@ class HiveClient:
             **{k: str(v) for k, v in capabilities.items()},
         }
         url = f"{self.base}/work?{urllib.parse.urlencode(params)}"
+        self.last_cancels = []
         payload = self._request("GET", url, None, ASK_TIMEOUT_S)
+        # revocations ride the same reply; they hold until the next poll
+        self.last_cancels = [str(c) for c in (payload.get("cancels") or []) if c]
         jobs = payload.get("jobs", [])
         if not isinstance(jobs, list):
             raise HiveError(f"malformed /work response: {payload!r:.200}")
@@ -78,3 +89,27 @@ class HiveClient:
                             json.dumps(result).encode(), SUBMIT_TIMEOUT_S)
         logger.info("result ack: %s", ack)
         return ack
+
+    def fetch_artifact(self, href: str) -> bytes | None:
+        """GET one blob by its site-absolute href (`/api/artifacts/<digest>`,
+        as a resume offer carries it); None on any failure."""
+        root = self.base[:-len("/api")]
+        req = urllib.request.Request(f"{root}{href}", method="GET", headers=self._headers())
+        try:
+            with urllib.request.urlopen(req, timeout=SUBMIT_TIMEOUT_S) as resp:
+                return resp.read()
+        except (urllib.error.URLError, http.client.HTTPException, OSError, ValueError) as e:
+            # a torn body (IncompleteRead) too: the caller runs the full pass
+            logger.warning("artifact fetch %s failed: %s", href, e)
+            return None
+
+    def post_partial(self, kind: str, job_id: str, payload: dict) -> dict | None:
+        """POST one mid-pass partial (`kind` "checkpoint" or "preview");
+        the hive's ack, or None on a refusal (a 409 once the lease moved
+        or the job settled) or a transport error."""
+        try:
+            return self._request("POST", f"{self.base}/jobs/{job_id}/{kind}",
+                                 json.dumps(payload).encode(), SUBMIT_TIMEOUT_S)
+        except HiveError as e:
+            logger.info("%s upload for %s refused or failed: %s", kind, job_id, e)
+            return None

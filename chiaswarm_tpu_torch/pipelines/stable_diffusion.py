@@ -49,6 +49,20 @@ config, `controlnet`) adds its residuals to the UNet's skips and mid block
 on the steps of its guidance window, on txt2img, img2img and inpaint, and
 on every row of a coalesced pass; `controlnet_prepipeline_type` runs the
 QR two-stage chain, as in the JAX pipeline.
+
+Chunked denoise, as the JAX pipeline's chunked runner
+(`denoise_chunk_steps` N > 0): every N steps of a pass, counted from its
+first step, is a chunk boundary. Where the worker hands the pass its job
+id(s), the host synchronises the device there and probes the cancel
+registry (cancel.py), also before the first step and after the last; a
+cancelled solo raises `JobCancelled`, a cancelled member of a coalesced
+pass comes back flagged. A solo pass's boundaries also checkpoint
+(`checkpoint_every_chunks`, `checkpoint_cb`: latents, scheduler leaves,
+the program signature and the generator's state, on the host) and
+preview (`preview_every_chunks`, `preview_cb`: the live latents decoded),
+and a pass given a `resume` (checkpoint.unpack's dict) under its own
+signature restarts at the checkpoint's step. Chunking without callbacks,
+and a resumed pass, give the undisturbed pass's image bit for bit.
 """
 
 from __future__ import annotations
@@ -66,6 +80,9 @@ import torch
 import torch.nn.functional as F
 from PIL import Image
 
+from .. import cancel as cancel_registry
+from .. import checkpoint
+from ..cancel import JobCancelled
 from ..device import device_label, resolve_device, serving_dtype, synchronize
 from ..embed_cache import EmbedCache
 from ..lora_cache import LoraCache, adapter_key
@@ -272,6 +289,25 @@ def _row_noise(noise_fn, index: int, rows: int):
     return one
 
 
+def _solo_probe(job_id):
+    """The cancel probe of a solo pass: raises JobCancelled once the hive
+    has cancelled `job_id`; None without a job id (direct calls)."""
+    if not job_id:
+        return None
+
+    def probe():
+        if cancel_registry.cancelled(job_id):
+            raise JobCancelled([job_id])
+
+    return probe
+
+
+def _at_boundary(i: int, first: int, chunk: int) -> bool:
+    """Step `i` of a pass that started at `first` opens a new chunk: every
+    `chunk` steps from the start, never at the start itself."""
+    return chunk > 0 and i != first and (i - first) % chunk == 0
+
+
 class _Timer:
     """Wall time of a stage that ends with the device idle."""
 
@@ -290,6 +326,10 @@ class SDPipeline:
     """One SD-family model resident on one device; serves txt2img, img2img,
     pix2pix (an 8-channel UNet) and inpaint (4- or 9-channel, by the UNet's
     input channels)."""
+
+    # the chunk boundary is the cancel, checkpoint and preview seam; the
+    # workflows forward those arguments only to pipelines that have it
+    supports_checkpoint = True
 
     def __init__(self, model_name: str, device=None, dtype=None,
                  allow_random_init: bool = False, weights: dict | None = None,
@@ -656,7 +696,10 @@ class SDPipeline:
             refiner: dict | None = None, registry=None, generator=None,
             latents=None, noise_fn=None, refiner_latents=None, refiner_noise_fn=None,
             prepipeline_latents=None, prepipeline_noise_fn=None, upscale: bool = False,
-            upscale_latents=None, **kwargs):
+            upscale_latents=None, job_id: str | None = None, denoise_chunk_steps: int = 0,
+            checkpoint_every_chunks: int = 0, checkpoint_cb=None,
+            preview_every_chunks: int = 0, preview_cb=None, resume: dict | None = None,
+            **kwargs):
         """One job -> (list of uint8 [H, W, 3] arrays, pipeline_config).
 
         `image` (one PIL image, or a list of them, one per output image)
@@ -696,7 +739,23 @@ class SDPipeline:
         H/8, W/8] the initial draw, and `noise_fn(kind, i, shape)` the draws
         of each step's ancestral noise ("step") and of inpaint's keep noise
         ("keep"); `refiner_latents` and `refiner_noise_fn` the same for the
-        refiner's stage."""
+        refiner's stage.
+        `job_id` arms the cancel probe (the module docstring), at the chunk
+        boundaries of `denoise_chunk_steps`, and before the first and after
+        the last step; a chained refiner and both stages of the QR chain
+        probe too. With chunking on, every `checkpoint_every_chunks`-th
+        boundary calls `checkpoint_cb(step, latents, leaves, signature,
+        rng)` (host arrays: latents, the scheduler's `state_leaves`, the
+        program signature, the generator's state), every
+        `preview_every_chunks`-th `preview_cb(step, pixels)` (uint8 [n, H,
+        W, 3]); `resume` (checkpoint.unpack's dict) restarts the pass at its
+        step when its signature, step and arrays fit this pass, else the
+        full pass runs and a warning is logged. A resumed pass stamps
+        `resumed` {from_step, recomputed_steps}. With chunking on,
+        `timings["boundary_s"]` is the host's time at the boundaries (the
+        probes, checkpoints and previews), which `unet_step_ms` leaves
+        out. Neither the QR chain nor
+        the refiner checkpoints or resumes, as in the JAX pipeline."""
         if self.is_pix2pix and image is not None and kwargs.get("controlnet_model_name"):
             raise ValueError("ControlNet is not supported with instruct-pix2pix models")
         if (kwargs.get("controlnet_prepipeline_type") and kwargs.get("controlnet_model_name")
@@ -713,7 +772,8 @@ class SDPipeline:
                 image_guidance_scale=image_guidance_scale, aesthetic_score=aesthetic_score,
                 refiner=refiner, registry=registry, refiner_latents=refiner_latents,
                 refiner_noise_fn=refiner_noise_fn, upscale=upscale,
-                upscale_latents=upscale_latents, **kwargs)
+                upscale_latents=upscale_latents, job_id=job_id,
+                denoise_chunk_steps=denoise_chunk_steps, **kwargs)
         strength = 0.75 if strength is None else float(strength)
         controlnet_name = kwargs.get("controlnet_model_name")
         control_image = kwargs.get("control_image")
@@ -842,7 +902,30 @@ class SDPipeline:
 
         schedule = scheduler.schedule(steps)
         start, end = scheduler.loop_bounds(schedule, steps, t_start)
-        branch_calls = 0
+        chunk = max(int(denoise_chunk_steps or 0), 0)
+        probe = _solo_probe(job_id)
+        ckpt_every = int(checkpoint_every_chunks or 0)
+        preview_every = int(preview_every_chunks or 0)
+        arm_ckpt = chunk > 0 and checkpoint_cb is not None and ckpt_every > 0
+        arm_preview = chunk > 0 and preview_cb is not None and preview_every > 0
+        signature = None
+        if chunk > 0 and (resume is not None or arm_ckpt):
+            # what fixes the meaning of "step K" for this pass
+            key = (self.model_name, mode, self.unet.config.in_channels, scheduler_type,
+                   bool(kwargs.get("use_karras_sigmas", False)), steps, t_start,
+                   (height, width), cfg_rows, controlnet_name)
+            signature = checkpoint.program_signature(self.model_name, key, self.dtype)
+        if resume is not None and str(resume.get("signature", "")) != signature:
+            if chunk > 0:
+                logger.warning("resume offer signature %s does not match this pass's %s; "
+                               "running the full pass", resume.get("signature"), signature)
+            resume = None
+        branch_calls = boundaries = 0
+        # the host's time at the boundaries (probe, checkpoint copy and
+        # pack, preview decode and encode), which is not step time
+        boundary_s = 0.0
+        if probe is not None:
+            probe()
         with (_Timer(self.device, timings, "denoise_s"),
               lora_runtime.applied(self.unet_index, stacks, lora_scale, cfg_rows * n)):
             if mode in ("img2img", "inpaint"):
@@ -850,6 +933,15 @@ class SDPipeline:
             else:
                 latents = latents * float(schedule.init_noise_sigma)
             state = scheduler.init_state(latents)
+            first = start
+            if resume is not None:
+                try:
+                    first, latents, state = self._rehydrate(resume, scheduler, latents, state,
+                                                            gen, start, end)
+                except (ValueError, KeyError, TypeError, RuntimeError) as e:
+                    # resume is an optimisation, never a gate
+                    logger.warning("checkpoint rehydration failed (%s); running the full pass",
+                                   e)
             if mode == "inpaint9":
                 cond9 = torch.cat([mask, image_latents], dim=1)
             elif mode == "pix2pix":
@@ -857,7 +949,26 @@ class SDPipeline:
                 # true no-image baseline
                 cond_rows = torch.cat([torch.zeros_like(image_latents), image_latents,
                                        image_latents])
-            for i in range(start, end):
+            for i in range(first, end):
+                if _at_boundary(i, first, chunk) and (probe or arm_ckpt or arm_preview):
+                    # the host waits for the chunk before it probes: it would
+                    # otherwise run ahead of the queued launches, and every
+                    # probe would fire before the first chunk computed
+                    synchronize(self.device)
+                    t_boundary = time.perf_counter()
+                    if probe is not None:
+                        probe()
+                    boundaries += 1
+                    if arm_ckpt and boundaries % ckpt_every == 0:
+                        checkpoint_cb(i, latents.cpu().numpy(),
+                                      [leaf.cpu().numpy()
+                                       for leaf in scheduler.state_leaves(state, latents)],
+                                      signature, gen.get_state().numpy())
+                    if arm_preview and boundaries % preview_every == 0:
+                        # the decode comes back on the host: nothing of it
+                        # stays queued behind the next step
+                        preview_cb(i, self.decode(latents, vae))
+                    boundary_s += time.perf_counter() - t_boundary
                 inp = scheduler.scale_model_input(schedule, latents, i)
                 if mode == "inpaint9":
                     inp = torch.cat([inp, cond9], dim=1)
@@ -887,12 +998,19 @@ class SDPipeline:
                     keep = (image_latents if i == end - 1 else scheduler.add_noise(
                         schedule, image_latents, draw("keep", i), min(i + 1, end - 1)))
                     latents = mask * latents + (1.0 - mask) * keep
+            if probe is not None:
+                synchronize(self.device)
+                probe()
 
         with _Timer(self.device, timings, "decode_s"):
             pixels = self.decode(latents, vae)
         finite = bool(torch.isfinite(latents).all())
         absmax = float(latents.abs().max())
-        timings["unet_step_ms"] = 1000.0 * timings["denoise_s"] / max(end - start, 1)
+        # the steps this pass ran: a resumed pass ran from its checkpoint
+        if chunk > 0:
+            timings["boundary_s"] = boundary_s
+        timings["unet_step_ms"] = (1000.0 * (timings["denoise_s"] - boundary_s)
+                                   / max(end - first, 1))
 
         if refiner is not None:
             # the SDXL refiner stage: the output re-enters a second resident
@@ -904,7 +1022,8 @@ class SDPipeline:
             refiner_kw = dict(prompt=prompt, negative_prompt=negative_prompt,
                               strength=float(refiner.get("strength", 0.3)),
                               num_inference_steps=steps, guidance_scale=guidance_scale,
-                              scheduler_type=scheduler_type)
+                              scheduler_type=scheduler_type, job_id=job_id,
+                              denoise_chunk_steps=denoise_chunk_steps)
             refined = None
             try:
                 refined, _ = refiner_pipe.run(
@@ -985,10 +1104,39 @@ class SDPipeline:
                                   "bytes_saved": lora_stats["bytes"] * lora_stats["operand_hit"]}}
                if lora is not None else {}),
             **self._embed_cache_stamp(),
+            # a pass resumed from a checkpoint ran only the steps after it
+            **({"resumed": {"from_step": first, "recomputed_steps": end - first}}
+               if first != start else {}),
             "latents": {"finite": finite, "absmax": absmax},
             "timings": {k: round(v, 4) for k, v in timings.items()},
         }
         return list(pixels), pipeline_config
+
+    def _rehydrate(self, resume: dict, scheduler, latents, state, gen, lo: int, hi: int):
+        """A freshly prepared pass's (latents, scheduler state) swapped for a
+        checkpoint's, and its generator set to the checkpoint's state ->
+        (step, latents, state). The step must lie strictly inside the pass
+        (lo, hi); the latents, every scheduler leaf and the generator state
+        must have this pass's shapes and dtypes. Anything else raises
+        ValueError, and nothing is changed."""
+        at = int(resume.get("step", lo))
+        if not lo < at < hi:
+            raise ValueError(f"resume step {at} outside the denoise span ({lo}, {hi})")
+        ck = resume["latents"]
+        ck = ck if isinstance(ck, torch.Tensor) else torch.from_numpy(np.array(ck))
+        if tuple(ck.shape) != tuple(latents.shape) or ck.dtype != latents.dtype:
+            raise ValueError(f"checkpoint latents {ck.dtype}{tuple(ck.shape)} do not match this "
+                             f"pass's {latents.dtype}{tuple(latents.shape)}")
+        state = scheduler.state_from_leaves(state, list(resume.get("state_leaves") or []),
+                                            latents)
+        if resume.get("rng") is None:
+            raise ValueError("checkpoint carries no generator state")
+        rng = torch.from_numpy(np.array(resume["rng"], dtype=np.uint8).reshape(-1))
+        if rng.numel() != gen.get_state().numel():
+            raise ValueError(f"generator state of {rng.numel()} bytes, this pass's generator "
+                             f"has {gen.get_state().numel()}")
+        gen.set_state(rng)
+        return at, ck.to(self.device), state
 
     def _latent2x(self, image: np.ndarray, width: int, height: int, vae) -> np.ndarray:
         """The fallback of `upscale` where the SD-x2 upscaler has no
@@ -1063,7 +1211,7 @@ class SDPipeline:
                     aesthetic_score: float = 6.0, controlnet_model_name: str | None = None,
                     control_image=None, controlnet_conditioning_scale: float = 1.0,
                     control_guidance_start: float = 0.0, control_guidance_end: float = 1.0,
-                    latents=None, noise_fn=None):
+                    latents=None, noise_fn=None, denoise_chunk_steps: int = 0):
         """A coalesced txt2img or img2img group in one padded pass, the
         counterpart of the JAX pipeline's `run_batched` -> [(images,
         pipeline_config)], one per request, in order.
@@ -1094,7 +1242,14 @@ class SDPipeline:
         A shared ControlNet (`controlnet_model_name`, one `control_image`
         for the group, scale and window as in `run`) conditions every row
         of the pass, padding rows too, as the JAX pass does: the branch
-        runs once a step over all of them."""
+        runs once a step over all of them.
+
+        A request's `job_id` arms its row's cancel probe, before the first
+        step, at every `denoise_chunk_steps` boundary and after the last:
+        a cancelled member's row keeps computing (the padded shapes are
+        fixed) and its result comes back with `cancelled` true; when every
+        member is cancelled the pass raises JobCancelled. A coalesced pass
+        never checkpoints or resumes, as in the JAX package."""
         timings: dict[str, float] = {}
         start_images = [r.get("image") for r in requests]
         i2i = any(im is not None for im in start_images)
@@ -1209,6 +1364,21 @@ class SDPipeline:
         schedule = scheduler.schedule(steps)
         start, end = scheduler.loop_bounds(schedule, steps, t_start)
         branch_calls = 0
+        chunk = max(int(denoise_chunk_steps or 0), 0)
+        row_ids = [r.get("job_id") for r in requests]
+        cancelled_rows: set[int] = set()
+        probe = None
+        if any(row_ids):
+            def probe():
+                for idx, jid in enumerate(row_ids):
+                    if jid and idx not in cancelled_rows and cancel_registry.cancelled(jid):
+                        cancelled_rows.add(idx)
+                        logger.warning("coalesced row for job %s cancelled; its batchmates "
+                                       "go on", jid)
+                if len(cancelled_rows) == len(requests):
+                    raise JobCancelled(row_ids)
+
+            probe()
         hooks = (lora_runtime.applied_rows(self.unet_index, slot_stacks, gains)
                  if slot_stacks else nullcontext())
         with _Timer(self.device, timings, "denoise_s"), hooks:
@@ -1218,6 +1388,9 @@ class SDPipeline:
                 latents = latents * float(schedule.init_noise_sigma)
             state = scheduler.init_state(latents)
             for i in range(start, end):
+                if probe is not None and _at_boundary(i, start, chunk):
+                    synchronize(self.device)
+                    probe()
                 inp = scheduler.scale_model_input(schedule, latents, i)
                 model_in = torch.cat([inp, inp]).to(self.dtype).contiguous(
                     memory_format=torch.channels_last)
@@ -1231,6 +1404,9 @@ class SDPipeline:
                 guided = out_u + float(guidance_scale) * (out_c - out_u)
                 noise = draw("step", i) if scheduler.uses_ancestral_noise else None
                 state, latents = scheduler.step(schedule, state, i, latents, guided, noise)
+            if probe is not None:
+                synchronize(self.device)
+                probe()
 
         real = latents[:total]
         with _Timer(self.device, timings, "decode_s"):
@@ -1273,6 +1449,8 @@ class SDPipeline:
                                             split_by_counts(list(pixels), counts),
                                             real.split(counts)):
             config = {**shared, "batch_rows": [offset, n],
+                      # a cancelled member's envelope is never built
+                      **({"cancelled": True} if len(results) in cancelled_rows else {}),
                       "latents": {"finite": bool(torch.isfinite(rows).all()),
                                   "absmax": float(rows.abs().max())},
                       "timings": {k: round(v, 4) for k, v in timings.items()}}

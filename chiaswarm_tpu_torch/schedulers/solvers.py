@@ -19,11 +19,19 @@ Two parametrisations, as in the JAX package:
 
 `noise` is the step's fresh normal draw, which only solvers with
 `uses_ancestral_noise` read; the others accept and ignore it.
+
+The state is a tuple whose shape changes as a pass runs (`(None, False)`
+growing to `(x0, True)` for DPM-Solver++ 2M). A checkpoint needs a fixed
+list of arrays, so `state_leaves(state, sample)` writes it as one
+(`None` as zeros of the sample's shape, a has-history flag as a 0-d bool)
+and `state_from_leaves(fresh_state, leaves, sample)` reads it back,
+holding every leaf to the shape and dtype of a fresh `init_state`'s.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .common import Schedule, SchedulerConfig, ddpm_schedule, discrete_schedule, train_sigmas
 
@@ -90,6 +98,30 @@ class BaseScheduler:
 
     def init_state(self, sample):
         return ()
+
+    def state_leaves(self, state, sample) -> list:
+        """The state as a fixed list of tensors (a checkpoint's leaves);
+        first-order solvers carry none."""
+        return []
+
+    def _state_from(self, leaves: list):
+        return ()
+
+    def state_from_leaves(self, fresh_state, leaves, sample):
+        """The state that `state_leaves` wrote, from tensors or arrays.
+        Each leaf must have the shape and dtype of `fresh_state`'s (this
+        pass's `init_state`) leaves; anything else raises ValueError."""
+        want = self.state_leaves(fresh_state, sample)
+        if len(leaves) != len(want):
+            raise ValueError(f"{len(leaves)} scheduler leaves, this solver has {len(want)}")
+        got = []
+        for w, leaf in zip(want, leaves):
+            t = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(np.array(leaf))
+            if tuple(t.shape) != tuple(w.shape) or t.dtype != w.dtype:
+                raise ValueError(f"scheduler leaf {t.dtype}{tuple(t.shape)} does not match "
+                                 f"{w.dtype}{tuple(w.shape)}")
+            got.append(t.to(w.device))
+        return self._state_from(got)
 
     def step(self, schedule: Schedule, state, i: int, sample, model_output, noise=None):
         raise NotImplementedError
@@ -166,6 +198,12 @@ class HeunDiscreteScheduler(EulerDiscreteScheduler):
         """(pre-step sample, predictor slope)."""
         return (sample.new_zeros(sample.shape), sample.new_zeros(sample.shape))
 
+    def state_leaves(self, state, sample) -> list:
+        return list(state)
+
+    def _state_from(self, leaves: list):
+        return tuple(leaves)
+
     def step(self, schedule, state, i, sample, model_output, noise=None):
         sigma, derivative = self._derivative(schedule, i, sample, model_output)
         if i % 2 == 0:
@@ -223,6 +261,15 @@ class DPMSolverMultistepScheduler(BaseScheduler):
         gates the second-order update: img2img starts at i = t_start."""
         return (None, False)
 
+    def state_leaves(self, state, sample) -> list:
+        x0, has_history = state
+        return [sample.new_zeros(sample.shape) if x0 is None else x0,
+                torch.tensor(bool(has_history))]
+
+    def _state_from(self, leaves: list):
+        x0, flag = leaves
+        return (x0, True) if bool(flag) else (None, False)
+
     def step(self, schedule, state, i, sample, model_output, noise=None):
         sig_t, sig_next, _, h, h_last = _log_steps(schedule, i)
         x0, _ = x0_eps_from_vp_space(sample, model_output, _abar(sig_t),
@@ -244,6 +291,14 @@ class UniPCMultistepScheduler(DPMSolverMultistepScheduler):
     def init_state(self, sample):
         """(previous pre-prediction sample, previous x0, has-history)."""
         return (None, None, False)
+
+    def state_leaves(self, state, sample) -> list:
+        return [sample.new_zeros(sample.shape) if x is None else x for x in state[:2]] + [
+            torch.tensor(bool(state[2]))]
+
+    def _state_from(self, leaves: list):
+        x_prev, x0_prev, flag = leaves
+        return (x_prev, x0_prev, True) if bool(flag) else (None, None, False)
 
     def step(self, schedule, state, i, sample, model_output, noise=None):
         sig_t, sig_next, sig_prev, h, h_last = _log_steps(schedule, i)

@@ -40,6 +40,21 @@ class Settings:
     # directories under model_root_dir (pipelines/aux_models.py)
     depth_model: str = "Intel/dpt-large"
     pose_model: str = "lllyasviel/ControlNet-openpose"
+    # chunked denoise (pipelines/stable_diffusion.py): the host syncs the
+    # device and probes the cancel registry (cancel.py) every this many
+    # steps, so a cancelled job frees the device within one chunk; 0 runs
+    # the loop through. Chunked and unchunked images are bit for bit equal
+    denoise_chunk_steps: int = 0
+    # ship a checkpoint (latents, scheduler state, step, generator state;
+    # checkpoint.py) to the hive every this many chunk boundaries, so a
+    # redelivered job resumes at step K; needs denoise_chunk_steps > 0,
+    # 0 disables
+    checkpoint_every_chunks: int = 0
+    # the largest checkpoint blob shipped (bytes); a larger one is skipped
+    checkpoint_max_bytes: int = 8388608
+    # decode the live latents into a JPEG preview for the hive every this
+    # many chunk boundaries; 0 disables
+    preview_every_chunks: int = 0
 
 
 _ENV_OVERRIDES = {
@@ -57,6 +72,10 @@ _ENV_OVERRIDES = {
     "CHIASWARM_SAFETY_CHECKER_MODEL": "safety_checker_model",
     "CHIASWARM_DEPTH_MODEL": "depth_model",
     "CHIASWARM_POSE_MODEL": "pose_model",
+    "CHIASWARM_DENOISE_CHUNK_STEPS": "denoise_chunk_steps",
+    "CHIASWARM_CHECKPOINT_EVERY_CHUNKS": "checkpoint_every_chunks",
+    "CHIASWARM_CHECKPOINT_MAX_BYTES": "checkpoint_max_bytes",
+    "CHIASWARM_PREVIEW_EVERY_CHUNKS": "preview_every_chunks",
 }
 
 

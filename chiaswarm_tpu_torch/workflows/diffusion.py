@@ -33,18 +33,32 @@ go through the NSFW safety checker (pipelines/safety.py, resolved by the
 registry), as the JAX callbacks do: the envelope's `nsfw` and
 `nsfw_checked`, false and false when no checker is available; the check
 never fails a job.
+
+The worker's cancel, chunk and checkpoint arguments (`job_id`,
+`denoise_chunk_steps`, `checkpoint_every_chunks`, `checkpoint_cb`,
+`preview_every_chunks`, `preview_cb`, `resume`) reach only a pipeline
+with `supports_checkpoint` (SDPipeline), as in the JAX callback: a Flux
+or a standalone upscale job runs untouched, neither chunked nor
+cancelled mid-pass. A coalesced member whose job was cancelled during the
+pass comes back as (None, pipeline_config) with `cancelled` set: no
+safety check, no artifacts, and the worker delivers nothing for it.
 """
 
 from __future__ import annotations
 
 import time
 
+from ..cancel import JobCancelled
 from ..capacity import coalesced_fit, default_canvas
 from ..models.configs import model_family
 from ..pipelines.common import chunk_by_rows
 from ..pipelines.safety import flag_images
 from ..post_processors.output_processor import OutputProcessor
 from ..registry import check_pipeline_type
+
+# the arguments of a chunked pass, for pipelines that have the chunk seam
+CHUNK_KWARGS = ("job_id", "denoise_chunk_steps", "checkpoint_every_chunks", "checkpoint_cb",
+                "preview_every_chunks", "preview_cb", "resume")
 
 
 def tiny_stand_in(model_name: str) -> str:
@@ -81,7 +95,10 @@ def diffusion_callback(device_identifier: str, model_name: str, *, registry, **k
         model_name = tiny_stand_in(model_name)
     pipeline_type = kwargs.pop("pipeline_type", "DiffusionPipeline")
     check_pipeline_type(pipeline_type)
+    chunk_kwargs = {key: kwargs.pop(key) for key in CHUNK_KWARGS if key in kwargs}
     pipeline = registry.get_pipeline(model_name, pipeline_type=pipeline_type)
+    if getattr(pipeline, "supports_checkpoint", False):
+        kwargs.update(chunk_kwargs)
     images, pipeline_config = pipeline.run(pipeline_type=pipeline_type, registry=registry,
                                            **kwargs)
     if degraded:
@@ -100,7 +117,8 @@ def diffusion_callback(device_identifier: str, model_name: str, *, registry, **k
 
 
 def diffusion_batched_callback(device_identifier: str, requests: list[dict], *, registry,
-                               lora_slots_max: int = 8) -> list[tuple[dict, dict]]:
+                               lora_slots_max: int = 8,
+                               denoise_chunk_steps: int = 0) -> list[tuple[dict | None, dict]]:
     """A coalesced group (formatted job arguments that share one coalesce
     key: model, canvas, steps, scheduler, guidance, workflow, strength) ->
     [(artifacts, pipeline_config)], one per request, in order. The shared
@@ -109,7 +127,11 @@ def diffusion_batched_callback(device_identifier: str, requests: list[dict], *, 
     in passes of whole requests; a request larger than one pass serves the
     images that fit, and says so (`batch_capped`). Raising is fine: the
     worker then serves every member alone, which reproduces the error per
-    job."""
+    job. Each request's `id` arms its row's cancel probe on an SDPipeline
+    (at `denoise_chunk_steps` boundaries). A pass whose every member was
+    cancelled flags its members `cancelled` and the group's other passes
+    go on; JobCancelled, every member of the group cancelled, is the
+    worker's to handle."""
     shared = requests[0]
     model_name = shared["model_name"]
     if shared.get("test_tiny_model", False):
@@ -146,6 +168,7 @@ def diffusion_batched_callback(device_identifier: str, requests: list[dict], *, 
                           "negative_prompt": r.get("negative_prompt", ""),
                           "seed": r.get("seed"), "num_images_per_prompt": n,
                           "image": None if cn_name else r.get("image"), "lora": r.get("lora"),
+                          "job_id": r.get("id"),
                           "lora_scale": float(r.get("lora_scale", xattn.get("scale", 1.0))
                                               or 0.0)})
 
@@ -157,6 +180,8 @@ def diffusion_batched_callback(device_identifier: str, requests: list[dict], *, 
             counts[i] = row_specs[i]["num_images_per_prompt"] = max_rows
 
     pipeline = registry.get_pipeline(model_name, pipeline_type=pipeline_type)
+    chunk_kwargs = ({"denoise_chunk_steps": denoise_chunk_steps}
+                    if getattr(pipeline, "supports_checkpoint", False) else {})
     cn_kwargs = {}
     if cn_name:
         cn_kwargs = {"controlnet_model_name": cn_name, "control_image": control_image,
@@ -166,19 +191,31 @@ def diffusion_batched_callback(device_identifier: str, requests: list[dict], *, 
                      "control_guidance_end": float(shared.get("control_guidance_end", 1.0))}
     results = []
     for start, end in chunk_by_rows(counts, max_rows):
-        results.extend(pipeline.run_batched(
-            row_specs[start:end], height=height, width=width,
-            num_inference_steps=int(shared.get("num_inference_steps", 30)),
-            guidance_scale=float(shared.get("guidance_scale", 7.5)),
-            scheduler_type=shared.get("scheduler_type", "DPMSolverMultistepScheduler"),
-            use_karras_sigmas=bool(shared.get("use_karras_sigmas", False)),
-            pipeline_type=pipeline_type,
-            strength=0.75 if strength is None else float(strength),
-            lora_slots_max=lora_slots_max, **cn_kwargs))
+        try:
+            results.extend(pipeline.run_batched(
+                row_specs[start:end], height=height, width=width,
+                num_inference_steps=int(shared.get("num_inference_steps", 30)),
+                guidance_scale=float(shared.get("guidance_scale", 7.5)),
+                scheduler_type=shared.get("scheduler_type", "DPMSolverMultistepScheduler"),
+                use_karras_sigmas=bool(shared.get("use_karras_sigmas", False)),
+                pipeline_type=pipeline_type,
+                strength=0.75 if strength is None else float(strength),
+                lora_slots_max=lora_slots_max, **cn_kwargs, **chunk_kwargs))
+        except JobCancelled:
+            # every member of this pass was cancelled; the other passes'
+            # members are served all the same
+            results.extend((None, {"cancelled": True, "timings": {}})
+                           for _ in range(start, end))
+    if all(config.get("cancelled") for _, config in results):
+        raise JobCancelled([r.get("id") for r in requests])
 
     out = []
     for i, ((images, pipeline_config), (content_type, outputs)) in enumerate(
             zip(results, envelopes)):
+        if pipeline_config.get("cancelled"):
+            # cancelled by the hive mid-pass: nothing is checked or packaged
+            out.append((None, pipeline_config))
+            continue
         t0 = time.perf_counter()
         pipeline_config["nsfw"], pipeline_config["nsfw_checked"] = flag_images(
             images, registry.safety_checker)

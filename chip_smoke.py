@@ -166,6 +166,24 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
    unflagged, mlsd, lineart, segmentation and (DPT back) zoe depth by
    their stand-ins with `degraded_preprocessors`, and M-LSD's file put
    back serves the next mlsd job (the mtime negative cache).
+   Then the resume and cancel path (`serve_resume_path`), in the main
+   path's registries, through workers with `denoise_chunk_steps` 5: an
+   SDXL 1024^2 30-step DPM++ 2M job with a checkpoint every 2 chunk
+   boundaries and a preview at every one, against the same job with
+   chunking off and chunked with nothing armed (bit for bit; checkpoints at steps 10 and 20, previews at
+   5 to 25, each a 1024^2 JPEG; the blob's bytes printed); the job
+   redelivered with the hive's step-20 resume offer (bit for bit,
+   `resumed` {20, 10}) and with the checkpoint repacked under a wrong
+   program signature (the full pass, bit for bit); SD 1.5 512^2 under
+   Euler ancestral resumed at step 20 against the undisturbed job (bit
+   for bit: the generator's state travels in the blob); an SDXL job the
+   fake hive cancels after its first preview (no envelope, the device
+   free within one chunk of the cancel reaching the worker, both times
+   printed, and the next job served); a coalesced chunked pass of four
+   SDXL jobs at BATCHED_STEPS, the same four with one cancelled mid-pass
+   (three envelopes, bit for bit those of the first pass) and with all
+   four cancelled (no envelope). Launches are held to the UNet calls plus
+   one decode and one decode a preview.
    After phase 8, Flux joins the main path's registry while its SDXL
    pipelines, the SD registry, the detectors and the checker are still
    resident (`serve_flux_beside_sd`): one FLUX.1-schnell 4-step job, the
@@ -271,6 +289,9 @@ STEPS = 30
 # its time budget; launches and rates are per job at this depth
 BATCHED_STEPS = 15
 SIZE = 1024
+# the smoke's workers poll the fake hive every 0.05 s while idle; while a
+# pass runs, their cancel-only heartbeat polls every HEARTBEAT_SECONDS
+HEARTBEAT_SECONDS = 0.5
 FLUX_DEV = "black-forest-labs/FLUX.1-dev"
 FLUX_SCHNELL = "black-forest-labs/FLUX.1-schnell"
 # FLUX.1-dev's and FLUX.1-schnell's published step counts
@@ -1657,7 +1678,8 @@ def serve_main_path(smi: str, device: str = "cuda", model: str = SDXL, size: int
             f"(seeded random weights, {pipe.dtype}); "
             f"{torch.cuda.memory_allocated() / 2**30 if device == 'cuda' else 0:.1f} GiB "
             "allocated")
-        worker = Worker(settings=settings, device=device, registry=registry, poll_seconds=0.05)
+        worker = Worker(settings=settings, device=device, registry=registry, poll_seconds=0.05,
+                        heartbeat_seconds=HEARTBEAT_SECONDS)
         jobs = [{"id": f"txt2img-{i}", "workflow": "txt2img", "model_name": model,
                  "prompt": f"a lighthouse on a cliff at dusk, study {i}",
                  "negative_prompt": "blurry", "height": size, "width": size,
@@ -1800,7 +1822,8 @@ def serve_counted(smi: str, registry, jobs: list, per_call: dict, device: str = 
                                "model_root_dir": registry.model_root_dir,
                                "lora_root_dir": registry.lora_root_dir or Settings.lora_root_dir,
                                "max_coalesce": 1, **(settings_kw or {})})
-        worker = Worker(settings=settings, device=device, registry=registry, poll_seconds=0.05)
+        worker = Worker(settings=settings, device=device, registry=registry, poll_seconds=0.05,
+                        heartbeat_seconds=HEARTBEAT_SECONDS)
         FA_COUNTER.reset()
         GN_COUNTER.reset()
         paths, before = {}, _snapshot(counters)
@@ -2562,7 +2585,8 @@ def serve_group(registry, jobs: list, device: str = "cuda", max_coalesce: int = 
                                "model_root_dir": registry.model_root_dir,
                                "lora_root_dir": registry.lora_root_dir or Settings.lora_root_dir,
                                "max_coalesce": max_coalesce, **(settings_kw or {})})
-        worker = Worker(settings=settings, device=device, registry=registry, poll_seconds=0.05)
+        worker = Worker(settings=settings, device=device, registry=registry, poll_seconds=0.05,
+                        heartbeat_seconds=HEARTBEAT_SECONDS)
         hive.enqueue(*jobs)
         FA_COUNTER.reset()
         GN_COUNTER.reset()
@@ -4512,6 +4536,297 @@ def serve_flux_path(smi: str, device: str = "cuda", dev: str = FLUX_DEV,
     return paths, served
 
 
+# the resume and cancel path: chunks of RESUME_CHUNK steps, a checkpoint
+# every RESUME_CKPT_EVERY boundaries, a preview at every one
+RESUME_CHUNK = 5
+RESUME_CKPT_EVERY = 2
+
+
+def _pixels(result: dict):
+    return decode_artifact(result["artifacts"]["primary"])
+
+
+def serve_resume_path(smi: str, registry, sd_registry, xl_launches: dict,
+                      device: str = "cuda", sdxl: str = SDXL, sd15: str = SD15,
+                      size_xl: int = SIZE, size15: int = 512, steps: int = STEPS,
+                      batched_steps: int = BATCHED_STEPS, chunk: int = RESUME_CHUNK,
+                      group_size: int = 4, heartbeat_seconds: float = HEARTBEAT_SECONDS,
+                      hold: bool = True) -> tuple[dict, dict]:
+    """Phase 5, the resume and cancel path, through the worker and the fake
+    hive, in the main path's registries (`sdxl` in `registry`, `sd15` in
+    `sd_registry`), every job DPM++ 2M unless said:
+
+    1. an SDXL job served with chunking off, the same job (seed and prompt)
+       chunked with nothing armed, then on a worker with chunks of `chunk`
+       steps, a checkpoint
+       every RESUME_CKPT_EVERY boundaries and a preview at every one: the
+       same image bit for bit, checkpoints at steps 10 and 20 and previews
+       at 5, 10, 15, 20 and 25 (each a decodable JPEG of the canvas);
+    2. the job redelivered with the hive's step-20 offer to a second such
+       worker, which advertises `resume_capable`: the same image, `resumed`
+       {from_step 20, recomputed_steps 10}; then redelivered with the same
+       checkpoint packed under a wrong program signature: the full pass,
+       the same image;
+    3. SD 1.5 under Euler ancestral, undisturbed, armed, and resumed at step
+       20: the same image three times (the generator's state travels);
+    4. an SDXL job cancelled by the hive after its first preview: no
+       envelope, the device free within one chunk of the cancel reaching
+       the worker, and the next job served;
+    5. `group_size` SDXL jobs as one coalesced chunked pass at
+       `batched_steps`, then the same jobs with one cancelled during the pass
+       (an envelope for each other job, its image that of the same job in
+       the first pass bit for bit), then with all of them cancelled (no
+       envelope, the pass aborted).
+
+    Each job's launches are held to its UNet calls x the per-call launches
+    plus one decode and one decode a preview. -> ({job kind: (1, {kernel:
+    (launches, {shape: launches})})}, served)."""
+    from chiaswarm_tpu_torch.fake_hive import FakeHive
+    from chiaswarm_tpu_torch.ops.flash_attention import COUNTER as FA_COUNTER
+    from chiaswarm_tpu_torch.ops.group_norm import COUNTER as GN_COUNTER
+    from chiaswarm_tpu_torch.settings import Settings
+    from chiaswarm_tpu_torch.worker import Worker
+    from PIL import Image
+
+    counters = {"flash_attention": FA_COUNTER, "group_norm": GN_COUNTER}
+    per_call = {sdxl: xl_launches, sd15: SD_UNET_LAUNCHES}
+    hive = FakeHive(token="smoke-token")
+    # job kind -> its launches, and the previews its serve received
+    paths, previews_in, served = {}, {}, {"jobs": {}}
+
+    def worker(reg, chunk: int = 0, ckpt: int = 0, preview: int = 0, coalesce: int = 1):
+        settings = Settings(sdaas_token="smoke-token", sdaas_uri=hive.uri,
+                            worker_name=f"chip-smoke-{chunk}-{ckpt}-{preview}-{coalesce}",
+                            model_root_dir=reg.model_root_dir, max_coalesce=coalesce,
+                            denoise_chunk_steps=chunk, checkpoint_every_chunks=ckpt,
+                            preview_every_chunks=preview)
+        return Worker(settings=settings, device=device, registry=reg, poll_seconds=0.05,
+                      heartbeat_seconds=heartbeat_seconds)
+
+    def job(job_id: str, model: str, size: int, seed: int, n_steps: int = steps,
+            scheduler: str = "DPMSolverMultistepScheduler", prompt: str | None = None):
+        return {"id": job_id, "workflow": "txt2img", "model_name": model,
+                "prompt": prompt or "a lighthouse on a cliff at dusk, resumed",
+                "negative_prompt": "blurry", "height": size, "width": size,
+                "num_inference_steps": n_steps, "guidance_scale": 7.0, "seed": seed,
+                "content_type": "image/png", "parameters": {"scheduler_type": scheduler}}
+
+    def serve(w, jobs: list, kind: str | None = None, redeliver: bool = False, **hooks):
+        """Queue `jobs` (as redeliveries, which carry the hive's resume
+        offer) and serve them -> the new envelopes by id; the launches of a
+        single job go to paths[kind]."""
+        for j in jobs:
+            if redeliver:
+                hive.redeliver(j)
+            else:
+                hive.enqueue(j)
+        for job_id, polls in hooks.get("on_heartbeat", {}).items():
+            hive.cancel_on_heartbeat(job_id, polls)
+        for job_id in hooks.get("after_partial", ()):
+            hive.cancel_after_first_partial(job_id)
+        before, seen, parts = _snapshot(counters), len(hive.results), len(hive.partials)
+        asyncio.run(w.run(max_jobs=w.jobs_done + len(jobs)))
+        after = _snapshot(counters)
+        if kind is not None:
+            paths[kind] = (1, {name: (after[name][0] - before[name][0],
+                                      after[name][1] - before[name][1]) for name in counters})
+            previews_in[kind] = sum(p["kind"] == "preview" for p in hive.partials[parts:])
+        return {r["id"]: r for r in hive.results[seen:]}
+
+    def hold_job(kind: str, result: dict, model: str, unet_calls: int):
+        previews = previews_in[kind]
+        counted = {name: launches for name, (launches, _) in paths[kind][1].items()}
+        cfg = result["pipeline_config"]
+        predicted = {name: unet_calls * per_call[model][name]
+                     + (1 + previews) * DECODE_LAUNCHES[name]
+                     + (CHECKER_LAUNCHES[name] if cfg.get("nsfw_checked") else 0)
+                     for name in counted}
+        t = cfg["timings"]
+        served["jobs"][kind] = {"id": result["id"], "timings": t, "launches": counted,
+                                "predicted_launches": predicted, "unet_calls": unet_calls,
+                                "previews": previews, "resumed": cfg.get("resumed")}
+        log(f"[resume] {kind} ({result['id']}, {cfg['model']}, {cfg['scheduler']}) on {smi}: "
+            f"job {t['job_s']:.3f}s, denoise {t['denoise_s']:.3f}s ({unet_calls} UNet calls, "
+            f"step {t['unet_step_ms']:.1f} ms, at the boundaries "
+            f"{t.get('boundary_s', 0.0):.3f}s), decode {t['decode_s']:.3f}s; launches counted "
+            f"{json.dumps(counted)}, predicted {json.dumps(predicted)} ({unet_calls} UNet calls "
+            f"x {json.dumps(per_call[model])} + {1 + previews} decodes)"
+            + (f"; resumed {json.dumps(cfg['resumed'])}" if cfg.get("resumed") else ""))
+        if hold:
+            check(counted == predicted, f"{kind}: launches {counted} != predicted {predicted}")
+
+    def partials(job_id: str, kind: str) -> list:
+        return [p for p in hive.partials if p["job_id"] == job_id and p["kind"] == kind]
+
+    try:
+        t0 = time.perf_counter()
+        plain_w, armed_w = worker(registry), worker(registry, chunk, RESUME_CKPT_EVERY, 1)
+        check(plain_w.capabilities()["resume_capable"] == 0
+              and armed_w.capabilities()["resume_capable"] == 1, "resume_capable advertised "
+              "where it should not be, or not where it should")
+        # 1. the armed job against the same job with chunking off
+        # chunking off, chunked with nothing armed (the boundaries' syncs are
+        # its only cost), in turns: off, chunked, chunked, off
+        chunked_w = worker(registry, chunk)
+        turns = {}
+        for k, (w, kind) in enumerate(((plain_w, "resume_plain"), (chunked_w, "resume_chunked"),
+                                       (chunked_w, None), (plain_w, None))):
+            job_id = f"resume-turn-{k}"
+            turns[k] = serve(w, [job(job_id, sdxl, size_xl, 1300)], kind)[job_id]
+            if kind is not None:
+                hold_job(kind, turns[k], sdxl, steps)
+        want = _pixels(turns[0])
+        check(all((_pixels(r) == want).all() for r in turns.values()),
+              "a chunked job's image differs from the same job served with chunking off")
+        off_s = [turns[k]["pipeline_config"]["timings"]["job_s"] for k in (0, 3)]
+        on_s = [turns[k]["pipeline_config"]["timings"]["job_s"] for k in (1, 2)]
+        served["job_s_off"], served["job_s_chunked"] = off_s, on_s
+        log(f"[resume] job_s in turns: off {off_s[0]:.3f}s, chunked {on_s[0]:.3f}s, chunked "
+            f"{on_s[1]:.3f}s, off {off_s[1]:.3f}s: chunked/off "
+            f"{sum(on_s) / sum(off_s):.4f}")
+        armed_job = job("resume-armed", sdxl, size_xl, 1300)
+        armed = serve(armed_w, [armed_job], "resume_armed")["resume-armed"]
+        check((_pixels(armed) == want).all(), "the armed job's image differs from the same job "
+              "served with chunking off")
+        ckpts, previews = partials("resume-armed", "checkpoint"), partials("resume-armed",
+                                                                           "preview")
+        bounds = list(range(chunk, steps, chunk))
+        check([p["step"] for p in ckpts] == bounds[RESUME_CKPT_EVERY - 1::RESUME_CKPT_EVERY],
+              f"checkpoints at {[p['step'] for p in ckpts]}")
+        check([p["step"] for p in previews] == bounds,
+              f"previews at {[p['step'] for p in previews]}")
+        for p in previews:
+            image = Image.open(io.BytesIO(hive.artifacts[p["sha256"]]))
+            check(image.format == "JPEG" and image.size == (size_xl, size_xl),
+                  f"preview at step {p['step']}: {image.format} {image.size}")
+            image.load()
+        hold_job("resume_armed", armed, sdxl, steps)
+        served["checkpoint_bytes"] = [p["bytes"] for p in ckpts]
+        served["preview_bytes"] = [p["bytes"] for p in previews]
+        # where a preview's time goes: the decode, the copy to the host and
+        # the JPEG, each alone, on the armed job's canvas
+        from chiaswarm_tpu_torch.device import synchronize
+        from chiaswarm_tpu_torch.post_processors.output_processor import image_to_buffer, to_pil
+
+        pipe = registry.get_pipeline(sdxl)
+        lat = torch.randn((1, pipe.latent_channels, size_xl // pipe.latent_factor,
+                           size_xl // pipe.latent_factor), device=device)
+        parts = {"decode_to_host": [], "jpeg": []}
+        for _ in range(3):
+            synchronize(pipe.device)
+            t1 = time.perf_counter()
+            px = pipe.decode(lat)
+            parts["decode_to_host"].append(time.perf_counter() - t1)
+            t1 = time.perf_counter()
+            image_to_buffer(to_pil(px[0]), "image/jpeg")
+            parts["jpeg"].append(time.perf_counter() - t1)
+        served["preview_parts_s"] = {k: min(v) for k, v in parts.items()}
+        log(f"[resume] a preview alone: decode and copy to the host "
+            f"{served['preview_parts_s']['decode_to_host']:.4f}s, JPEG "
+            f"{served['preview_parts_s']['jpeg']:.4f}s (best of 3)")
+        log(f"[resume] checkpoints at steps {[p['step'] for p in ckpts]}, "
+            f"{served['checkpoint_bytes']} bytes each blob; previews at steps "
+            f"{[p['step'] for p in previews]}, JPEG {served['preview_bytes']} bytes; "
+            f"job_s chunked and armed {armed['pipeline_config']['timings']['job_s']:.3f}s")
+        # 2. redelivery with the step-20 offer, then with a wrong signature
+        resume_w = worker(registry, chunk, RESUME_CKPT_EVERY, 1)
+        resumed = serve(resume_w, [armed_job], "resume_resumed", redeliver=True)
+        resumed = resumed["resume-armed"]
+        check((_pixels(resumed) == want).all(), "the resumed job's image differs")
+        last = ckpts[-1]["step"]
+        check(resumed["pipeline_config"].get("resumed")
+              == {"from_step": last, "recomputed_steps": steps - last},
+              f"resumed {resumed['pipeline_config'].get('resumed')}")
+        hold_job("resume_resumed", resumed, sdxl, steps - last)
+        from chiaswarm_tpu_torch import checkpoint
+
+        cut = checkpoint.unpack(hive.artifacts[ckpts[-1]["sha256"]])
+        hive.put_checkpoint("resume-armed", checkpoint.pack(
+            cut["step"], cut["latents"], cut["state_leaves"], "f" * 16, cut["rng"]),
+            cut["step"], "f" * 16)
+        wrong = serve(resume_w, [armed_job], "resume_wrong_signature",
+                      redeliver=True)["resume-armed"]
+        check((_pixels(wrong) == want).all() and "resumed" not in wrong["pipeline_config"],
+              "an offer under a wrong signature did not run the full pass to the same image")
+        hold_job("resume_wrong_signature", wrong, sdxl, steps)
+        # 3. SD 1.5 under Euler ancestral: the generator's state travels
+        sd_plain_w = worker(sd_registry)
+        sd_armed_w = worker(sd_registry, chunk, RESUME_CKPT_EVERY, 1)
+        anc = job("resume-ancestral", sd15, size15, 1310,
+                  scheduler="EulerAncestralDiscreteScheduler")
+        undisturbed = serve(sd_plain_w, [dict(anc, id="resume-ancestral-plain")])
+        want15 = _pixels(undisturbed["resume-ancestral-plain"])
+        armed15 = serve(sd_armed_w, [anc])["resume-ancestral"]
+        resumed15 = serve(worker(sd_registry, chunk, RESUME_CKPT_EVERY, 1), [anc],
+                          "resume_ancestral", redeliver=True)["resume-ancestral"]
+        check((_pixels(armed15) == want15).all(), "the armed ancestral job's image differs")
+        check((_pixels(resumed15) == want15).all()
+              and resumed15["pipeline_config"].get("resumed", {}).get("from_step") == last,
+              f"the ancestral job resumed at step {last} differs from the undisturbed one "
+              f"({resumed15['pipeline_config'].get('resumed')})")
+        hold_job("resume_ancestral", resumed15, sd15, steps - last)
+        log(f"[resume] {sd15} Euler ancestral {size15}^2: undisturbed, armed and resumed at "
+            f"step {last} give one image bit for bit")
+        # 4. a solo job cancelled after its first preview, then the next job
+        cancel_w = worker(registry, chunk, 0, 1)
+        gone = serve(cancel_w, [job("cancel-solo", sdxl, size_xl, 1320)],
+                     after_partial=["cancel-solo"])
+        check(not gone, f"a cancelled job delivered {sorted(gone)}")
+        record = cancel_w.cancels.get("cancel-solo", {})
+        check(record.get("stage") == "executing" and "freed_at" in record,
+              f"the cancel did not reach the running pass: {record}")
+        # a served step of the job with chunking off, the later (warm) one
+        step_s = turns[3]["pipeline_config"]["timings"]["unet_step_ms"] / 1000.0
+        latency = record["freed_at"] - record["marked_at"]
+        sent = hive.cancels_sent["cancel-solo"]
+        served["cancel_latency_s"] = latency
+        log(f"[resume] solo cancel: the hive sent it at {sent:.3f}, the worker marked it at "
+            f"{record['marked_at']:.3f}, the device was free at {record['freed_at']:.3f}: "
+            f"{latency:.3f}s after the mark, one chunk being {chunk} x {step_s:.4f}s")
+        check(latency <= 1.5 * chunk * step_s + 0.1,
+              f"the device was free {latency:.3f}s after the cancel, more than one chunk")
+        after = serve(cancel_w, [job("after-cancel", sdxl, size_xl, 1321, n_steps=min(steps, 10))])
+        check(list(after) == ["after-cancel"] and not after["after-cancel"].get("fatal_error"),
+              "the job after the cancelled one was not served")
+        # 5. a coalesced chunked pass, then one member cancelled, then all
+        batch_w = worker(registry, chunk, coalesce=group_size)
+        group = [job(f"group-{k}", sdxl, size_xl, 1330 + k, n_steps=batched_steps,
+                     prompt=BATCH_PROMPTS[k]) for k in range(group_size)]
+        reference = serve(batch_w, group)
+        check(all(r["pipeline_config"].get("batched_with") == group_size
+                  for r in reference.values()),
+              "the reference group was not served as one pass")
+        # the revocation comes two heartbeats in: the pass is running by then
+        polls = 2 + int(0.25 / batch_w.heartbeat_seconds)
+        member = [dict(j, id=j["id"] + "-c") for j in group]
+        three = serve(batch_w, member, "group_one_cancelled",
+                      on_heartbeat={member[1]["id"]: polls})
+        check(sorted(three) == sorted(j["id"] for j in member if j is not member[1]),
+              f"a pass with one member cancelled delivered {sorted(three)}")
+        check(batch_w.cancels.get(member[1]["id"], {}).get("stage") == "executing",
+              f"the member's cancel did not reach the pass: {batch_w.cancels}")
+        for j, ref in zip(member, group):
+            if j is not member[1]:
+                check((_pixels(three[j["id"]]) == _pixels(reference[ref["id"]])).all(),
+                      f"{j['id']}: differs from the same job in the pass without the cancel")
+        everyone = [dict(j, id=j["id"] + "-all") for j in group]
+        none = serve(batch_w, everyone, "group_all_cancelled",
+                     on_heartbeat={j["id"]: polls for j in everyone})
+        check(not none, f"a pass with every member cancelled delivered {sorted(none)}")
+        check(all("freed_at" in batch_w.cancels.get(j["id"], {}) for j in everyone),
+              f"the pass with every member cancelled did not abort: {batch_w.cancels}")
+        for kind in ("group_one_cancelled", "group_all_cancelled"):
+            counted = {name: launches for name, (launches, _) in paths[kind][1].items()}
+            served["jobs"][kind] = {"launches": counted}
+            log(f"[resume] {kind}: launches {json.dumps(counted)}")
+        served["served_s"] = time.perf_counter() - t0
+        check(hive.auth_failures == 0, "the hive refused the worker's bearer token")
+    finally:
+        hive.close()
+    log(f"[resume] the resume and cancel path served in {served['served_s']:.1f}s")
+    return paths, served
+
+
 def measure(paths: dict, main: str = "txt2img") -> tuple[list[dict], dict]:
     """Phase 6 for {job kind: (jobs, {kernel: (launches, {shape key:
     launches})})} counted over `jobs` jobs of each kind: every shape that
@@ -5091,6 +5406,9 @@ def main(argv=None) -> int:
         mark("phase 5 upscale path")
         pre_paths, pre_served = serve_preprocessor_path(smi, unet_launches)
         mark("phase 5 preprocessor path")
+        resume_paths, resume_served = serve_resume_path(smi, registry, sd_registry,
+                                                        unet_launches)
+        mark("phase 5 resume and cancel path")
         # (model, registry, canvas, CFG rows, parts) of phases 7 and 8
         calls = [(SDXL, registry, SIZE, 2, ("unet", "vae_decode", "vae_encode")),
                  *((model, sd_registry, size, 2, ("unet",)) for model, size in SD_CANVASES),
@@ -5136,7 +5454,7 @@ def main(argv=None) -> int:
         summary, shapes = measure({"txt2img": (N_JOBS, launches), **image_paths, **sd_paths,
                                    **edit_paths, **checkpoint_paths, **adapter_paths,
                                    **batched_paths, **cn_paths, **up_paths, **pre_paths,
-                                   **flux_paths})
+                                   **resume_paths, **flux_paths})
         mark("phase 6 measure")
         if opts.detail:
             path = Path(opts.detail)
@@ -5149,7 +5467,8 @@ def main(argv=None) -> int:
                  "adapter_served": adapter_served, "batch_limits": limits,
                  "tiny_batched": tiny_batched, "batched_served": batched_served,
                  "controlnet_served": cn_served, "upscale_served": up_served,
-                 "preprocessor_served": pre_served, "tiny_flux": tiny_flux,
+                 "preprocessor_served": pre_served, "resume_served": resume_served,
+                 "tiny_flux": tiny_flux,
                  "flux_beside_sdxl": flux_beside, "flux_served": flux_served,
                  "kernels": summary,
                  "shapes": shapes, "end_to_end_bf16": e2e, "profile": profile}, indent=1,

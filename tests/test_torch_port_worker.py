@@ -109,16 +109,28 @@ def _chip_smoke():
     return module
 
 
-def test_chip_smoke_phases_rehearse_on_cpu():
+def test_chip_smoke_phases_rehearse_on_cpu(tmp_path):
     """chip_smoke.py's serving and profiling phases at a tiny size on the
     CPU: every served-envelope check passes, and the launch-count check
-    fails, as it must where no kernel runs."""
+    fails, as it must where no kernel runs. The resume and cancel path runs
+    whole (its launches printed, not held): every bit-for-bit, checkpoint,
+    preview, resume and cancel check passes."""
+    from chiaswarm_tpu_torch.registry import Registry
+
     smoke = _chip_smoke()
     with pytest.raises(smoke.SmokeFailure, match="flash_attention was never launched"):
         smoke.serve_main_path("cpu", device="cpu", model="test/tiny-xl", size=64, steps=2)
     profile = smoke.profile_main_path(SDPipeline("test/tiny-xl", device="cpu"), size=64, steps=1)
     for call in ("unet", "vae_decode"):
         assert profile[call]["device_ms_per_call"] == 0 and profile[call]["wall_ms_per_call"] > 0
+    registries = [Registry(torch.device("cpu"), str(tmp_path / "models"), safety_checker_model="")
+                  for _ in range(2)]
+    paths, served = smoke.serve_resume_path(
+        "cpu", *registries, {"flash_attention": 0, "group_norm": 0}, device="cpu",
+        sdxl="test/tiny-xl", sd15="test/tiny-sd", size_xl=64, size15=64, steps=4,
+        batched_steps=3, chunk=1, group_size=2, heartbeat_seconds=0.01, hold=False)
+    assert served["jobs"]["resume_resumed"]["resumed"] == {"from_step": 2, "recomputed_steps": 2}
+    assert {"resume_armed", "resume_resumed", "group_one_cancelled"} <= set(paths)
 
 
 def test_chip_smoke_refuses_without_cuda():
@@ -129,7 +141,8 @@ def test_chip_smoke_refuses_without_cuda():
     assert '"ok"' not in proc.stdout
 
 
-_BLOCKED = re.compile(r"^\s*(import|from)\s+(jax|flax|chiaswarm_tpu|cv2)(\s|\.|$)", re.M)
+_BLOCKED = re.compile(r"^\s*(import|from)\s+(jax|flax|chiaswarm_tpu|cv2|ml_dtypes)(\s|\.|$)",
+                      re.M)
 
 
 def test_port_sources_import_no_jax():
@@ -156,17 +169,26 @@ def test_every_port_module_imports_with_jax_blocked():
     # and the Flux slice's
     assert {"chiaswarm_tpu_torch.models.flux", "chiaswarm_tpu_torch.models.t5",
             "chiaswarm_tpu_torch.pipelines.flux"} <= set(modules)
+    # and the cancel and checkpoint slice's; the blob reads bfloat16
+    # through torch, so ml_dtypes (a JAX dependency) stays out of reach too
+    assert {"chiaswarm_tpu_torch.cancel", "chiaswarm_tpu_torch.checkpoint"} <= set(modules)
     script = (
         "import sys\n"
         "before = set(sys.modules)\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'chiaswarm_tpu', 'cv2'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'chiaswarm_tpu', 'cv2', 'ml_dtypes'):\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for name in {modules + ['chip_smoke']!r}:\n"
         "    importlib.import_module(name)\n"
         "new = {m for m in set(sys.modules) - before if sys.modules[m] is not None}\n"
         "assert not [m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
-        "                                                  'chiaswarm_tpu', 'cv2')], new\n"
+        "                                                  'chiaswarm_tpu', 'cv2',\n"
+        "                                                  'ml_dtypes')], new\n"
+        "from chiaswarm_tpu_torch import checkpoint\n"
+        "import torch\n"
+        "leaf = torch.arange(4, dtype=torch.bfloat16)\n"
+        "out = checkpoint.unpack(checkpoint.pack(1, torch.zeros(1, 4, 2, 2), [leaf], 's'))\n"
+        "assert torch.equal(out['state_leaves'][0], leaf)\n"
     )
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
                           timeout=120, cwd=REPO)
