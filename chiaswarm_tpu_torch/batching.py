@@ -17,10 +17,13 @@ order with `get()`; `task_done()` and `full()` gate the poll loop as an
 asyncio.Queue would. `cancel(job_id)` drops a job the hive cancelled while
 it is still held here, lingering or released and not yet taken.
 
-Left out, as the port has one device and no gang-scheduling hive: the
-dispatch board's placement matching (`claim`) and `put_gang` (the port
-advertises no `gang_rows`); and the telemetry counters (each released
-item carries its flush reason instead).
+Each release is counted as the JAX scheduler counts it:
+`swarm_batch_flush_total{reason}`, `swarm_batch_group_jobs`, and for a
+coalescing group `swarm_batch_group_rows` and
+`swarm_batch_linger_wait_seconds`. Left out, as the port has one device
+and no gang-scheduling hive: the dispatch board's placement matching
+(`claim`, `swarm_placement_total`) and `put_gang` (the port advertises no
+`gang_rows`).
 """
 
 from __future__ import annotations
@@ -30,9 +33,31 @@ import logging
 import time
 from typing import Callable
 
+from . import telemetry
 from .coalesce import adapter_ref, coalesce_key, is_interactive, job_rows
 
 logger = logging.getLogger(__name__)
+
+_FLUSHES = telemetry.counter(
+    "swarm_batch_flush_total",
+    "Work items released by the batch scheduler, by flush reason",
+    ("reason",),
+)
+_GROUP_JOBS = telemetry.histogram(
+    "swarm_batch_group_jobs",
+    "Jobs per released work item (coalesce factor; 1 = solo dispatch)",
+    buckets=(1, 2, 3, 4, 6, 8, 12, 16),
+)
+_GROUP_ROWS = telemetry.histogram(
+    "swarm_batch_group_rows",
+    "Images per released coalesced group",
+    buckets=(1, 2, 4, 8, 16, 32),
+)
+_LINGER_WAIT = telemetry.histogram(
+    "swarm_batch_linger_wait_seconds",
+    "Open time of a coalescing group from first job to flush",
+    buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0),
+)
 
 
 class BatchScheduler:
@@ -73,6 +98,11 @@ class BatchScheduler:
         return self._outstanding
 
     @property
+    def ready_jobs(self) -> int:
+        """Released jobs not yet taken by the device."""
+        return self._ready_jobs
+
+    @property
     def pending_jobs(self) -> int:
         """Jobs lingering in open groups."""
         return sum(len(g["jobs"]) for g in self._pending.values())
@@ -90,6 +120,8 @@ class BatchScheduler:
         return (await self.get_item())["jobs"]
 
     def _release(self, jobs: list[dict], reason: str) -> None:
+        _FLUSHES.inc(reason=reason)
+        _GROUP_JOBS.observe(len(jobs))
         self._ready_jobs += len(jobs)
         self._board.append({"jobs": jobs, "reason": reason})
         event, self._change = self._change, asyncio.Event()
@@ -157,10 +189,12 @@ class BatchScheduler:
         if group is None:  # the timer fired after an earlier flush
             return
         group["timer"].cancel()
+        lingered = time.monotonic() - group["opened"]
+        _GROUP_ROWS.observe(group["rows"])
+        _LINGER_WAIT.observe(lingered)
         if len(group["jobs"]) > 1:
             logger.info("coalesced %d jobs (%d images) for %s [%s] after %.3fs",
-                        len(group["jobs"]), group["rows"], key[0], reason,
-                        time.monotonic() - group["opened"])
+                        len(group["jobs"]), group["rows"], key[0], reason, lingered)
         self._release(group["jobs"], reason)
 
     def cancel(self, job_id) -> bool:

@@ -21,7 +21,8 @@ released and not yet started) never reaches this registry:
 the pass ends, so a later job with the same id is never poisoned by a
 stale token.
 
-The worker hands each pass its job id(s) explicitly (`job_id` on the
+`swarm_cancel_tokens_pending` counts the marked ids, as in the JAX
+package. The worker hands each pass its job id(s) explicitly (`job_id` on the
 solo run, one per request of a coalesced one). Thread-safe: the event
 loop marks ids while the device thread probes them.
 """
@@ -29,6 +30,13 @@ loop marks ids while the device thread probes them.
 from __future__ import annotations
 
 import threading
+
+from . import telemetry
+
+_PENDING = telemetry.gauge(
+    "swarm_cancel_tokens_pending",
+    "Job ids marked cancelled while executing, not yet reaped by their "
+    "slice (the chunked denoise probes these at chunk boundaries)")
 
 
 class JobCancelled(Exception):
@@ -52,6 +60,7 @@ class CancelRegistry:
     def cancel(self, job_id) -> None:
         with self._lock:
             self._ids.add(str(job_id))
+            _PENDING.set(len(self._ids))
 
     def cancelled(self, job_id) -> bool:
         with self._lock:
@@ -60,10 +69,12 @@ class CancelRegistry:
     def discard(self, job_id) -> None:
         with self._lock:
             self._ids.discard(str(job_id))
+            _PENDING.set(len(self._ids))
 
     def clear(self) -> None:
         with self._lock:
             self._ids.clear()
+            _PENDING.set(0)
 
 
 _REGISTRY = CancelRegistry()

@@ -14,13 +14,31 @@ the encoders give.
 Rows stay where the encoders wrote them (on the card when serving there),
 each a copy of its own so that a view does not keep the whole encode
 batch alive; their bytes count wherever they live. `hits` and `misses`
-count rows over the cache's life.
+count rows over the cache's life; `swarm_embed_cache_total{event}`,
+`swarm_embed_cache_bytes` and `swarm_embed_cache_entries` export them, as
+the JAX cache does.
 """
 
 from __future__ import annotations
 
 import threading
 from collections import OrderedDict
+
+from . import telemetry
+
+_EVENTS = telemetry.counter(
+    "swarm_embed_cache_total",
+    "Text-embedding cache lookups by row, by outcome (hit = the row "
+    "skipped its text-encoder forward entirely)",
+    ("event",),
+)
+_BYTES = telemetry.gauge(
+    "swarm_embed_cache_bytes",
+    "Bytes of encoded prompt rows currently resident in the embedding "
+    "cache (bounded by Settings.embed_cache_mb)")
+_ENTRIES = telemetry.gauge(
+    "swarm_embed_cache_entries",
+    "Distinct (model, text) rows resident in the embedding cache")
 
 
 def _nbytes(value: tuple) -> int:
@@ -61,11 +79,20 @@ class EmbedCache:
             self._bytes += nbytes
             while self._bytes > self.max_bytes:
                 self._bytes -= _nbytes(self._entries.popitem(last=False)[1])
+            self._gauges()
+
+    def _gauges(self) -> None:
+        _BYTES.set(self._bytes)
+        _ENTRIES.set(len(self._entries))
 
     def note_rows(self, hits: int, misses: int) -> None:
         with self._lock:
             self.hits += hits
             self.misses += misses
+        if hits:
+            _EVENTS.inc(hits, event="hit")
+        if misses:
+            _EVENTS.inc(misses, event="miss")
 
     def drop_model(self, model_name: str) -> int:
         """Forget one model's rows (its pipeline was evicted) -> bytes freed."""
@@ -73,6 +100,7 @@ class EmbedCache:
             keys = [k for k in self._entries if k[0] == model_name]
             freed = sum(_nbytes(self._entries.pop(k)) for k in keys)
             self._bytes -= freed
+            self._gauges()
             return freed
 
     @property

@@ -23,6 +23,18 @@ in small:
   that advertised `resume_capable`, it carries the `resume` offer {href,
   step, signature} of the job's newest checkpoint; `put_checkpoint` plants
   one (a blob cut under another program signature, say).
+
+And what the worker's outbox must survive:
+
+- `refuse(job_id, status)`: POST /api/results for that job answers the 4xx
+  `status` (a permanent refusal; the worker parks the envelope);
+- `dispose(job_id, disposition)`: the POST is ACKed with the disposition
+  ("cancelled", "expired" or "unknown_job") and the result is not stored
+  (`disposed` records it; the worker parks the envelope);
+- `drop_results_times`: that many POSTs to /api/results are read and their
+  connection closed before any answer (a hive that died before its ACK);
+- every stored POST's raw body is kept by job id (`bodies`), so a
+  redelivery shows as a second body, and `duplicates` counts them.
 """
 
 from __future__ import annotations
@@ -60,6 +72,17 @@ class FakeHive:
         self.cancels_sent: dict[str, float] = {}
         # the ids queued as redeliveries
         self._redelivered: set[str] = set()
+        # job id -> the 4xx status its result POST is answered with
+        self.refusals: dict[str, int] = {}
+        # job id -> the disposition its result POST is ACKed with
+        self.dispositions: dict[str, str] = {}
+        # results ACKed with a disposition, not stored
+        self.disposed: list[dict] = []
+        # result POSTs to cut before the answer, and every POST to /results
+        self.drop_results_times = 0
+        self.result_attempts = 0
+        # job id -> the raw body of each stored result POST, in order
+        self.bodies: dict[str, list[bytes]] = {}
         self._cond = threading.Condition()
         hive = self
 
@@ -139,14 +162,17 @@ class FakeHive:
                 if not self._authorized():
                     return
                 length = int(self.headers.get("Content-Length", 0))
-                body = json.loads(self.rfile.read(length))
+                raw = self.rfile.read(length)
+                body = json.loads(raw)
                 if path != "/api/results":
                     status, ack = hive._partial(parts[3], urllib.parse.unquote(parts[2]), body)
                     return self._reply(status, ack)
-                with hive._cond:
-                    hive.results.append(body)
-                    hive._cond.notify_all()
-                self._reply(200, {"ok": True, "id": body.get("id")})
+                status, ack = hive._result(body, raw)
+                if status is None:
+                    # the hive died before its answer: no response at all
+                    self.close_connection = True
+                    return
+                self._reply(status, ack)
 
         self._server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
         self._thread = threading.Thread(target=self._server.serve_forever, daemon=True)
@@ -184,6 +210,44 @@ class FakeHive:
                 for job_id in reply["cancels"]:
                     self.cancels_sent.setdefault(job_id, now)
             return reply
+
+    def _result(self, body: dict, raw: bytes) -> tuple[int | None, dict]:
+        """One result POST -> (status, ack); status None cuts the
+        connection before the answer."""
+        job_id = str(body.get("id"))
+        with self._cond:
+            self.result_attempts += 1
+            if self.drop_results_times > 0:
+                self.drop_results_times -= 1
+                return None, {}
+            if job_id in self.refusals:
+                return self.refusals[job_id], {"message": f"result for {job_id} refused"}
+            disposition = self.dispositions.get(job_id)
+            if disposition is not None:
+                self.disposed.append(body)
+                self._cond.notify_all()
+                return 200, {"id": job_id, "status": disposition, disposition: True}
+            self.results.append(body)
+            self.bodies.setdefault(job_id, []).append(raw)
+            self._cond.notify_all()
+        return 200, {"ok": True, "id": body.get("id")}
+
+    @property
+    def duplicates(self) -> int:
+        """Stored result POSTs beyond the first of their job id."""
+        with self._cond:
+            return sum(len(b) - 1 for b in self.bodies.values())
+
+    def refuse(self, job_id: str, status: int = 422) -> None:
+        """Answer `job_id`'s result POSTs with the 4xx `status`."""
+        with self._cond:
+            self.refusals[str(job_id)] = int(status)
+
+    def dispose(self, job_id: str, disposition: str = "cancelled") -> None:
+        """ACK `job_id`'s result POSTs with `disposition` ("cancelled",
+        "expired" or "unknown_job") and store nothing."""
+        with self._cond:
+            self.dispositions[str(job_id)] = str(disposition)
 
     def _partial(self, kind: str, job_id: str, body: dict) -> tuple[int, dict]:
         try:

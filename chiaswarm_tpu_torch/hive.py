@@ -9,7 +9,12 @@ Each `/work` reply's `cancels` (the hive's revocations of this worker's
 leases) is kept in `last_cancels` until the next poll. `post_partial`
 (a checkpoint or a preview, POST /api/jobs/{id}/{kind}) and
 `fetch_artifact` (a resume offer's blob) are best effort: every failure
-returns None. Failover across several hives and epochs are later slices.
+returns None. A 4xx answer raises `HiveError(permanent=True)`: the
+worker's outbox parks such an envelope instead of retrying a refusal the
+hive will repeat. Each request's latency and failures feed
+`swarm_hive_request_seconds{endpoint}` and `swarm_hive_errors_total`;
+`submit_result` is the `drop_submit` fault point (faults.py). Failover
+across several hives and epochs come with a later slice (ROADMAP).
 """
 
 from __future__ import annotations
@@ -17,12 +22,13 @@ from __future__ import annotations
 import http.client
 import json
 import logging
+import time
 import urllib.error
 import urllib.parse
 import urllib.request
 from typing import Any
 
-from . import __version__
+from . import __version__, faults, telemetry
 
 logger = logging.getLogger(__name__)
 
@@ -31,8 +37,27 @@ ASK_TIMEOUT_S = 10
 SUBMIT_TIMEOUT_S = 60
 
 
+_REQUEST_SECONDS = telemetry.histogram(
+    "swarm_hive_request_seconds",
+    "Hive HTTP round-trip latency by endpoint (errors included)",
+    ("endpoint",),
+)
+_ERRORS = telemetry.counter(
+    "swarm_hive_errors_total",
+    "Hive HTTP requests that raised, by endpoint",
+    ("endpoint",),
+)
+
+
 class HiveError(Exception):
-    """A hive request failed (transport error or a non-2xx status)."""
+    """A hive request failed (transport error or a non-2xx status).
+
+    `permanent` is True for a client error (4xx): the outbox parks such
+    an envelope instead of retrying a refusal the hive will repeat."""
+
+    def __init__(self, message: str, permanent: bool = False):
+        super().__init__(message)
+        self.permanent = permanent
 
 
 def api_base(sdaas_uri: str) -> str:
@@ -54,17 +79,24 @@ class HiveClient:
             "user-agent": USER_AGENT,
         }
 
-    def _request(self, method: str, url: str, body: bytes | None, timeout: float):
+    def _request(self, method: str, url: str, body: bytes | None, timeout: float,
+                 endpoint: str):
         req = urllib.request.Request(url, data=body, method=method, headers=self._headers())
+        t0 = time.perf_counter()
         try:
             with urllib.request.urlopen(req, timeout=timeout) as resp:
                 return json.loads(resp.read() or b"{}")
         except urllib.error.HTTPError as e:
+            _ERRORS.inc(endpoint=endpoint)
             detail = e.read().decode("utf-8", "replace")[:200]
-            raise HiveError(f"{method} {url}: HTTP {e.code} {detail}") from e
+            raise HiveError(f"{method} {url}: HTTP {e.code} {detail}",
+                            permanent=400 <= e.code < 500) from e
         except (urllib.error.URLError, http.client.HTTPException, OSError,
                 json.JSONDecodeError) as e:
+            _ERRORS.inc(endpoint=endpoint)
             raise HiveError(f"{method} {url}: {e}") from e
+        finally:
+            _REQUEST_SECONDS.observe(time.perf_counter() - t0, endpoint=endpoint)
 
     def ask_for_work(self, capabilities: dict[str, Any]) -> list[dict]:
         """Poll for jobs, advertising this worker's capabilities."""
@@ -75,7 +107,7 @@ class HiveClient:
         }
         url = f"{self.base}/work?{urllib.parse.urlencode(params)}"
         self.last_cancels = []
-        payload = self._request("GET", url, None, ASK_TIMEOUT_S)
+        payload = self._request("GET", url, None, ASK_TIMEOUT_S, "work")
         # revocations ride the same reply; they hold until the next poll
         self.last_cancels = [str(c) for c in (payload.get("cancels") or []) if c]
         jobs = payload.get("jobs", [])
@@ -84,9 +116,14 @@ class HiveClient:
         return jobs
 
     def submit_result(self, result: dict) -> dict:
-        """POST one result envelope; returns the hive's ack."""
+        """POST one result envelope, one attempt (the worker's outbox
+        retries); returns the hive's ack."""
+        # the POST never leaves the worker: the transport error of a
+        # dropped connection, classified as a real one is
+        faults.fire("drop_submit", exc=HiveError(
+            f"POST {self.base}/results: injected fault: drop_submit"))
         ack = self._request("POST", f"{self.base}/results",
-                            json.dumps(result).encode(), SUBMIT_TIMEOUT_S)
+                            json.dumps(result).encode(), SUBMIT_TIMEOUT_S, "results")
         logger.info("result ack: %s", ack)
         return ack
 
@@ -109,7 +146,7 @@ class HiveClient:
         or the job settled) or a transport error."""
         try:
             return self._request("POST", f"{self.base}/jobs/{job_id}/{kind}",
-                                 json.dumps(payload).encode(), SUBMIT_TIMEOUT_S)
+                                 json.dumps(payload).encode(), SUBMIT_TIMEOUT_S, kind)
         except HiveError as e:
             logger.info("%s upload for %s refused or failed: %s", kind, job_id, e)
             return None

@@ -14,7 +14,9 @@ the worker's, not process-global state. It holds two byte-capped LRUs:
 
 A cap of 0 caches nothing: adapters still load, once per job. A factor
 load from the file drops the operand entries of that adapter, so a
-reloaded file never serves stale stacks.
+reloaded file never serves stale stacks. Lookups, bytes and entries are
+exported under the JAX caches' names (`swarm_lora_cache_*` for the
+factors, `swarm_lora_operand_cache_*` for the stacks).
 """
 
 from __future__ import annotations
@@ -22,7 +24,35 @@ from __future__ import annotations
 import threading
 from collections import OrderedDict
 
+from . import telemetry
 from .models.lora import factors_nbytes, load_factors
+
+_FACTOR_EVENTS = telemetry.counter(
+    "swarm_lora_cache_total",
+    "Adapter factor-cache lookups by outcome (miss = the adapter's "
+    "safetensors were read and parsed from disk)",
+    ("event",),
+)
+_FACTOR_BYTES = telemetry.gauge(
+    "swarm_lora_cache_bytes",
+    "Bytes of raw adapter factors currently resident in the factor "
+    "cache (bounded by Settings.lora_cache_mb)")
+_FACTOR_ENTRIES = telemetry.gauge(
+    "swarm_lora_cache_entries",
+    "Distinct adapters resident in the factor cache")
+_OPERAND_EVENTS = telemetry.counter(
+    "swarm_lora_operand_cache_total",
+    "Device-resident operand-stack cache lookups by outcome (miss = the "
+    "stacks were re-assembled host-side and re-uploaded)",
+    ("event",),
+)
+_OPERAND_BYTES = telemetry.gauge(
+    "swarm_lora_operand_cache_bytes",
+    "Bytes of stacked adapter operands currently resident on device "
+    "(bounded by Settings.lora_operand_cache_mb)")
+_OPERAND_ENTRIES = telemetry.gauge(
+    "swarm_lora_operand_cache_entries",
+    "Distinct operand-stack recipes resident in the operand cache")
 
 
 def adapter_key(lora: dict) -> tuple:
@@ -34,11 +64,18 @@ def adapter_key(lora: dict) -> tuple:
 class ByteLRU:
     """A least-recently-used map whose entries' bytes stay under a cap."""
 
-    def __init__(self, max_bytes: int):
+    def __init__(self, max_bytes: int, gauges: tuple | None = None):
+        """`gauges`: the (bytes, entries) gauges this cache's size sets."""
         self.max_bytes = int(max_bytes)
+        self.gauges = gauges
         self._entries: OrderedDict = OrderedDict()
         self._bytes = 0
         self._lock = threading.Lock()
+
+    def _export(self) -> None:
+        if self.gauges is not None:
+            self.gauges[0].set(self._bytes)
+            self.gauges[1].set(len(self._entries))
 
     def get(self, key):
         with self._lock:
@@ -55,12 +92,12 @@ class ByteLRU:
             old = self._entries.pop(key, None)
             if old is not None:
                 self._bytes -= old[1]
-            if nbytes > self.max_bytes:
-                return
-            self._entries[key] = (value, int(nbytes))
-            self._bytes += int(nbytes)
-            while self._bytes > self.max_bytes:
-                self._bytes -= self._entries.popitem(last=False)[1][1]
+            if nbytes <= self.max_bytes:
+                self._entries[key] = (value, int(nbytes))
+                self._bytes += int(nbytes)
+                while self._bytes > self.max_bytes:
+                    self._bytes -= self._entries.popitem(last=False)[1][1]
+            self._export()
 
     def drop(self, predicate) -> int:
         """Remove every entry whose key satisfies `predicate` -> bytes freed."""
@@ -68,6 +105,7 @@ class ByteLRU:
             keys = [k for k in self._entries if predicate(k)]
             freed = sum(self._entries.pop(k)[1] for k in keys)
             self._bytes -= freed
+            self._export()
             return freed
 
     @property
@@ -80,8 +118,8 @@ class ByteLRU:
 
 class LoraCache:
     def __init__(self, factor_bytes: int = 256 << 20, operand_bytes: int = 512 << 20):
-        self.factors = ByteLRU(factor_bytes)
-        self.operands = ByteLRU(operand_bytes)
+        self.factors = ByteLRU(factor_bytes, (_FACTOR_BYTES, _FACTOR_ENTRIES))
+        self.operands = ByteLRU(operand_bytes, (_OPERAND_BYTES, _OPERAND_ENTRIES))
 
     def resolve(self, lora: dict, model_name: str, model_root_dir: str | None
                 ) -> tuple[dict, bool]:
@@ -90,7 +128,9 @@ class LoraCache:
         key = adapter_key(lora)
         factors = self.factors.get(key)
         if factors is not None:
+            _FACTOR_EVENTS.inc(event="hit")
             return factors, True
+        _FACTOR_EVENTS.inc(event="miss")
         factors = load_factors(lora, model_name, model_root_dir)
         self.factors.put(key, factors, factors_nbytes(factors))
         self.operands.drop(lambda k: k[1] == key)
@@ -98,7 +138,9 @@ class LoraCache:
 
     def stacks(self, model_name: str, lora: dict):
         """The device stacks kept for (model, adapter), or None."""
-        return self.operands.get((model_name, adapter_key(lora)))
+        stacks = self.operands.get((model_name, adapter_key(lora)))
+        _OPERAND_EVENTS.inc(event="miss" if stacks is None else "hit")
+        return stacks
 
     def keep_stacks(self, model_name: str, lora: dict, value, nbytes: int) -> None:
         self.operands.put((model_name, adapter_key(lora)), value, nbytes)

@@ -24,6 +24,7 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -43,6 +44,10 @@ _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+# name -> {"path", "bytes", "build_s" (None: an earlier build was reused),
+# "loaded"}: the libraries this process built or found, for the pass
+# ledger (programs.py)
+BUILT: dict[str, dict] = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -96,6 +101,7 @@ def build(names=SOURCES) -> dict[str, Path]:
     paths = {name: library_path(name) for name in names}
     pending = {}
     nvcc = None
+    started = time.perf_counter()
     for name, out in paths.items():
         if out.is_file():
             continue
@@ -113,9 +119,22 @@ def build(names=SOURCES) -> dict[str, Path]:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, paths[name])
+            _note(name, paths[name], time.perf_counter() - started)
     if failures:
         raise KernelBuildError("kernel build failed:\n" + "\n".join(failures))
+    for name, path in paths.items():
+        if name not in pending:
+            _note(name, path, None)
     return paths
+
+
+def _note(name: str, path: Path, build_s: float | None) -> None:
+    """Record a library this process built (`build_s` its nvcc wall time,
+    all sources compiling together) or found built."""
+    entry = BUILT.setdefault(name, {"loaded": False, "build_s": None})
+    entry.update(path=str(path), bytes=path.stat().st_size)
+    if build_s is not None:
+        entry["build_s"] = round(build_s, 3)
 
 
 def build_log(name: str) -> str:
@@ -136,4 +155,5 @@ def load(name: str) -> ctypes.CDLL:
             path = build((name,))[name]
             lib = ctypes.CDLL(str(path))
             _LIBS[name] = lib
+            BUILT[name]["loaded"] = True
         return lib

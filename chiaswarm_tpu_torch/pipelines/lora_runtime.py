@@ -35,6 +35,15 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import telemetry
+
+LORA_ROWS = telemetry.counter(
+    "swarm_lora_rows_total",
+    "Image rows through denoise passes by adapter mode "
+    "(delta | merged | none)",
+    ("mode",),
+)
+
 
 def build_stacks(matched: dict[str, tuple], dtype, device) -> tuple[dict, int]:
     """Matched factors {key: (A [r, in], B [out, r], alpha)} -> ({key: (Aᵀ

@@ -63,6 +63,15 @@ preview (`preview_every_chunks`, `preview_cb`: the live latents decoded),
 and a pass given a `resume` (checkpoint.unpack's dict) under its own
 signature restarts at the checkpoint's step. Chunking without callbacks,
 and a resumed pass, give the undisturbed pass's image bit for bit.
+
+The cost plane, stamped where the JAX pipeline stamps it: every envelope
+carries `unet_tflops` (the analytic UNet FLOPs of the pass's denoise,
+models/flops.py, for the job's own images), `cost` (costs.job_cost: the
+job's integer FLOPs, a resumed job billed the recomputed fraction, beside
+the pass's achieved TFLOP/s and MFU over `denoise_s + decode_s`) and
+`geometry` ({"data": 1, "tensor": 1, "seq": 1}, one device). Each pass key
+is a row of the pass ledger (programs.py), whose first UNet call is
+counted against the analytic figure.
 """
 
 from __future__ import annotations
@@ -81,7 +90,7 @@ import torch.nn.functional as F
 from PIL import Image
 
 from .. import cancel as cancel_registry
-from .. import checkpoint
+from .. import checkpoint, costs, programs
 from ..cancel import JobCancelled
 from ..device import device_label, resolve_device, serving_dtype, synchronize
 from ..embed_cache import EmbedCache
@@ -89,6 +98,7 @@ from ..lora_cache import LoraCache, adapter_key
 from ..models import configs as cfgs
 from ..models.clip import CLIPTextEncoder
 from ..models.controlnet import ControlNetModel
+from ..models.flops import denoise_flops, unet_call_flops
 from ..models.lora import linear_index, match_factors
 from ..models.tokenizer import PlaceholderTokenizer, load_tokenizer
 from ..models.unet2d import UNet2DConditionModel
@@ -300,6 +310,18 @@ def _solo_probe(job_id):
             raise JobCancelled([job_id])
 
     return probe
+
+
+# the mesh view of every pass: one device, nothing sharded
+GEOMETRY = {"data": 1, "tensor": 1, "seq": 1}
+GEOMETRY_LABEL = "replicated"
+
+
+def _unet_call(ledger, unet, *args, **kwargs):
+    """One UNet call; the first of a pass key is counted for the ledger."""
+    if ledger.counting:
+        return ledger.count_call(unet, *args, **kwargs)
+    return unet(*args, **kwargs)
 
 
 def _at_boundary(i: int, first: int, chunk: int) -> bool:
@@ -902,6 +924,16 @@ class SDPipeline:
 
         schedule = scheduler.schedule(steps)
         start, end = scheduler.loop_bounds(schedule, steps, t_start)
+        # the analytic UNet FLOPs of this pass: the cost stamp's numerator,
+        # and the ledger's figure for its key
+        pass_flops_raw = denoise_flops(self.unet.config, lh, lw, n, steps - t_start,
+                                       cfg_rows=cfg_rows)
+        ledger = programs.note_pass(
+            self.model_name, mode,
+            (mode, lh, lw, n, steps, scheduler_type, bool(kwargs.get("use_karras_sigmas", False)),
+             t_start, controlnet_name),
+            call_flops=unet_call_flops(self.unet.config, lh, lw, cfg_rows * n),
+            pass_flops=pass_flops_raw)
         chunk = max(int(denoise_chunk_steps or 0), 0)
         probe = _solo_probe(job_id)
         ckpt_every = int(checkpoint_every_chunks or 0)
@@ -981,7 +1013,8 @@ class SDPipeline:
                 residuals = _control_residuals(branch, cn_scale, window, i, model_in, t_vec,
                                                context, control, added)
                 branch_calls += bool(residuals)
-                out = self.unet(model_in, t_vec, context, added_cond=added, **residuals).float()
+                out = _unet_call(ledger, self.unet, model_in, t_vec, context, added_cond=added,
+                                 **residuals).float()
                 if mode == "pix2pix":
                     # dual guidance (InstructPix2Pix eq. 3)
                     out_u, out_i, out_c = out.chunk(3)
@@ -1011,6 +1044,19 @@ class SDPipeline:
             timings["boundary_s"] = boundary_s
         timings["unet_step_ms"] = (1000.0 * (timings["denoise_s"] - boundary_s)
                                    / max(end - first, 1))
+        # the JAX package's denoise_decode_s span
+        span = round(timings["denoise_s"] + timings["decode_s"], 4)
+        ledger.finish(span)
+        # a resumed pass bills the fraction it recomputed, not the full pass
+        # the first delivery already ran
+        billed_flops = pass_flops_raw
+        if first != start and steps > t_start:
+            billed_flops = int(round(pass_flops_raw * (end - first) / (steps - t_start)))
+        lora_runtime.LORA_ROWS.inc(n, mode="none" if lora is None else "delta")
+        # a solo pass is its own job: the job's flops are the pass's
+        cost = costs.job_cost(costs.pass_cost(
+            model=self.model_name, pass_flops=billed_flops, denoise_s=span, chips=1,
+            device=self.device, geometry=GEOMETRY_LABEL), billed_flops)
 
         if refiner is not None:
             # the SDXL refiner stage: the output re-enters a second resident
@@ -1091,6 +1137,10 @@ class SDPipeline:
             # runs as plain img2img, and says so
             **({"approximated_as": "img2img"}
                if image_guidance_scale is not None and mode == "img2img" else {}),
+            # the analytic UNet FLOPs of the denoise, and the cost stamp
+            "unet_tflops": round(pass_flops_raw / 1e12, 4),
+            "cost": cost,
+            "geometry": dict(GEOMETRY),
             "backend": f"torch-{self.device.type}",
             "device": device_label(self.device),
             "dtype": str(self.dtype).replace("torch.", ""),
@@ -1363,6 +1413,17 @@ class SDPipeline:
             prediction_type=self.prediction_type, use_karras_sigmas=bool(use_karras_sigmas))))
         schedule = scheduler.schedule(steps)
         start, end = scheduler.loop_bounds(schedule, steps, t_start)
+        # the analytic UNet FLOPs of the whole padded pass (padding rows
+        # take device time too); each envelope counts its own rows
+        pass_flops_raw = denoise_flops(self.unet.config, lh, lw, padded, steps - t_start,
+                                       cfg_rows=2)
+        kind = "batched_i2i" if i2i else "batched"
+        ledger = programs.note_pass(
+            self.model_name, kind,
+            (kind, lh, lw, padded, steps, scheduler_type, bool(use_karras_sigmas), t_start,
+             controlnet_model_name),
+            call_flops=unet_call_flops(self.unet.config, lh, lw, 2 * padded),
+            pass_flops=pass_flops_raw)
         branch_calls = 0
         chunk = max(int(denoise_chunk_steps or 0), 0)
         row_ids = [r.get("job_id") for r in requests]
@@ -1399,8 +1460,8 @@ class SDPipeline:
                 residuals = _control_residuals(branch, cn_scale, window, i, model_in, t_vec,
                                                context, control, added)
                 branch_calls += bool(residuals)
-                out_u, out_c = self.unet(model_in, t_vec, context, added_cond=added,
-                                         **residuals).float().chunk(2)
+                out_u, out_c = _unet_call(ledger, self.unet, model_in, t_vec, context,
+                                          added_cond=added, **residuals).float().chunk(2)
                 guided = out_u + float(guidance_scale) * (out_c - out_u)
                 noise = draw("step", i) if scheduler.uses_ancestral_noise else None
                 state, latents = scheduler.step(schedule, state, i, latents, guided, noise)
@@ -1418,6 +1479,14 @@ class SDPipeline:
                 pixels = self.decode(real)
         timings["unet_step_ms"] = 1000.0 * timings["denoise_s"] / max(end - start, 1)
         timings["pipeline_s"] = time.perf_counter() - t_job
+        span = round(timings["denoise_s"] + timings["decode_s"], 4)
+        ledger.finish(span)
+        for n, slot in zip(counts, request_slots):
+            lora_runtime.LORA_ROWS.inc(n, mode="delta" if slot else "none")
+        # the pass's cost figures, counted once for the coalesced pass
+        pass_figures = costs.pass_cost(
+            model=self.model_name, pass_flops=pass_flops_raw, denoise_s=span, chips=1,
+            device=self.device, geometry=GEOMETRY_LABEL)
 
         operand_hits = sum(st["operand_hit"] for st in slot_stats)
         shared = {
@@ -1437,6 +1506,7 @@ class SDPipeline:
             "weights": self.weights_source,
             "batched_with": len(requests),
             "padded_rows": padded,
+            "geometry": dict(GEOMETRY),
             **self._embed_cache_stamp(),
             # per adapter of the pass: were its device stacks resident
             **({"operand_cache": {
@@ -1448,7 +1518,11 @@ class SDPipeline:
         for r, n, slot, images, rows in zip(requests, counts, request_slots,
                                             split_by_counts(list(pixels), counts),
                                             real.split(counts)):
+            job_flops = denoise_flops(self.unet.config, lh, lw, n, steps - t_start, cfg_rows=2)
             config = {**shared, "batch_rows": [offset, n],
+                      # this job's own rows, then the shared pass figures
+                      "unet_tflops": round(job_flops / 1e12, 4),
+                      "cost": costs.job_cost(pass_figures, job_flops),
                       # a cancelled member's envelope is never built
                       **({"cancelled": True} if len(results) in cancelled_rows else {}),
                       "latents": {"finite": bool(torch.isfinite(rows).all()),

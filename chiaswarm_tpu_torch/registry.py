@@ -205,8 +205,11 @@ class Registry:
         return evicted
 
     def resident_models(self) -> list[str]:
-        with self._lock:
-            return sorted({name for name, _ in self._pipelines})
+        """The resident models' names, read without the lock, which a build
+        holds for seconds: the worker's event loop reads them (its polls,
+        /healthz, the watchdog's deadline). `tuple()` copies the keys in one
+        step under the interpreter lock."""
+        return sorted({name for name, _ in tuple(self._pipelines)})
 
     def safety_checker(self):
         """The process's safety checker for this registry's device, model

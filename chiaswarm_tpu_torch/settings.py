@@ -55,6 +55,45 @@ class Settings:
     # decode the live latents into a JPEG preview for the hive every this
     # many chunk boundaries; 0 disables
     preview_every_chunks: int = 0
+    # --- the worker plane (telemetry.py, outbox.py, faults.py) ---
+    # arm the on-demand profiler capture on the metrics app (POST
+    # /debug/profile?seconds=N writes a torch.profiler Chrome trace under
+    # $SDAAS_ROOT/profiles/); off by default: a profile exposes prompts
+    # and timings
+    profiler_capture: bool = False
+    # local /metrics + /healthz HTTP port; 0 disables the server (the
+    # in-process instrumentation stays on either way)
+    metrics_port: int = 8061
+    # bind address of the metrics server; loopback unless the operator
+    # opts in
+    metrics_host: str = "127.0.0.1"
+    # log line format: "plain" | "json" (one object per line carrying the
+    # active job_id, log_setup.JsonFormatter)
+    log_format: str = "plain"
+    # per-pass execution deadline of the watchdog; 0 disables. On expiry
+    # each job of the pass gets the transient-error envelope and the
+    # device is quarantined until it passes a probe
+    job_deadline_s: float = 900.0
+    # deadline multiplier when the job's model is not resident yet (its
+    # build and first pass take longer)
+    job_deadline_compile_scale: float = 4.0
+    # how long the quarantine probe waits for a hung pass to release the
+    # device before writing it off (the worker then takes no more work)
+    quarantine_probe_grace_s: float = 30.0
+    # stop(drain=True) / SIGTERM: how long the passes in flight and the
+    # outbox get to finish before the worker exits anyway (spooled
+    # envelopes survive)
+    drain_deadline_s: float = 120.0
+    # durable result spool directory (relative to $SDAAS_ROOT)
+    outbox_dir: str = "outbox"
+    # spooled-envelope count at which /healthz turns degraded (0 = never)
+    outbox_max_entries: int = 512
+    # deterministic fault-injection spec (faults.py), e.g.
+    # "drop_submit=3,hang_denoise=1"; empty = no faults armed
+    fault_injection: str = ""
+    # /healthz reports degraded when the card's free fraction
+    # (memory_census.device_headroom) drops below this; 0 disables
+    memory_headroom_degraded: float = 0.0
 
 
 _ENV_OVERRIDES = {
@@ -76,11 +115,35 @@ _ENV_OVERRIDES = {
     "CHIASWARM_CHECKPOINT_EVERY_CHUNKS": "checkpoint_every_chunks",
     "CHIASWARM_CHECKPOINT_MAX_BYTES": "checkpoint_max_bytes",
     "CHIASWARM_PREVIEW_EVERY_CHUNKS": "preview_every_chunks",
+    "CHIASWARM_PROFILER_CAPTURE": "profiler_capture",
+    "CHIASWARM_METRICS_PORT": "metrics_port",
+    "CHIASWARM_METRICS_HOST": "metrics_host",
+    "CHIASWARM_LOG_FORMAT": "log_format",
+    "CHIASWARM_JOB_DEADLINE_S": "job_deadline_s",
+    "CHIASWARM_JOB_DEADLINE_COMPILE_SCALE": "job_deadline_compile_scale",
+    "CHIASWARM_QUARANTINE_PROBE_GRACE_S": "quarantine_probe_grace_s",
+    "CHIASWARM_DRAIN_DEADLINE_S": "drain_deadline_s",
+    "CHIASWARM_OUTBOX_DIR": "outbox_dir",
+    "CHIASWARM_OUTBOX_MAX_ENTRIES": "outbox_max_entries",
+    "CHIASWARM_FAULTS": "fault_injection",
+    "CHIASWARM_MEMORY_HEADROOM_DEGRADED": "memory_headroom_degraded",
 }
 
 
+def settings_dir() -> Path:
+    return Path(os.environ.get("SDAAS_ROOT") or "~/.sdaas/").expanduser()
+
+
 def settings_path() -> Path:
-    return Path(os.environ.get("SDAAS_ROOT") or "~/.sdaas/").expanduser() / "settings.json"
+    return settings_dir() / "settings.json"
+
+
+def resolve_path(path: str | Path) -> Path:
+    """`path` under $SDAAS_ROOT (an absolute path stays as it is), its
+    parent created."""
+    full = settings_dir() / path
+    full.parent.mkdir(parents=True, exist_ok=True)
+    return full
 
 
 def load_settings() -> Settings:
@@ -97,5 +160,9 @@ def load_settings() -> Settings:
         value = os.getenv(env_key)
         if value is not None:
             kind = type(fields[attr].default)
-            setattr(settings, attr, kind(value))
+            if kind is bool:
+                # bool("0") is True: parse the usual spellings instead
+                setattr(settings, attr, value.strip().lower() in ("1", "true", "yes", "on"))
+            else:
+                setattr(settings, attr, kind(value))
     return settings

@@ -44,10 +44,44 @@ fetched and unpacked before its pass, which then restarts at the
 checkpoint's step; any failure runs the full pass. A coalesced pass never
 checkpoints or resumes.
 
-The outbox, telemetry, geometry and stage graphs are later slices.
+The worker plane, as the JAX worker has it:
+
+- Durable delivery (outbox.py): the device task spools each envelope to
+  `$SDAAS_ROOT/outbox/` and goes on to its next pass; an uploader task
+  delivers the spool with capped backoff and jitter, unlinks an entry
+  only on the hive's ACK, and parks it on a permanent refusal (4xx) or
+  on an ACK that says the hive will not store it (`cancelled`,
+  `expired`, `unknown_job`). A starting worker redelivers what a
+  previous process left spooled. `run(max_jobs)` returns only once every
+  envelope is delivered or parked.
+- The watchdog: a pass past `job_deadline_s` (scaled by
+  `job_deadline_compile_scale` when its model is not resident, capped by
+  the jobs' own `deadline_s`) gives each of its jobs the transient-error
+  envelope, and the device is quarantined: no work is taken and
+  `/healthz` reads degraded until a probe, a tiny matmul on the device
+  once the hung pass has released it (within `quarantine_probe_grace_s`),
+  returns it to service. The hung pass cannot be stopped; it runs on.
+- The drain: `stop(drain=True)`, which SIGTERM calls, stops taking work,
+  finishes the passes in flight and flushes the outbox, for at most
+  `drain_deadline_s`.
+- Telemetry (telemetry.py): the JAX worker's poll, job, queue, watchdog,
+  cancel, checkpoint, preview and resume metrics, the stage histogram
+  fed from each pass's timings (`denoise` is `denoise_s + decode_s`),
+  and on `metrics_host:metrics_port` `GET /metrics`, `GET /healthz`,
+  `GET /debug/programs` (programs.py), `GET /debug/memory`
+  (memory_census.py) and `POST /debug/profile?seconds=N`, a
+  torch.profiler capture (gated by `profiler_capture`, behind the bearer
+  token when one is set, one at a time).
+- Fault points (faults.py): `drop_submit` (hive.py), `kill_before_ack`
+  (the uploader: a simulated crash that leaves the envelope spooled),
+  `hang_denoise` (the device task), `oom_batched` (a coalesced pass) and
+  `hang_after_checkpoint` (the checkpoint shipper).
+
+Multi-hive failover, gang replies and stage graphs come with later
+slices (ROADMAP).
 
 Run it with `python -m chiaswarm_tpu_torch.worker` (on the card; settings
-from $SDAAS_ROOT/settings.json and the SDAAS_* variables).
+from $SDAAS_ROOT/settings.json and the SDAAS_* and CHIASWARM_* variables).
 """
 
 from __future__ import annotations
@@ -57,19 +91,28 @@ import asyncio
 import base64
 import logging
 import random
+import signal
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
-from . import __version__
+import torch
+
+from . import __version__, faults, memory_census, programs, telemetry
 from . import cancel as cancel_registry
 from . import checkpoint
+from . import outbox as outbox_mod
 from .batching import BatchScheduler
+from .cancel import JobCancelled
 from .capacity import coalesce_rows_limit, default_canvas, fit_batch
-from .device import device_label, memory_gb, resolve_device
+from .device import device_label, memory_gb, resolve_device, synchronize
 from .embed_cache import from_settings
+from .faults import FaultInjected
 from .hive import HiveClient, HiveError
 from .job_arguments import format_args
+from .log_setup import setup_stream
 from .lora_cache import LoraCache
-from .cancel import JobCancelled
+from .outbox import Outbox, OutboxEntry
 from .post_processors.output_processor import (
     exception_image,
     fatal_exception_response,
@@ -77,7 +120,8 @@ from .post_processors.output_processor import (
     to_pil,
 )
 from .registry import Registry, unconverted_family_keywords
-from .settings import load_settings
+from .settings import load_settings, resolve_path
+from .telemetry import observe_stage, trace_job
 from .workflows.diffusion import diffusion_batched_callback, diffusion_callback
 
 logger = logging.getLogger(__name__)
@@ -88,6 +132,96 @@ POLL_SECONDS = 11.0
 ERROR_BACKOFF_SECONDS = 121.0
 # the revocations `Worker.cancels` keeps, newest last
 MAX_CANCEL_RECORDS = 256
+# the pipeline timings the stage histogram reads, under the JAX worker's
+# stage names (its `denoise` span, denoise_decode_s, is the port's
+# denoise_s + decode_s)
+STAGE_KEYS = {"text_encode_s": "text_encode", "upscale_s": "upscale"}
+
+_JOBS_POLLED = telemetry.counter(
+    "swarm_jobs_polled_total", "Jobs received from hive /work polls")
+_POLL_ERRORS = telemetry.counter(
+    "swarm_poll_errors_total", "ask_for_work calls that raised")
+_JOBS_COMPLETED = telemetry.counter(
+    "swarm_jobs_completed_total",
+    "Result envelopes produced, by outcome (ok | error | fatal)",
+    ("outcome",),
+)
+_LAST_POLL = telemetry.gauge(
+    "swarm_last_poll_unixtime",
+    "Wall-clock time of the last successful hive poll")
+_SLICES_TOTAL = telemetry.gauge(
+    "swarm_slices_total", "Chip slices this worker serves jobs on")
+_SLICES_BUSY = telemetry.gauge(
+    "swarm_slices_busy", "Chip slices currently executing a job")
+_JOBS_IN_FLIGHT = telemetry.gauge(
+    "swarm_jobs_in_flight",
+    "Jobs accepted from the hive and not yet uploaded")
+_QUEUE_DEPTH = telemetry.gauge(
+    "swarm_queue_depth",
+    "Jobs per internal queue (lingering = open coalescing groups, "
+    "ready = released to slice workers, results = awaiting upload)",
+    ("queue",),
+)
+_WATCHDOG_EXPIRED = telemetry.counter(
+    "swarm_watchdog_expired_total",
+    "Jobs whose execution exceeded the slice watchdog deadline",
+    ("kind",),
+)
+_WATCHDOG_PROBES = telemetry.counter(
+    "swarm_watchdog_probe_total",
+    "Quarantined-slice smoke probes, by outcome (ok | failed | wedged)",
+    ("outcome",),
+)
+_SLICE_STATE = telemetry.gauge(
+    "swarm_slice_state",
+    "Chip slices by lifecycle state (active | quarantined)",
+    ("state",),
+)
+_CHECKPOINTS = telemetry.counter(
+    "swarm_checkpoints_total",
+    "Mid-pass checkpoints cut at denoise chunk boundaries, by outcome "
+    "(shipped = the hive stored it; oversize = bigger than "
+    "checkpoint_max_bytes, skipped; error = pack or upload failed)",
+    ("outcome",),
+)
+_PREVIEWS = telemetry.counter(
+    "swarm_previews_total",
+    "Progressive preview frames decoded at denoise chunk boundaries, "
+    "by outcome (shipped | error)",
+    ("outcome",),
+)
+_RESUMES = telemetry.counter(
+    "swarm_resume_total",
+    "Redelivered jobs that arrived with a resume offer, by outcome "
+    "(resumed = checkpoint fetched+unpacked and handed to the pipeline; "
+    "fetch_failed | unpack_failed degrade to a full pass)",
+    ("outcome",),
+)
+_JOBS_CANCELLED = telemetry.counter(
+    "swarm_jobs_cancelled_total",
+    "Hive-revoked jobs this worker dropped, by where the cancel caught "
+    "them (held = still lingering/on the dispatch board, no envelope "
+    "ever produced; executing = aborted or row-dropped mid-denoise at a "
+    "chunk boundary; unknown = already delivered or never held)",
+    ("stage",),
+)
+
+
+def _deadline_cap_of(job: dict) -> float:
+    """The job's own watchdog cap from its `deadline_s` field; 0 = none
+    (garbage too: the field is the submitter's, forwarded unchecked)."""
+    try:
+        cap = float(job.get("deadline_s") or 0.0)
+    except (TypeError, ValueError):
+        return 0.0
+    return cap if cap > 0 else 0.0
+
+
+def profiler_running() -> bool:
+    """A torch.profiler is active in this process (on any thread)."""
+    from torch.autograd import profiler
+
+    return bool(profiler._is_profiler_enabled or torch.autograd._profiler_enabled())
 
 
 class Worker:
@@ -106,6 +240,20 @@ class Worker:
         self.poll_seconds = poll_seconds
         self.heartbeat_seconds = (poll_seconds if heartbeat_seconds is None
                                   else heartbeat_seconds)
+        # durable result spool: envelopes land here before their first
+        # upload and leave only on the hive's ACK
+        self.outbox = Outbox(resolve_path(self.settings.outbox_dir or "outbox"),
+                             max_entries=int(self.settings.outbox_max_entries))
+        if self.settings.fault_injection:
+            faults.configure(self.settings.fault_injection)
+        # the byte census reads this worker's stores and device
+        memory_census.set_device(self.device)
+        memory_census.register("embed_cache", memory_census.cache_provider(
+            self.registry.embed_cache))
+        memory_census.register("lora_factor_cache", memory_census.cache_provider(
+            self.registry.lora_cache.factors))
+        memory_census.register("lora_operand_cache", memory_census.cache_provider(
+            self.registry.lora_cache.operands))
         self.jobs_done = 0
         self._busy = False
         # the ids of the work item on the device (the cancel router's view)
@@ -116,6 +264,27 @@ class Worker:
         # the loop partial uploads run on, and the uploads not yet done
         self._loop: asyncio.AbstractEventLoop | None = None
         self._uploads: set = set()
+        # held by the thread that runs a pass (and by the probe): the
+        # watchdog's view of whether the device is free
+        self._device_lock = threading.Lock()
+        self._quarantined = False
+        # what the last quarantine probe did: {"outcome", "device",
+        # "waited_s", "at"} (time.monotonic())
+        self.last_probe: dict | None = None
+        # True once the uploader stopped at `kill_before_ack` (a simulated
+        # crash: the envelope stays spooled for the next start)
+        self.crashed = False
+        self._scheduler: BatchScheduler | None = None
+        self._results: asyncio.Queue | None = None
+        self._delivering = 0
+        self._changed: asyncio.Event | None = None
+        self._stopping: asyncio.Event | None = None
+        self._draining: asyncio.Event | None = None
+        self._in_service: asyncio.Event | None = None
+        self._probe_tasks: set = set()
+        self._metrics_runner = None
+        self._profiling = False
+        self._last_poll_monotonic: float | None = None
 
     def scheduler(self) -> BatchScheduler:
         """The linger window between the poll loop and the device, from the
@@ -200,17 +369,20 @@ class Worker:
         except Exception as e:  # noqa: BLE001 — never a job error
             logger.warning("resume offer for %s: checkpoint fetch raised (%r); running the "
                            "full pass", job_id, e)
-            return None
+            blob = None
         if blob is None:
+            _RESUMES.inc(outcome="fetch_failed")
             logger.warning("resume offer for %s: checkpoint fetch failed; running the full "
                            "pass", job_id)
             return None
         try:
             state = checkpoint.unpack(blob)
         except Exception as e:  # noqa: BLE001 — never a job error
+            _RESUMES.inc(outcome="unpack_failed")
             logger.warning("resume offer for %s: checkpoint unpack failed (%r); running the "
                            "full pass", job_id, e)
             return None
+        _RESUMES.inc(outcome="resumed")
         logger.info("job %s resumes from its checkpoint at step %s", job_id, state["step"])
         return state
 
@@ -224,9 +396,11 @@ class Worker:
             try:
                 blob = checkpoint.pack(step, latents, leaves, signature, rng)
             except Exception:  # noqa: BLE001 — the pass goes on without it
+                _CHECKPOINTS.inc(outcome="error")
                 logger.exception("checkpoint pack failed for %s", job_id)
                 return
             if max_bytes > 0 and len(blob) > max_bytes:
+                _CHECKPOINTS.inc(outcome="oversize")
                 logger.warning("checkpoint for %s at step %d is %d bytes "
                                "(checkpoint_max_bytes %d); skipped", job_id, step, len(blob),
                                max_bytes)
@@ -235,6 +409,9 @@ class Worker:
                 "step": int(step), "signature": signature,
                 "worker_name": self.settings.worker_name,
                 "blob": base64.b64encode(blob).decode("ascii")})
+            # the worker dies here, mid-denoise past a shipped checkpoint,
+            # when the fault is armed
+            faults.hang("hang_after_checkpoint")
 
         return ship
 
@@ -247,6 +424,7 @@ class Worker:
             try:
                 buffer = image_to_buffer(to_pil(pixels[0]), "image/jpeg")
             except Exception:  # noqa: BLE001 — the pass goes on without it
+                _PREVIEWS.inc(outcome="error")
                 logger.exception("preview encode failed for %s", job_id)
                 return
             self._ship("preview", job_id, {
@@ -256,22 +434,29 @@ class Worker:
 
         return ship
 
+    def _post_partial(self, kind: str, job_id: str, payload: dict) -> None:
+        counter = _CHECKPOINTS if kind == "checkpoint" else _PREVIEWS
+        try:
+            ack = self.hive.post_partial(kind, job_id, payload)
+        except Exception:  # noqa: BLE001 — the pass goes on without it
+            logger.exception("%s upload failed for %s", kind, job_id)
+            ack = None
+        counter.inc(outcome="shipped" if ack else "error")
+
     def _ship(self, kind: str, job_id: str, payload: dict) -> None:
         """Upload one partial from the device thread: on the event loop
         when the worker runs one (the pass never waits for it), else at
         once. A failed upload costs the partial, never the pass."""
         loop = self._loop
         if loop is None or loop.is_closed():
-            try:
-                self.hive.post_partial(kind, job_id, payload)
-            except Exception:  # noqa: BLE001 — the pass goes on without it
-                logger.exception("%s upload failed for %s", kind, job_id)
+            self._post_partial(kind, job_id, payload)
             return
-        upload = asyncio.to_thread(self.hive.post_partial, kind, job_id, payload)
+        upload = asyncio.to_thread(self._post_partial, kind, job_id, payload)
         try:
             future = asyncio.run_coroutine_threadsafe(upload, loop)
         except RuntimeError:  # the loop closed after the check
             upload.close()
+            (_CHECKPOINTS if kind == "checkpoint" else _PREVIEWS).inc(outcome="error")
             logger.warning("%s for %s dropped: the event loop is gone", kind, job_id)
             return
         self._uploads.add(future)
@@ -288,8 +473,10 @@ class Worker:
             args.update(job_id=job_id, denoise_chunk_steps=int(self.settings.denoise_chunk_steps))
         started = time.perf_counter()
         try:
-            artifacts, pipeline_config = callback(
-                self.identifier(), model_name, registry=self.registry, seed=seed, **args)
+            # every record logged during the job carries its id
+            with trace_job(job_id):
+                artifacts, pipeline_config = callback(
+                    self.identifier(), model_name, registry=self.registry, seed=seed, **args)
         except JobCancelled as e:
             self._note_aborted(e)
             return None
@@ -351,17 +538,22 @@ class Worker:
     def _run_pass(self, requests: list[dict]) -> list[dict | None]:
         """One coalesced pass over formatted job arguments -> envelopes,
         None for a member cancelled during the pass."""
+        # before anything of the requests changes, so that each member
+        # runs alone unchanged
+        faults.fire("oom_batched", exc=torch.OutOfMemoryError(
+            "CUDA out of memory: injected (fault oom_batched)"))
         requests = [dict(args) for args in requests]
         for args in requests:
             if args.get("seed") is None:
                 args["seed"] = random.getrandbits(63)
-        logger.info("coalesced pass of %d jobs %s", len(requests),
-                    [args.get("id") for args in requests])
+        ids = [args.get("id") for args in requests]
+        logger.info("coalesced pass of %d jobs %s", len(requests), ids)
         started = time.perf_counter()
-        outs = diffusion_batched_callback(
-            self.identifier(), requests, registry=self.registry,
-            lora_slots_max=int(self.settings.lora_slots_max),
-            denoise_chunk_steps=int(self.settings.denoise_chunk_steps))
+        with trace_job(",".join(str(i) for i in ids)):
+            outs = diffusion_batched_callback(
+                self.identifier(), requests, registry=self.registry,
+                lora_slots_max=int(self.settings.lora_slots_max),
+                denoise_chunk_steps=int(self.settings.denoise_chunk_steps))
         if len(outs) != len(requests):
             raise RuntimeError(f"the pass returned {len(outs)} envelopes for "
                                f"{len(requests)} jobs")
@@ -379,34 +571,144 @@ class Worker:
                               "pipeline_config": pipeline_config})
         return envelopes
 
-    async def _submit(self, result: dict) -> None:
-        result.setdefault("worker_name", self.settings.worker_name)
+    # --- the device task and the watchdog ---
+
+    def _on_device(self, jobs: list[dict]) -> list[dict | None]:
+        """One work item on the device thread, holding the device."""
+        with self._device_lock:
+            # a hung pass holds the device, as a real one would
+            faults.hang("hang_denoise")
+            return self.execute_group(jobs)
+
+    def pass_deadline(self, jobs: list[dict]) -> float | None:
+        """The watchdog's deadline for one work item (None: off). A model
+        not resident yet gets `job_deadline_compile_scale`; a coalesced
+        pass is budgeted for its worst case, every member run alone after
+        the pass failed. The jobs' own `deadline_s` caps it when every
+        member has one (the loosest: one tight deadline must not cost its
+        batchmates their pass), and arms it even when the setting is off."""
+        s = self.settings
+        base = float(s.job_deadline_s or 0.0)
+        deadline = None
+        if base > 0:
+            resident = set(self.registry.resident_models())
+            scale = 1.0
+            if any(job.get("model_name") not in resident for job in jobs):
+                scale = max(float(s.job_deadline_compile_scale), 1.0)
+            deadline = base * scale * max(len(jobs), 1)
+        caps = [_deadline_cap_of(job) for job in jobs]
+        if caps and all(c > 0 for c in caps):
+            deadline = max(caps) if deadline is None else min(deadline, max(caps))
+        return deadline
+
+    async def _device_pass(self, jobs: list[dict]) -> list[dict | None]:
+        loop = asyncio.get_running_loop()
+        deadline = self.pass_deadline(jobs)
+        fut = loop.run_in_executor(self._executor, self._on_device, jobs)
+        if deadline is None:
+            return await fut
         try:
-            await asyncio.to_thread(self.hive.submit_result, result)
-        except HiveError:
-            # one retry: the artifacts cost a whole denoise pass
-            logger.warning("result upload failed for %s; retrying once", result.get("id"))
-            await asyncio.sleep(1.0)
-            await asyncio.to_thread(self.hive.submit_result, result)
+            return await asyncio.wait_for(asyncio.shield(fut), deadline)
+        except asyncio.TimeoutError:
+            return self._expire_pass(fut, jobs, deadline)
+
+    def _expire_pass(self, fut, jobs: list[dict], deadline: float) -> list[dict]:
+        """A pass outlived its deadline: quarantine the device, give every
+        member the transient-error envelope (the hive may resubmit it), and
+        leave the hung pass to end or not in the background; the probe
+        decides when the device returns."""
+        kind = "batched" if len(jobs) > 1 else "solo"
+        _WATCHDOG_EXPIRED.inc(len(jobs), kind=kind)
+        logger.error("watchdog: %s pass exceeded its %.1fs deadline (jobs %s); "
+                     "quarantining the device", kind, deadline, [j.get("id") for j in jobs])
+        # the orphaned future may raise much later: consume it
+        fut.add_done_callback(lambda f: f.cancelled() or f.exception())
+        self._quarantined = True
+        self._in_service.clear()
+        self._update_gauges()
+        probe = asyncio.create_task(self._quarantine_probe(), name="quarantine_probe")
+        self._probe_tasks.add(probe)
+        probe.add_done_callback(self._probe_tasks.discard)
+        results = []
+        for job in jobs:
+            err = TimeoutError(f"job execution exceeded the {deadline:g}s watchdog deadline; "
+                               "the device was quarantined and the job may be resubmitted")
+            artifacts, pipeline_config = exception_image(err, job.get("content_type")
+                                                         or "image/jpeg")
+            results.append({"id": job.get("id"), "artifacts": artifacts, "nsfw": False,
+                            "worker_version": __version__,
+                            "pipeline_config": pipeline_config})
+        return results
+
+    async def _quarantine_probe(self) -> None:
+        """Wait (bounded) for the hung pass to release the device, then run
+        the probe. Pass -> the device returns to service; failed or still
+        held -> it stays out, and the worker takes no more work."""
+        grace = max(float(self.settings.quarantine_probe_grace_s), 0.0)
+        t0 = time.monotonic()
+        while self._device_lock.locked() and time.monotonic() - t0 < grace:
+            await asyncio.sleep(0.05)
+        waited = time.monotonic() - t0
+        if self._device_lock.locked():
+            outcome = "wedged"
+            logger.error("the device is still held %.0fs after the watchdog expiry; it "
+                         "stays quarantined", grace)
+        else:
+            # the default executor: the device thread may be the hung one
+            ok = await asyncio.get_running_loop().run_in_executor(None, self.smoke_probe)
+            outcome = "ok" if ok else "failed"
+            if ok:
+                self._quarantined = False
+                self._in_service.set()
+                logger.warning("the device passed the probe; back in service")
+            else:
+                logger.error("the device failed the probe; it stays quarantined")
+        _WATCHDOG_PROBES.inc(outcome=outcome)
+        self.last_probe = {"outcome": outcome, "device": str(self.device),
+                           "waited_s": round(waited, 3), "at": time.monotonic()}
+        self._update_gauges()
+        if self._changed is not None:
+            self._changed.set()
+
+    def smoke_probe(self) -> bool:
+        """A tiny matmul on the device, synchronously. True = the device
+        computes and may return to service; False = it is busy or failed."""
+        if not self._device_lock.acquire(blocking=False):
+            return False
+        try:
+            x = torch.eye(8, dtype=torch.float32, device=self.device)
+            y = x @ (2.0 * x)
+            synchronize(self.device)
+            return bool(torch.equal(y.cpu(), 2.0 * torch.eye(8)))
+        except Exception:  # noqa: BLE001 — any device error keeps it quarantined
+            logger.exception("probe failed on %s", self.device)
+            return False
+        finally:
+            self._device_lock.release()
 
     async def _serve(self, scheduler: BatchScheduler, changed: asyncio.Event) -> None:
         """The device task: take work items in order, run them off the event
-        loop, upload their envelopes."""
+        loop, spool their envelopes for the uploader and go on."""
         while True:
+            # a quarantined device takes no work until the probe returns it
+            await self._in_service.wait()
             jobs = await scheduler.get()
+            picked_up = time.monotonic()
+            queue_wait = {}
+            for job in jobs:
+                enqueued = job.pop("_enqueued", None)
+                if enqueued is not None:
+                    queue_wait[job.get("id")] = picked_up - enqueued
             self._busy = True
             self._executing = {str(job.get("id")) for job in jobs}
+            self._update_gauges()
             try:
-                # GPU work off the event loop, one work item at a time
-                results = await asyncio.to_thread(self.execute_group, jobs)
+                results = await self._device_pass(jobs)
                 for result in results:
                     # a job cancelled during its pass has no envelope
                     if result is not None:
-                        try:
-                            await self._submit(result)
-                        except HiveError:
-                            logger.exception("dropping the result of job %s",
-                                             result.get("id"))
+                        self._finish_result(result, queue_wait)
+                        await self._enqueue_result(result)
                     self.jobs_done += 1
             finally:
                 for job_id in self._executing:
@@ -415,7 +717,238 @@ class Worker:
                 for _ in jobs:
                     scheduler.task_done()
                 self._busy = False
+                self._update_gauges()
                 changed.set()
+
+    def _finish_result(self, result: dict, queue_wait: dict) -> None:
+        """Stamp the queue wait into the envelope, observe its pass's stage
+        spans (once for a coalesced pass), and count the job by outcome."""
+        cfg = result.setdefault("pipeline_config", {})
+        timings = cfg.setdefault("timings", {})
+        wait = queue_wait.get(result.get("id"))
+        if wait is not None:
+            observe_stage("queue_wait", wait)
+            timings["queue_wait_s"] = round(wait, 3)
+        if (cfg.get("batch_rows") or [0])[0] == 0:
+            for key, stage in STAGE_KEYS.items():
+                if isinstance(timings.get(key), (int, float)):
+                    observe_stage(stage, timings[key])
+            if isinstance(timings.get("denoise_s"), (int, float)):
+                observe_stage("denoise", timings["denoise_s"] + timings.get("decode_s", 0.0))
+        if result.get("fatal_error"):
+            outcome = "fatal"
+        elif "error" in cfg:
+            outcome = "error"
+        else:
+            outcome = "ok"
+        _JOBS_COMPLETED.inc(outcome=outcome)
+
+    # --- the uploader (outbox.py) ---
+
+    async def _enqueue_result(self, result: dict) -> None:
+        """Spool the envelope (off the loop: a multi-MB envelope must not
+        stall the polls), then queue it for delivery. From here the job
+        cannot be lost silently: only the hive's ACK unlinks the file."""
+        # the sender rides the envelope: the hive attributes a late result
+        # to the worker that made it
+        result.setdefault("worker_name", self.settings.worker_name)
+        entry = await asyncio.to_thread(self.outbox.spool, result)
+        await self._results.put(entry)
+        self._update_gauges()
+
+    async def _upload(self, changed: asyncio.Event) -> None:
+        while True:
+            entry = await self._results.get()
+            self._delivering += 1
+            try:
+                await self._deliver(entry)
+            except FaultInjected:
+                # a simulated crash after the ACK, before the unlink: the
+                # envelope stays spooled for the next start
+                logger.error("injected crash before the unlink of %s's envelope", entry.job_id)
+                self.crashed = True
+                raise
+            except Exception:  # noqa: BLE001 — the uploader must go on
+                logger.exception("delivery of %s failed", entry.job_id)
+            finally:
+                self._delivering -= 1
+                self._update_gauges()
+                changed.set()
+
+    async def _submit(self, result: dict):
+        """POST one envelope, one attempt, off the loop -> the hive's ACK."""
+        return await asyncio.to_thread(self.hive.submit_result, result)
+
+    async def _deliver(self, entry: OutboxEntry) -> None:
+        """Upload one spooled envelope until the hive ACKs it (capped
+        exponential backoff with jitter between attempts). A permanent
+        refusal, or an ACK that discards the result, parks it on disk."""
+        while True:
+            try:
+                t0 = time.perf_counter()
+                ack = await self._submit(entry.result)
+                observe_stage("submit", time.perf_counter() - t0)
+                faults.fire("kill_before_ack")
+                reason = None
+                if isinstance(ack, dict):
+                    if ack.get("cancelled"):
+                        reason = "cancelled: hive revoked this job"
+                    elif ack.get("expired"):
+                        reason = "expired: job TTL lapsed at the hive"
+                    elif ack.get("unknown_job"):
+                        reason = "gone: hive no longer knows this job id"
+                if reason is not None:
+                    logger.warning("hive acknowledged but discarded result %s (%s); parking "
+                                   "the envelope", entry.job_id, reason)
+                    await asyncio.to_thread(self.outbox.park, entry, reason)
+                    return
+                await asyncio.to_thread(self.outbox.delivered, entry)
+                return
+            except FaultInjected:
+                raise
+            except HiveError as e:
+                if e.permanent:
+                    logger.error("hive permanently refused result %s (%s); parking the "
+                                 "envelope on disk", entry.job_id, e)
+                    await asyncio.to_thread(self.outbox.park, entry, str(e))
+                    return
+                err: Exception = e
+            except Exception as e:  # noqa: BLE001 — unexpected: still never drop work
+                err = e
+            entry.retries += 1
+            self.outbox.note_retry()
+            delay = outbox_mod.backoff_delay(entry.retries)
+            logger.warning("submit failed for %s (attempt %d: %s); retrying in %.1fs",
+                           entry.job_id, entry.retries, err, delay)
+            await asyncio.sleep(delay)
+
+    # --- telemetry ---
+
+    def _update_gauges(self) -> None:
+        scheduler = self._scheduler
+        if scheduler is not None:
+            _JOBS_IN_FLIGHT.set(scheduler.outstanding_jobs)
+            _QUEUE_DEPTH.set(scheduler.pending_jobs, queue="lingering")
+            _QUEUE_DEPTH.set(scheduler.ready_jobs, queue="ready")
+        if self._results is not None:
+            _QUEUE_DEPTH.set(self._results.qsize() + self._delivering, queue="results")
+        _SLICES_BUSY.set(int(self._busy))
+        _SLICE_STATE.set(0 if self._quarantined else 1, state="active")
+        _SLICE_STATE.set(1 if self._quarantined else 0, state="quarantined")
+        self.outbox.refresh_gauges()
+
+    def health(self) -> dict:
+        """/healthz: is this worker polling, what is resident, is the device
+        in service. `degraded` (503) when polling stalled while it should
+        poll, the device is quarantined, the outbox is saturated, or the
+        card's free memory is below `memory_headroom_degraded`."""
+        scheduler = self._scheduler
+        draining = self._draining is not None and self._draining.is_set()
+        age = None
+        if self._last_poll_monotonic is not None:
+            age = round(time.monotonic() - self._last_poll_monotonic, 1)
+        reasons = []
+        # the loop pauses its polls while draining, busy, quarantined or
+        # full: a worker mid-denoise must not probe as unhealthy
+        expects_polls = (not draining and not self._busy and not self._quarantined
+                         and scheduler is not None and not scheduler.full())
+        if expects_polls and age is not None and age > 3 * self.poll_seconds:
+            reasons.append(f"last successful poll {age:.0f}s ago "
+                           f"(cadence {self.poll_seconds}s)")
+        if self._quarantined:
+            reasons.append("1 slice(s) quarantined")
+        if self.outbox.saturated:
+            reasons.append(f"outbox saturated ({self.outbox.depth} spooled envelopes)")
+        headroom = None
+        threshold = float(self.settings.memory_headroom_degraded or 0.0)
+        if threshold > 0:
+            headroom = memory_census.device_headroom()
+            if headroom is not None and headroom < threshold:
+                reasons.append(f"device HBM headroom {headroom:.1%} below {threshold:.1%}")
+        oldest = self.outbox.oldest_age_s()
+        return {
+            "status": "degraded" if reasons else "ok",
+            "degraded_reasons": reasons,
+            "worker_version": __version__,
+            "last_poll_age_s": age,
+            "memory_headroom_ratio": headroom,
+            "draining": draining,
+            "jobs_in_flight": scheduler.outstanding_jobs if scheduler is not None else 0,
+            "results_pending": (self._results.qsize() + self._delivering
+                                if self._results is not None else 0),
+            "outbox": {
+                "depth": self.outbox.depth,
+                "oldest_age_s": round(oldest, 1) if oldest else 0,
+                "saturated": self.outbox.saturated,
+            },
+            "resident_models": self.registry.resident_models(),
+            "slices": [{
+                "slice_id": 0,
+                "chips": 1,
+                "device": device_label(self.device),
+                "busy": self._busy,
+                "state": "quarantined" if self._quarantined else "active",
+                "resident": self.registry.resident_models(),
+            }],
+        }
+
+    async def _capture_profile(self, seconds: float) -> dict:
+        """POST /debug/profile?seconds=N: a torch.profiler capture (CPU and,
+        on the card, CUDA activities) of this process for `seconds`, written
+        as a Chrome trace under $SDAAS_ROOT/profiles/. Gated by
+        `profiler_capture` (PermissionError -> 403), one at a time, and not
+        beside another torch.profiler of the process (RuntimeError -> 409)."""
+        if not bool(self.settings.profiler_capture):
+            raise PermissionError("profiler capture is disabled; set profiler_capture=true "
+                                  "(CHIASWARM_PROFILER_CAPTURE=1) to arm it")
+        if self._profiling or profiler_running():
+            raise RuntimeError("a profiler capture is already running")
+        self._profiling = True
+        try:
+            path = resolve_path("profiles") / (
+                time.strftime("trace_%Y%m%d_%H%M%S")
+                + f"_{time.time_ns() % 1_000_000_000:09d}.json")
+            path.parent.mkdir(parents=True, exist_ok=True)
+            # off the loop: the capture sleeps through its window while the
+            # metrics app goes on answering
+            detail = await asyncio.get_running_loop().run_in_executor(
+                None, self._profile, seconds, path)
+        finally:
+            self._profiling = False
+        logger.warning("profiler capture (%.1fs) written to %s", seconds, path)
+        return {"path": str(path), "seconds": seconds, **detail}
+
+    def _profile(self, seconds: float, path) -> dict:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            time.sleep(seconds)
+        prof.export_chrome_trace(str(path))
+        return {"bytes": path.stat().st_size,
+                "activities": [a.name for a in activities]}
+
+    async def _start_metrics_server(self) -> None:
+        """GET /metrics, /healthz, /debug/programs, /debug/memory and POST
+        /debug/profile on `metrics_host:metrics_port` (0 disables it).
+        Never fatal: a busy port costs the scrape, not the worker."""
+        port = int(self.settings.metrics_port or 0)
+        if not port:
+            return
+        try:
+            self._metrics_runner = await telemetry.start_metrics_server(
+                port, health=self.health, host=self.settings.metrics_host,
+                profile=self._capture_profile,
+                # the profile hook mutates: it takes the worker's own token
+                token=str(self.settings.sdaas_token or ""),
+                programs=programs.snapshot, memory=memory_census.census)
+            logger.info("metrics server on %s:%d", self.settings.metrics_host, port)
+        except Exception as e:  # noqa: BLE001 — observability is an add-on
+            logger.warning("metrics server unavailable: %s", e)
+
+    # --- the poll loop ---
 
     def _cancel_job(self, job_id: str, scheduler: BatchScheduler) -> None:
         """Route one revocation: a job the scheduler holds is dropped (and
@@ -433,61 +966,162 @@ class Worker:
                            "boundary", job_id)
         else:
             stage = "unknown"
+        _JOBS_CANCELLED.inc(stage=stage)
         self.cancels[job_id] = {"stage": stage, "marked_at": time.monotonic()}
         while len(self.cancels) > MAX_CANCEL_RECORDS:
             self.cancels.pop(next(iter(self.cancels)))
 
-    async def run(self, max_jobs: int | None = None) -> None:
-        """Poll and serve forever, or until `max_jobs` jobs are done."""
-        scheduler = self.scheduler()
-        changed = asyncio.Event()
-        self._loop = asyncio.get_running_loop()
-        server = asyncio.create_task(self._serve(scheduler, changed))
+    def stop(self, drain: bool = False) -> None:
+        """Stop a running worker, from any thread. drain=False stops at once
+        (spooled envelopes survive on disk for the next start); drain=True
+        (SIGTERM) stops taking work, finishes the passes in flight and
+        flushes the outbox, for at most `drain_deadline_s`."""
+        loop = self._loop
+        if loop is not None and not loop.is_closed():
+            loop.call_soon_threadsafe(self._stop, drain)
+
+    def _stop(self, drain: bool) -> None:
+        if self._stopping is None:
+            return
+        if drain:
+            if not self._draining.is_set():
+                logger.warning("drain: polls stopped; finishing the passes in flight and "
+                               "the outbox")
+            self._draining.set()
+        else:
+            self._stopping.set()
+        self._changed.set()
+
+    async def _pause(self, seconds: float) -> None:
+        """Sleep up to `seconds`, or until something changes (a pass ended,
+        a delivery ended, a stop)."""
         try:
-            while max_jobs is None or self.jobs_done < max_jobs:
+            await asyncio.wait_for(self._changed.wait(), seconds)
+        except asyncio.TimeoutError:
+            pass
+
+    async def run(self, max_jobs: int | None = None) -> None:
+        """Poll and serve until `max_jobs` jobs are done (forever without
+        it), or until `stop()`; returns once every job taken is served and
+        every envelope delivered or parked, or at the drain's deadline, or
+        at a simulated crash (`kill_before_ack`)."""
+        loop = asyncio.get_running_loop()
+        scheduler = self.scheduler()
+        self._scheduler = scheduler
+        changed = self._changed = asyncio.Event()
+        self._stopping, self._draining = asyncio.Event(), asyncio.Event()
+        self._in_service = asyncio.Event()
+        self._quarantined = False
+        self._in_service.set()
+        self._results = asyncio.Queue()
+        self._delivering = 0
+        self.crashed = False
+        self._loop = loop
+        self._executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="device")
+        _SLICES_TOTAL.set(1)
+        sigterm = None
+        try:
+            # a rolling restart sends SIGTERM: drain instead of dropping work
+            previous = signal.getsignal(signal.SIGTERM)
+            loop.add_signal_handler(signal.SIGTERM, self.stop, True)
+            sigterm = previous
+        except (NotImplementedError, RuntimeError, ValueError):
+            pass  # not the main thread: stop(drain=True) still works
+        await self._start_metrics_server()
+        # redeliver what a previous process spooled and never saw ACKed,
+        # unless another live worker shares the spool
+        if await asyncio.to_thread(self.outbox.claim):
+            recovered = await asyncio.to_thread(self.outbox.recover)
+            self.outbox.share()
+            for entry in recovered:
+                self._results.put_nowait(entry)
+            if recovered:
+                logger.warning("outbox: redelivering %d spooled result(s) from a previous run",
+                               len(recovered))
+        server = asyncio.create_task(self._serve(scheduler, changed))
+        uploader = asyncio.create_task(self._upload(changed))
+        try:
+            while not self._stopping.is_set() and not self._draining.is_set():
+                if max_jobs is not None and self.jobs_done >= max_jobs:
+                    break
                 if server.done():
                     server.result()  # the device task died: raise its error
-                # busy: the cancel-only heartbeat, which takes no job but
-                # brings the hive's revocations of the running ones
-                heartbeat = self._busy or scheduler.full()
+                if uploader.done():
+                    break  # a simulated crash
+                changed.clear()
+                # busy (or out of service): the cancel-only heartbeat, which
+                # takes no job but brings the hive's revocations
+                heartbeat = self._busy or scheduler.full() or self._quarantined
                 caps = self.capabilities()
                 if heartbeat:
                     caps["cancel_only"] = 1
-                    changed.clear()
                 try:
                     jobs = await asyncio.to_thread(self.hive.ask_for_work, caps)
                 except HiveError as e:
+                    _POLL_ERRORS.inc()
                     logger.warning("ask_for_work failed: %s", e)
-                    await asyncio.sleep(ERROR_BACKOFF_SECONDS)
+                    await self._pause(ERROR_BACKOFF_SECONDS)
                     continue
+                self._last_poll_monotonic = time.monotonic()
+                _LAST_POLL.set(time.time())
                 for job in jobs:
                     logger.info("got job %s", job.get("id"))
+                    _JOBS_POLLED.inc()
+                    # the queue wait starts here; the device task pops it
+                    job["_enqueued"] = time.monotonic()
                     await scheduler.put(job)
                 for job_id in self.hive.last_cancels:
                     self._cancel_job(job_id, scheduler)
+                self._update_gauges()
                 if heartbeat:
-                    try:
-                        await asyncio.wait_for(changed.wait(), self.heartbeat_seconds)
-                    except asyncio.TimeoutError:
-                        pass
+                    await self._pause(self.heartbeat_seconds)
                 elif not jobs:
-                    await asyncio.sleep(self.poll_seconds)
-            # every job taken is served before the loop ends
+                    await self._pause(self.poll_seconds)
+            # every job taken is served and every envelope delivered or
+            # parked before the loop ends (at most drain_deadline_s when
+            # draining)
             scheduler.close()
-            while scheduler.outstanding_jobs and not server.done():
+            deadline = None
+            if self._draining.is_set():
+                deadline = time.monotonic() + max(float(self.settings.drain_deadline_s), 0.0)
+            while not self._stopping.is_set() and not uploader.done():
+                if server.done():
+                    server.result()
+                if (scheduler.outstanding_jobs == 0 and self._results.empty()
+                        and self._delivering == 0):
+                    if deadline is not None:
+                        logger.warning("drain complete: no work in flight")
+                    break
+                left = 1.0 if deadline is None else deadline - time.monotonic()
+                if left <= 0:
+                    logger.error("drain deadline hit with %d job(s) in flight and %d spooled "
+                                 "envelope(s); exiting, spooled results redeliver on restart",
+                                 scheduler.outstanding_jobs, self.outbox.depth)
+                    break
                 changed.clear()
-                await changed.wait()
+                await self._pause(min(left, 1.0))
         finally:
+            if sigterm is not None:
+                try:
+                    loop.remove_signal_handler(signal.SIGTERM)
+                    signal.signal(signal.SIGTERM, sigterm)
+                except (NotImplementedError, RuntimeError, ValueError, TypeError):
+                    pass
             scheduler.close()
-            server.cancel()
-            try:
-                await server
-            except asyncio.CancelledError:
-                pass
+            tasks = [server, uploader, *self._probe_tasks]
+            for task in tasks:
+                task.cancel()
+            await asyncio.gather(*tasks, return_exceptions=True)
             # the partial uploads in flight land before the loop goes
             if self._uploads:
                 await asyncio.wait([asyncio.wrap_future(f) for f in list(self._uploads)],
                                    timeout=30)
+            if self._metrics_runner is not None:
+                await self._metrics_runner.cleanup()
+                self._metrics_runner = None
+            # a hung pass keeps its thread; nothing waits for it
+            self._executor.shutdown(wait=False, cancel_futures=True)
+            self.outbox.release()
             self._loop = None
 
 
@@ -496,8 +1130,9 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default="cuda")
     opts = parser.parse_args(argv)
-    logging.basicConfig(level=logging.INFO)
-    worker = Worker(device=opts.device)
+    settings = load_settings()
+    worker = Worker(settings=settings, device=opts.device)
+    setup_stream("INFO", settings.log_format)
     try:
         asyncio.run(worker.run())
     except KeyboardInterrupt:

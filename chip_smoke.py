@@ -184,6 +184,23 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
    (three envelopes, bit for bit those of the first pass) and with all
    four cancelled (no envelope). Launches are held to the UNet calls plus
    one decode and one decode a preview.
+   Then the worker-plane path (`serve_worker_plane_path`), in the main
+   path's registries, through workers with the metrics app on, under a
+   $SDAAS_ROOT of its own: an SDXL 1024^2 30-step job with /metrics and
+   /healthz scraped during and after its pass (`cost.flops` the analytic
+   count of models/flops.py, `mfu` in (0, 1] against the H100's 989.4
+   TFLOP/s and equal to `swarm_pass_mfu`, the pass ledger's divergence
+   ratio within 5% of 1, launches as the main path's job), an SD 1.5
+   512^2 job's MFU, the outbox's write of the envelope timed; then SDXL
+   under `drop_submit=2` (delivered after two retries), under
+   `kill_before_ack=1` (a new worker on the same root redelivers the
+   envelope byte for byte), refused with a 422 (parked on disk); SD 1.5
+   under `hang_denoise=1` with a 3 s deadline (the transient envelope,
+   /healthz 503 while quarantined, the probe's matmul on the card once
+   the hung pass ends, the next job served); SIGTERM 0.5 s into an SDXL
+   pass (its envelope delivered before `run` returns, nothing taken
+   after); a 2 s `/debug/profile` capture during an SDXL pass, whose
+   Chrome trace holds `flash_fwd_wgmma` and `gn_fused` kernels.
    After phase 8, Flux joins the main path's registry while its SDXL
    pipelines, the SD registry, the detectors and the checker are still
    resident (`serve_flux_beside_sd`): one FLUX.1-schnell 4-step job, the
@@ -4827,6 +4844,428 @@ def serve_resume_path(smi: str, registry, sd_registry, xl_launches: dict,
     return paths, served
 
 
+PLANE_TOKEN = "plane-token"
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _http(url: str, token: str | None = None, method: str = "GET", timeout: float = 60.0):
+    """(status, body bytes) of one request to a worker's metrics app."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, method=method, data=b"" if method == "POST" else None)
+    if token is not None:
+        req.add_header("Authorization", f"Bearer {token}")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _samples(text: str) -> dict:
+    """Prometheus text -> {(name, ((label, value), ...)): value}."""
+    import re
+
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = re.match(r'^([A-Za-z_:][A-Za-z0-9_:]*)(?:\{(.*)\})? (\S+)$', line)
+        check(m is not None, f"unparsable exposition line {line!r}")
+        labels = tuple(re.findall(r'(\w+)="((?:[^"\\]|\\.)*)"', m.group(2) or ""))
+        out[(m.group(1), labels)] = float(m.group(3))
+    return out
+
+
+def _until(cond, timeout: float, what: str, step: float = 0.01) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < deadline, f"timed out waiting for {what}")
+        time.sleep(step)
+
+
+def run_beside(worker, side, max_jobs: int | None = None, timeout: float = 600.0):
+    """Run `worker` on this thread's event loop (the main thread's, so that it
+    installs its SIGTERM handler) while `side(worker)` runs in a thread
+    beside it; -> (what `side` returned, the run's wall seconds). A side that
+    fails stops the run."""
+    out = {}
+
+    async def main():
+        loop = asyncio.get_running_loop()
+        runner = asyncio.ensure_future(worker.run(max_jobs=max_jobs))
+        t0 = time.perf_counter()
+        try:
+            out["side"] = await loop.run_in_executor(None, side, worker)
+        except BaseException:
+            worker.stop()
+            raise
+        await asyncio.wait_for(runner, timeout)
+        out["run_s"] = time.perf_counter() - t0
+
+    asyncio.run(main())
+    return out["side"], out["run_s"]
+
+
+def serve_worker_plane_path(smi: str, registry, sd_registry, xl_launches: dict,
+                            device: str = "cuda", sdxl: str = SDXL, sd15: str = SD15,
+                            size_xl: int = SIZE, size15: int = 512, steps: int = STEPS,
+                            profile_s: float = 2.0, peak: float = 989.4,
+                            hang_deadline_s: float = 3.0,
+                            hold: bool = True) -> tuple[dict, dict]:
+    """Phase 5, the worker plane, in the main path's registries (`sdxl` in
+    `registry`, `sd15` in `sd_registry`), through workers with the metrics
+    app on and the port's fake hive, under a $SDAAS_ROOT of its own:
+
+    1. an SDXL job (DPM++ 2M), /metrics and /healthz scraped during and
+       after its pass: `cost.flops` the analytic count (models/flops.py),
+       `mfu` in (0, 1] and equal to `swarm_pass_mfu`, the divergence ratio
+       of the pass ledger within 5% of 1, launches as the main path's; an
+       SD 1.5 job's MFU; the outbox's write of the envelope timed;
+    2. SDXL under `drop_submit=2`: delivered after two retries;
+    3. SDXL under `kill_before_ack=1`, then a new worker on the same root:
+       the hive receives the envelope twice, byte for byte;
+    4. SDXL refused with a 422: parked on disk with its reason;
+    5. SD 1.5 under `hang_denoise=1` with `job_deadline_s` at
+       `hang_deadline_s` (a few times an SD 1.5 job's): the
+       transient envelope, /healthz degraded, the probe (a matmul on the
+       device) returns it once `release_hangs()` lets the hung pass end,
+       and the next job is served;
+    6. SIGTERM during an SDXL pass: the pass's envelope is delivered before
+       `run` returns, the job queued after it is not taken;
+    7. /debug/profile for `profile_s` during an SDXL pass: a Chrome trace
+       that holds the attention and GroupNorm kernels.
+
+    `peak` is the card's peak the envelopes must name. On the CPU (a
+    rehearsal, with `BENCH_PEAK_TFLOPS` set) the card's memory and the
+    profile's kernels are not held, and launches are printed, not held.
+
+    -> ({job kind: (1, {kernel: (launches, {shape: launches})})}, served)."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    from chiaswarm_tpu_torch import faults, programs, telemetry
+    from chiaswarm_tpu_torch.fake_hive import FakeHive
+    from chiaswarm_tpu_torch.models.flops import denoise_flops
+    from chiaswarm_tpu_torch.ops.flash_attention import COUNTER as FA_COUNTER
+    from chiaswarm_tpu_torch.ops.group_norm import COUNTER as GN_COUNTER
+    from chiaswarm_tpu_torch.outbox import Outbox
+    from chiaswarm_tpu_torch.settings import Settings
+    from chiaswarm_tpu_torch.worker import Worker
+
+    counters = {"flash_attention": FA_COUNTER, "group_norm": GN_COUNTER}
+    per_call = {sdxl: xl_launches, sd15: SD_UNET_LAUNCHES}
+    root = Path(tempfile.mkdtemp(prefix="chip-smoke-plane-"))
+    saved_root = os.environ.get("SDAAS_ROOT")
+    os.environ["SDAAS_ROOT"] = str(root)
+    hive = FakeHive(token=PLANE_TOKEN)
+    paths, served = {}, {"jobs": {}}
+    retries = telemetry.REGISTRY.get("swarm_outbox_retries_total")
+
+    def worker(reg, **overrides):
+        fields = dict(sdaas_token=PLANE_TOKEN, sdaas_uri=hive.uri, worker_name="chip-smoke-plane",
+                      model_root_dir=reg.model_root_dir, max_coalesce=1,
+                      metrics_port=_free_port(), profiler_capture=True)
+        fields.update(overrides)
+        return Worker(settings=Settings(**fields), device=device, registry=reg,
+                      poll_seconds=0.05, heartbeat_seconds=HEARTBEAT_SECONDS)
+
+    def job(job_id: str, model: str, size: int, seed: int):
+        return {"id": job_id, "workflow": "txt2img", "model_name": model,
+                "prompt": "a lighthouse on a cliff at dusk, the worker plane",
+                "negative_prompt": "blurry", "height": size, "width": size,
+                "num_inference_steps": steps, "guidance_scale": 7.0, "seed": seed,
+                "content_type": "image/png",
+                "parameters": {"scheduler_type": "DPMSolverMultistepScheduler"}}
+
+    def base(w) -> str:
+        return f"http://127.0.0.1:{w.settings.metrics_port}"
+
+    def scrape(w) -> dict:
+        status, text = _http(f"{base(w)}/metrics")
+        check(status == 200, f"/metrics answered {status}")
+        health_status, health = _http(f"{base(w)}/healthz")
+        return {"metrics": _samples(text.decode()), "health_status": health_status,
+                "health": json.loads(health)}
+
+    def counted(kind: str, before: dict) -> None:
+        after = _snapshot(counters)
+        paths[kind] = (1, {name: (after[name][0] - before[name][0],
+                                  after[name][1] - before[name][1]) for name in counters})
+
+    def spooled() -> list:
+        return sorted(p.name for p in (root / "outbox").iterdir()
+                      if p.name.endswith((".json", ".parked")))
+
+    try:
+        t_path = time.perf_counter()
+        # 1. the cost plane: SDXL scraped during and after its pass, then SD 1.5
+        for kind, reg, model, size in (("plane_sdxl", registry, sdxl, size_xl),
+                                       ("plane_sd15", sd_registry, sd15, size15)):
+            w = worker(reg)
+            job_id = f"{kind}-cost"
+            seen = len(hive.results)
+            hive.enqueue(job(job_id, model, size, 1400))
+
+            def side(w):
+                _until(lambda: w._busy, 120, "the pass to start")
+                during = scrape(w)
+                _until(lambda: len(hive.results) > seen and w.outbox.depth == 0, 300,
+                       "the envelope's delivery")
+                after = scrape(w)
+                after["programs"] = json.loads(_http(f"{base(w)}/debug/programs")[1])
+                after["memory"] = json.loads(_http(f"{base(w)}/debug/memory")[1])
+                w.stop()
+                return during, after
+
+            before = _snapshot(counters)
+            (during, after), run_s = run_beside(w, side)
+            counted(kind, before)
+            [result] = [r for r in hive.results if r["id"] == job_id]
+            cfg = result["pipeline_config"]
+            check(not result.get("fatal_error") and "error" not in cfg,
+                  f"{job_id}: {cfg.get('error')}")
+            image = decode_artifact(result["artifacts"]["primary"])
+            check(image.shape == (size, size, 3) and int(image.max()) != int(image.min()),
+                  f"{job_id}: image {image.shape}")
+            pipe = reg.get_pipeline(model)
+            lh = size // pipe.latent_factor
+            analytic = denoise_flops(pipe.unet.config, lh, lh, 1, steps)
+            cost, t = cfg["cost"], cfg["timings"]
+            check(cost["flops"] == cost["pass_flops"] == int(round(analytic)),
+                  f"{job_id}: cost.flops {cost['flops']} != the analytic {analytic:.0f}")
+            check(cfg["unet_tflops"] == round(analytic / 1e12, 4),
+                  f"{job_id}: unet_tflops {cfg['unet_tflops']}")
+            check(cfg["geometry"] == {"data": 1, "tensor": 1, "seq": 1}, f"{job_id}: geometry")
+            mfu = cost["mfu"]
+            check(mfu is not None and 0.0 < mfu <= 1.0, f"{job_id}: mfu {mfu}")
+            check(cost["peak_tflops_per_chip"] == peak,
+                  f"{job_id}: peak {cost['peak_tflops_per_chip']}")
+            metrics = after["metrics"]
+            gauge = metrics.get(("swarm_pass_mfu", (("model", model),
+                                                    ("geometry", "replicated"))))
+            check(gauge == mfu, f"{job_id}: swarm_pass_mfu {gauge} != the stamp's {mfu}")
+            ratio = metrics.get(("swarm_flops_divergence_ratio", (("model", model),)))
+            check(ratio is not None and abs(ratio - 1.0) <= 0.05,
+                  f"{job_id}: swarm_flops_divergence_ratio {ratio}")
+            # this job's pass key, as SDPipeline.run keys it
+            key = repr(("txt2img", lh, lh, 1, steps, "DPMSolverMultistepScheduler", False, 0,
+                        None))
+            entries = [e for e in after["programs"]["programs"]
+                       if e["model"] == model and e["key"] == key]
+            check(len(entries) == 1 and entries[0]["counted_call_flops"],
+                  f"{job_id}: the pass ledger's rows of {key}: {entries}")
+            entry = entries[0]
+            check(during["health_status"] == 200 and during["health"]["slices"][0]["busy"],
+                  f"{job_id}: /healthz during the pass {during['health']}")
+            check(after["health_status"] == 200 and after["health"]["status"] == "ok"
+                  and after["health"]["outbox"]["depth"] == 0,
+                  f"{job_id}: /healthz after the pass {after['health']}")
+            stores = after["memory"]["stores"]
+            card = {"bytes_in_use": 0, "bytes_limit": 0}
+            if device == "cuda":
+                [card] = after["memory"]["devices"]
+            check(after["memory"]["total_bytes"] == sum(s["bytes"] for s in stores.values())
+                  and card["bytes_limit"] >= card["bytes_in_use"] >= 0
+                  and (device != "cuda" or card["bytes_in_use"] > 0),
+                  f"{job_id}: /debug/memory {after['memory']}")
+            launches = {name: paths[kind][1][name][0] for name in counters}
+            predicted = {name: steps * per_call[model][name] + DECODE_LAUNCHES[name]
+                         + (CHECKER_LAUNCHES[name] if cfg.get("nsfw_checked") else 0)
+                         for name in counters}
+            served["jobs"][kind] = {
+                "timings": t, "cost": cost, "unet_tflops": cfg["unet_tflops"],
+                "divergence": ratio, "ledger": entry, "launches": launches,
+                "predicted_launches": predicted, "run_s": run_s,
+                "device_memory": card, "stores": {k: v["bytes"] for k, v in stores.items()}}
+            log(f"[plane] {job_id} ({model} {size}^2, {steps} steps) on {smi}: job "
+                f"{t['job_s']:.3f}s, denoise {t['denoise_s']:.3f}s + decode {t['decode_s']:.3f}s;"
+                f" unet_tflops {cfg['unet_tflops']}, {cost['tflops_per_s']} TFLOP/s over "
+                f"denoise + decode, MFU {mfu} of {cost['peak_tflops_per_chip']} (gauge {gauge});"
+                f" divergence {ratio} (counted {entry['counted_call_flops']}, of which attention "
+                f"{entry['attention_flops']}, analytic {entry['analytic_call_flops']:.0f} a "
+                f"call); launches {json.dumps(launches)}, predicted {json.dumps(predicted)}; "
+                f"card {card['bytes_in_use'] / 2**30:.1f} of {card['bytes_limit'] / 2**30:.1f}"
+                f" GiB in use")
+            if hold:
+                check(launches == predicted, f"{job_id}: launches {launches} != {predicted}")
+            if kind == "plane_sdxl":
+                # what the outbox's write costs this envelope (warm page cache)
+                box = Outbox(root / "spool-timing")
+                times = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    entry_ = box.spool(result)
+                    times.append(time.perf_counter() - t0)
+                    box.delivered(entry_)
+                nbytes = len(hive.bodies[job_id][0])
+                served["spool_ms"] = sorted(1000 * x for x in times)
+                log(f"[plane] the outbox's write of a {size}^2 envelope ({nbytes} bytes of "
+                    f"JSON): {served['spool_ms'][2]:.2f} ms median of 5 (min "
+                    f"{served['spool_ms'][0]:.2f}, max {served['spool_ms'][4]:.2f}), tmp + "
+                    "rename, warm page cache")
+        # 2. drop_submit=2: delivered after two retries
+        w = worker(registry)
+        faults.configure("drop_submit=2")
+        before_retries = retries.value()
+        hive.enqueue(job("plane-drop", sdxl, size_xl, 1401))
+        asyncio.run(w.run(max_jobs=1))
+        check(faults.get_plan().fired("drop_submit") == 2
+              and retries.value() - before_retries == 2
+              and len(hive.bodies.get("plane-drop", [])) == 1 and not spooled(),
+              f"drop_submit: fired {faults.get_plan().fired('drop_submit')}, retries "
+              f"{retries.value() - before_retries}, bodies {len(hive.bodies.get('plane-drop', []))}")
+        faults.configure("")
+        log("[plane] drop_submit=2: delivered after 2 retries, once")
+        # 3. kill_before_ack=1, then a new worker on the same root
+        faults.configure("kill_before_ack=1")
+        w = worker(registry)
+        hive.enqueue(job("plane-kill", sdxl, size_xl, 1402))
+        asyncio.run(w.run(max_jobs=1))
+        faults.configure("")
+        check(w.crashed and len(hive.bodies["plane-kill"]) == 1 and len(spooled()) == 1,
+              f"kill_before_ack: crashed {w.crashed}, spool {spooled()}")
+        w2 = worker(registry)
+        t0 = time.perf_counter()
+        run_beside(w2, lambda w: (_until(lambda: len(hive.bodies["plane-kill"]) == 2
+                                         and w.outbox.depth == 0, 120, "the redelivery"),
+                                  w.stop()))
+        bodies = hive.bodies["plane-kill"]
+        check(bodies[0] == bodies[1] and not spooled(),
+              "the redelivered envelope differs from the first delivery")
+        served["redelivery"] = {"bytes": len(bodies[0]), "s": time.perf_counter() - t0}
+        log(f"[plane] kill_before_ack=1: a new worker redelivered the spooled envelope "
+            f"({len(bodies[0])} bytes) byte for byte; duplicates at the hive {hive.duplicates}")
+        # 4. a permanent refusal is parked
+        hive.refuse("plane-refused", 422)
+        w = worker(registry)
+        hive.enqueue(job("plane-refused", sdxl, size_xl, 1403))
+        asyncio.run(w.run(max_jobs=1))
+        check(len(spooled()) == 1, f"the spool after the refusal: {spooled()}")
+        parked = spooled()[0]
+        payload = json.loads((root / "outbox" / parked).read_text())
+        check(parked.endswith("-plane-refused.json.parked") and "HTTP 422" in
+              payload["park_reason"] and "plane-refused" not in hive.bodies,
+              f"the refused envelope: {parked}, {payload.get('park_reason')}")
+        (root / "outbox" / parked).unlink()
+        log(f"[plane] a 422 refusal parked on disk: {parked} ({payload['park_reason']!r})")
+        # 5. the watchdog: a hung SD 1.5 pass, quarantine, the probe
+        faults.configure("hang_denoise=1", hang_timeout_s=600.0)
+        w = worker(sd_registry, job_deadline_s=hang_deadline_s, job_deadline_compile_scale=1.0,
+                   quarantine_probe_grace_s=120.0)
+        hive.enqueue(job("plane-hung", sd15, size15, 1404))
+
+        def watchdog(w):
+            _until(lambda: "plane-hung" in hive.bodies, 60, "the transient envelope")
+            status, health = _http(f"{base(w)}/healthz")
+            hive.enqueue(job("plane-after-hang", sd15, size15, 1405))
+            time.sleep(0.5)
+            held = "plane-after-hang" not in hive.bodies
+            t_release = time.monotonic()
+            faults.get_plan().release_hangs()
+            _until(lambda: "plane-after-hang" in hive.bodies, 120, "the job after the hang")
+            return status, json.loads(health), held, t_release
+
+        (status, health, held, t_release), _ = run_beside(w, watchdog, max_jobs=2)
+        faults.configure("")
+        hung = json.loads(hive.bodies["plane-hung"][0])
+        after_hang = json.loads(hive.bodies["plane-after-hang"][0])
+        probe = w.last_probe or {}
+        check("watchdog" in hung["pipeline_config"].get("error", "")
+              and not hung.get("fatal_error"), f"the hung job's envelope {hung['pipeline_config']}")
+        check(status == 503 and health["status"] == "degraded"
+              and health["slices"][0]["state"] == "quarantined" and held,
+              f"/healthz while quarantined: {status} {health}")
+        check(probe.get("outcome") == "ok" and probe.get("device", "").startswith(device),
+              f"the probe: {probe}")
+        check("error" not in after_hang["pipeline_config"], "the job after the hang failed")
+        served["watchdog"] = {"probe": probe, "health": health,
+                              "probe_after_release_s": probe["at"] - t_release}
+        log(f"[plane] hang_denoise=1 with job_deadline_s {hang_deadline_s:g}: transient "
+            "envelope, /healthz "
+            f"{status} {health['degraded_reasons']}; the probe on {probe['device']} passed "
+            f"{probe['at'] - t_release:.3f}s after the release (the hung pass ran on), the next "
+            "job served")
+        # 6. SIGTERM during an SDXL pass: the envelope lands before run returns
+        w = worker(registry)
+        hive.enqueue(job("plane-sigterm", sdxl, size_xl, 1406))
+
+        def sigterm(w):
+            _until(lambda: w._busy, 120, "the pass to start")
+            time.sleep(0.5)
+            check(signal.getsignal(signal.SIGTERM) not in (signal.SIG_DFL, signal.SIG_IGN, None),
+                  "the worker's loop does not handle SIGTERM")
+            t_sig = time.monotonic()
+            os.kill(os.getpid(), signal.SIGTERM)
+            _until(lambda: w.health()["draining"], 30, "the drain")
+            hive.enqueue(job("plane-after-sigterm", sdxl, size_xl, 1407))
+            return t_sig
+
+        t_sig, _ = run_beside(w, sigterm)
+        t_end = time.monotonic()
+        check("plane-sigterm" in hive.bodies and not spooled()
+              and "plane-after-sigterm" not in hive.bodies,
+              f"the drain: delivered {sorted(hive.bodies)}, spool {spooled()}")
+        hive.jobs.clear()
+        sig = json.loads(hive.bodies["plane-sigterm"][0])["pipeline_config"]["timings"]
+        served["drain_s"] = t_end - t_sig
+        log(f"[plane] SIGTERM 0.5 s into an SDXL pass: run returned {t_end - t_sig:.3f}s later "
+            f"with the envelope delivered (its job {sig['job_s']:.3f}s); the job queued after "
+            "it was not taken")
+        # 7. /debug/profile during an SDXL pass
+        w = worker(registry)
+        hive.enqueue(job("plane-profile", sdxl, size_xl, 1408))
+
+        def capture(w):
+            _until(lambda: w._busy, 120, "the pass to start")
+            anonymous = _http(f"{base(w)}/debug/profile?seconds=0.1", method="POST")[0]
+            status, body = _http(f"{base(w)}/debug/profile?seconds={profile_s}",
+                                 token=PLANE_TOKEN, method="POST", timeout=300)
+            _until(lambda: "plane-profile" in hive.bodies, 300, "the profiled job")
+            w.stop()
+            return anonymous, status, json.loads(body)
+
+        (anonymous, status, detail), _ = run_beside(w, capture)
+        check(anonymous == 401 and status == 200, f"/debug/profile: {anonymous}, {status}")
+        trace = json.loads(Path(detail["path"]).read_text())
+        kernels = Counter()
+        for event in trace.get("traceEvents", []):
+            if event.get("cat") == "kernel":
+                for mark in ("flash_fwd_wgmma", "gn_fused"):
+                    if mark in event.get("name", ""):
+                        kernels[mark] += 1
+        check(device != "cuda" or (kernels["flash_fwd_wgmma"] > 0 and kernels["gn_fused"] > 0),
+              f"the profile holds {dict(kernels)}")
+        served["profile"] = {"bytes": detail["bytes"], "kernels": dict(kernels)}
+        log(f"[plane] /debug/profile {profile_s}s during an SDXL pass: {detail['bytes']} bytes "
+            f"of Chrome trace, {dict(kernels)} kernel events; anonymous 401")
+        check(hive.auth_failures == 0, "the hive refused the worker's bearer token")
+        served["served_s"] = time.perf_counter() - t_path
+        served["ledger"] = programs.snapshot()["kernels"]
+    finally:
+        faults.configure("")
+        hive.close()
+        if saved_root is None:
+            os.environ.pop("SDAAS_ROOT", None)
+        else:
+            os.environ["SDAAS_ROOT"] = saved_root
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[plane] the worker-plane path served in {served['served_s']:.1f}s; kernel libraries "
+        + ", ".join(f"{k['name']} {k['bytes']} B (build {k['build_s']} s)"
+                    for k in served["ledger"]))
+    return paths, served
+
+
 def measure(paths: dict, main: str = "txt2img") -> tuple[list[dict], dict]:
     """Phase 6 for {job kind: (jobs, {kernel: (launches, {shape key:
     launches})})} counted over `jobs` jobs of each kind: every shape that
@@ -5340,6 +5779,13 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script needs the card",
               file=sys.stderr)
         return 1
+    import os
+    import shutil
+    import tempfile
+
+    # the workers' outboxes and profiles land in a root of the smoke's own
+    sdaas_root = tempfile.mkdtemp(prefix="chip-smoke-root-")
+    os.environ["SDAAS_ROOT"] = sdaas_root
     try:
         smi = device_probe()
         from chiaswarm_tpu_torch.device import set_precision
@@ -5409,6 +5855,9 @@ def main(argv=None) -> int:
         resume_paths, resume_served = serve_resume_path(smi, registry, sd_registry,
                                                         unet_launches)
         mark("phase 5 resume and cancel path")
+        plane_paths, plane_served = serve_worker_plane_path(smi, registry, sd_registry,
+                                                            unet_launches)
+        mark("phase 5 worker-plane path")
         # (model, registry, canvas, CFG rows, parts) of phases 7 and 8
         calls = [(SDXL, registry, SIZE, 2, ("unet", "vae_decode", "vae_encode")),
                  *((model, sd_registry, size, 2, ("unet",)) for model, size in SD_CANVASES),
@@ -5454,7 +5903,7 @@ def main(argv=None) -> int:
         summary, shapes = measure({"txt2img": (N_JOBS, launches), **image_paths, **sd_paths,
                                    **edit_paths, **checkpoint_paths, **adapter_paths,
                                    **batched_paths, **cn_paths, **up_paths, **pre_paths,
-                                   **resume_paths, **flux_paths})
+                                   **resume_paths, **plane_paths, **flux_paths})
         mark("phase 6 measure")
         if opts.detail:
             path = Path(opts.detail)
@@ -5468,6 +5917,7 @@ def main(argv=None) -> int:
                  "tiny_batched": tiny_batched, "batched_served": batched_served,
                  "controlnet_served": cn_served, "upscale_served": up_served,
                  "preprocessor_served": pre_served, "resume_served": resume_served,
+                 "plane_served": plane_served,
                  "tiny_flux": tiny_flux,
                  "flux_beside_sdxl": flux_beside, "flux_served": flux_served,
                  "kernels": summary,
@@ -5476,6 +5926,8 @@ def main(argv=None) -> int:
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        shutil.rmtree(sdaas_root, ignore_errors=True)
     log(f"[smoke] every phase passed in {time.perf_counter() - started:.1f}s")
     print(json.dumps({"kernels": summary}))
     print(f"card: {smi}")

@@ -172,6 +172,11 @@ def test_every_port_module_imports_with_jax_blocked():
     # and the cancel and checkpoint slice's; the blob reads bfloat16
     # through torch, so ml_dtypes (a JAX dependency) stays out of reach too
     assert {"chiaswarm_tpu_torch.cancel", "chiaswarm_tpu_torch.checkpoint"} <= set(modules)
+    # and the worker plane's: telemetry, logs, faults, the outbox, the cost
+    # plane, the pass ledger and the memory census
+    assert {f"chiaswarm_tpu_torch.{m}" for m in (
+        "telemetry", "log_setup", "faults", "outbox", "costs", "programs", "memory_census",
+        "models.flops")} <= set(modules)
     script = (
         "import sys\n"
         "before = set(sys.modules)\n"
