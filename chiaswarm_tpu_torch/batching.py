@@ -13,17 +13,29 @@ past the limit too), when a new distinct adapter would pass `lora_slots`
 interactive job of another key dispatches ("preempt": the one device is
 contended, so linger luck must not decide who goes first), or at
 `flush_all()` / `close()` ("shutdown"). The device takes items in FIFO
-order with `get()`; `task_done()` and `full()` gate the poll loop as an
+order with `get()`; `task_done(job)` and `full()` gate the poll loop as an
 asyncio.Queue would. `cancel(job_id)` drops a job the hive cancelled while
 it is still held here, lingering or released and not yet taken.
 
+`put_gang(jobs)` admits a gang, the jobs a gang-scheduling hive handed in
+one reply under one `trace.gang` id: it leaves at once ("gang", no
+linger: the hive did the waiting), as the JAX scheduler releases it. Only
+rows and `max_coalesce` chunk it (and the distinct adapters past
+`lora_slots`): a gang larger than one pass leaves as several items, a
+member whose key is None, or differs, goes through `put()`, and a closed
+scheduler, or one with `max_coalesce` 1, admits every member through
+`put()`. A zero linger does not stop a gang, as in JAX. `outstanding_rows` (the
+images lingering, released and executing) is what the worker advertises
+as its `queue_depth`. Each flushed job's `trace` (when the hive sent one)
+gets `lingered_s` and `coalesced_with`, which the hive's accounting reads
+back from the envelope.
+
 Each release is counted as the JAX scheduler counts it:
 `swarm_batch_flush_total{reason}`, `swarm_batch_group_jobs`, and for a
-coalescing group `swarm_batch_group_rows` and
-`swarm_batch_linger_wait_seconds`. Left out, as the port has one device
-and no gang-scheduling hive: the dispatch board's placement matching
-(`claim`, `swarm_placement_total`) and `put_gang` (the port advertises no
-`gang_rows`).
+coalescing group or a gang `swarm_batch_group_rows` and
+`swarm_batch_linger_wait_seconds`. Left out, as the port has one device:
+the dispatch board's placement matching (`claim`,
+`swarm_placement_total`).
 """
 
 from __future__ import annotations
@@ -60,6 +72,15 @@ _LINGER_WAIT = telemetry.histogram(
 )
 
 
+def _stamp_trace(jobs: list[dict], lingered: float) -> None:
+    """The linger split of each job's hive trace context, which the envelope
+    echoes back."""
+    for job in jobs:
+        if isinstance(job.get("trace"), dict):
+            job["trace"]["lingered_s"] = round(lingered, 3)
+            job["trace"]["coalesced_with"] = len(jobs) - 1
+
+
 class BatchScheduler:
     def __init__(self, linger_s: float = 0.05, max_coalesce: int = 8, maxsize: int = 0,
                  ready_maxsize: int = 0, rows_limit: Callable[[dict], int | None] | None = None,
@@ -77,6 +98,9 @@ class BatchScheduler:
         self._pending: dict[tuple, dict] = {}
         self._outstanding = 0
         self._ready_jobs = 0
+        # images released and not taken, and taken and not done
+        self._ready_rows = 0
+        self._executing_rows = 0
         self._closed = False
 
     # --- the queue surface of the worker's loops ---
@@ -88,9 +112,12 @@ class BatchScheduler:
             return True
         return self.maxsize > 0 and self._outstanding >= self.maxsize
 
-    def task_done(self) -> None:
-        """One job finished executing."""
+    def task_done(self, job: dict | None = None) -> None:
+        """One job finished executing (`job` gives its image count; one
+        image without it)."""
         self._outstanding -= 1
+        self._executing_rows = max(
+            self._executing_rows - (job_rows(job) if job is not None else 1), 0)
 
     @property
     def outstanding_jobs(self) -> int:
@@ -107,12 +134,22 @@ class BatchScheduler:
         """Jobs lingering in open groups."""
         return sum(len(g["jobs"]) for g in self._pending.values())
 
+    @property
+    def outstanding_rows(self) -> int:
+        """Images lingering, released and executing: the hive's gang budget
+        counts rows, not jobs."""
+        return (sum(g["rows"] for g in self._pending.values()) + self._ready_rows
+                + self._executing_rows)
+
     async def get_item(self) -> dict:
         """The oldest released work item {"jobs", "reason"}."""
         while not self._board:
             await self._change.wait()
         entry = self._board.pop(0)
         self._ready_jobs -= len(entry["jobs"])
+        rows = sum(job_rows(job) for job in entry["jobs"])
+        self._ready_rows -= rows
+        self._executing_rows += rows
         return entry
 
     async def get(self) -> list[dict]:
@@ -123,6 +160,7 @@ class BatchScheduler:
         _FLUSHES.inc(reason=reason)
         _GROUP_JOBS.observe(len(jobs))
         self._ready_jobs += len(jobs)
+        self._ready_rows += sum(job_rows(job) for job in jobs)
         self._board.append({"jobs": jobs, "reason": reason})
         event, self._change = self._change, asyncio.Event()
         event.set()
@@ -177,6 +215,63 @@ class BatchScheduler:
         elif group["cap"] is not None and group["rows"] >= group["cap"]:
             self._flush(key, "rows")
 
+    async def put_gang(self, jobs: list[dict]) -> None:
+        """Admit a gang: each key's members leave at once ("gang"), in
+        chunks of at most `max_coalesce` jobs, the rows limit and
+        `lora_slots` distinct adapters; members whose key is None go through
+        `put()`, as does every member of a lone job's gang or on a closed
+        scheduler."""
+        if len(jobs) <= 1 or self._closed or self.max_coalesce <= 1:
+            for job in jobs:
+                await self.put(job)
+            return
+        solos: list[dict] = []
+        by_key: dict[tuple, list[dict]] = {}
+        for job in jobs:
+            key = coalesce_key(job)
+            if key is None:
+                solos.append(job)
+            else:
+                by_key.setdefault(key, []).append(job)
+        for members in by_key.values():
+            cap = None
+            if self.rows_limit is not None:
+                try:
+                    cap = self.rows_limit(members[0])
+                except Exception:  # noqa: BLE001 — the capacity probe is advisory
+                    logger.exception("rows_limit probe failed")
+            chunk: list[dict] = []
+            rows = 0
+            adapters: set[str] = set()
+            for job in members:
+                r, a = job_rows(job), adapter_ref(job)
+                if chunk and (len(chunk) >= self.max_coalesce
+                              or (cap is not None and rows + r > cap)
+                              or (a is not None and a not in adapters
+                                  and len(adapters) >= self.lora_slots)):
+                    self._release_gang(chunk, rows)
+                    chunk, rows, adapters = [], 0, set()
+                chunk.append(job)
+                rows += r
+                if a is not None:
+                    adapters.add(a)
+            if chunk:
+                self._release_gang(chunk, rows)
+        for job in solos:
+            await self.put(job)
+        if any(is_interactive(job) for job in jobs):
+            self._preempt_lingerers()
+
+    def _release_gang(self, jobs: list[dict], rows: int) -> None:
+        self._outstanding += len(jobs)
+        _GROUP_ROWS.observe(rows)
+        _LINGER_WAIT.observe(0.0)
+        _stamp_trace(jobs, 0.0)
+        if len(jobs) > 1:
+            logger.info("hive gang of %d jobs (%d images) for %s", len(jobs), rows,
+                        jobs[0].get("model_name"))
+        self._release(jobs, "gang")
+
     def _preempt_lingerers(self) -> None:
         """An interactive job dispatches: every other lingering group
         leaves now (the one device is contended), behind it in FIFO
@@ -192,6 +287,7 @@ class BatchScheduler:
         lingered = time.monotonic() - group["opened"]
         _GROUP_ROWS.observe(group["rows"])
         _LINGER_WAIT.observe(lingered)
+        _stamp_trace(group["jobs"], lingered)
         if len(group["jobs"]) > 1:
             logger.info("coalesced %d jobs (%d images) for %s [%s] after %.3fs",
                         len(group["jobs"]), group["rows"], key[0], reason, lingered)
@@ -226,6 +322,7 @@ class BatchScheduler:
                     continue
                 entry["jobs"].remove(job)
                 self._ready_jobs -= 1
+                self._ready_rows -= job_rows(job)
                 self._outstanding -= 1
                 if not entry["jobs"]:
                     self._board.remove(entry)

@@ -13,9 +13,11 @@ For the families and features the port serves the key is the JAX
 package's, element for element, the shared ControlNet element among them
 (jobs with one ControlNet branch and one control image coalesce; a
 ControlNet job with a start image, a QR chain or QR contents runs
-alone). It is None wherever the JAX key is None, and also for what the
-port cannot serve in a pass: stage jobs (no stage graph yet) and the job
-keys job_arguments refuses. Flux coalesces as in JAX: txt2img only, no
+alone). It is None wherever the JAX key is None, and also for the job
+keys job_arguments refuses. Its last element is the stage, as in JAX: a
+denoise stage-job of a workflow graph coalesces with other denoise
+stage-jobs, never with a monolithic job (its envelope hands off raw rows),
+and every other stage-job runs alone. Flux coalesces as in JAX: txt2img only, no
 ControlNet, no adapter, a Flux wire name, explicit steps and guidance.
 The port has one adapter route, the runtime delta
 (pipelines/lora_runtime.py), so adapter jobs always coalesce, as in the
@@ -81,6 +83,16 @@ _SAFE_PARAMETER_KEYS = frozenset({
     "lora_rank",
 })
 
+# the stage names of a workflow graph, as the JAX package spells them on
+# both sides of the wire: chip stages run on the device, the host stages
+# on the worker's stage lane
+CHIP_STAGES = frozenset({
+    "denoise", "upscale", "svd", "i2vgen", "txt2vid", "vid2vid", "audio",
+})
+CPU_STAGES = frozenset({
+    "encode", "decode", "postprocess", "stitch", "caption",
+})
+
 DEFAULT_STEPS = 30
 DEFAULT_GUIDANCE = 7.5
 DEFAULT_SCHEDULER = "DPMSolverMultistepScheduler"
@@ -89,6 +101,17 @@ DEFAULT_STRENGTH = 0.75
 # the smallest padded factor rank of the JAX package's batched program:
 # declared ranks below it share one bucket
 LORA_MIN_RANK = 4
+
+
+def stage_of(job: dict) -> str | None:
+    """The stage name a stage-job carries (the `stage` dict a hive's
+    workflow expander stamps), or None for a monolithic job."""
+    stage = job.get("stage")
+    if isinstance(stage, dict):
+        name = stage.get("name")
+        if isinstance(name, str) and name:
+            return name
+    return None
 
 
 def is_interactive(job: dict) -> bool:
@@ -203,7 +226,9 @@ def coalesce_key(job: dict) -> tuple | None:
         workflow = job.get("workflow")
         if workflow not in ("txt2img", "img2img"):
             return None
-        if job.get("stage") is not None:
+        # only the denoise stage is a pass; the stage is a key dimension
+        stage = stage_of(job)
+        if stage is not None and stage != "denoise":
             return None
         model = job.get("model_name")
         if not isinstance(model, str) or not model:
@@ -274,7 +299,7 @@ def coalesce_key(job: dict) -> tuple | None:
         tiny = bool(params.get("test_tiny_model", False)) or bool(job.get("test_tiny_model", False))
         large = bool(params.get("large_model", False))
         return (model, family, height, width, steps, scheduler, guidance, karras, tiny, large,
-                workflow, strength, adapter, cn, None)
+                workflow, strength, adapter, cn, stage)
     except (TypeError, ValueError):
         # values that do not parse: the solo path gives its fatal envelope
         return None

@@ -35,6 +35,31 @@ And what the worker's outbox must survive:
   connection closed before any answer (a hive that died before its ACK);
 - every stored POST's raw body is kept by job id (`bodies`), so a
   redelivery shows as a second body, and `duplicates` counts them.
+
+What a worker meets among several hives, gangs and stage graphs:
+
+- `not_primary(epoch, endpoints, message)`: /work and /results (or those
+  named) answer 409 "not primary" with `X-Hive-Epoch`, as a standby or a
+  deposed primary does; `promote(epoch)` serves again. Every answer carries
+  `X-Hive-Epoch` once `epoch` is above 0; `requests` records each request
+  (time.monotonic(), path, the epoch it echoed or None), `handed` and
+  `settled` when a reply handed each job and when its result was stored;
+- `go_dark()`: every request's connection is closed before any answer (a
+  hive that died);
+- `enqueue_gang(*jobs)`: the jobs leave in one reply, each with the
+  `trace` context a gang-scheduling hive stamps ({id, attempt, gang: {id,
+  size, index}}); `polls` keeps every poll's parameters (`gang_rows`,
+  `stages`, `stats` among them);
+- `submit_workflow(payload, workflow_id)`: a txt2img submission expanded
+  as the repo's hive expands it (chiaswarm_tpu/hive_server/dag.py
+  `_expand_diffusion`): encode, denoise with the raw handoff, an upscale
+  stage when `upscale` is set, decode; the same stage ids
+  (`<workflow>-s<index>-<name>`), `stage` dicts and inheritance. A stage
+  is handed only to a poller that advertises it in `stages`, once every
+  stage it needs is done, with the predecessors' artifacts as `inputs`
+  spool references ({sha256, bytes, href, content_type}) served under
+  /api/artifacts/<sha256>. `workflow(workflow_id)` gives the stages'
+  states and the final stage's envelope.
 """
 
 from __future__ import annotations
@@ -47,6 +72,10 @@ import threading
 import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+
+# a standby's refusal, as the repo's hive words it
+NOT_PRIMARY = "not primary: standby replicating (fail over to the promoted hive)"
 
 
 class FakeHive:
@@ -83,6 +112,22 @@ class FakeHive:
         self.result_attempts = 0
         # job id -> the raw body of each stored result POST, in order
         self.bodies: dict[str, list[bytes]] = {}
+        # the fencing epoch this hive advertises, the endpoints ("work",
+        # "results") that refuse as not-primary, and the epochs requests echoed
+        self.epoch = 0
+        self.refusing: set[str] = set()
+        self.refusal = NOT_PRIMARY
+        self.requests: list[tuple[float, str, str | None]] = []
+        # job id -> time.monotonic() when a reply handed it, and when its
+        # result was stored
+        self.handed: dict[str, float] = {}
+        self.settled: dict[str, float] = {}
+        # close every connection unanswered
+        self.dark = False
+        # workflow id -> {"stages": [...], "payload"}; stage job id -> (wf, index)
+        self.workflows: dict[str, dict] = {}
+        self._stage_of: dict[str, tuple[str, int]] = {}
+        self._gangs = 0
         self._cond = threading.Condition()
         hive = self
 
@@ -103,6 +148,8 @@ class FakeHive:
                 self.send_response(status)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(body)))
+                if hive.epoch > 0:
+                    self.send_header("X-Hive-Epoch", str(hive.epoch))
                 self.end_headers()
                 if with_body:
                     self.wfile.write(body)
@@ -132,10 +179,27 @@ class FakeHive:
                 if not self._file(with_body=False):
                     self._reply(404, {"message": "not found"}, with_body=False)
 
+            def _gate(self, endpoint: str | None) -> bool:
+                """Record the echoed epoch; False (answered or cut) when this
+                hive is dark, or refuses `endpoint` as not-primary."""
+                with hive._cond:
+                    hive.requests.append((time.monotonic(), self.path,
+                                          self.headers.get("X-Hive-Epoch")))
+                    dark, refusing = hive.dark, endpoint in hive.refusing
+                if dark:
+                    self.close_connection = True
+                    return False
+                if refusing:
+                    self._reply(409, {"message": hive.refusal})
+                    return False
+                return True
+
             def do_GET(self):
                 if self._file(with_body=True):
                     return
                 url = urllib.parse.urlparse(self.path)
+                if not self._gate("work" if url.path == "/api/work" else None):
+                    return
                 if url.path.startswith("/api/artifacts/"):
                     if not self._authorized():
                         return
@@ -159,10 +223,12 @@ class FakeHive:
                         len(parts) == 4 and parts[:2] == ["api", "jobs"]
                         and parts[3] in ("checkpoint", "preview")):
                     return self._reply(404, {"message": "not found"})
-                if not self._authorized():
-                    return
                 length = int(self.headers.get("Content-Length", 0))
                 raw = self.rfile.read(length)
+                if not self._gate("results" if path == "/api/results" else None):
+                    return
+                if not self._authorized():
+                    return
                 body = json.loads(raw)
                 if path != "/api/results":
                     status, ack = hive._partial(parts[3], urllib.parse.unquote(parts[2]), body)
@@ -186,7 +252,10 @@ class FakeHive:
             self.polls.append(params)
             jobs = []
             if params.get("cancel_only") != "1":
-                jobs, self.jobs = self.jobs, []
+                stages = set((params.get("stages") or "").split(",")) if "stages" in params else None
+                # a stage-job leaves only with a poller that advertised it
+                jobs = [j for j in self.jobs if self._handed_to(j, stages)]
+                self.jobs = [j for j in self.jobs if not self._handed_to(j, stages)]
             else:
                 for job_id in list(self.cancel_on_polls):
                     self.cancel_on_polls[job_id] -= 1
@@ -202,6 +271,7 @@ class FakeHive:
                     job = {**job, "resume": {"href": f"/api/artifacts/{ck['sha256']}",
                                              "step": ck["step"], "signature": ck["signature"]}}
                 self._redelivered.discard(job_id)
+                self.handed[job_id] = time.monotonic()
                 handed.append(job)
             reply = {"jobs": handed}
             if self.pending_cancels:
@@ -210,6 +280,13 @@ class FakeHive:
                 for job_id in reply["cancels"]:
                     self.cancels_sent.setdefault(job_id, now)
             return reply
+
+    @staticmethod
+    def _handed_to(job: dict, stages: set | None) -> bool:
+        stage = job.get("stage")
+        if not isinstance(stage, dict):
+            return True
+        return stages is not None and stage.get("name") in stages
 
     def _result(self, body: dict, raw: bytes) -> tuple[int | None, dict]:
         """One result POST -> (status, ack); status None cuts the
@@ -229,8 +306,166 @@ class FakeHive:
                 return 200, {"id": job_id, "status": disposition, disposition: True}
             self.results.append(body)
             self.bodies.setdefault(job_id, []).append(raw)
+            self.settled[job_id] = time.monotonic()
+            if job_id in self._stage_of:
+                self._settle_stage(job_id, body)
             self._cond.notify_all()
         return 200, {"ok": True, "id": body.get("id")}
+
+    # --- stage graphs ---
+
+    def submit_workflow(self, payload: dict, workflow_id: str) -> list[str]:
+        """Expand a txt2img submission into its stage-jobs (dag.py
+        `_expand_diffusion`) and queue the ready ones; -> the stage ids."""
+        base = {k: v for k, v in payload.items() if k not in ("id", "stages", "links",
+                                                              "image_stage")}
+        model = base["model_name"]
+        inherit = {k: payload[k] for k in ("tenant", "priority", "sdaas_priority", "ttl_s")
+                   if k in payload}
+        tiny = (base.get("parameters") or {}).get("test_tiny_model") or base.get("test_tiny_model")
+        workflow = base.get("workflow", "txt2img")
+        stages = []
+
+        def stage(index: int, name: str, needs: list, job: dict, handoff=None) -> None:
+            job = dict(job, id=f"{workflow_id}-s{index}-{name}")
+            job["stage"] = {"workflow": workflow_id, "name": name, "index": index,
+                            "needs": list(needs)}
+            if handoff:
+                job["stage"]["handoff"] = handoff
+            stages.append({"name": name, "index": index, "needs": list(needs),
+                           "job_id": job["id"], "state": "blocked", "job": job})
+
+        stage(0, "encode", [], {"workflow": workflow, "model_name": model,
+                                "prompt": base.get("prompt", ""),
+                                "negative_prompt": base.get("negative_prompt", ""),
+                                **({"parameters": {"test_tiny_model": True}} if tiny else {}),
+                                **inherit})
+        denoise = dict(base)
+        denoise.pop("upscale", None)
+        stage(1, "denoise", [0], denoise, handoff="raw")
+        prev = 1
+        if base.get("upscale"):
+            stage(2, "upscale", [1], {
+                "workflow": workflow, "model_name": model, "prompt": base.get("prompt", ""),
+                "upscale": base.get("upscale"),
+                **({"parameters": dict(base["parameters"])}
+                   if isinstance(base.get("parameters"), dict) else {}),
+                **inherit}, handoff="raw")
+            prev = 2
+        stage(prev + 1, "decode", [prev], {
+            "workflow": workflow, "model_name": model,
+            **{k: base[k] for k in ("content_type", "outputs", "nsfw_filter") if k in base},
+            **inherit}, handoff="raw")
+        with self._cond:
+            self.workflows[workflow_id] = {"payload": dict(payload), "stages": stages}
+            for s in stages:
+                self._stage_of[s["job_id"]] = (workflow_id, s["index"])
+            self._admit(workflow_id)
+        return [s["job_id"] for s in stages]
+
+    def _admit(self, workflow_id: str) -> None:
+        """Queue every blocked stage whose needs are done, with the
+        predecessors' artifacts as its inputs (the caller holds the lock)."""
+        stages = self.workflows[workflow_id]["stages"]
+        for s in stages:
+            if s["state"] != "blocked" or any(stages[n]["state"] != "done" for n in s["needs"]):
+                continue
+            job = dict(s["job"])
+            job["stage"] = dict(job["stage"])
+            inputs = [{"stage": stages[n]["name"], "index": n,
+                       "artifacts": dict(stages[n].get("artifacts") or {})}
+                      for n in s["needs"]]
+            if inputs:
+                job["stage"]["inputs"] = inputs
+            s["state"] = "queued"
+            s["admitted_at"] = time.monotonic()
+            self.jobs.append(job)
+
+    def _settle_stage(self, job_id: str, body: dict) -> None:
+        """A stage-job's result: its artifacts go to the spool, the stage is
+        done (failed on a fatal envelope) and its successors are admitted
+        (the caller holds the lock)."""
+        workflow_id, index = self._stage_of[job_id]
+        s = self.workflows[workflow_id]["stages"][index]
+        refs = {}
+        for key, art in (body.get("artifacts") or {}).items():
+            if not isinstance(art, dict) or not isinstance(art.get("blob"), str):
+                continue
+            blob = base64.b64decode(art["blob"])
+            digest = hashlib.sha256(blob).hexdigest()
+            self.artifacts[digest] = blob
+            refs[key] = {"sha256": digest, "bytes": len(blob),
+                         "href": f"/api/artifacts/{digest}",
+                         "content_type": art.get("content_type")}
+        s["artifacts"], s["result"] = refs, body
+        s["state"] = "failed" if body.get("fatal_error") else "done"
+        s["settled_at"] = time.monotonic()
+        self._admit(workflow_id)
+
+    def workflow(self, workflow_id: str) -> dict:
+        """{"state", "stages": [{name, job_id, state}], "result": the final
+        stage's envelope once the graph is done}."""
+        with self._cond:
+            stages = self.workflows[workflow_id]["stages"]
+            states = [s["state"] for s in stages]
+            state = ("failed" if "failed" in states else
+                     "done" if all(st == "done" for st in states) else "running")
+            return {"state": state,
+                    "stages": [{"name": s["name"], "job_id": s["job_id"], "state": s["state"]}
+                               for s in stages],
+                    "result": stages[-1].get("result") if state == "done" else None}
+
+    def wait_for_workflow(self, workflow_id: str, timeout: float) -> dict:
+        deadline = time.monotonic() + timeout
+        while True:
+            status = self.workflow(workflow_id)
+            if status["state"] != "running":
+                return status
+            with self._cond:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise TimeoutError(f"workflow {workflow_id}: {status['stages']}")
+                self._cond.wait(min(left, 0.5))
+
+    # --- several hives ---
+
+    def not_primary(self, epoch: int | None = None, endpoints: tuple = ("work", "results"),
+                    message: str = NOT_PRIMARY) -> None:
+        """Answer `endpoints` with 409 and `message`, advertising `epoch`."""
+        with self._cond:
+            if epoch is not None:
+                self.epoch = int(epoch)
+            self.refusing = set(endpoints)
+            self.refusal = message
+
+    def promote(self, epoch: int | None = None) -> None:
+        """Serve every endpoint again (at `epoch`, when given)."""
+        with self._cond:
+            if epoch is not None:
+                self.epoch = int(epoch)
+            self.refusing = set()
+
+    def go_dark(self) -> None:
+        with self._cond:
+            self.dark = True
+
+    def enqueue_gang(self, *jobs: dict) -> str:
+        """Queue `jobs` as one gang (handed in one reply, each stamped with
+        its gang context); -> the gang id."""
+        with self._cond:
+            self._gangs += 1
+            gang_id = f"gang-{self._gangs}"
+            for index, job in enumerate(jobs):
+                self.jobs.append({**job, "trace": {
+                    "id": job["id"], "attempt": 1,
+                    "gang": {"id": gang_id, "size": len(jobs), "index": index}}})
+        return gang_id
+
+    @property
+    def epochs_seen(self) -> list[tuple[str, str | None]]:
+        """(path, the X-Hive-Epoch it echoed or None) of every request."""
+        with self._cond:
+            return [(path, epoch) for _, path, epoch in self.requests]
 
     @property
     def duplicates(self) -> int:

@@ -29,6 +29,12 @@ image as `image`, the others as `control_image`, and an img2img start
 image is cropped to the control image's size. The ControlNet pipeline
 types are chosen by `large_model`.
 
+A stage-job of a workflow graph (a `stage` dict, as a stage-graph hive
+stamps it) routes first, as in the JAX package: the host stages (encode,
+decode / postprocess) and the upscale stage to their callbacks
+(workflows/stages.py), a denoise stage with the raw handoff to the classic
+diffusion dispatch with `emit_raw` set.
+
 A workflow or feature that is not ported yet raises ValueError naming it,
 which the worker turns into a fatal envelope. Input images are fetched,
 and preprocessed, here (`get_image` blocks: the worker formats a job on
@@ -45,6 +51,7 @@ from .pre_processors.image_utils import center_crop_resize, resize_square
 from .settings import Settings, load_settings
 from .workflows.diffusion import diffusion_callback
 from .workflows.echo import echo_callback
+from .workflows.stages import format_stage_args
 from .workflows.stitch import stitch_callback
 
 DEFAULT_SCHEDULER = "DPMSolverMultistepScheduler"
@@ -72,7 +79,12 @@ def format_args(job: dict, settings: Settings | None = None, device=None):
     settings = settings or load_settings()
     if "lora" in args:
         args["lora"] = resolve_lora(args["lora"], settings.lora_root_dir)
+    stage = args.pop("stage", None)
     workflow = args.pop("workflow", None)
+    if isinstance(stage, dict) and stage.get("name"):
+        routed = format_stage_args(stage, workflow, args)
+        if routed is not None:
+            return routed
     if workflow == "echo":
         return echo_callback, args
     if workflow == "stitch":

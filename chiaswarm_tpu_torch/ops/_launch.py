@@ -4,6 +4,7 @@ signature of its C entry point, and the raise on a refused launch."""
 from __future__ import annotations
 
 import ctypes
+import threading
 from collections import Counter
 
 import torch
@@ -20,12 +21,14 @@ class LaunchCounter:
     """Launches of one kernel: `launches` counts every launch, `shapes`
     counts them by a key of the arguments' shapes and types (what a
     benchmark replays), `routes` by the route the kernel reported, where
-    it has more than one."""
+    it has more than one. Wrappers run on several threads (the device
+    thread and the worker's stage lane), so a launch is noted under a lock."""
 
     def __init__(self):
         self.launches = 0
         self.shapes: Counter = Counter()
         self.routes: Counter = Counter()
+        self._lock = threading.Lock()
 
     def reset(self) -> None:
         self.launches = 0
@@ -33,10 +36,11 @@ class LaunchCounter:
         self.routes.clear()
 
     def note(self, key, route=None) -> None:
-        self.launches += 1
-        self.shapes[key] += 1
-        if route is not None:
-            self.routes[route] += 1
+        with self._lock:
+            self.launches += 1
+            self.shapes[key] += 1
+            if route is not None:
+                self.routes[route] += 1
 
 
 def bind(lib: ctypes.CDLL, name: str, argtypes: list):

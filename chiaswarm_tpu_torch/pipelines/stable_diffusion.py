@@ -1251,6 +1251,25 @@ class SDPipeline:
         hits, misses = self.last_encode_stats
         return {"embed_cache": {"hits": hits, "misses": misses}}
 
+    @staticmethod
+    def _check_adapter_slots(requests: list[dict], lora_slots_max: int) -> None:
+        """One pass's adapter scan: ValueError when its requests carry more
+        distinct adapters than `lora_slots_max`. The one rule of
+        `run_batched` and `prescan_adapter_chunks`."""
+        distinct = {adapter_key(r["lora"]) for r in requests if r.get("lora")}
+        if len(distinct) > lora_slots_max:
+            raise ValueError(f"group carries more than {lora_slots_max} distinct adapters in "
+                             "one pass; serving members individually")
+
+    def prescan_adapter_chunks(self, chunks: list[list[dict]], lora_slots_max: int = 8) -> None:
+        """Raise every adapter refusal `run_batched` would meet in any pass
+        of a group split over several, before the first pass runs (a later
+        pass's refusal would throw away the passes already run). The port
+        has one adapter route, the runtime delta, and no switch that turns
+        it off, so the slots cap is the one refusal."""
+        for chunk in chunks:
+            self._check_adapter_slots(chunk, lora_slots_max)
+
     @torch.inference_mode()
     def run_batched(self, requests: list[dict], *, height: int | None = None,
                     width: int | None = None, num_inference_steps: int = 30,
@@ -1325,7 +1344,9 @@ class SDPipeline:
         padded = pad_bucket(total)
         pad_rows = padded - total
 
-        # per-row adapters: one slot per distinct adapter, slot 0 for none
+        # per-row adapters: one slot per distinct adapter, slot 0 for none;
+        # the cap refuses before any adapter loads
+        self._check_adapter_slots(requests, lora_slots_max)
         t_adapters = time.perf_counter()
         slot_of: dict[tuple, int] = {}
         slot_stacks, slot_stats, row_slots, row_gains, request_slots = [], [], [], [], []
@@ -1335,9 +1356,6 @@ class SDPipeline:
                 key = adapter_key(r["lora"])
                 slot = slot_of.get(key, 0)
                 if not slot:
-                    if len(slot_stacks) >= lora_slots_max:
-                        raise ValueError(f"group carries more than {lora_slots_max} distinct "
-                                         "adapters; serving members individually")
                     stacks, stats = self.adapter_stacks(r["lora"])
                     slot_stacks.append(stacks)
                     slot_stats.append(stats)

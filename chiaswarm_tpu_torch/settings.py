@@ -94,6 +94,27 @@ class Settings:
     # /healthz reports degraded when the card's free fraction
     # (memory_census.device_headroom) drops below this; 0 disables
     memory_headroom_degraded: float = 0.0
+    # --- several hives, gangs and stage graphs (hive.py, worker.py) ---
+    # comma-separated hive site URIs in preference order (primary first,
+    # standbys after); the client pins to one and fails over on
+    # consecutive transport errors or a not-primary 409. Empty = the
+    # single sdaas_uri
+    sdaas_uris: str = ""
+    # consecutive transport errors (or 5xx) on the pinned hive endpoint
+    # before the client pins to the next one
+    hive_failover_errors: int = 2
+    # EWMA smoothing factor of the per-stage stats blob piggybacked on
+    # /work polls (the hive's straggler detector reads it)
+    hive_stats_ewma_alpha: float = 0.2
+    # the workflow stages this worker advertises on /work: "auto" (every
+    # stage; the host stages only while the stage lane has consumers),
+    # "none" (no advertisement: the worker never sees a stage-job) or an
+    # explicit comma-separated list
+    stage_roles: str = "auto"
+    # consumers of the host stage lane (encode / decode jobs run beside
+    # the device, so the decode of one pass overlaps the denoise of the
+    # next); 0 disables the lane and "auto" then leaves the host stages out
+    stage_workers: int = 2
 
 
 _ENV_OVERRIDES = {
@@ -127,6 +148,11 @@ _ENV_OVERRIDES = {
     "CHIASWARM_OUTBOX_MAX_ENTRIES": "outbox_max_entries",
     "CHIASWARM_FAULTS": "fault_injection",
     "CHIASWARM_MEMORY_HEADROOM_DEGRADED": "memory_headroom_degraded",
+    "CHIASWARM_HIVE_URIS": "sdaas_uris",
+    "CHIASWARM_HIVE_FAILOVER_ERRORS": "hive_failover_errors",
+    "CHIASWARM_HIVE_STATS_EWMA_ALPHA": "hive_stats_ewma_alpha",
+    "CHIASWARM_STAGE_ROLES": "stage_roles",
+    "CHIASWARM_STAGE_WORKERS": "stage_workers",
 }
 
 

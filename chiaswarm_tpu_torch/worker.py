@@ -77,8 +77,41 @@ The worker plane, as the JAX worker has it:
   `hang_denoise` (the device task), `oom_batched` (a coalesced pass) and
   `hang_after_checkpoint` (the checkpoint shipper).
 
-Multi-hive failover, gang replies and stage graphs come with later
-slices (ROADMAP).
+Several hives, gangs and stage graphs, as the JAX worker serves them:
+
+- The hive client (hive.py) pins one of `sdaas_uris` and fails over; the
+  poll loop backs off a failed poll with decorrelated jitter
+  (`_next_backoff`: U(cadence, 3 x the last pause), capped at
+  ERROR_BACKOFF_SECONDS), so failing over takes a few cadences, not the
+  cap. `/healthz` has a `hive` block (endpoints, the active one,
+  failovers, epoch).
+- A gang-scheduling hive hands same-key jobs in one reply under one
+  `trace.gang` id: they enter the scheduler together (`put_gang`, flushed
+  at once). The poll advertises `gang_rows` (`max_coalesce`) and
+  `queue_depth` (the scheduler's outstanding images), and, once samples
+  exist, `stats`: the per-stage EWMAs of this worker's
+  own timings (`hive_stats_ewma_alpha`), folded once per physical pass
+  (the pass's `denoise_s + decode_s` as `denoise`, its wall clock as
+  `pass`; waits left out). The hive's `trace` context comes off each job
+  (stamped with the receipt instant, and with the linger split when the
+  scheduler releases it) and rides the envelope back as
+  `pipeline_config.trace`.
+- Stage graphs: the poll advertises `stages` (`stage_roles`; the host
+  stages only while the lane has consumers). A stage-job's predecessor
+  artifacts are fetched through the authed client before it is queued.
+  Chip stages (denoise, upscale) go through the scheduler to the device;
+  the host stages (encode, decode, postprocess) go to the stage lane,
+  `stage_workers` consumers that run their callbacks off the device
+  thread (device "cpu" for their own work; the decode's NSFW check is the
+  process's checker on the card) and ship through the same finish and
+  outbox path. A cancel drops a queued stage-job; `swarm_queue_depth
+  {queue="stage"}` and `/healthz`'s `stage_lane` count the lane, and the
+  drain waits for it. The poll after a stage-job's envelope waits (at most
+  HANDOFF_WAIT_SECONDS) until the envelope is delivered, since the hive
+  admits the next stage on delivery: so the decode of one workflow rides
+  the reply that hands the denoise of the next, and runs beside it.
+  `Worker.timeline` keeps the last work items' spans on the device and the
+  lane.
 
 Run it with `python -m chiaswarm_tpu_torch.worker` (on the card; settings
 from $SDAAS_ROOT/settings.json and the SDAAS_* and CHIASWARM_* variables).
@@ -89,6 +122,8 @@ from __future__ import annotations
 import argparse
 import asyncio
 import base64
+import collections
+import json
 import logging
 import random
 import signal
@@ -105,6 +140,7 @@ from . import outbox as outbox_mod
 from .batching import BatchScheduler
 from .cancel import JobCancelled
 from .capacity import coalesce_rows_limit, default_canvas, fit_batch
+from .coalesce import CHIP_STAGES, CPU_STAGES, stage_of
 from .device import device_label, memory_gb, resolve_device, synchronize
 from .embed_cache import from_settings
 from .faults import FaultInjected
@@ -130,6 +166,8 @@ logger = logging.getLogger(__name__)
 FLUX_DEV = "black-forest-labs/FLUX.1-dev"
 POLL_SECONDS = 11.0
 ERROR_BACKOFF_SECONDS = 121.0
+# the longest an idle poll waits for a stage-job's envelope to land
+HANDOFF_WAIT_SECONDS = 5.0
 # the revocations `Worker.cancels` keeps, newest last
 MAX_CANCEL_RECORDS = 256
 # the pipeline timings the stage histogram reads, under the JAX worker's
@@ -207,6 +245,42 @@ _JOBS_CANCELLED = telemetry.counter(
 )
 
 
+def _next_backoff(prev: float, base: float = POLL_SECONDS,
+                  cap: float = ERROR_BACKOFF_SECONDS) -> float:
+    """The pause after a failed poll, with decorrelated jitter: U(base,
+    3 x prev), capped, so repeated failures walk up to the cap and a fleet
+    that lost its hive together does not poll again in lockstep."""
+    prev = max(float(prev), base)
+    return min(float(cap), random.uniform(base, prev * 3))
+
+
+def fold_stage_stats(stats: dict, alpha: float, timings: dict) -> None:
+    """Fold one pass's timings into `stats` {stage: [ewma_s, samples]}, as
+    the JAX worker folds them: every `<stage>_s` span, waits
+    (`queue_wait_s`) left out, and the pass's `denoise_s` and `decode_s`
+    read as one span, `denoise` (the port's denoise span)."""
+    spans = dict(timings)
+    if isinstance(spans.get("denoise_s"), (int, float)) and not isinstance(
+            spans.get("denoise_s"), bool):
+        decode = spans.pop("decode_s", 0.0)
+        spans["denoise_s"] += decode if isinstance(decode, (int, float)) else 0.0
+    for key, value in spans.items():
+        if not (isinstance(key, str) and key.endswith("_s")) or key == "queue_wait_s":
+            continue
+        try:
+            v = float(value)
+        except (TypeError, ValueError):
+            continue
+        if v < 0:
+            continue
+        entry = stats.get(key[:-2])
+        if entry is None:
+            stats[key[:-2]] = [v, 1]
+        else:
+            entry[0] += alpha * (v - entry[0])
+            entry[1] += 1
+
+
 def _deadline_cap_of(job: dict) -> float:
     """The job's own watchdog cap from its `deadline_s` field; 0 = none
     (garbage too: the field is the submitter's, forwarded unchecked)."""
@@ -226,9 +300,12 @@ def profiler_running() -> bool:
 
 class Worker:
     def __init__(self, settings=None, device=None, registry: Registry | None = None,
-                 poll_seconds: float = POLL_SECONDS, heartbeat_seconds: float | None = None):
-        """`poll_seconds` between polls of an idle worker; `heartbeat_seconds`
-        between the cancel-only polls of a busy one (`poll_seconds` unset)."""
+                 poll_seconds: float = POLL_SECONDS, heartbeat_seconds: float | None = None,
+                 backoff_cap_seconds: float = ERROR_BACKOFF_SECONDS):
+        """`poll_seconds` between polls of an idle worker (and the first
+        pause after a failed one, which grows up to `backoff_cap_seconds`);
+        `heartbeat_seconds` between the cancel-only polls of a busy one
+        (`poll_seconds` unset)."""
         self.settings = settings or load_settings()
         self.device = resolve_device(device)
         self.registry = registry or Registry(
@@ -240,6 +317,7 @@ class Worker:
         self.poll_seconds = poll_seconds
         self.heartbeat_seconds = (poll_seconds if heartbeat_seconds is None
                                   else heartbeat_seconds)
+        self.backoff_cap_seconds = backoff_cap_seconds
         # durable result spool: envelopes land here before their first
         # upload and leave only on the hive's ACK
         self.outbox = Outbox(resolve_path(self.settings.outbox_dir or "outbox"),
@@ -285,6 +363,22 @@ class Worker:
         self._metrics_runner = None
         self._profiling = False
         self._last_poll_monotonic: float | None = None
+        # the per-stage EWMAs of this worker's own passes, {stage: [ewma_s,
+        # samples]}, advertised as `stats`
+        self._stage_stats: dict[str, list] = {}
+        self._stats_alpha = min(max(float(self.settings.hive_stats_ewma_alpha or 0.2), 0.01),
+                                1.0)
+        # the host stage lane: its queue (made by run), the jobs it runs,
+        # the ids queued and those cancelled while queued
+        self._stage_queue: asyncio.Queue | None = None
+        self._stage_running: set[str] = set()
+        self._stage_queued_ids: set[str] = set()
+        self._stage_cancelled: set[str] = set()
+        # stage-jobs whose envelopes are spooled and not yet delivered
+        self._handoff_ids: set[str] = set()
+        # the last work items on the device and the lane: {"ids", "lane"
+        # ("device" | "stage"), "start", "end"} (time.monotonic())
+        self.timeline: collections.deque = collections.deque(maxlen=256)
 
     def scheduler(self) -> BatchScheduler:
         """The linger window between the poll loop and the device, from the
@@ -310,7 +404,7 @@ class Worker:
 
     def capabilities(self) -> dict:
         gb = memory_gb(self.device)
-        return {
+        caps = {
             # legacy keys a reference hive understands
             "memory": gb << 30,
             "gpu": device_label(self.device),
@@ -327,15 +421,51 @@ class Worker:
             # a redelivered job may come with a checkpoint to resume from
             "resume_capable": int(int(self.settings.denoise_chunk_steps) > 0
                                   and int(self.settings.checkpoint_every_chunks) > 0),
+            # the gang budget of a gang-scheduling hive: images one pass
+            # merges (max_coalesce, a job cap, so an underestimate for
+            # multi-image jobs) against the images in flight here
+            "gang_rows": max(int(self.settings.max_coalesce), 1),
+            "queue_depth": (self._scheduler.outstanding_rows
+                            if self._scheduler is not None else 0),
         }
+        stages = self._stage_roles()
+        if stages is not None:
+            caps["stages"] = ",".join(sorted(stages))
+        if self._stage_stats:
+            caps["stats"] = json.dumps(
+                {"a": self._stats_alpha,
+                 "s": {stage: [round(ewma, 4), n]
+                       for stage, (ewma, n) in self._stage_stats.items()}},
+                separators=(",", ":"))
+        return caps
 
-    def execute(self, job: dict) -> dict | None:
+    def _stage_roles(self) -> frozenset[str] | None:
+        """The stage names the poll advertises, or None for no `stages`
+        parameter ("none": the worker never sees a stage-job). "auto" is
+        every stage, the host stages only while the lane has consumers; an
+        explicit list passes through, less the host stages when the lane is
+        off (a stage nothing pops would strand its jobs until their lease
+        lapses)."""
+        raw = str(self.settings.stage_roles or "auto").strip()
+        if raw.lower() == "none":
+            return None
+        host_ok = int(self.settings.stage_workers or 0) > 0
+        if raw.lower() == "auto":
+            return frozenset(CHIP_STAGES | (CPU_STAGES if host_ok else frozenset()))
+        roles = {r.strip() for r in raw.split(",") if r.strip()}
+        if not host_ok:
+            roles -= CPU_STAGES
+        return frozenset(roles)
+
+    def execute(self, job: dict, host: bool = False) -> dict | None:
         """Run one job to its result envelope (never raises for a job's
         own failure: ValueError/TypeError give a fatal envelope, anything
         else an error-image artifact the hive may retry; None when the hive
         cancelled the job during its pass). A diffusion job's pass is
         chunked, checkpointed and previewed as the settings say, and
-        resumed from the job's `resume` offer."""
+        resumed from the job's `resume` offer. `host`: a host stage-job on
+        the stage lane, with device "cpu" for the callback's own work and no
+        seed drawn."""
         job = dict(job)
         offer = job.pop("resume", None)
         try:
@@ -345,7 +475,7 @@ class Worker:
             return fatal_exception_response(e, job.get("id"), job)
         if callback is diffusion_callback and int(self.settings.denoise_chunk_steps) > 0:
             self._arm(str(job.get("id")), args, offer)
-        return self._run_one(job, callback, args)
+        return self._run_one(job, callback, args, host)
 
     def _arm(self, job_id: str, args: dict, offer: dict | None) -> None:
         """A solo diffusion pass's checkpoint and preview shippers, and the
@@ -462,12 +592,12 @@ class Worker:
         self._uploads.add(future)
         future.add_done_callback(self._uploads.discard)
 
-    def _run_one(self, job: dict, callback, args: dict) -> dict | None:
+    def _run_one(self, job: dict, callback, args: dict, host: bool = False) -> dict | None:
         job_id = job.get("id")
         args.pop("id", None)
         model_name = args.pop("model_name", "")
         seed = args.pop("seed", None)
-        if seed is None:
+        if seed is None and not host:
             seed = random.getrandbits(63)
         if callback is diffusion_callback:
             args.update(job_id=job_id, denoise_chunk_steps=int(self.settings.denoise_chunk_steps))
@@ -476,7 +606,8 @@ class Worker:
             # every record logged during the job carries its id
             with trace_job(job_id):
                 artifacts, pipeline_config = callback(
-                    self.identifier(), model_name, registry=self.registry, seed=seed, **args)
+                    "cpu" if host else self.identifier(), model_name, registry=self.registry,
+                    seed=seed, **args)
         except JobCancelled as e:
             self._note_aborted(e)
             return None
@@ -486,7 +617,8 @@ class Worker:
         except Exception as e:  # noqa: BLE001 — transient: report as an artifact
             logger.exception("job %s failed", job_id)
             artifacts, pipeline_config = exception_image(e, job.get("content_type", "image/jpeg"))
-        pipeline_config["seed"] = seed
+        if not host:
+            pipeline_config["seed"] = seed
         pipeline_config.setdefault("timings", {})["job_s"] = round(
             time.perf_counter() - started, 4)
         return {
@@ -694,36 +826,105 @@ class Worker:
             await self._in_service.wait()
             jobs = await scheduler.get()
             picked_up = time.monotonic()
-            queue_wait = {}
-            for job in jobs:
-                enqueued = job.pop("_enqueued", None)
-                if enqueued is not None:
-                    queue_wait[job.get("id")] = picked_up - enqueued
+            queue_wait, traces = self._take_meta(jobs, picked_up)
+            stage_ids = {str(job.get("id")) for job in jobs if stage_of(job) is not None}
             self._busy = True
             self._executing = {str(job.get("id")) for job in jobs}
             self._update_gauges()
             try:
                 results = await self._device_pass(jobs)
+                folded = False
                 for result in results:
                     # a job cancelled during its pass has no envelope
                     if result is not None:
-                        self._finish_result(result, queue_wait)
-                        await self._enqueue_result(result)
+                        self._finish_result(result, queue_wait, traces)
+                        # one sample a physical pass: the envelopes of a
+                        # coalesced pass carry its timings each
+                        cfg = result["pipeline_config"]
+                        if not (folded and "batched_with" in cfg):
+                            self._note_stage_stats(cfg.get("timings") or {})
+                            folded = folded or "batched_with" in cfg
+                        await self._enqueue_result(result,
+                                                   handoff=str(result.get("id")) in stage_ids)
                     self.jobs_done += 1
             finally:
+                ended = time.monotonic()
+                self._note_stage_stats({"pass_s": round(ended - picked_up, 4)})
+                self.timeline.append({"ids": [str(job.get("id")) for job in jobs],
+                                      "lane": "device", "start": picked_up, "end": ended})
                 for job_id in self._executing:
                     cancel_registry.discard(job_id)
                 self._executing = set()
-                for _ in jobs:
-                    scheduler.task_done()
+                for job in jobs:
+                    scheduler.task_done(job)
                 self._busy = False
                 self._update_gauges()
                 changed.set()
 
-    def _finish_result(self, result: dict, queue_wait: dict) -> None:
-        """Stamp the queue wait into the envelope, observe its pass's stage
-        spans (once for a coalesced pass), and count the job by outcome."""
+    def _take_meta(self, jobs: list[dict], picked_up: float) -> tuple[dict, dict]:
+        """Take the enqueue stamp and the hive's trace context off each job
+        (neither is a pipeline argument) -> ({id: queue wait s}, {id:
+        trace})."""
+        queue_wait, traces = {}, {}
+        for job in jobs:
+            enqueued = job.pop("_enqueued", None)
+            if enqueued is not None:
+                queue_wait[job.get("id")] = picked_up - enqueued
+            trace = job.pop("trace", None)
+            if isinstance(trace, dict):
+                traces[job.get("id")] = trace
+        return queue_wait, traces
+
+    def _note_stage_stats(self, timings: dict) -> None:
+        fold_stage_stats(self._stage_stats, self._stats_alpha, timings)
+
+    async def _stage_lane(self, changed: asyncio.Event) -> None:
+        """One consumer of the host stage lane: takes a stage-job, runs its
+        callback off the event loop and off the device thread, and ships
+        its envelope through the same finish and outbox path as a pass. A
+        job cancelled while queued is dropped on pickup."""
+        queue = self._stage_queue
+        while True:
+            job = await queue.get()
+            picked_up = time.monotonic()
+            job_id = str(job.get("id"))
+            self._stage_queued_ids.discard(job_id)
+            if job_id in self._stage_cancelled:
+                self._stage_cancelled.discard(job_id)
+                queue.task_done()
+                self._update_gauges()
+                changed.set()
+                continue
+            self._stage_running.add(job_id)
+            queue_wait, traces = self._take_meta([job], picked_up)
+            job.pop("resume", None)
+            self._update_gauges()
+            try:
+                result = await asyncio.to_thread(self.execute, job, True)
+                if result is not None:
+                    self._finish_result(result, queue_wait, traces)
+                    self._note_stage_stats(result["pipeline_config"].get("timings") or {})
+                    await self._enqueue_result(result, handoff=True)
+                self.jobs_done += 1
+            except Exception:  # noqa: BLE001 — the lane must go on
+                logger.exception("stage lane failed on %s", job_id)
+            finally:
+                self.timeline.append({"ids": [job_id], "lane": "stage", "start": picked_up,
+                                      "end": time.monotonic()})
+                self._stage_running.discard(job_id)
+                cancel_registry.discard(job_id)
+                queue.task_done()
+                self._update_gauges()
+                changed.set()
+
+    def _finish_result(self, result: dict, queue_wait: dict, traces: dict | None = None) -> None:
+        """Stamp the queue wait and the hive's trace context into the
+        envelope, observe its pass's stage spans (once for a coalesced
+        pass), and count the job by outcome."""
         cfg = result.setdefault("pipeline_config", {})
+        trace = (traces or {}).get(result.get("id"))
+        if isinstance(trace, dict):
+            cfg["trace"] = trace
         timings = cfg.setdefault("timings", {})
         wait = queue_wait.get(result.get("id"))
         if wait is not None:
@@ -745,13 +946,17 @@ class Worker:
 
     # --- the uploader (outbox.py) ---
 
-    async def _enqueue_result(self, result: dict) -> None:
+    async def _enqueue_result(self, result: dict, handoff: bool = False) -> None:
         """Spool the envelope (off the loop: a multi-MB envelope must not
         stall the polls), then queue it for delivery. From here the job
-        cannot be lost silently: only the hive's ACK unlinks the file."""
+        cannot be lost silently: only the hive's ACK unlinks the file.
+        `handoff`: a stage-job's envelope, whose delivery the next idle
+        poll waits for."""
         # the sender rides the envelope: the hive attributes a late result
         # to the worker that made it
         result.setdefault("worker_name", self.settings.worker_name)
+        if handoff:
+            self._handoff_ids.add(str(result.get("id")))
         entry = await asyncio.to_thread(self.outbox.spool, result)
         await self._results.put(entry)
         self._update_gauges()
@@ -772,6 +977,7 @@ class Worker:
                 logger.exception("delivery of %s failed", entry.job_id)
             finally:
                 self._delivering -= 1
+                self._handoff_ids.discard(entry.job_id)
                 self._update_gauges()
                 changed.set()
 
@@ -832,10 +1038,16 @@ class Worker:
             _QUEUE_DEPTH.set(scheduler.ready_jobs, queue="ready")
         if self._results is not None:
             _QUEUE_DEPTH.set(self._results.qsize() + self._delivering, queue="results")
+        _QUEUE_DEPTH.set(self._stage_depth(), queue="stage")
         _SLICES_BUSY.set(int(self._busy))
         _SLICE_STATE.set(0 if self._quarantined else 1, state="active")
         _SLICE_STATE.set(1 if self._quarantined else 0, state="quarantined")
         self.outbox.refresh_gauges()
+
+    def _stage_depth(self) -> int:
+        """Stage-jobs queued on the lane or running there."""
+        queued = self._stage_queue.qsize() if self._stage_queue is not None else 0
+        return queued + len(self._stage_running)
 
     def health(self) -> dict:
         """/healthz: is this worker polling, what is resident, is the device
@@ -876,10 +1088,22 @@ class Worker:
             "jobs_in_flight": scheduler.outstanding_jobs if scheduler is not None else 0,
             "results_pending": (self._results.qsize() + self._delivering
                                 if self._results is not None else 0),
+            "stage_lane": {
+                "queued": self._stage_queue.qsize() if self._stage_queue is not None else 0,
+                "inflight": len(self._stage_running),
+                "workers": int(self.settings.stage_workers or 0),
+            },
             "outbox": {
                 "depth": self.outbox.depth,
                 "oldest_age_s": round(oldest, 1) if oldest else 0,
                 "saturated": self.outbox.saturated,
+            },
+            # the hive this worker is pinned to, and how often it moved
+            "hive": {
+                "active_endpoint": self.hive.hive_uri,
+                "endpoints": list(self.hive.endpoints),
+                "failovers": self.hive.failovers,
+                "epoch": self.hive.epoch,
             },
             "resident_models": self.registry.resident_models(),
             "slices": [{
@@ -959,7 +1183,12 @@ class Worker:
         if scheduler.cancel(job_id):
             stage = "held"
             self.jobs_done += 1
-        elif job_id in self._executing:
+        elif job_id in self._stage_queued_ids and job_id not in self._stage_cancelled:
+            # queued on the stage lane: dropped when a consumer takes it
+            self._stage_cancelled.add(job_id)
+            stage = "held"
+            self.jobs_done += 1
+        elif job_id in self._executing or job_id in self._stage_running:
             stage = "executing"
             cancel_registry.cancel(job_id)
             logger.warning("hive cancelled running job %s; its pass stops at the next chunk "
@@ -970,6 +1199,73 @@ class Worker:
         self.cancels[job_id] = {"stage": stage, "marked_at": time.monotonic()}
         while len(self.cancels) > MAX_CANCEL_RECORDS:
             self.cancels.pop(next(iter(self.cancels)))
+
+    async def _wait_for_handoffs(self) -> None:
+        """Wait until every spooled stage-job envelope is delivered or
+        parked, or HANDOFF_WAIT_SECONDS have passed, or the worker stops."""
+        deadline = time.monotonic() + HANDOFF_WAIT_SECONDS
+        while (self._handoff_ids and not self._stopping.is_set()
+               and not self._draining.is_set()):
+            left = deadline - time.monotonic()
+            if left <= 0:
+                break
+            self._changed.clear()
+            await self._pause(left)
+
+    async def _intake(self, jobs: list[dict], scheduler: BatchScheduler) -> None:
+        """One reply's jobs, in the order they came: a gang's members (one
+        `trace.gang` id) into the scheduler together, host stage-jobs onto
+        the stage lane, every other job into the scheduler alone. A
+        stage-job's predecessor artifacts are fetched first."""
+        gangs: dict[str, list[dict]] = {}
+        intake: list[tuple[str, object]] = []
+        for job in jobs:
+            logger.info("got job %s", job.get("id"))
+            _JOBS_POLLED.inc()
+            # the queue wait starts here; the device task or the lane pops it
+            job["_enqueued"] = time.monotonic()
+            gang_id = None
+            trace = job.get("trace")
+            if isinstance(trace, dict):
+                trace.setdefault("received_wall", round(time.time(), 3))
+                gang = trace.get("gang")
+                if isinstance(gang, dict) and gang.get("id"):
+                    gang_id = str(gang["id"])
+            if isinstance(job.get("stage"), dict):
+                await asyncio.to_thread(self._resolve_stage_inputs, job)
+            if stage_of(job) in CPU_STAGES:
+                intake.append(("stage", job))
+            elif gang_id is None:
+                intake.append(("job", job))
+            else:
+                if gang_id not in gangs:
+                    intake.append(("gang", gang_id))
+                gangs.setdefault(gang_id, []).append(job)
+        for kind, item in intake:
+            if kind == "gang":
+                await scheduler.put_gang(gangs[item])
+            elif kind == "stage":
+                self._stage_queued_ids.add(str(item.get("id")))
+                self._stage_queue.put_nowait(item)
+            else:
+                await scheduler.put(item)
+
+    def _resolve_stage_inputs(self, job: dict) -> None:
+        """Hydrate a stage-job's handoff: each predecessor artifact arrives
+        as a spool reference ({sha256, bytes, href}); its bytes are fetched
+        through the authed client and stamped back as `blob`. A failed fetch
+        leaves it out: the callback then reports the missing input as a
+        fatal envelope."""
+        for entry in job["stage"].get("inputs") or []:
+            artifacts = entry.get("artifacts") if isinstance(entry, dict) else None
+            if not isinstance(artifacts, dict):
+                continue
+            for art in artifacts.values():
+                if not isinstance(art, dict) or art.get("blob") or not art.get("href"):
+                    continue
+                blob = self.hive.fetch_artifact(str(art["href"]))
+                if blob is not None:
+                    art["blob"] = base64.b64encode(blob).decode("ascii")
 
     def stop(self, drain: bool = False) -> None:
         """Stop a running worker, from any thread. drain=False stops at once
@@ -1018,6 +1314,10 @@ class Worker:
         self.crashed = False
         self._loop = loop
         self._executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="device")
+        self._stage_queue = asyncio.Queue()
+        self._stage_queued_ids.clear()
+        self._stage_cancelled.clear()
+        self._handoff_ids.clear()
         _SLICES_TOTAL.set(1)
         sigterm = None
         try:
@@ -1040,6 +1340,9 @@ class Worker:
                                len(recovered))
         server = asyncio.create_task(self._serve(scheduler, changed))
         uploader = asyncio.create_task(self._upload(changed))
+        lanes = [asyncio.create_task(self._stage_lane(changed))
+                 for _ in range(max(int(self.settings.stage_workers or 0), 0))]
+        backoff = self.poll_seconds
         try:
             while not self._stopping.is_set() and not self._draining.is_set():
                 if max_jobs is not None and self.jobs_done >= max_jobs:
@@ -1052,6 +1355,11 @@ class Worker:
                 # busy (or out of service): the cancel-only heartbeat, which
                 # takes no job but brings the hive's revocations
                 heartbeat = self._busy or scheduler.full() or self._quarantined
+                if not heartbeat and self._handoff_ids:
+                    # the hive admits a stage's successor on delivery: let
+                    # the handoffs land so that this reply can carry it
+                    await self._wait_for_handoffs()
+                    heartbeat = self._busy or scheduler.full() or self._quarantined
                 caps = self.capabilities()
                 if heartbeat:
                     caps["cancel_only"] = 1
@@ -1059,17 +1367,14 @@ class Worker:
                     jobs = await asyncio.to_thread(self.hive.ask_for_work, caps)
                 except HiveError as e:
                     _POLL_ERRORS.inc()
-                    logger.warning("ask_for_work failed: %s", e)
-                    await self._pause(ERROR_BACKOFF_SECONDS)
+                    backoff = _next_backoff(backoff, self.poll_seconds, self.backoff_cap_seconds)
+                    logger.warning("ask_for_work failed: %s; next poll in %.1fs", e, backoff)
+                    await self._pause(backoff)
                     continue
+                backoff = self.poll_seconds
                 self._last_poll_monotonic = time.monotonic()
                 _LAST_POLL.set(time.time())
-                for job in jobs:
-                    logger.info("got job %s", job.get("id"))
-                    _JOBS_POLLED.inc()
-                    # the queue wait starts here; the device task pops it
-                    job["_enqueued"] = time.monotonic()
-                    await scheduler.put(job)
+                await self._intake(jobs, scheduler)
                 for job_id in self.hive.last_cancels:
                     self._cancel_job(job_id, scheduler)
                 self._update_gauges()
@@ -1087,8 +1392,8 @@ class Worker:
             while not self._stopping.is_set() and not uploader.done():
                 if server.done():
                     server.result()
-                if (scheduler.outstanding_jobs == 0 and self._results.empty()
-                        and self._delivering == 0):
+                if (scheduler.outstanding_jobs == 0 and self._stage_depth() == 0
+                        and self._results.empty() and self._delivering == 0):
                     if deadline is not None:
                         logger.warning("drain complete: no work in flight")
                     break
@@ -1108,7 +1413,7 @@ class Worker:
                 except (NotImplementedError, RuntimeError, ValueError, TypeError):
                     pass
             scheduler.close()
-            tasks = [server, uploader, *self._probe_tasks]
+            tasks = [server, uploader, *lanes, *self._probe_tasks]
             for task in tasks:
                 task.cancel()
             await asyncio.gather(*tasks, return_exceptions=True)

@@ -34,6 +34,18 @@ registry), as the JAX callbacks do: the envelope's `nsfw` and
 `nsfw_checked`, false and false when no checker is available; the check
 never fails a job.
 
+A denoise stage-job of a workflow graph (`emit_raw`, set by
+job_arguments' stage routing) skips the checker and the packaging: its
+rows leave as one raw-handoff artifact (workflows/stages.py `pack_raw`,
+timed as `handoff_s`) for the stage after it, alone or coalesced with
+other denoise stage-jobs (the coalesce key keeps them apart from
+monolithic jobs).
+
+A group that `chunk_by_rows` splits over several passes has its adapters
+prescanned before the first pass (`SDPipeline.prescan_adapter_chunks`), as
+in the JAX callback: a later pass's refusal would otherwise throw away the
+passes already run.
+
 The worker's cancel, chunk and checkpoint arguments (`job_id`,
 `denoise_chunk_steps`, `checkpoint_every_chunks`, `checkpoint_cb`,
 `preview_every_chunks`, `preview_cb`, `resume`) reach only a pipeline
@@ -55,6 +67,7 @@ from ..pipelines.common import chunk_by_rows
 from ..pipelines.safety import flag_images
 from ..post_processors.output_processor import OutputProcessor
 from ..registry import check_pipeline_type
+from ..telemetry import Span
 
 # the arguments of a chunked pass, for pipelines that have the chunk seam
 CHUNK_KWARGS = ("job_id", "denoise_chunk_steps", "checkpoint_every_chunks", "checkpoint_cb",
@@ -91,6 +104,8 @@ def diffusion_callback(device_identifier: str, model_name: str, *, registry, **k
     outputs = kwargs.pop("outputs", ["primary"])
     # condition images that a classical stand-in made (job_arguments)
     degraded = kwargs.pop("degraded_preprocessors", None)
+    # a denoise stage-job hands its rows on raw, unchecked and unpackaged
+    emit_raw = bool(kwargs.pop("emit_raw", False))
     if kwargs.pop("test_tiny_model", False):
         model_name = tiny_stand_in(model_name)
     pipeline_type = kwargs.pop("pipeline_type", "DiffusionPipeline")
@@ -103,6 +118,8 @@ def diffusion_callback(device_identifier: str, model_name: str, *, registry, **k
                                            **kwargs)
     if degraded:
         pipeline_config["degraded_preprocessors"] = degraded
+    if emit_raw:
+        return _handoff(images, pipeline_config)
 
     t0 = time.perf_counter()
     pipeline_config["nsfw"], pipeline_config["nsfw_checked"] = flag_images(
@@ -114,6 +131,14 @@ def diffusion_callback(device_identifier: str, model_name: str, *, registry, **k
     results = processor.get_results()
     pipeline_config["timings"]["encode_artifacts_s"] = round(time.perf_counter() - t0, 4)
     return results, pipeline_config
+
+
+def _handoff(images, pipeline_config: dict) -> tuple[dict, dict]:
+    from .stages import pack_raw
+
+    with Span("handoff", pipeline_config.setdefault("timings", {})):
+        packaged = {"raw": pack_raw(images)}
+    return packaged, pipeline_config
 
 
 def diffusion_batched_callback(device_identifier: str, requests: list[dict], *, registry,
@@ -190,7 +215,13 @@ def diffusion_batched_callback(device_identifier: str, requests: list[dict], *, 
                      "control_guidance_start": float(shared.get("control_guidance_start", 0.0)),
                      "control_guidance_end": float(shared.get("control_guidance_end", 1.0))}
     results = []
-    for start, end in chunk_by_rows(counts, max_rows):
+    chunks = chunk_by_rows(counts, max_rows)
+    if len(chunks) > 1:
+        # every pass's adapter refusal surfaces before the first pass runs
+        prescan = getattr(pipeline, "prescan_adapter_chunks", None)
+        if prescan is not None:
+            prescan([row_specs[s:e] for s, e in chunks], lora_slots_max)
+    for start, end in chunks:
         try:
             results.extend(pipeline.run_batched(
                 row_specs[start:end], height=height, width=width,
@@ -215,6 +246,14 @@ def diffusion_batched_callback(device_identifier: str, requests: list[dict], *, 
         if pipeline_config.get("cancelled"):
             # cancelled by the hive mid-pass: nothing is checked or packaged
             out.append((None, pipeline_config))
+            continue
+        if requests[i].get("emit_raw"):
+            pipeline_config["batched_with"] = len(requests)
+            if requests[i].get("degraded_preprocessors"):
+                pipeline_config["degraded_preprocessors"] = requests[i]["degraded_preprocessors"]
+            if i in capped:
+                pipeline_config["batch_capped"] = capped[i]
+            out.append(_handoff(images, pipeline_config))
             continue
         t0 = time.perf_counter()
         pipeline_config["nsfw"], pipeline_config["nsfw_checked"] = flag_images(

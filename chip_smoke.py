@@ -201,6 +201,26 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
    pass (its envelope delivered before `run` returns, nothing taken
    after); a 2 s `/debug/profile` capture during an SDXL pass, whose
    Chrome trace holds `flash_fwd_wgmma` and `gn_fused` kernels.
+   Then the hive-plane path (`serve_hive_plane_path`), in a registry of
+   its own that shares the main path's SDXL and SD 1.5 pipelines and reads
+   the SD-x2 upscaler and the safety checker from seeded files, through
+   workers and fake hives under a $SDAAS_ROOT of its own: four SDXL
+   1024^2 15-step jobs handed as one gang (one pass, flush "gang", the
+   trace echoed) and again coalesced by the linger, bit for bit the same
+   pixels; nine SD 1.5 512^2 jobs as one gang, passes of 8 and 1; an SD
+   1.5 30-step job whose primary answers /results with 409 and epoch 2,
+   delivered on the standby (the epoch echoed and persisted, nothing
+   parked), then the standby dark and a second job served on the primary
+   after two failed polls (two failovers); an SDXL 30-step workflow
+   (encode / denoise / decode) equal bit for bit to the monolithic job
+   with the same launches; an SD 1.5 workflow with `upscale` (the
+   upscaler's input rows equal the monolithic image bit for bit, its
+   output equal to a direct call with the stage's seed, and within
+   UPSCALE_SPREAD_RATIO of the upscaler's two-seed spread of the
+   monolithic upscale job); two SDXL workflows back to back, the first's
+   decode (the checker on the card, from the stage lane) inside the
+   second's pass; the `stats` EWMAs and the lane's gauge back at 0.
+   Launches held per job kind with one checker call a job.
    After phase 8, Flux joins the main path's registry while its SDXL
    pipelines, the SD registry, the detectors and the checker are still
    resident (`serve_flux_beside_sd`): one FLUX.1-schnell 4-step job, the
@@ -5266,6 +5286,468 @@ def serve_worker_plane_path(smi: str, registry, sd_registry, xl_launches: dict,
     return paths, served
 
 
+HIVE_TOKEN = "hive-token"
+# the upscale workflow's tolerance against the monolithic job's image: its
+# mean |difference| over that of the same rows upscaled under two seeds
+UPSCALE_SPREAD_RATIO = 1.25
+
+
+def serve_hive_plane_path(smi: str, registry, sd_registry, xl_launches: dict,
+                          device: str = "cuda", sdxl: str = SDXL, sd15: str = SD15,
+                          size_xl: int = SIZE, size15: int = 512, steps: int = STEPS,
+                          gang_steps: int = BATCHED_STEPS, gang: int = 4, big_gang: int = 9,
+                          seed_upscaler: str = UPSCALER, checker: str = CHECKER,
+                          backoff_cap_s: float = 0.2, hold: bool = True) -> tuple[dict, dict]:
+    """Phase 5, several hives, gangs and stage graphs, through workers and
+    the port's fake hives on localhost, in a registry of its own over a
+    temporary root that shares the main path's resident `sdxl` (from
+    `registry`) and `sd15` (from `sd_registry`) pipelines and holds the
+    SD-x2 upscaler and the safety checker (`seed_upscaler`'s and `checker`'s
+    seeded weights written under the root, read back; a test name is
+    random-initialised), under a $SDAAS_ROOT of its own:
+
+    1. gang: `gang` SDXL `size_xl`^2 `gang_steps`-step jobs in one reply
+       under one `trace.gang` id: one pass (flush reason "gang", no linger),
+       every envelope echoing the trace; the same jobs again, coalesced by
+       the linger: the decoded pixels equal bit for bit; `big_gang` SD 1.5
+       jobs as one gang under `max_coalesce` 8: passes of 8 and 1; the first
+       poll advertises `gang_rows`;
+    2. failover: primary and standby hives. An SD 1.5 `steps`-step job taken
+       from the primary, whose /results then answers 409 with epoch 2: the
+       envelope lands on the standby with `X-Hive-Epoch: 2`, nothing is
+       parked, `hive_epoch` under $SDAAS_ROOT reads 2; the standby goes dark
+       (every connection closed): after `hive_failover_errors` failed polls
+       (the backoff capped at `backoff_cap_s`) the worker pins the primary
+       again and serves a second job there; `swarm_hive_failover_total`
+       moved by 2 and /healthz's `hive` block names the primary;
+    3. stage graph: an SDXL txt2img workflow (encode / denoise with the raw
+       handoff / decode) served stage by stage, encode and decode on the
+       stage lane, its final artifact equal bit for bit to the monolithic
+       job's (same seed) with the same launches; an SD 1.5 workflow with
+       `upscale` (encode / denoise / upscale / decode): the rows handed to
+       the upscaler equal the monolithic job's image bit for bit, the final
+       image equals the upscaler run directly on them with the stage's
+       stamped seed bit for bit, and against the monolithic `upscale` job's
+       image its mean |difference| is at most UPSCALE_SPREAD_RATIO x that
+       of the same rows upscaled under two seeds (the stage-job carries no
+       seed, as the repo's hive expands it, so its noise is drawn from
+       another generator); two SDXL workflows, the second submitted when
+       the first's denoise starts: the first's decode (the checker on the
+       card, from the lane's thread) runs inside the second's pass;
+    4. stats: the last poll's `stats` holds EWMAs for `denoise` and the
+       host stages; `swarm_queue_depth{queue="stage"}` reads 0.
+
+    Launches are counted per job kind and held (with `hold`; the CPU
+    rehearsal prints them) to the UNet calls, decodes, encodes, upscaler
+    calls and one checker call a job. -> ({job kind: (jobs, {kernel:
+    (launches, {shape: launches})})}, served)."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from chiaswarm_tpu_torch import batching, telemetry
+    from chiaswarm_tpu_torch.fake_hive import FakeHive
+    from chiaswarm_tpu_torch.models.safety import TINY_SAFETY, SafetyConfig
+    from chiaswarm_tpu_torch.ops.flash_attention import COUNTER as FA_COUNTER
+    from chiaswarm_tpu_torch.ops.group_norm import COUNTER as GN_COUNTER
+    from chiaswarm_tpu_torch.pipelines.common import pad_bucket
+    from chiaswarm_tpu_torch.pipelines.stable_diffusion import UPSCALE_PIPELINE
+    from chiaswarm_tpu_torch.pipelines.upscale import LatentUpscalePipeline, upscaler_name_for
+    from chiaswarm_tpu_torch.registry import Registry
+    from chiaswarm_tpu_torch.settings import Settings
+    from chiaswarm_tpu_torch.weights import is_test_model
+    from chiaswarm_tpu_torch.worker import Worker
+    from chiaswarm_tpu_torch.workflows.stages import unpack_raw
+
+    on_card = torch.device(device).type == "cuda"
+    counters = {"flash_attention": FA_COUNTER, "group_norm": GN_COUNTER}
+    root = Path(tempfile.mkdtemp(prefix="chip-smoke-hive-"))
+    saved_root = os.environ.get("SDAAS_ROOT")
+    os.environ["SDAAS_ROOT"] = str(root / "sdaas")
+    paths, served = {}, {"launches": {}}
+    hives: list = []
+    failovers = telemetry.REGISTRY.get("swarm_hive_failover_total")
+    flushes = batching._FLUSHES
+    up_name = upscaler_name_for(sd15)
+    routes = Counter(FA_COUNTER.routes)
+    try:
+        t_path = time.perf_counter()
+        # the upscaler first, in an empty registry, so that its build can
+        # evict nothing; the main path's pipelines are shared, not rebuilt
+        reg = Registry(torch.device(device), str(root / "models"), safety_checker_model=checker)
+        t0 = time.perf_counter()
+        if not is_test_model(up_name):
+            seeded = LatentUpscalePipeline(seed_upscaler, device=device, allow_random_init=True)
+            write_upscaler(seeded, root / "models" / up_name, UPSCALER_SCHEDULER)
+            del seeded
+            gc.collect()
+        write_checker(root / "models" / checker,
+                      TINY_SAFETY if is_test_model(checker) else SafetyConfig(), 71, device)
+        upscaler = reg.get_pipeline(up_name, pipeline_type=UPSCALE_PIPELINE)
+        nsfw = reg.safety_checker()
+        check(nsfw.available and nsfw.weights_source == "checkpoint"
+              and str(nsfw.device).startswith(device),
+              f"{checker}: available {nsfw.available}, device {getattr(nsfw, 'device', None)}")
+        for model, source in ((sdxl, registry), (sd15, sd_registry)):
+            reg._pipelines[(model, "sd")] = source.get_pipeline(model, allow_random_init=True)
+        served["setup_s"] = time.perf_counter() - t0
+        log(f"[hive] {up_name} ({upscaler.weights_source}) and {checker} written and loaded "
+            f"in {served['setup_s']:.1f}s beside the shared {sdxl} and {sd15} on {smi}")
+
+        def make_hive():
+            h = FakeHive(token=HIVE_TOKEN)
+            hives.append(h)
+            return h
+
+        def worker(uris: list, **overrides):
+            fields = dict(sdaas_token=HIVE_TOKEN, sdaas_uri=uris[0],
+                          sdaas_uris=",".join(uris), worker_name="chip-smoke-hive",
+                          model_root_dir=reg.model_root_dir, max_coalesce=8,
+                          metrics_port=_free_port())
+            fields.update(overrides)
+            return Worker(settings=Settings(**fields), device=device, registry=reg,
+                          poll_seconds=0.05, heartbeat_seconds=HEARTBEAT_SECONDS,
+                          backoff_cap_seconds=backoff_cap_s)
+
+        def job(job_id, model, size, n_steps, seed, prompt=BATCH_PROMPTS[0], **extra):
+            return {"id": job_id, "workflow": "txt2img", "model_name": model, "prompt": prompt,
+                    "negative_prompt": "blurry", "height": size, "width": size,
+                    "num_inference_steps": n_steps, "guidance_scale": 7.0, "seed": seed,
+                    "content_type": "image/png",
+                    "parameters": {"scheduler_type": "DPMSolverMultistepScheduler"}, **extra}
+
+        def per_job(model, n_steps, decodes=1, upscale=False) -> dict:
+            """One job's launches: its UNet calls, its decodes, the upscaler's
+            K-UNet calls with its encode and 2x decode, and one checker call."""
+            per_call = xl_launches if model == sdxl else SD_UNET_LAUNCHES
+            return {k: n_steps * per_call[k] + decodes * DECODE_LAUNCHES[k]
+                    + (UPSCALE_STEPS * K_UNET_LAUNCHES[k] + ENCODE_LAUNCHES[k]
+                       + DECODE_LAUNCHES[k] if upscale else 0) + CHECKER_LAUNCHES[k]
+                    for k in counters}
+
+        def count(kind: str, jobs: int, before: dict, predicted: dict) -> None:
+            after = _snapshot(counters)
+            paths[kind] = (jobs, {name: (after[name][0] - before[name][0],
+                                         after[name][1] - before[name][1])
+                                  for name in counters})
+            launches = {name: paths[kind][1][name][0] for name in counters}
+            served["launches"][kind] = {"launches": launches, "predicted": predicted}
+            log(f"[hive] {kind}: {jobs} job(s), launches {json.dumps(launches)}, predicted "
+                f"{json.dumps(predicted)}")
+            if hold:
+                check(launches == predicted, f"{kind}: launches {launches} != {predicted}")
+
+        def image(result) -> np.ndarray:
+            cfg = result["pipeline_config"]
+            check(not result.get("fatal_error") and "error" not in cfg,
+                  f"{result['id']}: {cfg.get('error')}")
+            return decode_artifact(result["artifacts"]["primary"])
+
+        def wait(h, job_ids, timeout=600):
+            _until(lambda: all(j in h.bodies for j in job_ids), timeout,
+                   f"the envelopes of {job_ids}")
+            return {j: json.loads(h.bodies[j][-1]) for j in job_ids}
+
+        # 1. gangs
+        hive = make_hive()
+        w = worker([hive.uri])
+
+        def gangs(w):
+            out = {}
+            jobs = [job(f"gang-{i}", sdxl, size_xl, gang_steps, 1500 + i, BATCH_PROMPTS[i])
+                    for i in range(gang)]
+            for kind, label in (("hive_gang_sdxl", "gang"), ("hive_linger_sdxl", "linger")):
+                before, flushed = _snapshot(counters), {
+                    r: flushes.value(reason=r) for r in ("gang", "linger", "size")}
+                ids = [f"{label}-{i}" for i in range(gang)]
+                batch = [dict(j, id=i) for j, i in zip(jobs, ids)]
+                t0 = time.perf_counter()
+                gang_id = hive.enqueue_gang(*batch) if label == "gang" else hive.enqueue(*batch)
+                out[label] = {"results": wait(hive, ids), "s": time.perf_counter() - t0,
+                              "gang_id": gang_id,
+                              "flushed": {r: flushes.value(reason=r) - n
+                                          for r, n in flushed.items()}}
+                count(kind, gang, before, {k: gang_steps * xl_launches[k]
+                                           + gang * (DECODE_LAUNCHES[k] + CHECKER_LAUNCHES[k])
+                                           for k in counters})
+            before, flushed = _snapshot(counters), flushes.value(reason="gang")
+            ids = [f"gang15-{i}" for i in range(big_gang)]
+            t0 = time.perf_counter()
+            hive.enqueue_gang(*[job(i, sd15, size15, gang_steps, 1520 + k,
+                                    BATCH_PROMPTS[k % len(BATCH_PROMPTS)])
+                                for k, i in enumerate(ids)])
+            out["big"] = {"results": wait(hive, ids), "s": time.perf_counter() - t0,
+                          "flushed": flushes.value(reason="gang") - flushed}
+            passes = -(-big_gang // 8)
+            count("hive_gang_sd15", big_gang, before,
+                  {k: passes * (gang_steps * SD_UNET_LAUNCHES[k] + DECODE_LAUNCHES[k])
+                   + big_gang * CHECKER_LAUNCHES[k] for k in counters})
+            w.stop()
+            return out
+
+        got, run_s = run_beside(w, gangs)
+        first = hive.polls[0]
+        check(first.get("gang_rows") == "8" and first.get("queue_depth") == "0",
+              f"the first poll: gang_rows {first.get('gang_rows')}, queue_depth "
+              f"{first.get('queue_depth')}")
+        for label in ("gang", "linger"):
+            flushed = got[label]["flushed"]
+            want = {"gang": 1, "linger": 0, "size": 0} if label == "gang" else {
+                "gang": 0, "linger": 1, "size": 0}
+            check(flushed == want, f"{label}: flushes {flushed}")
+            for i in range(gang):
+                cfg = got[label]["results"][f"{label}-{i}"]["pipeline_config"]
+                check(cfg.get("batched_with") == gang and cfg.get("padded_rows") == pad_bucket(gang)
+                      and cfg.get("batch_rows") == [i, 1] and cfg.get("nsfw_checked") is True,
+                      f"{label}-{i}: batched_with {cfg.get('batched_with')}, padded_rows "
+                      f"{cfg.get('padded_rows')}, batch_rows {cfg.get('batch_rows')}, "
+                      f"nsfw_checked {cfg.get('nsfw_checked')}")
+                trace = cfg.get("trace")
+                if label == "gang":
+                    check(isinstance(trace, dict) and trace["gang"]["id"] == got["gang"]["gang_id"]
+                          and trace["lingered_s"] == 0.0 and trace["coalesced_with"] == gang - 1
+                          and "received_wall" in trace, f"gang-{i}: trace {trace}")
+                else:
+                    check(trace is None, f"linger-{i}: trace {trace}")
+        equal = [np.array_equal(image(got["gang"]["results"][f"gang-{i}"]),
+                                image(got["linger"]["results"][f"linger-{i}"]))
+                 for i in range(gang)]
+        check(all(equal), f"gang against linger, bit for bit: {equal}")
+        timings = {label: got[label]["results"][f"{label}-0"]["pipeline_config"]["timings"]
+                   for label in ("gang", "linger")}
+        big = [got["big"]["results"][f"gang15-{k}"]["pipeline_config"] for k in range(big_gang)]
+        sizes = sorted(c.get("batched_with", 1) for c in big)
+        check(got["big"]["flushed"] == 2 and sizes == [1] + [8] * 8
+              and all(c["nsfw_checked"] for c in big),
+              f"the gang of {big_gang}: flushes {got['big']['flushed']}, batched_with {sizes}")
+        for k in range(big_gang):
+            image(got["big"]["results"][f"gang15-{k}"])
+        served["gang"] = {"s": got["gang"]["s"], "linger_s": got["linger"]["s"],
+                          "big_s": got["big"]["s"], "timings": timings, "run_s": run_s}
+        log(f"[hive] gang: {gang} SDXL {size_xl}^2 {gang_steps}-step jobs in one reply, one pass "
+            f"of {pad_bucket(gang)} images ({2 * pad_bucket(gang)} CFG rows), flush 'gang', "
+            f"trace echoed: served in {got['gang']['s']:.3f}s (job_s "
+            f"{timings['gang']['job_s']}, queue_wait {timings['gang'].get('queue_wait_s')}); by "
+            f"the linger {got['linger']['s']:.3f}s (job_s {timings['linger']['job_s']}, "
+            f"queue_wait {timings['linger'].get('queue_wait_s')}); pixels equal bit for bit "
+            f"({gang} of {gang}); the gang of {big_gang} SD 1.5 jobs as passes of 8 + 1 in "
+            f"{got['big']['s']:.3f}s; first poll gang_rows {first['gang_rows']}")
+
+        # 2. failover
+        primary, standby = make_hive(), make_hive()
+        primary.not_primary(epoch=2, endpoints=("results",))
+        w = worker([primary.uri, standby.uri], hive_failover_errors=2)
+        failed_over = failovers.value()
+        before = _snapshot(counters)
+
+        def failover(w):
+            primary.enqueue(job("fo-1", sd15, size15, steps, 1600))
+            _until(lambda: "fo-1" in standby.bodies, 300, "fo-1 on the standby")
+            first = {"parked": [p.name for p in (root / "sdaas" / "outbox").iterdir()
+                                if p.name.endswith(".parked")],
+                     "epoch_file": (root / "sdaas" / "hive_epoch").read_text(),
+                     "echoed": [e for p, e in standby.epochs_seen if p == "/api/results"]}
+            primary.promote(epoch=2)
+            standby.go_dark()
+            t_dark = time.monotonic()
+            primary.enqueue(job("fo-2", sd15, size15, steps, 1601))
+            _until(lambda: "fo-2" in primary.bodies, 300, "fo-2 on the primary")
+            status, health = _http(f"http://127.0.0.1:{w.settings.metrics_port}/healthz")
+            status_m, text = _http(f"http://127.0.0.1:{w.settings.metrics_port}/metrics")
+            w.stop()
+            return first, t_dark, json.loads(health), _samples(text.decode())
+
+        (first, t_dark, health, metrics), run_s = run_beside(w, failover)
+        count("hive_failover_sd15", 2, before, {k: 2 * v for k, v in
+                                                per_job(sd15, steps).items()})
+        dark_polls = [t for t, p, _ in standby.requests
+                      if p.startswith("/api/work") and t >= t_dark]
+        taken = primary.handed["fo-2"]
+        moved = failovers.value() - failed_over
+        hive_block = health["hive"]
+        check(not first["parked"] and first["epoch_file"] == "2" and "2" in first["echoed"],
+              f"the 409 on /results: parked {first['parked']}, hive_epoch "
+              f"{first['epoch_file']!r}, echoed {first['echoed']}")
+        check(len(dark_polls) >= 2 and taken > dark_polls[0] and moved == 2
+              and metrics.get(("swarm_hive_failover_total", ())) == failovers.value(),
+              f"the dark standby: {len(dark_polls)} failed polls, {moved} failovers")
+        check(hive_block["active_endpoint"] == f"{primary.uri}/api"
+              and hive_block["failovers"] == 2 and hive_block["epoch"] == 2,
+              f"/healthz hive {hive_block}")
+        for job_id, h in (("fo-1", standby), ("fo-2", primary)):
+            image(json.loads(h.bodies[job_id][0]))
+        served["failover"] = {"dark_to_taken_s": taken - dark_polls[0],
+                              "failed_polls": len(dark_polls), "health": hive_block,
+                              "run_s": run_s}
+        log(f"[hive] failover: fo-1 taken from the primary, its /results answered 409 with "
+            f"epoch 2, delivered on the standby with X-Hive-Epoch 2 echoed, nothing parked, "
+            f"hive_epoch reads {first['epoch_file']}; the standby dark: {len(dark_polls)} failed "
+            f"polls, pinned back to the primary, fo-2 taken "
+            f"{served['failover']['dark_to_taken_s']:.3f}s after the first failed poll "
+            f"(backoff cap {backoff_cap_s}s); swarm_hive_failover_total +{moved}; /healthz hive "
+            f"{json.dumps(hive_block)}")
+
+        # 3. stage graphs
+        hive = make_hive()
+        w = worker([hive.uri], max_coalesce=1)
+
+        def graphs(w):
+            out = {}
+            wf = {k: v for k, v in job("x", sdxl, size_xl, steps, 1700).items() if k != "id"}
+            before = _snapshot(counters)
+            t0 = time.monotonic()
+            hive.submit_workflow(wf, "wf-xl")
+            out["xl"] = hive.wait_for_workflow("wf-xl", 600)
+            out["xl_s"] = hive.settled["wf-xl-s2-decode"] - t0
+            count("hive_staged_sdxl", 1, before, per_job(sdxl, steps))
+            before = _snapshot(counters)
+            t0 = time.monotonic()
+            hive.enqueue(job("mono-xl", sdxl, size_xl, steps, 1700))
+            out["mono_xl"] = wait(hive, ["mono-xl"])["mono-xl"]
+            out["mono_xl_s"] = hive.settled["mono-xl"] - t0
+            count("hive_mono_sdxl", 1, before, per_job(sdxl, steps))
+
+            up = {k: v for k, v in job("x", sd15, size15, steps, 1710).items() if k != "id"}
+            before = _snapshot(counters)
+            t0 = time.monotonic()
+            hive.submit_workflow({**up, "upscale": True}, "wf-up")
+            out["up"] = hive.wait_for_workflow("wf-up", 600)
+            out["up_s"] = hive.settled["wf-up-s3-decode"] - t0
+            count("hive_staged_sd15_upscale", 1, before, per_job(sd15, steps, upscale=True))
+            hive.enqueue(job("mono-up", sd15, size15, steps, 1710, upscale=True),
+                         job("mono-base", sd15, size15, steps, 1710))
+            out.update(wait(hive, ["mono-up", "mono-base"]))
+
+            # two workflows back to back: the second submitted when the
+            # first's denoise is on the device
+            before = _snapshot(counters)
+            hive.submit_workflow(wf, "wf-a")
+            _until(lambda: "wf-a-s1-denoise" in w._executing, 600, "wf-a's denoise")
+            hive.submit_workflow({**wf, "seed": 1701}, "wf-b")
+            for wid in ("wf-a", "wf-b"):
+                out[wid] = hive.wait_for_workflow(wid, 600)
+            count("hive_staged_sdxl_pair", 2, before,
+                  {k: 2 * v for k, v in per_job(sdxl, steps).items()})
+            _until(lambda: w._stage_depth() == 0 and not w._handoff_ids, 60, "the lane to drain")
+            status, text = _http(f"http://127.0.0.1:{w.settings.metrics_port}/metrics")
+            out["metrics"] = _samples(text.decode())
+            w.stop()
+            return out
+
+        got, run_s = run_beside(w, graphs)
+        for wid in ("xl", "up", "wf-a", "wf-b"):
+            check(got[wid]["state"] == "done", f"{wid}: {got[wid]['stages']}")
+        staged, mono = got["xl"]["result"], got["mono_xl"]
+        staged_px, mono_px = image(staged), image(mono)
+        check(staged["artifacts"]["primary"]["sha256_hash"]
+              == mono["artifacts"]["primary"]["sha256_hash"]
+              and np.array_equal(staged_px, mono_px),
+              "the staged SDXL image differs from the monolithic job's")
+        check(staged["pipeline_config"]["nsfw_checked"] is True
+              and staged["pipeline_config"]["nsfw"] == mono["pipeline_config"]["nsfw"],
+              f"the decode stage's check: {staged['pipeline_config']}")
+        raw_ref = hive.workflows["wf-xl"]["stages"][1]["artifacts"]["raw"]
+        blob = hive.artifacts[raw_ref["sha256"]]
+        t0 = time.perf_counter()
+        rows = unpack_raw(blob)
+        unpack_ms = 1000 * (time.perf_counter() - t0)
+        denoise_cfg = hive.workflows["wf-xl"]["stages"][1]["result"]["pipeline_config"]
+        dt, mt = denoise_cfg["timings"], mono["pipeline_config"]["timings"]
+        # the upscale workflow: the upscaler's input, then its output
+        base_px = image(got["mono-base"])
+        up_stages = hive.workflows["wf-up"]["stages"]
+        handed = unpack_raw(hive.artifacts[up_stages[1]["artifacts"]["raw"]["sha256"]])
+        check(len(handed) == 1 and np.array_equal(np.asarray(handed[0]), base_px),
+              "the rows handed to the upscaler differ from the monolithic job's image")
+        up_cfg = up_stages[2]["result"]["pipeline_config"]
+        staged_up = image(got["up"]["result"])
+        check(up_cfg.get("upscaler") is None and up_cfg["upscaled"]
+              and staged_up.shape == (2 * size15, 2 * size15, 3),
+              f"the upscale stage: {up_cfg}, image {staged_up.shape}")
+        prompt = BATCH_PROMPTS[0]
+
+        def direct(seed):
+            gen = torch.Generator(device=device).manual_seed(int(seed))
+            return np.asarray(upscaler.upscale(handed, prompt=prompt, generator=gen)[0])
+
+        again = direct(up_cfg["seed"])
+        check(np.array_equal(again, staged_up),
+              "the staged upscale differs from the upscaler run on the same rows and seed")
+        mono_up = image(got["mono-up"])
+        spread = float(np.abs(direct(1).astype(np.int16) - direct(2).astype(np.int16)).mean())
+        diff = float(np.abs(staged_up.astype(np.int16) - mono_up.astype(np.int16)).mean())
+        check(mono_up.shape == staged_up.shape and diff <= UPSCALE_SPREAD_RATIO * spread,
+              f"the upscale workflow against the monolithic job: mean |d| {diff:.3f} > "
+              f"{UPSCALE_SPREAD_RATIO} x the two-seed spread {spread:.3f}")
+        # the overlap: wf-a's decode on the lane inside wf-b's pass
+        spans = {tuple(t["ids"]): t for t in w.timeline}
+        decode_a, pass_b = spans[("wf-a-s2-decode",)], spans[("wf-b-s1-denoise",)]
+        overlap = (min(decode_a["end"], pass_b["end"]) - max(decode_a["start"], pass_b["start"]))
+        lane_busy = sum(max(0.0, min(t["end"], pass_b["end"]) - max(t["start"], pass_b["start"]))
+                        for t in w.timeline if t["lane"] == "stage")
+        check(decode_a["lane"] == "stage" and pass_b["lane"] == "device" and overlap > 0,
+              f"wf-a's decode [{decode_a['start']:.3f}, {decode_a['end']:.3f}] and wf-b's pass "
+              f"[{pass_b['start']:.3f}, {pass_b['end']:.3f}] do not overlap")
+        # 4. stats and the lane's gauge
+        stats = json.loads(hive.polls[-1].get("stats") or "{}").get("s", {})
+        depth = got["metrics"].get(("swarm_queue_depth", (("queue", "stage"),)))
+        check({"denoise", "encode", "decode", "upscale", "handoff"} <= set(stats) and depth == 0,
+              f"stats {sorted(stats)}, swarm_queue_depth{{queue=stage}} {depth}")
+        polled = {p.get("stages") for p in hive.polls}
+        served["stages"] = {
+            "raw_bytes": len(blob), "raw_rows": len(rows), "png_encode_s": dt.get("handoff_s"),
+            "png_decode_ms": unpack_ms, "staged_s": got["xl_s"], "mono_s": got["mono_xl_s"],
+            "staged_up_s": got["up_s"], "denoise_s": [dt["denoise_s"], mt["denoise_s"]],
+            "decode_s": [dt["decode_s"], mt["decode_s"]],
+            "unet_step_ms": [dt["unet_step_ms"], mt["unet_step_ms"]],
+            "upscale": {"diff": diff, "spread": spread, "seed": up_cfg["seed"]},
+            "overlap_s": overlap, "lane_busy_in_pass_s": lane_busy,
+            "pass_s": pass_b["end"] - pass_b["start"], "stats": stats, "run_s": run_s}
+        s = served["stages"]
+        log(f"[hive] stage graph: wf-xl (SDXL {size_xl}^2, {steps} steps) as encode / denoise / "
+            f"decode, encode and decode on the lane, the decode's checker on {nsfw.device}; the "
+            f"final PNG equal bit for bit to the monolithic job's (sha256 "
+            f"{staged['artifacts']['primary']['sha256_hash'][:16]}), launches equal; handoff: "
+            f"{s['raw_bytes']} bytes of raw blob ({s['raw_rows']} row), PNG encode "
+            f"{s['png_encode_s']}s, decode {unpack_ms:.1f} ms; staged {s['staged_s']:.3f}s "
+            f"end to end against monolithic {s['mono_s']:.3f}s; denoise_s {s['denoise_s']}, "
+            f"decode_s {s['decode_s']}, unet_step_ms {s['unet_step_ms']} (staged, monolithic)")
+        log(f"[hive] upscale workflow (SD 1.5 {size15}^2 -> {2 * size15}^2): rows into the "
+            f"upscaler equal the monolithic image bit for bit, the stage's output equals the "
+            f"upscaler on them with its seed {up_cfg['seed']} bit for bit; against the "
+            f"monolithic upscale job mean |d| {diff:.3f} levels, two-seed spread {spread:.3f} "
+            f"(bound {UPSCALE_SPREAD_RATIO}x); end to end {s['staged_up_s']:.3f}s")
+        log(f"[hive] overlap: wf-a's decode on the lane {decode_a['end'] - decode_a['start']:.3f}s,"
+            f" {overlap:.3f}s of it inside wf-b's {s['pass_s']:.3f}s pass; the lane busy "
+            f"{lane_busy:.3f}s inside that pass; stats stages {sorted(stats)} (denoise EWMA "
+            f"{stats['denoise'][0]}s over {stats['denoise'][1]}); advertised stages {polled}; "
+            f"swarm_queue_depth{{queue=stage}} {depth}")
+        check(all(h.auth_failures == 0 for h in hives), "a hive refused the worker's token")
+        fma = {k: n - routes[k] for k, n in FA_COUNTER.routes.items()
+               if k[0] == "fma" and k[1] == torch.bfloat16 and n > routes[k]}
+        check(not fma, f"bf16 attention took the FMA kernel on the hive-plane path: {fma}")
+        served["routes"] = {str(k): n - routes[k] for k, n in FA_COUNTER.routes.items()
+                            if n > routes[k]}
+        served["served_s"] = time.perf_counter() - t_path
+    finally:
+        for h in hives:
+            h.close()
+        if saved_root is None:
+            os.environ.pop("SDAAS_ROOT", None)
+        else:
+            os.environ["SDAAS_ROOT"] = saved_root
+        shutil.rmtree(root, ignore_errors=True)
+    # the shared pipelines stay with their registries; the upscaler goes
+    reg._pipelines.pop((up_name, "upscaler")).release()
+    del reg, upscaler
+    gc.collect()
+    log(f"[hive] the hive-plane path served in {served['served_s']:.1f}s")
+    return paths, served
+
+
 def measure(paths: dict, main: str = "txt2img") -> tuple[list[dict], dict]:
     """Phase 6 for {job kind: (jobs, {kernel: (launches, {shape key:
     launches})})} counted over `jobs` jobs of each kind: every shape that
@@ -5858,6 +6340,9 @@ def main(argv=None) -> int:
         plane_paths, plane_served = serve_worker_plane_path(smi, registry, sd_registry,
                                                             unet_launches)
         mark("phase 5 worker-plane path")
+        hive_paths, hive_served = serve_hive_plane_path(smi, registry, sd_registry,
+                                                        unet_launches)
+        mark("phase 5 hive-plane path")
         # (model, registry, canvas, CFG rows, parts) of phases 7 and 8
         calls = [(SDXL, registry, SIZE, 2, ("unet", "vae_decode", "vae_encode")),
                  *((model, sd_registry, size, 2, ("unet",)) for model, size in SD_CANVASES),
@@ -5903,7 +6388,8 @@ def main(argv=None) -> int:
         summary, shapes = measure({"txt2img": (N_JOBS, launches), **image_paths, **sd_paths,
                                    **edit_paths, **checkpoint_paths, **adapter_paths,
                                    **batched_paths, **cn_paths, **up_paths, **pre_paths,
-                                   **resume_paths, **plane_paths, **flux_paths})
+                                   **resume_paths, **plane_paths, **hive_paths,
+                                   **flux_paths})
         mark("phase 6 measure")
         if opts.detail:
             path = Path(opts.detail)
@@ -5917,7 +6403,7 @@ def main(argv=None) -> int:
                  "tiny_batched": tiny_batched, "batched_served": batched_served,
                  "controlnet_served": cn_served, "upscale_served": up_served,
                  "preprocessor_served": pre_served, "resume_served": resume_served,
-                 "plane_served": plane_served,
+                 "plane_served": plane_served, "hive_served": hive_served,
                  "tiny_flux": tiny_flux,
                  "flux_beside_sdxl": flux_beside, "flux_served": flux_served,
                  "kernels": summary,

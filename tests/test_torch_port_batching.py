@@ -4,8 +4,8 @@ the JAX package, on the CPU.
 - The row helpers (`pad_bucket`, `split_by_counts`, `chunk_by_rows`)
   against JAX's over a table of counts: equal.
 - `coalesce_key` against JAX's over a table of raw jobs: equal wherever
-  the port serves the job (flux since the Flux slice); None wherever JAX's
-  is None or the port refuses the feature (stage jobs).
+  the port serves the job (flux since the Flux slice, denoise stage-jobs
+  since the stage-graph slice); None wherever JAX's is None.
 - `BatchScheduler`: the same sequence of `put` gives the same groups, in
   the same order and with the same flush reasons, as JAX's.
 - The embedding cache: LRU under its byte cap, rows counted; a cached
@@ -159,7 +159,7 @@ KEY_JOBS = {
               "num_inference_steps": 4, "guidance_scale": 0.0}, True),
     "kandinsky": ({**_TXT, "model_name": "kandinsky-community/kandinsky-2-2-decoder"}, True),
     "deepfloyd": ({**_TXT, "model_name": "DeepFloyd/IF-I-XL-v1.0"}, True),
-    "stage-denoise": ({**_TXT, "stage": {"name": "denoise"}}, False),
+    "stage-denoise": ({**_TXT, "stage": {"name": "denoise"}}, True),
     "stage-encode": ({**_TXT, "stage": {"name": "encode"}}, True),
     "unknown-parameter": ({**_TXT, "parameters": {"scheduler_args": {}}}, True),
     "tiny-in-parameters": ({**_TXT, "parameters": {"test_tiny_model": True}}, True),
@@ -179,8 +179,7 @@ def test_coalesce_key_matches_jax(name, sdaas_root):
     if served:
         assert got == want
     else:
-        # JAX batches it (a denoise stage); the port cannot, so it runs
-        # alone
+        # JAX batches it; the port refuses the feature, so it runs alone
         assert want is not None and got is None
     for fn in ("job_rows", "is_interactive", "adapter_ref"):
         assert getattr(coalesce, fn)(job) == getattr(jax_coalesce, fn)(job), fn

@@ -177,6 +177,8 @@ def test_every_port_module_imports_with_jax_blocked():
     assert {f"chiaswarm_tpu_torch.{m}" for m in (
         "telemetry", "log_setup", "faults", "outbox", "costs", "programs", "memory_census",
         "models.flops")} <= set(modules)
+    # and the stage graphs' callbacks
+    assert "chiaswarm_tpu_torch.workflows.stages" in modules
     script = (
         "import sys\n"
         "before = set(sys.modules)\n"
