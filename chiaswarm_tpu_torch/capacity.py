@@ -38,7 +38,14 @@ FAMILY_PARAMS_GB: dict[str, float] = {
     "sdxl": 8.0,
     "sdxl_refiner": 7.2,
     "flux": 31.4,
-    "kandinsky": 6.0,
+    # the Kandinsky 2.2 decoder (UNet, MoVQ), the 2.1 decoder (its UNet,
+    # MoVQ and MCLIP) and the prior (the prior transformer, CLIP bigG),
+    # charged apart, as a decoder's job builds both: their bf16 parameters
+    # are 2.45, 3.45 and 3.21 GiB on an H100 (chip_smoke.py
+    # serve_kandinsky_path); 2.1's smaller prior is charged as 2.2's
+    "kandinsky": 2.5,
+    "kandinsky21": 3.5,
+    "kandinsky_prior": 3.25,
     "kandinsky3": 16.0,
     "cascade": 11.0,
     "deepfloyd_if": 18.0,
@@ -52,13 +59,16 @@ FAMILY_ACT_GB_PER_IMAGE: dict[str, float] = {
     "sdxl_refiner": 1.8,
     "flux": 2.5,
     "kandinsky": 1.2,
+    "kandinsky21": 1.2,
+    "kandinsky_prior": 0.05,
     "kandinsky3": 2.2,
     "cascade": 1.5,
     "deepfloyd_if": 1.5,
 }
 
 # native serving canvas per family (everything else serves 1024)
-_FAMILY_CANVAS: dict[str, int] = {"sd15": 512, "sd21": 768, "kandinsky": 512}
+_FAMILY_CANVAS: dict[str, int] = {"sd15": 512, "sd21": 768, "kandinsky": 512,
+                                  "kandinsky21": 512, "kandinsky_prior": 512}
 
 _DEFAULT_PARAMS_GB = 2.0
 _DEFAULT_ACT_GB = 1.0
@@ -67,13 +77,16 @@ CEILING = 256
 
 
 def _family_key(model_name: str) -> str:
-    """Capacity bucket: the name's family (configs.auto_family), a prior
-    charged as its decoder, and the SD families by model_family's finer
-    split."""
+    """Capacity bucket: the name's family (configs.auto_family), the SD
+    families by model_family's finer split, a Kandinsky 2.1 decoder by its
+    name (it carries MCLIP), a prior without a row of its own charged as
+    its decoder."""
     family = auto_family(model_name)
     if family in ("sd", "sdxl", "sd_upscale"):
         return model_family(model_name)
-    return family.removesuffix("_prior")
+    if family == "kandinsky" and ("2-1" in model_name or "2_1" in model_name):
+        return "kandinsky21"
+    return family if family in FAMILY_PARAMS_GB else family.removesuffix("_prior")
 
 
 def _area_scale(height: int, width: int | None = None) -> float:

@@ -10,7 +10,10 @@ under one lock. Each `/work` reply's `cancels` (the hive's revocations of
 this worker's leases) is kept in `last_cancels` until the next poll.
 `post_partial` (a checkpoint or a preview, POST /api/jobs/{id}/{kind}) and
 `fetch_artifact` (a resume offer's blob, a stage-job's input) are best
-effort: every failure returns None. A 4xx answer raises
+effort: every failure returns None. `submit_workflow` (POST
+/api/workflows) and `get_models` (the public catalog, GET /api/models,
+saved to $SDAAS_ROOT/models.json; also a module function) are JAX's
+client calls. A 4xx answer raises
 `HiveError(permanent=True)`: the worker's outbox parks such an envelope
 instead of retrying a refusal the hive will repeat. Each request's latency
 and failures feed `swarm_hive_request_seconds{endpoint}` and
@@ -52,7 +55,7 @@ import urllib.request
 from typing import Any
 
 from . import __version__, faults, telemetry
-from .settings import resolve_path
+from .settings import Settings, resolve_path
 
 logger = logging.getLogger(__name__)
 
@@ -374,3 +377,50 @@ class HiveClient:
         except HiveError as e:
             logger.info("%s upload for %s refused or failed: %s", kind, job_id, e)
             return None
+
+    def submit_workflow(self, payload: dict) -> dict:
+        """POST one multi-stage workflow to /api/workflows on the pinned
+        hive, one attempt (the submit is cheap to retry at the caller's
+        policy, unlike a result envelope), as JAX's client. -> the hive's
+        reply; raises HiveError on any non-2xx."""
+        return self._request("POST", "/workflows", json.dumps(payload).encode(),
+                             SUBMIT_TIMEOUT_S, "workflows")
+
+    def get_models(self) -> list[dict]:
+        """The hive's model catalog (`language_models` then `models`), from
+        each endpoint once, starting at the pin (every hive serves it, a
+        standby too); saved to $SDAAS_ROOT/models.json on success, as
+        JAX's client. Raises the last failure."""
+        last: Exception | None = None
+        for offset in range(len(self.endpoints)):
+            uri = self.endpoints[(self._pin + offset) % len(self.endpoints)]
+            try:
+                return self._get_models_once(uri)
+            except Exception as e:  # noqa: BLE001 — the next hive may answer
+                last = e
+                if offset + 1 < len(self.endpoints):
+                    logger.warning("model catalog fetch from %s failed (%s); trying the "
+                                   "next hive", uri, e)
+        raise last
+
+    def _get_models_once(self, base: str) -> list[dict]:
+        # the catalog is public: no bearer token, as the reference sends
+        url = f"{base}/models" if base.endswith("/api") else f"{base}/api/models"
+        req = urllib.request.Request(url, method="GET", headers={"user-agent": USER_AGENT})
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=ASK_TIMEOUT_S) as resp:
+                data = json.loads(resp.read())
+            resolve_path("models.json").write_text(json.dumps(data, indent=2))
+            return data["language_models"] + data["models"]
+        except Exception:
+            _ERRORS.inc(endpoint="models")
+            raise
+        finally:
+            _REQUEST_SECONDS.observe(time.perf_counter() - t0, endpoint="models")
+
+
+def get_models(hive_uri: str) -> list[dict]:
+    """The catalog of the hive at `hive_uri` (a site URI or its /api base),
+    as JAX's module function."""
+    return HiveClient(Settings(sdaas_uri=hive_uri, sdaas_token="")).get_models()

@@ -14,7 +14,10 @@ the settings' `lora_root_dir` (loras.py); `textual_inversion`, `vae`,
 `lora_scale` and `cross_attention_kwargs` pass through from `parameters`,
 as does `upscale` (the SD-x2 stage the pipeline chains). A Flux job's
 wire arguments (`pipeline_type: FluxPipeline`, `max_sequence_length`,
-`guidance_scale`) pass through from `parameters` as well.
+`guidance_scale`) pass through from `parameters` as well, as do a
+Kandinsky job's `prior_timesteps` and `pipeline_prior_type` (taken out of
+`parameters` first, as JAX does) and its split-embeds `image_embeds` /
+`negative_image_embeds`.
 
 A `parameters.controlnet` dict gives the ControlNet arguments, as in the
 JAX package's `format_controlnet_args`: the control image is the
@@ -27,7 +30,9 @@ stand-in answered, is listed in `degraded_preprocessors`, which the
 envelope carries. The txt2img ControlNet pipelines take the control
 image as `image`, the others as `control_image`, and an img2img start
 image is cropped to the control image's size. The ControlNet pipeline
-types are chosen by `large_model`.
+types are chosen by `large_model`. The Kandinsky 2.2 depth ControlNet
+takes a depth `hint` instead (the port's DPT on the control image,
+pre_processors/depth_estimator.make_hint), as in JAX.
 
 A stage-job of a workflow graph (a `stage` dict, as a stage-graph hive
 stamps it) routes first, as in the JAX package: the host stages (encode,
@@ -47,6 +52,7 @@ from .external_resources import LIMITS, download_images, get_image, get_qrcode_i
 from .loras import resolve_lora
 from .pipelines.aux_models import Detectors
 from .pre_processors.controlnet import is_degraded_preprocessor, preprocess_image
+from .pre_processors.depth_estimator import make_hint
 from .pre_processors.image_utils import center_crop_resize, resize_square
 from .settings import Settings, load_settings
 from .workflows.diffusion import diffusion_callback
@@ -121,6 +127,9 @@ def format_stable_diffusion_args(args: dict, workflow: str | None,
         format_txt2img_args(args, parameters, size, detectors)
 
     args.setdefault("num_inference_steps", 30)
+    for key in ("pipeline_prior_type", "prior_timesteps"):
+        if key in parameters:
+            args[key] = parameters.pop(key)
     args["pipeline_type"] = parameters.pop("pipeline_type", "DiffusionPipeline")
     args["scheduler_type"] = parameters.pop("scheduler_type", DEFAULT_SCHEDULER)
     # model-specified default canvas
@@ -250,9 +259,9 @@ def format_controlnet_args(args: dict, parameters: dict, start_image, size,
     args["control_guidance_start"] = float(controlnet.get("control_guidance_start", 0.0))
     args["control_guidance_end"] = float(controlnet.get("control_guidance_end", 1.0))
     if args["model_name"] == "kandinsky-community/kandinsky-2-2-controlnet-depth":
-        # its depth hint comes with the Kandinsky family
-        raise ValueError("the Kandinsky family is not ported to chiaswarm_tpu_torch yet")
-    if parameters.get("pipeline_type") in ("StableDiffusionControlNetPipeline",
+        # the Kandinsky ControlNet takes a depth hint instead of an image
+        args["hint"] = make_hint(control_image, detectors)
+    elif parameters.get("pipeline_type") in ("StableDiffusionControlNetPipeline",
                                            "StableDiffusionXLControlNetPipeline"):
         # the txt2img ControlNet pipelines take the control image as `image`
         args["image"] = control_image

@@ -12,7 +12,8 @@ the worker's, not process-global state. It holds two byte-capped LRUs:
   the factors an adapter matched on one model, keyed by (model name,
   adapter key). A pipeline's entries go when the registry evicts it.
 
-A cap of 0 caches nothing: adapters still load, once per job. A factor
+`resident_adapter_refs` names the adapters whose stacks are resident, for
+the worker's poll (`resident_adapters`). A cap of 0 caches nothing: adapters still load, once per job. A factor
 load from the file drops the operand entries of that adapter, so a
 reloaded file never serves stale stacks. Lookups, bytes and entries are
 exported under the JAX caches' names (`swarm_lora_cache_*` for the
@@ -21,6 +22,7 @@ factors, `swarm_lora_operand_cache_*` for the stacks).
 
 from __future__ import annotations
 
+import os
 import threading
 from collections import OrderedDict
 
@@ -53,6 +55,18 @@ _OPERAND_BYTES = telemetry.gauge(
 _OPERAND_ENTRIES = telemetry.gauge(
     "swarm_lora_operand_cache_entries",
     "Distinct operand-stack recipes resident in the operand cache")
+
+
+def wire_adapter_ref(ref, weight_name=None, subfolder=None) -> str:
+    """An adapter key's parts -> the wire spelling the submitting client
+    used, as chiaswarm_tpu/coalesce.py's `wire_adapter_ref`: a file under a
+    worker-local root dir is its bare file name; a hub repo is
+    "pub/repo[/sub...][/file]". A worker's root dir is configuration, not
+    the adapter's identity."""
+    ref, name, sub = str(ref or ""), str(weight_name or ""), str(subfolder or "")
+    if name and os.path.isabs(os.path.expanduser(ref)):
+        return "/".join(p for p in (sub, name) if p)
+    return "/".join(p for p in (ref, sub, name) if p)
 
 
 def adapter_key(lora: dict) -> tuple:
@@ -144,6 +158,14 @@ class LoraCache:
 
     def keep_stacks(self, model_name: str, lora: dict, value, nbytes: int) -> None:
         self.operands.put((model_name, adapter_key(lora)), value, nbytes)
+
+    def resident_adapter_refs(self) -> list[str]:
+        """The wire refs of every adapter whose stacks the operand cache
+        holds, least recently used first, each once: the poll's
+        `resident_adapters`, in JAX's format and order."""
+        with self.operands._lock:
+            keys = list(self.operands._entries)
+        return list(dict.fromkeys(wire_adapter_ref(*key[1]) for key in keys))
 
     def drop_model(self, model_name: str) -> int:
         """Forget one model's device stacks -> bytes freed."""

@@ -1,9 +1,12 @@
 """Model configurations the port serves: SD 1.x, SD 2.x, SDXL base and
 refiner, Flux (its MMDiT transformer, T5-XXL and the 16-channel VAE; its
-CLIP is SD 1.x's CLIP-L), and the tiny stand-ins of the hermetic tests.
-Copied from chiaswarm_tpu/models/configs.py, flux.py and t5.py (the port
-imports nothing of the JAX package); the other families wait for their
-slices of the port.
+CLIP is SD 1.x's CLIP-L), Kandinsky 2.x (the diffusion prior, the
+image-embed decoder UNet, MoVQ and 2.1's MCLIP text tower), and the tiny
+stand-ins of the hermetic tests. Copied from chiaswarm_tpu/models/
+configs.py, flux.py, t5.py, prior.py, unet_kandinsky.py, movq.py,
+mclip.py and clap.py, and pipelines/kandinsky.py's
+`prior_config_with_overrides` (the port imports nothing of the JAX
+package); the other families wait for their slices of the port.
 """
 
 from __future__ import annotations
@@ -161,6 +164,143 @@ TINY_CLIP_2 = CLIPTextConfig(
     hidden_state_index=-2,
 )
 TINY_VAE = VAEConfig(block_out_channels=(32, 32), layers_per_block=1)
+
+
+# --- Kandinsky 2.x (kandinsky-community/kandinsky-2-2-* and -2-1*) ---
+@dataclasses.dataclass(frozen=True)
+class PriorConfig:
+    """diffusers' PriorTransformer geometry (the -prior repos)."""
+
+    embed_dim: int = 1280  # CLIP image-embedding width (ViT-bigG)
+    num_heads: int = 32
+    head_dim: int = 64  # inner width = heads x head_dim = 2048
+    num_layers: int = 20
+    text_seq: int = 77
+    text_dim: int = 1280  # the text tower's hidden width
+    additional_tokens: int = 4  # [text embed, time, sample, prd]
+
+    @property
+    def hidden_size(self) -> int:
+        return self.num_heads * self.head_dim
+
+
+TINY_PRIOR = PriorConfig(embed_dim=32, num_heads=4, head_dim=16, num_layers=2, text_seq=77,
+                         text_dim=32)
+
+
+def prior_config_with_overrides(cfg: PriorConfig, config_json: dict | None) -> PriorConfig:
+    """Geometry overrides from prior/config.json (2.1 and 2.2 priors share
+    the 20-layer 2048-wide transformer and differ in embedding width)."""
+    cj = config_json or {}
+    return dataclasses.replace(
+        cfg,
+        embed_dim=int(cj.get("embedding_dim", cfg.embed_dim)),
+        num_heads=int(cj.get("num_attention_heads", cfg.num_heads)),
+        head_dim=int(cj.get("attention_head_dim", cfg.head_dim)),
+        num_layers=int(cj.get("num_layers", cfg.num_layers)))
+
+
+@dataclasses.dataclass(frozen=True)
+class K22UNetConfig:
+    """The Kandinsky decoder UNet (diffusers UNet2DConditionModel with
+    ResnetDownsample / SimpleCrossAttn blocks and scale-shift resnets).
+    Serving reads the geometry off the checkpoint
+    (weights.infer_k22_unet_config); these defaults are the JAX package's."""
+
+    in_channels: int = 4
+    out_channels: int = 8  # learned variance: the pipeline keeps [:4]
+    block_out_channels: tuple[int, ...] = (384, 768, 1280, 1280)
+    layers_per_block: int = 3
+    attention_head_dim: int = 64
+    cross_attention_dim: int = 768
+    encoder_hid_dim: int = 1280  # the image embedding's width (2.2)
+    image_proj_tokens: int = 32
+    down_attention: tuple[bool, ...] = (False, True, True, True)
+    norm_num_groups: int = 32
+    # "image" (2.2): the image embedding feeds the additive time branch and
+    # the cross-attention tokens; "text_image" (2.1): MCLIP's states and
+    # pooled projection ride beside it. DeepFloyd IF's "text" mode comes
+    # with the IF slice of the port.
+    conditioning: str = "image"
+    # 2.1: the prior embedding's width (encoder_hid_dim is then the text's)
+    image_embed_dim: int = 768
+
+
+# kandinsky-community/kandinsky-2-2-decoder's unet/config.json
+K22_DECODER_UNET = K22UNetConfig(block_out_channels=(384, 768, 1152, 1536))
+
+TINY_K22_UNET = K22UNetConfig(
+    block_out_channels=(32, 64), layers_per_block=1, attention_head_dim=8,
+    cross_attention_dim=16, encoder_hid_dim=32, image_proj_tokens=2,
+    down_attention=(False, True), norm_num_groups=8)
+
+
+@dataclasses.dataclass(frozen=True)
+class MoVQConfig:
+    """diffusers VQModel with norm_type="spatial" (Kandinsky 2.x's movq)."""
+
+    in_channels: int = 3
+    out_channels: int = 3
+    latent_channels: int = 4
+    vq_embed_dim: int = 4
+    block_out_channels: tuple[int, ...] = (128, 256, 256, 512)
+    layers_per_block: int = 2
+    norm_num_groups: int = 32
+    scaling_factor: float = 1.0  # 2.x's movq does not scale its latents
+
+
+TINY_MOVQ = MoVQConfig(block_out_channels=(16, 32), layers_per_block=1, norm_num_groups=8)
+
+
+def movq_config_from_json(cj: dict | None) -> MoVQConfig:
+    """Geometry from a diffusers VQModel config.json."""
+    cj = cj or {}
+    base = MoVQConfig()
+    return MoVQConfig(
+        in_channels=int(cj.get("in_channels", base.in_channels)),
+        out_channels=int(cj.get("out_channels", base.out_channels)),
+        latent_channels=int(cj.get("latent_channels", base.latent_channels)),
+        vq_embed_dim=int(cj.get("vq_embed_dim", base.vq_embed_dim)),
+        block_out_channels=tuple(int(c) for c in cj.get("block_out_channels",
+                                                        base.block_out_channels)),
+        layers_per_block=int(cj.get("layers_per_block", base.layers_per_block)),
+        norm_num_groups=int(cj.get("norm_num_groups", base.norm_num_groups)),
+        scaling_factor=float(cj.get("scaling_factor", base.scaling_factor)))
+
+
+@dataclasses.dataclass(frozen=True)
+class MCLIPConfig:
+    """Kandinsky 2.1's MultilingualCLIP: an XLM-RoBERTa trunk and one
+    Linear into the CLIP space (the JAX package's ClapTextConfig)."""
+
+    vocab_size: int = 250_002
+    hidden_size: int = 1024
+    num_layers: int = 24
+    num_heads: int = 16
+    intermediate_size: int = 4096
+    max_positions: int = 514
+    type_vocab_size: int = 1
+    pad_token_id: int = 1
+    projection_dim: int = 768
+    layer_norm_eps: float = 1e-5
+
+
+MCLIP_XLMR_LARGE = MCLIPConfig()
+TINY_MCLIP = MCLIPConfig(vocab_size=1000, hidden_size=32, num_layers=2, num_heads=4,
+                         intermediate_size=64, max_positions=80, projection_dim=16)
+
+# Kandinsky 2.1's prior text tower: CLIP ViT-L/14 with quick_gelu
+K21_CLIP = CLIPTextConfig(hidden_size=768, num_layers=12, num_heads=12,
+                          hidden_act="quick_gelu", projection_dim=768)
+K21_PRIOR = PriorConfig(embed_dim=768, text_dim=768, num_heads=32, num_layers=20)
+# kandinsky-community/kandinsky-2-1's unet/config.json: text_image, the
+# prior's 768-wide embedding as 10 tokens ahead of MCLIP's 1024-wide states
+K21_DECODER_UNET = dataclasses.replace(K22_DECODER_UNET, conditioning="text_image",
+                                       encoder_hid_dim=1024, image_embed_dim=768,
+                                       image_proj_tokens=10)
+TINY_K21_UNET = dataclasses.replace(TINY_K22_UNET, conditioning="text_image",
+                                    encoder_hid_dim=TINY_MCLIP.hidden_size,
+                                    image_embed_dim=TINY_PRIOR.embed_dim, image_proj_tokens=3)
 
 
 def model_family(model_name: str) -> str:

@@ -209,3 +209,284 @@ def load_tokenizer(model_dir: str | Path | None, vocab_size: int = 49408,
         if (tok_dir / "vocab.json").is_file() and (tok_dir / "merges.txt").is_file():
             return CLIPTokenizer.from_dir(tok_dir, max_length)
     return HashTokenizer(vocab_size, max_length)
+
+
+# --- fast tokenizers (tokenizer.json), Kandinsky 2.1's MCLIP ---
+#
+# The card's machine has neither `transformers` nor `tokenizers`, so the
+# port reads a fast tokenizer's tokenizer.json itself, as far as MCLIP's
+# needs go: XLM-R's layout (the Unigram model; the Sequence, Replace and
+# Precompiled normalizers, the last sentencepiece's compiled normalisation
+# map; the Metaspace pre-tokenizer; the TemplateProcessing or
+# RobertaProcessing post-processor) and the WordLevel model with the
+# Whitespace pre-tokenizer; added tokens matched in the raw text. Anything
+# else raises ValueError when the file is read, never a silent difference.
+
+_UNK_PENALTY = 10.0  # tokenizers' Unigram: an unknown char scores min - 10
+
+
+class _Precompiled:
+    """sentencepiece's precompiled charsmap: a darts-clone double-array trie
+    over UTF-8 keys whose values index NUL-terminated replacement strings,
+    applied per grapheme as tokenizers' `Precompiled` normalizer does."""
+
+    def __init__(self, blob: bytes):
+        size = int.from_bytes(blob[:4], "little")
+        self.units = np.frombuffer(blob[4:4 + size], dtype="<u4").astype(np.int64)
+        self.normalized = blob[4 + size:]
+
+    def _search(self, key: bytes) -> list[int]:
+        units = self.units
+        unit = int(units[0])
+        pos = (unit >> 10) << ((unit & (1 << 9)) >> 6)
+        found = []
+        for c in key:
+            if c == 0:
+                break
+            pos ^= c
+            unit = int(units[pos])
+            if (unit & ((1 << 31) | 0xFF)) != c:
+                break
+            pos ^= (unit >> 10) << ((unit & (1 << 9)) >> 6)
+            if (unit >> 8) & 1:
+                found.append(int(units[pos]) & ((1 << 31) - 1))
+        return found
+
+    def _transform(self, chunk: str) -> str | None:
+        found = self._search(chunk.encode("utf-8"))
+        if not found:
+            return None
+        start = found[0]
+        end = self.normalized.index(b"\0", start) if b"\0" in self.normalized[start:] else len(
+            self.normalized)
+        return self.normalized[start:end].decode("utf-8")
+
+    def __call__(self, text: str) -> str:
+        import unicodedata
+
+        # graphemes, approximated as a base character and the combining
+        # marks after it
+        graphemes: list[str] = []
+        for ch in text:
+            if graphemes and unicodedata.combining(ch):
+                graphemes[-1] += ch
+            else:
+                graphemes.append(ch)
+        out = []
+        for g in graphemes:
+            if len(g.encode("utf-8")) < 6:
+                norm = self._transform(g)
+                if norm is not None:
+                    out.append(norm)
+                    continue
+            for ch in g:
+                norm = self._transform(ch)
+                out.append(ch if norm is None else norm)
+        return "".join(out)
+
+
+def _pattern(spec: dict):
+    if "String" in spec:
+        return re.compile(re.escape(spec["String"]))
+    return re.compile(spec["Regex"])
+
+
+def _normalizer(spec: dict | None):
+    import base64
+
+    if spec is None:
+        return lambda s: s
+    kind = spec["type"]
+    if kind == "Sequence":
+        parts = [_normalizer(n) for n in spec["normalizers"]]
+
+        def seq(s):
+            for part in parts:
+                s = part(s)
+            return s
+        return seq
+    if kind == "Replace":
+        pat, content = _pattern(spec["pattern"]), spec["content"]
+        return lambda s: pat.sub(lambda _: content, s)
+    if kind == "Precompiled":
+        blob = spec.get("precompiled_charsmap")
+        if not blob:
+            return lambda s: s
+        return _Precompiled(base64.b64decode(blob))
+    raise ValueError(f"tokenizer.json normalizer {kind!r} is not supported")
+
+
+def _pre_tokenizer(spec: dict | None):
+    """-> fn(text) -> list of pieces."""
+    if spec is None:
+        return lambda s: [s] if s else []
+    kind = spec["type"]
+    if kind == "Sequence":
+        parts = [_pre_tokenizer(p) for p in spec["pretokenizers"]]
+
+        def seq(s):
+            pieces = [s]
+            for part in parts:
+                pieces = [q for p in pieces for q in part(p)]
+            return pieces
+        return seq
+    if kind == "Whitespace":
+        return re.compile(r"\w+|[^\w\s]+").findall
+    if kind == "Metaspace":
+        rep = spec.get("replacement", "▁")
+        scheme = spec.get("prepend_scheme", "always" if spec.get("add_prefix_space", True)
+                          else "never")
+        split = spec.get("split", True)
+
+        def meta(s):
+            s = s.replace(" ", rep)
+            if scheme in ("always", "first") and not s.startswith(rep):
+                s = rep + s
+            if not split:
+                return [s] if s else []
+            pieces, cur = [], ""
+            for ch in s:
+                if ch == rep and cur:
+                    pieces.append(cur)
+                    cur = ""
+                cur += ch
+            return pieces + ([cur] if cur else [])
+        return meta
+    raise ValueError(f"tokenizer.json pre_tokenizer {kind!r} is not supported")
+
+
+class FastTokenizer:
+    """A tokenizer.json reader: `(texts, max_length)` -> (ids int64 [B, L],
+    attention mask f32 [B, L]), truncated with room for the special tokens
+    and right-padded with the pad id, as `transformers`' fast tokenizer
+    does with `padding="max_length", truncation=True`."""
+
+    def __init__(self, spec: dict, pad_token: str | None = None):
+        model = spec["model"]
+        self.kind = model["type"]
+        if self.kind == "WordLevel":
+            self.vocab = dict(model["vocab"])
+            self.unk_id = self.vocab.get(model.get("unk_token"))
+        elif self.kind == "Unigram":
+            pieces = model["vocab"]
+            self.vocab = {p: i for i, (p, _) in enumerate(pieces)}
+            self.scores = [float(s) for _, s in pieces]
+            self.unk_id = model.get("unk_id")
+            if model.get("byte_fallback"):
+                raise ValueError("tokenizer.json Unigram byte_fallback is not supported")
+            self.min_score = min(self.scores) if self.scores else 0.0
+            self.max_piece = max((len(p) for p, _ in pieces), default=1)
+        else:
+            raise ValueError(f"tokenizer.json model {self.kind!r} is not supported")
+        self.normalize = _normalizer(spec.get("normalizer"))
+        self.pre_tokenize = _pre_tokenizer(spec.get("pre_tokenizer"))
+        self.added = {t["content"]: t["id"] for t in spec.get("added_tokens") or []}
+        self._added_split = None
+        if self.added:
+            alt = "|".join(re.escape(t) for t in sorted(self.added, key=len, reverse=True))
+            self._added_split = re.compile(f"({alt})")
+        self.prefix, self.suffix = self._template(spec.get("post_processor"))
+        pad = (spec.get("padding") or {}).get("pad_id")
+        if pad is None:
+            pad = self.token_id(pad_token) if pad_token is not None else None
+        self.pad_id = 1 if pad is None else int(pad)
+
+    def token_id(self, token: str) -> int | None:
+        return self.added.get(token, self.vocab.get(token))
+
+    def _template(self, spec: dict | None) -> tuple[list[int], list[int]]:
+        """The single-sequence special ids before and after the text."""
+        if spec is None:
+            return [], []
+        kind = spec["type"]
+        if kind == "TemplateProcessing":
+            specials = spec.get("special_tokens", {})
+            before, after, seen = [], [], False
+            for item in spec["single"]:
+                if "Sequence" in item:
+                    seen = True
+                    continue
+                ids = specials[item["SpecialToken"]["id"]]["ids"]
+                (after if seen else before).extend(ids)
+            return before, after
+        if kind == "RobertaProcessing":
+            return [int(spec["cls"][1])], [int(spec["sep"][1])]
+        raise ValueError(f"tokenizer.json post_processor {kind!r} is not supported")
+
+    def _unigram(self, s: str) -> list[int]:
+        n = len(s)
+        best = [(0.0, -1, -1)] * (n + 1)  # (score, start, id)
+        best[0] = (0.0, 0, -1)
+        unk_score = self.min_score - _UNK_PENALTY
+        for start in range(n):
+            here = best[start][0]
+            single = False
+            for length in range(1, min(self.max_piece, n - start) + 1):
+                tid = self.vocab.get(s[start:start + length])
+                if tid is None:
+                    continue
+                cand = here + self.scores[tid]
+                end = start + length
+                if best[end][1] < 0 or cand > best[end][0]:
+                    best[end] = (cand, start, tid)
+                single = single or length == 1
+            if not single:
+                cand = here + unk_score
+                if best[start + 1][1] < 0 or cand > best[start + 1][0]:
+                    best[start + 1] = (cand, start, self.unk_id)
+        ids, pos = [], n
+        while pos > 0:
+            _, pos, tid = best[pos]
+            ids.append(tid)
+        out = []
+        for tid in reversed(ids):
+            if tid == self.unk_id and out and out[-1] == self.unk_id:
+                continue  # consecutive unknowns fuse
+            out.append(tid)
+        return out
+
+    def _word_level(self, piece: str) -> list[int]:
+        tid = self.vocab.get(piece, self.unk_id)
+        if tid is None:
+            raise ValueError(f"token {piece!r} has no id and the vocabulary no unk token")
+        return [tid]
+
+    def encode(self, text: str) -> list[int]:
+        parts = self._added_split.split(text) if self._added_split else [text]
+        ids: list[int] = []
+        for part in parts:
+            if part in self.added:
+                ids.append(self.added[part])
+                continue
+            if not part:
+                continue
+            for piece in self.pre_tokenize(self.normalize(part)):
+                ids.extend(self._unigram(piece) if self.kind == "Unigram"
+                           else self._word_level(piece))
+        return ids
+
+    def __call__(self, texts: str | list[str], max_length: int = 77):
+        if isinstance(texts, str):
+            texts = [texts]
+        ids = np.full((len(texts), max_length), self.pad_id, dtype=np.int64)
+        mask = np.zeros((len(texts), max_length), dtype=np.float32)
+        room = max_length - len(self.prefix) - len(self.suffix)
+        for row, text in enumerate(texts):
+            seq = self.prefix + self.encode(text)[:max(room, 0)] + self.suffix
+            ids[row, :len(seq)] = seq
+            mask[row, :len(seq)] = 1.0
+        return ids, mask
+
+
+def load_fast_tokenizer(tok_dir: str | Path) -> FastTokenizer:
+    """The fast tokenizer of `tok_dir`/tokenizer.json, its pad token from
+    tokenizer_config.json where the file names none. Raises
+    FileNotFoundError without the file."""
+    tok_dir = Path(tok_dir)
+    spec = json.loads((tok_dir / "tokenizer.json").read_text())
+    pad_token = None
+    config = tok_dir / "tokenizer_config.json"
+    if config.is_file():
+        pad = json.loads(config.read_text()).get("pad_token")
+        pad_token = pad.get("content") if isinstance(pad, dict) else pad
+    return FastTokenizer(spec, pad_token)

@@ -167,6 +167,9 @@ def family_configs(model_name: str, model_root_dir: str | None = None):
     if family == "flux":
         raise ValueError(f"{model_name}: a Flux model, which FluxPipeline (pipelines/flux.py) "
                          "serves, not SDPipeline")
+    if family in ("kandinsky", "kandinsky_prior"):
+        raise ValueError(f"{model_name}: a Kandinsky 2.x model, which KandinskyPipeline / "
+                         "KandinskyPriorPipeline (pipelines/kandinsky.py) serve, not SDPipeline")
     if family not in ("sd", "sdxl"):
         raise ValueError(f"{model_name}: this family is not ported to "
                          "chiaswarm_tpu_torch yet")

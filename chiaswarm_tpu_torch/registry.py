@@ -1,10 +1,11 @@
 """Pipeline residency: model name -> resident pipeline on one device.
 
-The counterpart of chiaswarm_tpu/registry.py for the one family the port
+The counterpart of chiaswarm_tpu/registry.py for the families the port
 serves (SD: SD 1.x, SD 2.x, SDXL base and refiner, the edit checkpoints
-and the tiny test models). A `Registry` is an object that the worker
-owns, not process-global state: the worker builds it for its device, and
-a caller may pre-build a pipeline into it (chip_smoke.py does, for a
+and the tiny test models; the SD-x2 upscaler; Flux; Kandinsky 2.x). A
+`Registry` is an object that the worker owns, not process-global state:
+the worker builds it for its device, and a caller may pre-build a
+pipeline into it (chip_smoke.py does, for a
 model that runs on random weights). Its pipelines load their weights and
 read each checkpoint's scheduler config (the prediction type) under
 `model_root_dir`.
@@ -27,11 +28,15 @@ job's adapters and ControlNets resolve under.
 `PIPELINE_FAMILIES` is the JAX package's table of wire `pipeline_type`
 names for the families the port serves: "sd" and "sdxl" (one resident
 `SDPipeline` serves every name of its model), "sd_upscale" (the SD-x2
-`LatentUpscalePipeline`) and "flux" (`FluxPipeline`). The generic names
-(`DiffusionPipeline`, `AutoPipeline*`) resolve by model name, as the JAX
-registry's `_auto_family` (configs.auto_family; `job_family`). A
-pipeline is kept under (model name, "flux", "upscaler" or "sd"), in the
-same LRU.
+`LatentUpscalePipeline`), "flux" (`FluxPipeline`), "kandinsky" (the
+Kandinsky 2.x decoder, `KandinskyPipeline`) and "kandinsky_prior" (its
+prior, `KandinskyPriorPipeline`, which a decoder's job builds here as its
+prepipeline). The generic names (`DiffusionPipeline`, `AutoPipeline*`)
+resolve by model name, as the JAX registry's `_auto_family`
+(configs.auto_family; `job_family`). A pipeline is kept under (model
+name, "flux", "upscaler", "kandinsky", "kandinsky_prior" or "sd"), in the
+same LRU. A build never evicts the pipelines its caller names in `keep`:
+the decoder whose job builds its prior is one.
 `check_pipeline_type` refuses the names of other families and names that
 no table holds.
 
@@ -54,6 +59,7 @@ from .embed_cache import EmbedCache
 from .lora_cache import LoraCache
 from .models.configs import auto_family
 from .pipelines.flux import FluxPipeline
+from .pipelines.kandinsky import KandinskyPipeline, KandinskyPriorPipeline
 from .pipelines.safety import DEFAULT_SAFETY_MODEL, get_checker
 from .pipelines.stable_diffusion import SDPipeline
 from .pipelines.upscale import LatentUpscalePipeline
@@ -80,19 +86,35 @@ PIPELINE_FAMILIES: dict[str, str] = {
     "StableDiffusionInstructPix2PixPipeline": "sd",
     "StableDiffusionXLInstructPix2PixPipeline": "sdxl",
     "StableDiffusionLatentUpscalePipeline": "sd_upscale",
+    "KandinskyPipeline": "kandinsky",
+    "KandinskyImg2ImgPipeline": "kandinsky",
+    "KandinskyV22Pipeline": "kandinsky",
+    "KandinskyV22Img2ImgPipeline": "kandinsky",
+    "KandinskyV22ControlnetPipeline": "kandinsky",
+    "KandinskyV22ControlnetImg2ImgPipeline": "kandinsky",
+    "KandinskyV22PriorPipeline": "kandinsky_prior",
+    "KandinskyV22PriorEmb2EmbPipeline": "kandinsky_prior",
     "AutoPipelineForText2Image": "sd",
     "FluxPipeline": "flux",
 }
+
+# the families whose pipelines are not SDPipelines, and their registry keys
+_OWN_PIPELINES = {"flux": FluxPipeline, "sd_upscale": LatentUpscalePipeline,
+                  "kandinsky": KandinskyPipeline, "kandinsky_prior": KandinskyPriorPipeline}
+_KEY_KINDS = {"flux": "flux", "sd_upscale": "upscaler", "kandinsky": "kandinsky",
+              "kandinsky_prior": "kandinsky_prior"}
 
 
 # model-name keywords (substrings of a lowercased model name) of each family
 # of the JAX package's table (its family dispatch by model name, and the
 # audio, video and captioning models it serves), for the families that
-# PIPELINE_FAMILIES does not hold yet
+# PIPELINE_FAMILIES does not hold yet. Kandinsky 3's are the JAX
+# registry's `_auto_family` words, which no 2.x name holds.
 FAMILY_KEYWORDS: dict[str, tuple[str, ...]] = {
     "sd": (), "sdxl": (), "sd_upscale": (),
     "kandinsky": ("kandinsky",), "kandinsky_prior": ("kandinsky",),
-    "kandinsky3": ("kandinsky",), "cascade": ("cascade",), "cascade_prior": ("cascade",),
+    "kandinsky3": ("kandinsky-3", "kandinsky3"), "cascade": ("cascade",),
+    "cascade_prior": ("cascade",),
     "flux": ("flux",), "deepfloyd_if": ("deepfloyd",),
     "audioldm": ("audioldm",), "audioldm2": ("audioldm",), "bark": ("suno/bark",),
     "animatediff": ("animatediff", "text-to-video"), "i2vgenxl": ("i2vgen",),
@@ -119,15 +141,16 @@ def check_pipeline_type(pipeline_type: str) -> None:
 
 
 def job_family(model_name: str, pipeline_type: str | None = None) -> str:
-    """"flux", "sd_upscale" or "sd" (SD and SDXL) for a job: by its wire
-    name, or, for the generic names (and none), by the model's
-    (configs.auto_family, as the JAX registry's `_auto_family`)."""
+    """"flux", "sd_upscale", "kandinsky", "kandinsky_prior" or "sd" (SD,
+    SDXL, and the families not ported yet, which SDPipeline refuses) for a
+    job: by its wire name, or, for the generic names (and none), by the
+    model's (configs.auto_family, as the JAX registry's `_auto_family`)."""
     if pipeline_type in PIPELINE_FAMILIES and pipeline_type not in (
             "DiffusionPipeline", "AutoPipelineForText2Image"):
         family = PIPELINE_FAMILIES[pipeline_type]
     else:
         family = auto_family(model_name)
-    return family if family in ("flux", "sd_upscale") else "sd"
+    return family if family in _OWN_PIPELINES else "sd"
 
 
 class Registry:
@@ -146,31 +169,27 @@ class Registry:
         if embed_cache is True:
             embed_cache = EmbedCache(64 << 20)
         self.embed_cache = embed_cache if isinstance(embed_cache, EmbedCache) else None
-        self._pipelines: OrderedDict[tuple, SDPipeline | LatentUpscalePipeline | FluxPipeline] = (
-            OrderedDict())
+        self._pipelines: OrderedDict[tuple, object] = OrderedDict()
         self._lock = threading.Lock()
 
     def get_pipeline(self, model_name: str, allow_random_init: bool = False,
-                     pipeline_type: str | None = None):
-        """The resident pipeline for `model_name` (a FluxPipeline or the
-        upscaler where `job_family` says so, else an SDPipeline), built on
-        first use."""
+                     pipeline_type: str | None = None, keep=()):
+        """The resident pipeline for `model_name` (a FluxPipeline, the
+        upscaler, a Kandinsky decoder or prior where `job_family` says so,
+        else an SDPipeline), built on first use. The pipelines in `keep`
+        are not evicted to make room for it."""
         family = job_family(model_name, pipeline_type)
-        key = (model_name, {"flux": "flux", "sd_upscale": "upscaler"}.get(family, "sd"))
+        key = (model_name, _KEY_KINDS.get(family, "sd"))
         with self._lock:
             pipe = self._pipelines.get(key)
             if pipe is not None:
                 self._pipelines.move_to_end(key)
                 return pipe
-            evicted = self._make_room(model_name)
-            if family == "flux":
-                pipe = FluxPipeline(model_name, device=self.device,
-                                    allow_random_init=allow_random_init,
-                                    model_root_dir=self.model_root_dir)
-            elif family == "sd_upscale":
-                pipe = LatentUpscalePipeline(model_name, device=self.device,
-                                             allow_random_init=allow_random_init,
-                                             model_root_dir=self.model_root_dir)
+            evicted = self._make_room(model_name, keep)
+            if family in _OWN_PIPELINES:
+                pipe = _OWN_PIPELINES[family](model_name, device=self.device,
+                                              allow_random_init=allow_random_init,
+                                              model_root_dir=self.model_root_dir)
             else:
                 pipe = SDPipeline(model_name, device=self.device,
                                   allow_random_init=allow_random_init,
@@ -179,28 +198,39 @@ class Registry:
                                   embed_cache=self.embed_cache)
             self._pipelines[key] = pipe
             while len(self._pipelines) > MAX_RESIDENT_PIPELINES:
-                evicted.append(self._evict())
+                old_key = self._evict((*keep, pipe))
+                if old_key is None:
+                    break
+                evicted.append(old_key)
             if evicted:
                 logger.info("evicted resident pipelines %s", evicted)
                 if torch.device(self.device).type == "cuda":
                     torch.cuda.empty_cache()
             return pipe
 
-    def _evict(self) -> tuple:
-        """Release the least recently used pipeline and drop the
-        registry's reference -> its key."""
-        key, old = self._pipelines.popitem(last=False)
-        old.release()
-        return key
+    def _evict(self, keep=()) -> tuple | None:
+        """Release the least recently used pipeline that is not in `keep`
+        and drop the registry's reference -> its key (None: every resident
+        pipeline is kept)."""
+        for key, old in self._pipelines.items():
+            if not any(old is k for k in keep):
+                del self._pipelines[key]
+                old.release()
+                return key
+        return None
 
-    def _make_room(self, model_name: str) -> list[tuple]:
-        """Evict least recently used pipelines until `model_name`'s
-        resident footprint and one image (capacity.resident_bytes: nothing
-        off the card) fit in the device's free memory -> the evicted keys."""
+    def _make_room(self, model_name: str, keep=()) -> list[tuple]:
+        """Evict least recently used pipelines, those in `keep` excepted,
+        until `model_name`'s resident footprint and one image
+        (capacity.resident_bytes: nothing off the card) fit in the device's
+        free memory -> the evicted keys."""
         need = resident_bytes(self.device, model_name)
         evicted = []
-        while need and self._pipelines and free_bytes(self.device) < need:
-            evicted.append(self._evict())
+        while need and free_bytes(self.device) < need:
+            key = self._evict(keep)
+            if key is None:
+                break
+            evicted.append(key)
             gc.collect()
         return evicted
 

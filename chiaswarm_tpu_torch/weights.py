@@ -32,10 +32,24 @@ FluxTransformer2DModel names, which the port's module keeps),
 tied `shared` table), `text_encoder/` (CLIP-L) and `vae/`, as the JAX
 FluxPipeline's `_convert_params` reads them (`FLUX_FOLDERS`).
 
+Kandinsky 2.x: a decoder directory holds `unet/`, `movq/` and, for 2.1,
+`text_encoder/` (MCLIP) and `tokenizer/tokenizer.json`; a prior directory
+`prior/` (PriorTransformer, with the `clip_mean` / `clip_std` whitening
+stats, read apart by `read_tensors`), `text_encoder/` (CLIP) and
+optionally `zero_image_embed.npy` (`KANDINSKY_DECODER_FOLDERS`,
+`KANDINSKY_PRIOR_FOLDERS`). The loader drops MoVQ's codebook
+(`quantize.*`) and MCLIP's unused CLS pooler; a MoVQ whose SpatialNorm
+group norms are non-affine (no `norm_layer` weights) loads with identity
+ones (`load_checkpoint_`'s `optional`). `infer_k22_unet_config` reads the
+decoder UNet's geometry off its checkpoint, as the JAX package's
+`infer_k22_unet_config`, the ControlNet variant's extra hint channels in
+`conv_in` too.
+
 `from_jax_params` inverts chiaswarm_tpu/models/conversion.py's
 `convert_unet` (a ControlNet's tree too) / `convert_vae` / `convert_clip`
 / `convert_k_upscaler` / `convert_safety_checker` / `convert_flux` /
-`convert_t5`, and the detectors'
+`convert_t5` / `convert_kandinsky_unet` / `convert_movq` / `convert_prior`
+/ `convert_mclip`, and the detectors'
 `convert_dpt` / `convert_hed` / `convert_openpose_body` /
 `convert_pidinet` / `convert_mlsd` / `convert_lineart` /
 `convert_zoedepth` / `convert_upernet` (and the tiny PoseNet's tree):
@@ -59,6 +73,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .models.configs import K22UNetConfig
 from .models.k_upscaler import KUpscalerConfig
 from .models.layers import FusedGroupNorm
 from .models.t5 import RMSNorm
@@ -70,6 +85,12 @@ logger = logging.getLogger(__name__)
 TEXT_ENCODER_FOLDERS = ("text_encoder", "text_encoder_2")
 # a Flux model directory's folders: the transformer, T5, CLIP-L, the VAE
 FLUX_FOLDERS = ("transformer", "text_encoder_2", "text_encoder", "vae")
+# a Kandinsky 2.x decoder's folders (2.1 adds MCLIP's text_encoder/), and
+# a prior's
+KANDINSKY_DECODER_FOLDERS = ("unet", "movq")
+KANDINSKY_PRIOR_FOLDERS = ("prior", "text_encoder")
+# the prior's whitening stats, which are no parameters of the module
+PRIOR_STATS = ("clip_mean", "clip_std")
 
 
 class MissingWeightsError(ValueError):
@@ -169,12 +190,17 @@ _TEXT_LAYER = re.compile(r"text_model\.encoder\.layers\.(\d+)\.")
 
 def checkpoint_key(key: str, folder: str, text_layers: int | None = None) -> str | None:
     """A checkpoint key -> the port's, or None for one that is dropped:
-    `position_ids` buffers, and text-encoder layers past the config's
-    `text_layers` (SD 2.x's OpenCLIP-H files hold 24, the port runs 23).
+    `position_ids` buffers, MCLIP's CLS pooler, MoVQ's codebook, the
+    prior's whitening stats (read apart), and text-encoder layers past the
+    config's `text_layers` (SD 2.x's OpenCLIP-H files hold 24, the port
+    runs 23).
     T5's `encoder.embed_tokens` is its tied `shared` table.
     The VAE's legacy attention names (query/key/value/proj_attn) become
     diffusers' (to_q/to_k/to_v/to_out.0)."""
-    if key.endswith("position_ids"):
+    if key.endswith("position_ids") or key.startswith("transformer.pooler."):
+        return None
+    if (folder == "movq" and key.startswith("quantize.")) or (
+            folder == "prior" and key in PRIOR_STATS):
         return None
     if key == "encoder.embed_tokens.weight":
         return "shared.weight"  # T5's token table, tied to `shared`
@@ -182,7 +208,7 @@ def checkpoint_key(key: str, folder: str, text_layers: int | None = None) -> str
         layer = _TEXT_LAYER.match(key)
         if layer and int(layer.group(1)) >= text_layers:
             return None
-    if folder == "vae":
+    if folder in ("vae", "movq"):
         for old, new in _LEGACY_VAE_ATTENTION:
             key = key.replace(old, new)
     return key
@@ -199,12 +225,13 @@ def checkpoint_tensor(name: str, tensor: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def load_checkpoint_(module: nn.Module, files: list[Path], folder: str,
-                     text_layers: int | None = None) -> int:
+                     text_layers: int | None = None, optional=None) -> int:
     """Copy one folder's safetensors into `module`'s own parameters, cast to
     their dtype, one tensor at a time (no second copy of the module on its
     device): a strict load, so a key the module lacks, a shape that
     differs or a parameter that no file holds raises CheckpointError,
-    naming the key and the file. -> bytes read."""
+    naming the key and the file; a parameter whose name `optional(name)`
+    accepts may be absent, and keeps its value. -> bytes read."""
     from safetensors import SafetensorError, safe_open
 
     targets = module.state_dict()  # views of the parameters
@@ -228,11 +255,69 @@ def load_checkpoint_(module: nn.Module, files: list[Path], folder: str,
                     loaded.add(name)
         except (SafetensorError, OSError) as e:
             raise CheckpointError(f"{path}: unreadable safetensors file ({e})") from e
-    missing = sorted(set(targets) - loaded)
+    missing = sorted(n for n in set(targets) - loaded if optional is None or not optional(n))
     if missing:
         raise CheckpointError(f"{files[0].parent}: {len(missing)} {folder} parameters in no "
                               f"file, e.g. {missing[:3]}")
     return sum(path.stat().st_size for path in files)
+
+
+def read_tensors(files: list[Path], keys) -> dict[str, torch.Tensor]:
+    """The tensors of `keys` that the safetensors files hold (f32, CPU)."""
+    from safetensors import SafetensorError, safe_open
+
+    out = {}
+    for path in files:
+        try:
+            with safe_open(str(path), framework="pt") as f:
+                for key in set(keys) & set(f.keys()):
+                    out[key] = f.get_tensor(key).float()
+        except (SafetensorError, OSError) as e:
+            raise CheckpointError(f"{path}: unreadable safetensors file ({e})") from e
+    return out
+
+
+def infer_k22_unet_config(shapes: dict, config_json: dict | None = None) -> K22UNetConfig:
+    """The Kandinsky decoder UNet's config from its checkpoint's shapes, as
+    the JAX package infers it: levels, widths and resnets from the down
+    blocks' conv1, where attention is from its to_q, the cross width from
+    add_k_proj, the input channels (a ControlNet's 4 + 3 hint channels)
+    from conv_in, the conditioning from the projection keys (2.1's
+    `encoder_hid_proj.text_proj` gives "text_image"), the image tokens from
+    the projection's width; head width and groups from config.json (64 and
+    32 unset). A checkpoint of neither mode (DeepFloyd IF's text UNet)
+    raises ValueError: that family is not ported yet."""
+    cj = config_json or {}
+    blocks: dict[int, int] = {}
+    attn: set[int] = set()
+    layers = 1
+    for k in shapes:
+        if m := re.match(r"down_blocks\.(\d+)\.resnets\.(\d+)\.conv1\.weight", k):
+            blocks[int(m.group(1))] = int(shapes[k][0])
+            layers = max(layers, int(m.group(2)) + 1)
+        if m := re.match(r"down_blocks\.(\d+)\.attentions\.0\.to_q\.weight", k):
+            attn.add(int(m.group(1)))
+    n = max(blocks) + 1
+    cross = int(shapes[f"down_blocks.{min(attn)}.attentions.0.add_k_proj.weight"][1])
+    image_w = shapes.get("encoder_hid_proj.image_embeds.weight")
+    if image_w is None:
+        raise ValueError("not a Kandinsky 2.x decoder UNet (no image projection): "
+                         "DeepFloyd IF's text UNet is not ported to chiaswarm_tpu_torch yet")
+    text_image = "encoder_hid_proj.text_proj.weight" in shapes
+    hid_dim = int(shapes["encoder_hid_proj.text_proj.weight"][1] if text_image else image_w[1])
+    return K22UNetConfig(
+        in_channels=int(shapes["conv_in.weight"][1]),
+        out_channels=int(shapes["conv_out.weight"][0]),
+        block_out_channels=tuple(blocks[i] for i in range(n)),
+        layers_per_block=layers,
+        attention_head_dim=int(cj.get("attention_head_dim", 64)),
+        cross_attention_dim=cross,
+        encoder_hid_dim=hid_dim,
+        image_proj_tokens=int(image_w[0]) // cross,
+        down_attention=tuple(i in attn for i in range(n)),
+        norm_num_groups=int(cj.get("norm_num_groups", 32)),
+        conditioning="text_image" if text_image else "image",
+        image_embed_dim=int(image_w[1]) if text_image else 768)
 
 
 def checkpoint_shapes(files: list[Path]) -> dict[str, tuple]:
@@ -535,6 +620,75 @@ def t5_state_dict(tree: dict) -> dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
 
 
+def _prefixed(name: str, table) -> str:
+    for old, new in table:
+        if name.startswith(old):
+            return new + name[len(old):]
+    return name
+
+
+_K22_TOP = (("aug_emb_text_proj.", "add_embedding.text_proj."),
+            ("aug_emb_text_norm.", "add_embedding.text_norm."),
+            ("aug_emb_image_proj.", "add_embedding.image_proj."),
+            ("aug_emb_proj.", "add_embedding.image_proj."),
+            ("aug_emb_norm.", "add_embedding.image_norm."),
+            ("hid_proj_image.", "encoder_hid_proj.image_embeds."),
+            ("hid_proj_text.", "encoder_hid_proj.text_proj."),
+            ("hid_proj_norm.", "encoder_hid_proj.norm."),
+            ("hid_proj.", "encoder_hid_proj.image_embeds."),
+            ("mid_block_resnets.", "mid_block.resnets."),
+            ("mid_block_attentions.", "mid_block.attentions."))
+
+
+def k22_unet_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """The inverse of convert_kandinsky_unet (both conditioning modes)."""
+    return _state_dict(tree, lambda name: _prefixed(name, _K22_TOP))
+
+
+def _movq_name(name: str) -> str:
+    name = name.replace("mid_block_resnets.", "mid_block.resnets.")
+    name = name.replace("mid_block_attentions.", "mid_block.attentions.")
+    name = re.sub(r"(down|up)_blocks_(\d+)_(down|up)samplers_0_conv\.",
+                  r"\1_blocks.\2.\3samplers.0.conv.", name)
+    return re.sub(r"(down|up)_blocks_(\d+)_resnets\.", r"\1_blocks.\2.resnets.", name)
+
+
+def movq_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """The inverse of convert_movq (its filled SpatialNorm scales too)."""
+    return _state_dict(tree, _movq_name)
+
+
+def _prior_name(name: str) -> str:
+    name = _prefixed(name, (("embed_proj.", "embedding_proj."),))
+    name = re.sub(r"^(transformer_blocks\.\d+)\.(to_q|to_k|to_v|to_out)\.",
+                  r"\1.attn1.\2.", name)
+    return name.replace(".ff_proj.", ".ff.net.0.proj.").replace(".ff_out.", ".ff.net.2.")
+
+
+def prior_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """The inverse of convert_prior's parameters (the stats come apart)."""
+    return _state_dict(tree, _prior_name)
+
+
+_MCLIP_LAYER = (("self_attn.", "attention.self."), ("attn_out.", "attention.output.dense."),
+                ("attn_norm.", "attention.output.LayerNorm."),
+                ("intermediate.", "intermediate.dense."), ("output_norm.", "output.LayerNorm."),
+                ("output.", "output.dense."))
+
+
+def _mclip_name(name: str) -> str:
+    if name.startswith("transformation."):
+        return "LinearTransformation." + name[len("transformation."):]
+    if m := re.match(r"layers\.(\d+)\.(.*)$", name):
+        return f"transformer.encoder.layer.{m.group(1)}." + _prefixed(m.group(2), _MCLIP_LAYER)
+    return "transformer.embeddings." + _prefixed(name, (("embed_norm.", "LayerNorm."),))
+
+
+def mclip_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """The inverse of convert_mclip (no CLS pooler: MCLIP does not use it)."""
+    return _state_dict(tree, _mclip_name)
+
+
 def from_jax_params(tree: dict) -> dict:
     """{"unet": tree, "text": [tree, ...], "vae": tree, "cn": tree,
     "k_unet": tree, "safety": tree, "flux": tree, "t5": tree} (numpy
@@ -543,7 +697,9 @@ def from_jax_params(tree: dict) -> dict:
     "safety": state dict, "flux": state dict, "t5": state dict} in the
     port's (diffusers / transformers) key layout, f32. "k_unet" is the
     SD-x2 upscaler's UNet, "safety" the whole safety checker's tree,
-    "flux" Flux's transformer and "t5" its T5 encoder.
+    "flux" Flux's transformer and "t5" its T5 encoder; "k22_unet",
+    "movq", "prior" and "mclip" are Kandinsky 2.x's decoder UNet, MoVQ,
+    diffusion prior (its parameters) and 2.1's MCLIP, under the same names.
     A detector's tree under its DETECTOR_STATE_DICTS name ("dpt", "hed",
     "openpose_body", "pose_net", "pidinet", "mlsd", "lineart",
     "zoedepth", "upernet") gives its state dict under the same name."""
@@ -551,7 +707,10 @@ def from_jax_params(tree: dict) -> dict:
                "cn": ("controlnet", controlnet_state_dict),
                "k_unet": ("k_unet", k_upscaler_state_dict),
                "safety": ("safety", safety_state_dict),
-               "flux": ("flux", flux_state_dict), "t5": ("t5", t5_state_dict)}
+               "flux": ("flux", flux_state_dict), "t5": ("t5", t5_state_dict),
+               "k22_unet": ("k22_unet", k22_unet_state_dict),
+               "movq": ("movq", movq_state_dict), "prior": ("prior", prior_state_dict),
+               "mclip": ("mclip", mclip_state_dict)}
     out = {name: fn(tree[key]) for key, (name, fn) in convert.items() if key in tree}
     if "text" in tree:
         out["text"] = [clip_state_dict(t) for t in tree["text"]]

@@ -413,6 +413,9 @@ class Worker:
             "topology": f"{self.device.type}x1",
             "backend": "torch",
             "resident_models": ",".join(self.registry.resident_models()),
+            # adapters whose device stacks are warm here, for a hive that
+            # routes a repeat adapter job back to them
+            "resident_adapters": ",".join(self.registry.lora_cache.resident_adapter_refs()),
             "jobs_completed": self.jobs_done,
             # model-name keywords of the families this worker cannot serve,
             # which a capability-aware hive does not hand it

@@ -1,9 +1,12 @@
-"""Diffusion workload callback (the SD family and Flux), the counterpart
-of chiaswarm_tpu/workflows/diffusion.py `diffusion_callback`: resolve the
-resident pipeline (registry.job_family: a `FluxPipeline` job, or a generic
-one on a Flux model name, runs on the FluxPipeline, whose txt2img reads
-`max_sequence_length` and `guidance_scale` and ignores the SD family's
-other arguments), run the job (txt2img, or img2img, pix2pix and inpaint
+"""Diffusion workload callback (the SD family, Flux and Kandinsky 2.x),
+the counterpart of chiaswarm_tpu/workflows/diffusion.py
+`diffusion_callback`: resolve the resident pipeline (registry.job_family:
+a `FluxPipeline` job, or a generic one on a Flux model name, runs on the
+FluxPipeline, whose txt2img reads `max_sequence_length` and
+`guidance_scale` and ignores the SD family's other arguments; a Kandinsky
+wire name, or a generic one on a Kandinsky 2.x model name, on the
+KandinskyPipeline, which builds its prior in the same registry), run the
+job (txt2img, or img2img, pix2pix and inpaint
 with the start image and mask that job_arguments fetched; a `refiner`
 stage resolves its pipeline in the same registry; the job's `lora`,
 `textual_inversion` and `vae` go to the pipeline, whose ValueError for an
@@ -49,8 +52,8 @@ passes already run.
 The worker's cancel, chunk and checkpoint arguments (`job_id`,
 `denoise_chunk_steps`, `checkpoint_every_chunks`, `checkpoint_cb`,
 `preview_every_chunks`, `preview_cb`, `resume`) reach only a pipeline
-with `supports_checkpoint` (SDPipeline), as in the JAX callback: a Flux
-or a standalone upscale job runs untouched, neither chunked nor
+with `supports_checkpoint` (SDPipeline), as in the JAX callback: a Flux,
+Kandinsky or standalone upscale job runs untouched, neither chunked nor
 cancelled mid-pass. A coalesced member whose job was cancelled during the
 pass comes back as (None, pipeline_config) with `cancelled` set: no
 safety check, no artifacts, and the worker delivers nothing for it.

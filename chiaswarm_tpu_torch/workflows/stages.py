@@ -25,6 +25,7 @@ import base64
 import hashlib
 import io
 import json
+import logging
 
 import torch
 from PIL import Image
@@ -36,6 +37,8 @@ from ..post_processors.output_processor import OutputProcessor, to_pil
 from ..telemetry import Span
 from ..weights import MissingWeightsError
 from .diffusion import tiny_stand_in
+
+logger = logging.getLogger(__name__)
 
 RAW_CONTENT_TYPE = "application/x-swarm-raw+json"
 
@@ -181,7 +184,8 @@ def upscale_stage_callback(device_identifier: str, model_name: str, *, registry,
     rows, its noise drawn from the stage-job's seed; raw rows out for the
     decode stage. Without the upscaler's weights the rows are resized 2x
     (LANCZOS) and the envelope says so (`upscaler: resize-fallback`), as in
-    JAX: an auxiliary stage never fails the job."""
+    JAX; so is any other failure to build it (a broken checkpoint, a
+    registry fault): an auxiliary stage never fails the job."""
     params = kwargs.get("parameters") or {}
     tiny = bool(kwargs.pop("test_tiny_model", False)
                 or (isinstance(params, dict) and params.get("test_tiny_model")))
@@ -193,7 +197,9 @@ def upscale_stage_callback(device_identifier: str, model_name: str, *, registry,
     try:
         upscaler = registry.get_pipeline(upscaler_name_for(model_name),
                                          pipeline_type=UPSCALE_PIPELINE)
-    except MissingWeightsError:
+    except Exception as e:  # missing weights or a registry fault: resize
+        if not isinstance(e, MissingWeightsError):
+            logger.warning("upscaler unavailable (%s); resize fallback", e)
         upscaler = None
     with Span("upscale", timings):
         if upscaler is not None:

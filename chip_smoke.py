@@ -39,6 +39,11 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
    D = 128 (`flux_checks`): (1, 4608, 24, 128), (1, 4352, 24, 128),
    (2, 2816, 24, 128) and a coalesced (4, 4608, 24, 128) in bf16 and f32,
    and the D = 128 tile edges; every bf16 call on `wgmma-d128`.
+   Kandinsky's (`kandinsky_checks`): every attention and GroupNorm call of
+   a 2.2 and a 2.1 decoder UNet call (two CFG rows; keys 32 or 10 + 77
+   conditioning tokens ahead of the self tokens) and of a MoVQ decode and
+   encode (one head of 512; norms at eps 1e-6 up to (1, 768, 768, 128)),
+   at 512^2 and 768^2, in bf16 and f32; bf16 on `wgmma-d64` / `wgmma-d512`.
 4. Small-input reference: the tiny SDXL-shaped pipeline in f32 on the card
    (kernels) against the same weights and latents on the CPU (plain
    versions); the decoded uint8 images must agree within 2/255. At 64^2:
@@ -65,7 +70,11 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
    on a tiny-sd img2img job. test/tiny-flux and test/tiny-flux-schnell
    (`tiny_flux_checks`), written as diffusers safetensors and loaded from
    them, card (f32, kernels) against CPU (plain) within 2/255, a job of two
-   images and a coalesced pass of two.
+   images and a coalesced pass of two. Kandinsky (`tiny_kandinsky_checks`):
+   the tiny 2.2 decoder (txt2img, img2img), the tiny depth ControlNet (a
+   768^2 hint) with their tiny prior, and a tiny 2.1 decoder (MCLIP, a
+   tokenizer.json), written as diffusers safetensors and loaded from them,
+   card (f32) against CPU within 2/255 with every draw injected alike.
 5. Main path: a fake hive on localhost, the port's worker, and the
    full-width stabilityai/stable-diffusion-xl-base-1.0 pipeline on seeded
    random weights; three 1024^2 30-step DPM++ 2M txt2img jobs and one echo
@@ -221,6 +230,19 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
    decode (the checker on the card, from the stage lane) inside the
    second's pass; the `stats` EWMAs and the lane's gauge back at 0.
    Launches held per job kind with one checker call a job.
+   The Kandinsky path (`serve_kandinsky_path`), its own registry beside
+   the main path's SDXL pipelines: the published 2.2 prior, decoder and
+   depth ControlNet and 2.1's decoder (MCLIP) and prior written from
+   seeded tensors as bf16 diffusers safetensors and loaded from them (the
+   2.2 prior with zero_image_embed.npy, 2.1's without), the 2.2 pair's
+   allocated bytes printed; 2.2 txt2img at 512^2 and 768^2, img2img at
+   strength 0.75, the ControlNet at 768^2 with its hint from DPT-large,
+   2.1 at 512^2, 30 DDPM steps and 25 prior steps each, through the
+   worker; every envelope checked as the Flux path's, launches held to
+   the prediction from the configs' arithmetic (`kandinsky_calls`), in
+   total and shape by shape; the 2.1 decoder's parameters printed beside
+   the bytes the registry reckons; one decoder UNet call and one MoVQ
+   decode profiled.
    After phase 8, Flux joins the main path's registry while its SDXL
    pipelines, the SD registry, the detectors and the checker are still
    resident (`serve_flux_beside_sd`): one FLUX.1-schnell 4-step job, the
@@ -663,7 +685,7 @@ def gn_case(x_shape, dtype, silu: bool, gen, timed: bool, eps: float = 1e-5,
     check(excess <= 0, f"group_norm {x_shape} {dtype} eps {eps}: err {err} beyond "
                        f"{row['bound']} by {excess}")
     if timed:
-        xc = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC rows
+        xc = x.movedim(-1, 1)  # NC... view of the channel-last rows (3-D tokens too)
 
         def kernel():
             return fused_group_norm(x, scale, bias, 32, eps, silu)
@@ -5748,6 +5770,672 @@ def serve_hive_plane_path(smi: str, registry, sd_registry, xl_launches: dict,
     return paths, served
 
 
+# --- Kandinsky 2.x ---
+
+K22 = "kandinsky-community/kandinsky-2-2-decoder"
+K22_PRIOR = "kandinsky-community/kandinsky-2-2-prior"
+K22_CN = "kandinsky-community/kandinsky-2-2-controlnet-depth"
+K21 = "kandinsky-community/kandinsky-2-1"
+K21_PRIOR = "kandinsky-community/kandinsky-2-1-prior"
+TINY_K21 = "test/tiny-kandinsky-2-1"
+K_STEPS = 30
+K_PRIOR_STEPS = 25
+K_CN_SIZE = 768  # the depth ControlNet's locked canvas
+K_PROMPT = "a red fox in fresh snow, 4k photo"
+# words of the smoke's prompts, the pieces of the synthetic 2.1 tokenizer
+K_WORDS = ("a", "red", "fox", "in", "fresh", "snow", "4k", "photo", "lighthouse", "on", "cliff",
+           "at", "dusk", "blurry", "study", "robot", ",")
+
+
+def k21_tokenizer_json() -> dict:
+    """A synthetic fast tokenizer in XLM-R's layout (Unigram, the Replace
+    normalizers, Metaspace, <s> $A </s>): the smoke's words and the
+    letters as pieces, scores from a seeded generator."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    specials = ["<s>", "<pad>", "</s>", "<unk>"]
+    pieces = [[p, 0.0] for p in specials]
+    for w in K_WORDS:
+        pieces.append(["▁" + w, float(-rng.uniform(2, 8))])
+    for c in "abcdefghijklmnopqrstuvwxyz0123456789,":
+        pieces.append([c, float(-rng.uniform(8, 12))])
+    pieces.append(["▁", float(-rng.uniform(3, 6))])
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": i, "content": t, "single_word": False, "lstrip": False,
+                          "rstrip": False, "normalized": False, "special": True}
+                         for i, t in enumerate(specials)],
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Replace", "pattern": {"String": "``"}, "content": '"'},
+            {"type": "Replace", "pattern": {"String": "''"}, "content": '"'},
+            {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "}]},
+        "pre_tokenizer": {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always",
+                          "split": True},
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                       {"Sequence": {"id": "A", "type_id": 0}},
+                       {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+            "pair": [], "special_tokens": {
+                "<s>": {"id": "<s>", "ids": [0], "tokens": ["<s>"]},
+                "</s>": {"id": "</s>", "ids": [2], "tokens": ["</s>"]}}},
+        "decoder": None,
+        "model": {"type": "Unigram", "unk_id": 3, "vocab": pieces, "byte_fallback": False}}
+
+
+def _save(module, path: Path, dtype=None, extra: dict | None = None) -> int:
+    from safetensors.torch import save_file
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    state = {k: v.detach().to("cpu", dtype or v.dtype).contiguous()
+             for k, v in module.state_dict().items()}
+    state.update(extra or {})
+    save_file(state, str(path))
+    return path.stat().st_size
+
+
+def write_kandinsky(pipe, model_dir: Path, dtype=None, zero_embed: bool = False) -> int:
+    """A Kandinsky decoder's or prior's weights in the published diffusers
+    layout, one safetensors file a folder (in `dtype`, the pipeline's
+    unset): a decoder's unet/ and movq/ with the config.json fields the
+    loaders read, and for 2.1 its MCLIP text_encoder/ (config.json in
+    MultilingualCLIP's keys) and tokenizer/tokenizer.json
+    (`k21_tokenizer_json`); a prior's prior/ with seeded clip_mean /
+    clip_std and its config.json, its CLIP text_encoder/, and with
+    `zero_embed` a seeded zero_image_embed.npy. -> bytes written."""
+    import numpy as np
+
+    from chiaswarm_tpu_torch.pipelines.kandinsky import KandinskyPipeline
+
+    def config(folder: str, payload: dict) -> None:
+        (model_dir / folder).mkdir(parents=True, exist_ok=True)
+        (model_dir / folder / "config.json").write_text(json.dumps(payload))
+
+    nbytes = 0
+    if isinstance(pipe, KandinskyPipeline):
+        u, m = pipe.unet_cfg, pipe.movq_cfg
+        nbytes += _save(pipe.unet, model_dir / "unet" / "diffusion_pytorch_model.safetensors",
+                        dtype)
+        config("unet", {"attention_head_dim": u.attention_head_dim,
+                        "norm_num_groups": u.norm_num_groups})
+        nbytes += _save(pipe.movq, model_dir / "movq" / "diffusion_pytorch_model.safetensors",
+                        dtype)
+        config("movq", {"block_out_channels": list(m.block_out_channels),
+                        "layers_per_block": m.layers_per_block,
+                        "latent_channels": m.latent_channels, "vq_embed_dim": m.vq_embed_dim,
+                        "norm_num_groups": m.norm_num_groups, "norm_type": "spatial"})
+        if pipe.mclip is not None:
+            c = pipe.mclip.config
+            nbytes += _save(pipe.mclip, model_dir / "text_encoder" / "model.safetensors", dtype)
+            config("text_encoder", {
+                "vocab_size": c.vocab_size, "transformerDimensions": c.hidden_size,
+                "numDims": c.projection_dim, "num_hidden_layers": c.num_layers,
+                "num_attention_heads": c.num_heads, "intermediate_size": c.intermediate_size,
+                "max_position_embeddings": c.max_positions, "layer_norm_eps": c.layer_norm_eps})
+            (model_dir / "tokenizer").mkdir(parents=True, exist_ok=True)
+            (model_dir / "tokenizer" / "tokenizer.json").write_text(
+                json.dumps(k21_tokenizer_json()))
+            (model_dir / "tokenizer" / "tokenizer_config.json").write_text(json.dumps(
+                {"tokenizer_class": "XLMRobertaTokenizer", "pad_token": "<pad>"}))
+        return nbytes
+    c = pipe.config
+    gen = torch.Generator().manual_seed(19)
+    stats = {"clip_mean": 0.1 * torch.randn((1, c.embed_dim), generator=gen),
+             "clip_std": 0.5 + torch.rand((1, c.embed_dim), generator=gen)}
+    nbytes += _save(pipe.prior, model_dir / "prior" / "diffusion_pytorch_model.safetensors",
+                    dtype, {k: v.to(dtype or torch.float32) for k, v in stats.items()})
+    config("prior", {"embedding_dim": c.embed_dim, "num_attention_heads": c.num_heads,
+                     "attention_head_dim": c.head_dim, "num_layers": c.num_layers})
+    nbytes += _save(pipe.text_encoder, model_dir / "text_encoder" / "model.safetensors", dtype)
+    if zero_embed:
+        np.save(model_dir / "zero_image_embed.npy",
+                torch.randn((1, c.embed_dim), generator=gen).numpy())
+    return nbytes
+
+
+def seeded_decoder(name: str, device, dtype, unet_cfg=None, seed: int = 0, movq_cfg=None,
+                   mclip_cfg=None):
+    """A KandinskyPipeline on seeded random weights: the name's geometry, or
+    `unet_cfg` with `movq_cfg` (the name's unset) and, for a text_image
+    config, MCLIP at `mclip_cfg` (the tiny one beside a tiny MoVQ, else
+    XLM-R large)."""
+    from chiaswarm_tpu_torch.models import configs as cfgs
+    from chiaswarm_tpu_torch.models.mclip import MCLIPTextEncoder
+    from chiaswarm_tpu_torch.models.movq import MoVQ
+    from chiaswarm_tpu_torch.models.unet_kandinsky import K22UNet
+    from chiaswarm_tpu_torch.pipelines.kandinsky import KandinskyPipeline, decoder_configs
+    from chiaswarm_tpu_torch.weights import random_init_
+
+    if unet_cfg is None:
+        return KandinskyPipeline(name, device=device, dtype=dtype, allow_random_init=True)
+    movq_cfg = movq_cfg or decoder_configs(name)[1]
+    mclip_cfg = mclip_cfg or (cfgs.TINY_MCLIP if movq_cfg == cfgs.TINY_MOVQ
+                              else cfgs.MCLIP_XLMR_LARGE)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    weights = {"unet_cfg": unet_cfg, "movq_cfg": movq_cfg}
+    for key, factory in (("unet", lambda: K22UNet(unet_cfg)), ("movq", lambda: MoVQ(movq_cfg)),
+                         ("mclip", lambda: MCLIPTextEncoder(mclip_cfg))):
+        if key == "mclip" and unet_cfg.conditioning != "text_image":
+            continue
+        with torch.device("meta"):
+            module = factory()
+        module = module.to(dtype).to_empty(device=device)
+        random_init_(module, gen)
+        weights[key] = module.state_dict()
+    if unet_cfg.conditioning == "text_image":
+        from chiaswarm_tpu_torch.models.tokenizer import FastTokenizer
+
+        weights.update(mclip_cfg=mclip_cfg, tokenizer=FastTokenizer(k21_tokenizer_json(),
+                                                                    "<pad>"))
+    return KandinskyPipeline(name, device=device, dtype=dtype, weights=weights)
+
+
+def _noise(seed: int):
+    """A deterministic draw (i, shape) -> f32 CPU tensor, the same for the
+    card and the CPU (their generators draw different numbers)."""
+    def draw(i, shape):
+        return torch.randn(tuple(shape), generator=torch.Generator().manual_seed(seed * 1000 + i))
+    return draw
+
+
+def kandinsky_inputs(pipe, n: int, size: int, seed: int = 3, given: bool = False) -> dict:
+    """Every draw of a Kandinsky job, injected: the prior's (guided and the
+    unguided negative) and the decoder's; with `given` the image embeddings
+    themselves (split-embeds)."""
+    lat = size // pipe.latent_factor
+    draws = {"latents": _noise(seed)(999, (n, pipe.latent_channels, lat, lat)),
+             "noise_fn": _noise(seed + 1)}
+    if given:
+        e = pipe.unet_cfg.image_embed_dim if pipe.text_image else pipe.unet_cfg.encoder_hid_dim
+        draws.update(image_embeds=_noise(seed + 2)(0, (n, e)),
+                     negative_image_embeds=_noise(seed + 2)(1, (n, e)))
+        return draws
+    from chiaswarm_tpu_torch.pipelines.kandinsky import prior_configs, prior_name_for
+
+    e = prior_configs(prior_name_for(pipe.model_name))[0].embed_dim
+    draws.update(prior_latents=_noise(seed + 3)(999, (n, e)), prior_noise_fn=_noise(seed + 4),
+                 prior_negative_latents=_noise(seed + 5)(999, (n, e)),
+                 prior_negative_noise_fn=_noise(seed + 6))
+    return draws
+
+
+def tiny_kandinsky_checks(device: str = "cuda", size: int = 64, steps: int = 4) -> dict:
+    """Phase 4 for Kandinsky: the tiny 2.2 decoder (txt2img, img2img at
+    strength 0.5), the tiny depth ControlNet (a 768^2 hint) and their tiny
+    prior (clip stats, no zero embed: the unguided negative run), and a
+    tiny 2.1 decoder (MCLIP, its tokenizer.json; split embeds), seeded,
+    written as diffusers safetensors under a temporary model root and
+    loaded from there in f32 on `device` (the kernels on the card) and on
+    the CPU (plain versions) with every draw injected alike: the uint8
+    images within 2/255. -> {job: max pixel diff}."""
+    import tempfile
+
+    import numpy as np
+
+    from chiaswarm_tpu_torch.models import configs as cfgs
+    from chiaswarm_tpu_torch.pipelines.kandinsky import KandinskyPipeline, KandinskyPriorPipeline
+    from chiaswarm_tpu_torch.registry import Registry
+
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        root = Path(root)
+        write_kandinsky(seeded_decoder("test/tiny-kandinsky", "cpu", torch.float32),
+                        root / "test/tiny-kandinsky")
+        write_kandinsky(seeded_decoder("test/tiny-kandinsky-controlnet", "cpu", torch.float32),
+                        root / "test/tiny-kandinsky-controlnet")
+        write_kandinsky(KandinskyPriorPipeline("test/tiny-kandinsky-prior", device="cpu"),
+                        root / "test/tiny-kandinsky-prior")
+        write_kandinsky(seeded_decoder(TINY_K21, "cpu", torch.float32, cfgs.TINY_K21_UNET,
+                                       seed=4), root / TINY_K21)
+        regs = {}
+        for d in ("cpu", device):
+            # f32 on both: the pipelines are built here, not by the registry
+            regs[d] = Registry(torch.device(d), str(root), safety_checker_model="")
+            regs[d]._pipelines[("test/tiny-kandinsky-prior", "kandinsky_prior")] = (
+                KandinskyPriorPipeline("test/tiny-kandinsky-prior", device=d,
+                                       dtype=torch.float32, model_root_dir=str(root)))
+        hint = np.asarray(photo_image(K_CN_SIZE), np.float32)[..., :1].repeat(3, -1) / 255.0
+        jobs = {"txt2img": ("test/tiny-kandinsky", {}, False),
+                "img2img": ("test/tiny-kandinsky", {"image": start_image(size),
+                                                    "strength": 0.5}, False),
+                "controlnet": ("test/tiny-kandinsky-controlnet", {
+                    "hint": hint, "pipeline_type": "KandinskyV22ControlnetPipeline"}, False),
+                "k21": (TINY_K21, {"pipeline_type": "KandinskyPipeline"}, True)}
+        for job, (model, extra, given) in jobs.items():
+            images = {}
+            for d, reg in regs.items():
+                pipe = KandinskyPipeline(model, device=d, dtype=torch.float32,
+                                         model_root_dir=str(root))
+                check(pipe.weights_source == "checkpoint", f"{model} on {d}: {pipe.weights_source}")
+                images[d], config = pipe.run(
+                    K_PROMPT, "blurry", num_inference_steps=steps, prior_timesteps=3,
+                    height=size, width=size, num_images_per_prompt=2, registry=reg,
+                    **extra, **kandinsky_inputs(pipe, 2, size, given=given))
+            diff = max(int(np.abs(g.astype(np.int16) - w.astype(np.int16)).max())
+                       for g, w in zip(images[device], images["cpu"]))
+            log(f"[tiny] Kandinsky {job} ({model}, {size}^2 f32, {steps} steps, "
+                f"{config['conditioning']}, mode {config['mode']}), card (kernels) vs CPU "
+                f"(plain): max pixel diff {diff}/255 (bound 2/255)")
+            check(diff <= 2, f"Kandinsky {job}: card vs CPU pixel diff {diff} > 2")
+            out[job] = diff
+    return out
+
+
+def k_unet_calls(cfg, side: int, rows: int = 2, dtype=torch.bfloat16) -> dict:
+    """Every kernel call of one Kandinsky decoder UNet call on a side^2
+    latent with `rows` CFG rows, from the config, under the wrappers' own
+    counter keys -> {"flash_attention": Counter, "group_norm": Counter}.
+    Each resnet norms its input (SiLU fused) and its output (none fused),
+    both at eps 1e-5; a downsampler or upsampler is a resnet that halves or
+    doubles the side between the two. Each attention norms its [B, S, C]
+    tokens and attends S queries over the conditioning tokens (the image
+    tokens, and for 2.1 MCLIP's 77 states after them) ahead of the S self
+    keys, at D = attention_head_dim. A down level: layers_per_block
+    resnets, each followed by an attention where the level attends, then
+    a downsampler but at the last level; the mid block: resnet, attention,
+    resnet; an up level: one resnet more, each on a skip concatenated,
+    then an upsampler but at the first level; last the output norm with
+    SiLU."""
+    from chiaswarm_tpu_torch.pipelines.kandinsky import MCLIP_MAX_LENGTH
+
+    calls = {"flash_attention": Counter(), "group_norm": Counter()}
+    dt = str(dtype).replace("torch.", "")
+    tokens = cfg.image_proj_tokens + (MCLIP_MAX_LENGTH if cfg.conditioning == "text_image"
+                                      else 0)
+
+    def resnet(c_in, c_out, s, s_out=None):
+        calls["group_norm"][((rows, s, s, c_in), dt, True, 1e-5)] += 1
+        s_out = s_out or s
+        calls["group_norm"][((rows, s_out, s_out, c_out), dt, False, 1e-5)] += 1
+
+    def attention(c, s):
+        d = cfg.attention_head_dim
+        calls["group_norm"][((rows, s * s, c), dt, False, 1e-5)] += 1
+        calls["flash_attention"][((rows, s * s, c // d, d),
+                                  (rows, tokens + s * s, c // d, d), dtype)] += 1
+
+    chans, n = cfg.block_out_channels, cfg.layers_per_block
+    ch, skips = chans[0], [chans[0]]
+    for level, out in enumerate(chans):
+        s = side >> level
+        for _ in range(n):
+            resnet(ch, out, s)
+            if cfg.down_attention[level]:
+                attention(out, s)
+            ch = out
+            skips.append(out)
+        if level < len(chans) - 1:
+            resnet(out, out, s, s // 2)
+            skips.append(out)
+    s = side >> (len(chans) - 1)
+    resnet(ch, ch, s)
+    attention(ch, s)
+    resnet(ch, ch, s)
+    for level in reversed(range(len(chans))):
+        out, s = chans[level], side >> level
+        for _ in range(n + 1):
+            resnet(ch + skips.pop(), out, s)
+            if cfg.down_attention[level]:
+                attention(out, s)
+            ch = out
+        if level:
+            resnet(out, out, s, 2 * s)
+    calls["group_norm"][((rows, side, side, chans[0]), dt, True, 1e-5)] += 1
+    return calls
+
+
+def movq_calls(cfg, size: int, part: str, dtype=torch.bfloat16) -> dict:
+    """Every kernel call of one MoVQ `part` ("decode" of one latent, or
+    "encode" of one size^2 image), from the config, under the wrappers'
+    counter keys. Every norm is at eps 1e-6. The encoder: layers_per_block
+    resnets a level (two norms each, SiLU fused), a stride-2 conv between
+    levels, the mid block (resnet, attention with its norm, resnet) and the
+    output norm with SiLU. The decoder: the mid block at the latent side,
+    layers_per_block + 1 resnets a level up the reversed widths, a nearest
+    2x between levels, the output norm, every norm a SpatialNorm (its SiLU
+    outside the kernel). The mid attention is one head of the widest
+    level's channels."""
+    calls = {"flash_attention": Counter(), "group_norm": Counter()}
+    dt = str(dtype).replace("torch.", "")
+    chans, n, levels = cfg.block_out_channels, cfg.layers_per_block, len(cfg.block_out_channels)
+    # the encoder's GroupNorms fuse their SiLU; SpatialNorm applies it after
+    # its modulation, outside the kernel
+    silu = part == "encode"
+
+    def resnet(c_in, c_out, s):
+        calls["group_norm"][((1, s, s, c_in), dt, silu, 1e-6)] += 1
+        calls["group_norm"][((1, s, s, c_out), dt, silu, 1e-6)] += 1
+
+    def mid(c, s):
+        resnet(c, c, s)
+        calls["group_norm"][((1, s, s, c), dt, False, 1e-6)] += 1
+        calls["flash_attention"][((1, s * s, 1, c), (1, s * s, 1, c), dtype)] += 1
+        resnet(c, c, s)
+
+    if part == "encode":
+        ch = chans[0]
+        for level, out in enumerate(chans):
+            for _ in range(n):
+                resnet(ch, out, size >> level)
+                ch = out
+        mid(ch, size >> (levels - 1))
+        calls["group_norm"][((1, size >> (levels - 1), size >> (levels - 1), ch), dt, True,
+                             1e-6)] += 1
+        return calls
+    rev = tuple(reversed(chans))
+    side = size >> (levels - 1)
+    mid(rev[0], side)
+    ch = rev[0]
+    for b, out in enumerate(rev):
+        for _ in range(n + 1):
+            resnet(ch, out, side << b)
+            ch = out
+    calls["group_norm"][((1, size, size, ch), dt, False, 1e-6)] += 1
+    return calls
+
+
+def kandinsky_calls(unet_cfg, movq_cfg, size: int, rows: int = 2,
+                    dtype=torch.bfloat16) -> dict:
+    """Every kernel call, by its counter key, of one decoder UNet call with
+    `rows` CFG rows at size^2, one MoVQ decode and one MoVQ encode of an
+    image, from the configs -> {"unet" | "decode" | "encode": {kernel:
+    Counter}}."""
+    side = size // 2 ** (len(movq_cfg.block_out_channels) - 1)
+    return {"unet": k_unet_calls(unet_cfg, side, rows, dtype),
+            "decode": movq_calls(movq_cfg, size, "decode", dtype),
+            "encode": movq_calls(movq_cfg, size, "encode", dtype)}
+
+
+def _launches(calls: dict) -> dict:
+    return {k: sum(v.values()) for k, v in calls.items()}
+
+
+def kandinsky_checks(gen) -> None:
+    """Phase 3 at Kandinsky's shapes, in bf16 and f32: every attention and
+    GroupNorm call of a 2.2 and a 2.1 decoder UNet call (two CFG rows; the
+    keys are the 32 or 10 + 77 conditioning tokens ahead of the self
+    tokens, lengths that are no tile multiple) and of a MoVQ decode and
+    encode (its one head of D = 512, its norms at eps 1e-6 up to
+    [1, 768, 768, 128]), at 512^2 and 768^2. Each bf16 attention call must
+    report the tensor-core route (wgmma-d64, wgmma-d512)."""
+    from chiaswarm_tpu_torch.models import configs as cfgs
+
+    attention, norms = Counter(), {}
+    for unet_cfg in (cfgs.K22_DECODER_UNET, cfgs.K21_DECODER_UNET):
+        for size in (512, 768):
+            for part in kandinsky_calls(unet_cfg, cfgs.MoVQConfig(), size).values():
+                attention.update(part["flash_attention"])
+                norms.update(dict.fromkeys(part["group_norm"]))
+    for q_shape, k_shape, _ in attention:
+        for dtype in (torch.bfloat16, torch.float32):
+            row = attention_case(q_shape, k_shape, dtype, gen, timed=False)
+            log(f"[check] flash_attention q{q_shape} kv{k_shape} {row['dtype']} route "
+                f"{row['route']} (Kandinsky): max_abs_err {row['max_abs_err']:.3g}"
+                + (f", RMS err {row['rms_err']:.3g}" if "rms_err" in row else "")
+                + f" (bound {row['bound']})")
+            torch.cuda.empty_cache()
+    for x_shape, _, silu, eps in norms:
+        for dtype in (torch.bfloat16, torch.float32):
+            row = gn_case(x_shape, dtype, silu, gen, timed=False, eps=eps)
+            log(f"[check] group_norm x{x_shape} {row['dtype']} silu={silu} eps {eps:g} "
+                f"(Kandinsky): max_abs_err {row['max_abs_err']:.3g} (bound {row['bound']})"
+                + (f", on chip: {row['on_chip']}" if "on_chip" in row else ""))
+    torch.cuda.empty_cache()
+
+
+def k_job(job_id: str, model: str, size: int, seed: int, pipeline_type: str,
+          workflow: str = "txt2img", steps: int = K_STEPS, prior_steps: int = K_PRIOR_STEPS,
+          **extra) -> dict:
+    """A Kandinsky job as the hive sends it: 30 decoder steps on DDPM at
+    guidance 4.0, the prior's 25 (unset)."""
+    params = {"pipeline_type": pipeline_type, "scheduler_type": "DDPMScheduler",
+              "prior_timesteps": prior_steps, **extra.pop("parameters", {})}
+    return {"id": job_id, "workflow": workflow, "model_name": model,
+            "prompt": f"{K_PROMPT}, study {seed}", "negative_prompt": "blurry",
+            "height": size, "width": size, "num_inference_steps": steps,
+            "guidance_scale": 4.0, "seed": seed, "content_type": "image/png",
+            "parameters": params, **extra}
+
+
+def serve_kandinsky_path(smi: str, device: str = "cuda", dtype=None, sizes=(512, 768),
+                         steps: int = K_STEPS, prior_steps: int = K_PRIOR_STEPS,
+                         hold: bool = True, tiny: bool = False,
+                         profile: bool = True) -> tuple[dict, dict]:
+    """Phase 5, the Kandinsky path, in a registry of its own beside the
+    main path's resident SDXL pipelines: full-width seeded models written
+    as diffusers safetensors (bf16) under a temporary root and loaded from
+    there, one at a time and each folder removed once its pipeline is
+    resident: the 2.2 prior (with zero_image_embed.npy) and decoder, the
+    bytes allocated before, with both built and after they are released
+    printed (the resident bytes the registry reckons beside them); 2.2
+    txt2img at 512^2 and 768^2, img2img at strength 0.75; the depth
+    ControlNet decoder at 768^2, its hint built by the port's DPT from
+    seeded weights; then 2.1's prior (no zero embed: the unguided negative
+    run) and decoder (MCLIP, the synthetic tokenizer.json) at 512^2. Every
+    job through the worker and the fake hive, its envelope checked
+    (sha256, decodable, not constant, finite latents) and its launches
+    held, in total and shape by shape, to the prediction from the configs
+    (`kandinsky_calls`: UNet calls x a call's launches, a decode, an
+    encode for img2img, the DPT's for the hint). Prints prior_s, text_encode_s, denoise_s, decode_s and the
+    UNet step, and profiles one decoder UNet call and one MoVQ decode. ->
+    ({job kind: (1, {kernel: (launches, {shape: launches})})}, served).
+    `tiny` runs the same path on the tiny stand-ins (a CPU rehearsal; the
+    ControlNet job names the production model with `test_tiny_model`, as
+    only that name gets a hint)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from chiaswarm_tpu_torch.capacity import resident_bytes
+    from chiaswarm_tpu_torch.models import configs as cfgs
+    from chiaswarm_tpu_torch.pipelines.kandinsky import KandinskyPriorPipeline
+    from chiaswarm_tpu_torch.registry import Registry
+
+    dtype = dtype or (torch.bfloat16 if device == "cuda" else torch.float32)
+    names = ({"k22": "test/tiny-kandinsky", "k22_prior": "test/tiny-kandinsky-prior",
+              "cn": "test/tiny-kandinsky-controlnet", "k21": TINY_K21}
+             if tiny else {"k22": K22, "k22_prior": K22_PRIOR, "cn": K22_CN, "k21": K21,
+                           "k21_prior": K21_PRIOR})
+    root = Path(tempfile.mkdtemp(prefix="kandinsky-models-"))
+    served, paths = {"jobs": {}, "allocated_gib_before": _allocated_gib(device)}, {}
+    registry = Registry(torch.device(device), str(root), safety_checker_model="")
+
+    def write(key, pipe, **kw) -> None:
+        t0 = time.perf_counter()
+        nbytes = write_kandinsky(pipe, root / names[key], dtype=dtype, **kw)
+        served.setdefault("written", {})[names[key]] = {"bytes": nbytes,
+                                                        "s": time.perf_counter() - t0}
+        log(f"[kandinsky] {names[key]} written: {nbytes / 2**30:.2f} GiB in "
+            f"{time.perf_counter() - t0:.1f}s")
+
+    def build(key, pipeline_type):
+        t0 = time.perf_counter()
+        pipe = registry.get_pipeline(names[key], pipeline_type=pipeline_type)
+        check(pipe.weights_source == "checkpoint", f"{names[key]}: {pipe.weights_source}")
+        shutil.rmtree(root / names[key])  # resident now: its files are not read again
+        log(f"[kandinsky] {names[key]} resident in {time.perf_counter() - t0:.1f}s from "
+            f"{pipe.checkpoint['bytes'] / 2**30:.2f} GiB of safetensors")
+        return pipe
+
+    def serve(kind, jobs, files=None, settings_kw=None, detector=None):
+        results, launches, wall = serve_group(registry, jobs, device, max_coalesce=1,
+                                              files=files, settings_kw=settings_kw)
+        for job in jobs:
+            r = results[job["id"]]
+            cfg = r["pipeline_config"]
+            check(not r.get("fatal_error") and "error" not in cfg, f"{job['id']}: {cfg}")
+            image = decode_artifact(r["artifacts"]["primary"])
+            size = job["height"]
+            check(image.shape == (size, size, 3), f"{job['id']}: image {image.shape}")
+            check(int(image.max()) != int(image.min()), f"{job['id']}: constant image")
+            check(cfg["latents"]["finite"], f"{job['id']}: non-finite latents")
+            pipe = registry.get_pipeline(cfg["model"], pipeline_type="KandinskyV22Pipeline")
+            calls = kandinsky_calls(pipe.unet_cfg, pipe.movq_cfg, size, dtype=dtype)
+            unet_calls = cfg["steps"] - (int(cfg["steps"] * 0.25)
+                                         if job["workflow"] == "img2img" else 0)
+            per = {k: _launches(v) for k, v in calls.items()}
+            shapes = {}
+            for k, unet_shapes in calls["unet"].items():
+                shapes[k] = Counter({key: unet_calls * n for key, n in unet_shapes.items()})
+                shapes[k].update(calls["decode"][k])
+                if job["workflow"] == "img2img":
+                    shapes[k].update(calls["encode"][k])
+            if detector:
+                shapes["flash_attention"][(*DPT_ATTENTION, dtype)] += detector["flash_attention"]
+            predicted = {k: sum(v.values()) for k, v in shapes.items()}
+            counted = {k: v[0] for k, v in launches.items()}
+            t = cfg["timings"]
+            log(f"[kandinsky] {job['id']} ({cfg['model']}, {cfg['conditioning']}, {size}^2, "
+                f"mode {cfg['mode']}, {cfg['steps']} steps on {cfg['scheduler']}) on {smi}: job "
+                f"{t['job_s']:.3f}s = prior {t.get('prior_s', 0):.3f}s (text_encode "
+                f"{t.get('text_encode_s', 0):.3f}s) + denoise {t['denoise_s']:.3f}s (UNet step "
+                f"{t['unet_step_ms']:.1f} ms) + decode {t['decode_s']:.3f}s"
+                + (f" + encode {t['encode_s']:.3f}s" if "encode_s" in t else "")
+                + f"; launches counted {json.dumps(counted)}, predicted {json.dumps(predicted)}"
+                f" ({unet_calls} UNet calls x {json.dumps(per['unet'])} + decode "
+                f"{json.dumps(per['decode'])}); pixels {int(image.min())}..{int(image.max())}")
+            if hold:
+                check(counted == predicted, f"{job['id']}: launches {counted} != {predicted}")
+                for k, want in shapes.items():
+                    got = Counter({(tuple(key[0]), tuple(key[1]), *key[2:])
+                                   if k == "flash_attention" else (tuple(key[0]), *key[1:]): n
+                                   for key, n in launches[k][1].items()})
+                    check(got == want, f"{job['id']}: {k} launches by shape differ from the "
+                          f"configs' (counted less predicted {dict(got - want)}, predicted "
+                          f"less counted {dict(want - got)})")
+                for name, count in counted.items():
+                    check(count > 0, f"{name} was never launched on the Kandinsky path")
+            served["jobs"][job["id"]] = {
+                "timings": t, "launches": counted, "predicted": predicted,
+                "latents": cfg["latents"], "wall_s": wall,
+                "pixels_sha256": hashlib.sha256(image.tobytes()).hexdigest()}
+        paths[kind] = (len(jobs), launches)
+
+    k22_size, cn_size = (64, 64) if tiny else (512, K_CN_SIZE)
+    job_kw = {"steps": steps, "prior_steps": prior_steps}
+    write("k22_prior", KandinskyPriorPipeline(names["k22_prior"], device=device, dtype=dtype,
+                                              allow_random_init=True), zero_embed=True)
+    gc.collect()
+    write("k22", seeded_decoder(names["k22"], device, dtype))
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    before = _allocated_gib(device)
+    prior = build("k22_prior", "KandinskyV22PriorPipeline")
+    decoder = build("k22", "KandinskyV22Pipeline")
+    built = _allocated_gib(device)
+    served["bundle"] = {
+        "allocated_gib_before": before, "allocated_gib_built": built,
+        "pair_gib": built - before,
+        "params_gib": {name: sum(p.numel() * p.element_size() for m in mods
+                                 for p in m.parameters()) / 2**30
+                       for name, mods in ((names["k22"], (decoder.unet, decoder.movq)),
+                                          (names["k22_prior"],
+                                           (prior.prior, prior.text_encoder)))},
+        "reckoned_gib": {n: resident_bytes(device, n) / 2**30
+                         for n in (names["k22"], names["k22_prior"])}}
+    log(f"[kandinsky] the 2.2 pair beside {before:.2f} GiB allocated: "
+        f"{served['bundle']['pair_gib']:.2f} GiB allocated by it "
+        f"(parameters {json.dumps({k: round(v, 3) for k, v in served['bundle']['params_gib'].items()})}"
+        f" GiB; capacity.resident_bytes reckons "
+        f"{json.dumps({k: round(v, 3) for k, v in served['bundle']['reckoned_gib'].items()})} GiB "
+        "with one image)")
+    del prior, decoder
+    sizes = (64,) if tiny else sizes
+    for size in sizes:
+        serve(f"k22_txt2img_{size}", [k_job(f"k22-{size}", names["k22"], size, 5100 + size,
+                                            "KandinskyV22Pipeline", **job_kw)])
+    serve("k22_img2img", [k_job("k22-img2img", names["k22"], k22_size, 5201,
+                                "KandinskyV22Img2ImgPipeline", workflow="img2img",
+                                start_image_uri="start", strength=0.75, **job_kw)],
+          files={"start": image_bytes(start_image(k22_size), "JPEG")})
+    if profile and device == "cuda":
+        pipe = registry.get_pipeline(names["k22"], pipeline_type="KandinskyV22Pipeline")
+        x, t, cond = kandinsky_unet_inputs(pipe, 512)
+        z = torch.randn((1, 4, 64, 64), device=device, dtype=dtype)
+        served["profile"] = profile_fns(names["k22"], 512, 2, {
+            "unet": (lambda: pipe.unet(x, t, cond), 3),
+            "movq_decode": (lambda: pipe.movq.decode(z), 2)}, pipe.device)
+        log_profile(served["profile"], smi)
+        check_one_launch_per_call(served["profile"])
+        del pipe, x, t, cond, z
+    # the depth ControlNet: the port's DPT builds the hint from the job's image
+    write_detectors(root, 5, tiny=tiny, depth_model="test/tiny-dpt" if tiny else DPT_MODEL,
+                    skip=("hed", "pose", "pidinet", "mlsd", "lineart", "zoe", "upernet"))
+    write("cn", seeded_decoder(names["cn"], device, dtype, seed=1))
+    gc.collect()
+    build("cn", "KandinskyV22ControlnetPipeline")
+    cn_kw = {"test_tiny_model": True} if tiny else {}
+    serve("k22_controlnet", [k_job("k22-controlnet", K22_CN, cn_size, 5301,
+                                   "KandinskyV22ControlnetPipeline", parameters={
+                                       "controlnet": {"control_image_uri": "photo"}, **cn_kw},
+                                   **job_kw)],
+          files={"photo": image_bytes(photo_image(cn_size), "JPEG")},
+          settings_kw={"depth_model": "test/tiny-dpt" if tiny else DPT_MODEL},
+          detector=DPT_LAUNCHES if not tiny else None)
+    # 2.1: its prior without a zero embed, its decoder on MCLIP
+    if not tiny:
+        write("k21_prior", KandinskyPriorPipeline(names["k21_prior"], device=device,
+                                                  dtype=dtype, allow_random_init=True))
+        gc.collect()
+    write("k21", seeded_decoder(names["k21"], device, dtype,
+                                cfgs.TINY_K21_UNET if tiny else cfgs.K21_DECODER_UNET, seed=2))
+    gc.collect()
+    k21 = build("k21", "KandinskyPipeline")
+    served["bundle_21"] = {
+        "params_gib": sum(p.numel() * p.element_size() for m in (k21.unet, k21.movq, k21.mclip)
+                          for p in m.parameters()) / 2**30,
+        "reckoned_gib": resident_bytes(device, names["k21"]) / 2**30}
+    del k21
+    log(f"[kandinsky] the 2.1 decoder (UNet, MoVQ, MCLIP): parameters "
+        f"{served['bundle_21']['params_gib']:.3f} GiB; capacity.resident_bytes reckons "
+        f"{served['bundle_21']['reckoned_gib']:.3f} GiB with one image")
+    if not tiny:
+        build("k21_prior", "KandinskyV22PriorPipeline")
+    serve("k21_txt2img", [k_job("k21-512", names["k21"], k22_size, 5401, "KandinskyPipeline",
+                                **job_kw)])
+    served["resident_after"] = registry.resident_models()
+    del registry
+    # the hint's DPT stays process-resident otherwise
+    from chiaswarm_tpu_torch.pipelines import aux_models
+
+    aux_models.clear()
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    served["allocated_gib_after"] = _allocated_gib(device)
+    log(f"[kandinsky] path done: {served['allocated_gib_after']:.2f} GiB allocated after "
+        f"({served['allocated_gib_before']:.2f} before)")
+    if device == "cuda":
+        check(served["allocated_gib_after"] <= served["allocated_gib_before"] + 0.5,
+              f"the Kandinsky path left {served['allocated_gib_after']:.2f} GiB allocated")
+    return paths, served
+
+
+def kandinsky_unet_inputs(pipe, size: int, rows: int = 2, seed: int = 7):
+    """(x, t, cond) for one decoder UNet call at size^2 with `rows` rows."""
+    dev, cfg = pipe.device, pipe.unet_cfg
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(pipe.dtype)
+
+    lat = size // pipe.latent_factor
+    x = randn(rows, cfg.in_channels, lat, lat).contiguous(memory_format=torch.channels_last)
+    t = torch.full((rows,), 500.0, device=dev)
+    if cfg.conditioning == "text_image":
+        cond = {"text_states": randn(rows, 77, cfg.encoder_hid_dim),
+                "text_embeds": randn(rows, cfg.cross_attention_dim),
+                "image_embeds": randn(rows, cfg.image_embed_dim)}
+    else:
+        cond = randn(rows, cfg.encoder_hid_dim)
+    return x, t, cond
+
+
 def measure(paths: dict, main: str = "txt2img") -> tuple[list[dict], dict]:
     """Phase 6 for {job kind: (jobs, {kernel: (launches, {shape key:
     launches})})} counted over `jobs` jobs of each kind: every shape that
@@ -6300,6 +6988,8 @@ def main(argv=None) -> int:
         mark("phase 3 upscale checks")
         preprocessor_checks(torch.Generator(device="cuda").manual_seed(4))
         mark("phase 3 preprocessor checks")
+        kandinsky_checks(torch.Generator(device="cuda").manual_seed(6))
+        mark("phase 3 Kandinsky checks")
         tiny_reference_check()
         tiny_sd = tiny_sd_checks()
         tiny_image = tiny_image_checks()
@@ -6307,6 +6997,7 @@ def main(argv=None) -> int:
         tiny_adapters = tiny_adapter_checks()
         tiny_batched = tiny_batched_checks()
         tiny_flux = tiny_flux_checks()
+        tiny_kandinsky = tiny_kandinsky_checks()
         mark("phase 4 tiny checks")
         launches, served, registry = serve_main_path(smi)
         unet_launches = {name: (count / N_JOBS - DECODE_LAUNCHES[name]) / STEPS
@@ -6343,6 +7034,9 @@ def main(argv=None) -> int:
         hive_paths, hive_served = serve_hive_plane_path(smi, registry, sd_registry,
                                                         unet_launches)
         mark("phase 5 hive-plane path")
+        # beside the main path's resident SDXL pipelines
+        k_paths, k_served = serve_kandinsky_path(smi)
+        mark("phase 5 Kandinsky path")
         # (model, registry, canvas, CFG rows, parts) of phases 7 and 8
         calls = [(SDXL, registry, SIZE, 2, ("unet", "vae_decode", "vae_encode")),
                  *((model, sd_registry, size, 2, ("unet",)) for model, size in SD_CANVASES),
@@ -6389,7 +7083,7 @@ def main(argv=None) -> int:
                                    **edit_paths, **checkpoint_paths, **adapter_paths,
                                    **batched_paths, **cn_paths, **up_paths, **pre_paths,
                                    **resume_paths, **plane_paths, **hive_paths,
-                                   **flux_paths})
+                                   **k_paths, **flux_paths})
         mark("phase 6 measure")
         if opts.detail:
             path = Path(opts.detail)
@@ -6404,7 +7098,8 @@ def main(argv=None) -> int:
                  "controlnet_served": cn_served, "upscale_served": up_served,
                  "preprocessor_served": pre_served, "resume_served": resume_served,
                  "plane_served": plane_served, "hive_served": hive_served,
-                 "tiny_flux": tiny_flux,
+                 "tiny_flux": tiny_flux, "tiny_kandinsky": tiny_kandinsky,
+                 "kandinsky_served": k_served,
                  "flux_beside_sdxl": flux_beside, "flux_served": flux_served,
                  "kernels": summary,
                  "shapes": shapes, "end_to_end_bf16": e2e, "profile": profile}, indent=1,

@@ -15,7 +15,9 @@ residency, as the JAX package does.
 - A file that is present but broken raises CheckpointError naming the
   key or the file, and never falls back to random init: a wrong shape, a
   key the module lacks, a parameter that no file holds, bytes that are
-  not safetensors.
+  not safetensors. A detector's state that lacks a parameter is a
+  CheckpointError too (DPT), and a detector behind the negative cache
+  (M-LSD) is then cached as None, so its job is served degraded.
 - The policy: a folder without safetensors gives random init for a test
   name and MissingWeightsError for a production name (before any device
   memory is taken); no model directory behaves as before, with a hint
@@ -219,6 +221,47 @@ def test_broken_file_raises_naming_it(kind, tmp_path):
         assert str(path) in str(err.value)
 
 
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_detector_missing_a_parameter_is_a_checkpoint_error(tmp_path):
+    from safetensors.torch import load_file
+    from safetensors.torch import save_file as save_torch
+
+    from chiaswarm_tpu_torch.pipelines import aux_models as aux
+
+    smoke = _chip_smoke()
+    dpt, pose = "test/tiny-dpt", "test/tiny-pose"
+    smoke.write_detectors(tmp_path, 5, tiny=True, depth_model=dpt, pose_model=pose,
+                          skip=("hed", "pose", "pidinet", "lineart", "zoe", "upernet"))
+    dpt_file = tmp_path / dpt / "model.safetensors"
+    state = load_file(str(dpt_file))
+    dropped = "head.head.0.weight"
+    del state[dropped]
+    save_torch(state, str(dpt_file))
+    mlsd_file = tmp_path / aux.DEFAULT_ANNOTATORS / smoke.MLSD_FILE
+    state = torch.load(str(mlsd_file), weights_only=True)
+    del state[next(iter(state))]
+    torch.save(state, str(mlsd_file))
+
+    aux.clear()
+    try:
+        det = aux.Detectors("cpu", str(tmp_path), dpt, pose)
+        with pytest.raises(weights.CheckpointError, match=rf"in no file, e.g. \['{dropped}'\]"):
+            det.depth()
+        assert det.mlsd() is None and det.mlsd() is None
+    finally:
+        aux.clear()
+
+
 def test_broken_checkpoint_never_falls_back(model_root):
     pipe = SDPipeline("test/tiny-sd", device="cpu")
     save_checkpoint(pipe, model_root / "test/tiny-sd")
@@ -287,13 +330,7 @@ def test_chip_smoke_checkpoint_phase_rehearses_on_cpu():
     seeded weights are written as fp16 safetensors, the worker's Registry
     loads them and serves the job, which passes its envelope checks and
     then fails its launch-count check, as it must where no kernel runs."""
-    import importlib.util
-    from pathlib import Path
-
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = _chip_smoke()
     with pytest.raises(smoke.SmokeFailure,
                        match="flash_attention was never launched on the checkpoint path"):
         smoke.serve_checkpoint_path("cpu", device="cpu", model="test/tiny-sd", size=SIZE,

@@ -149,10 +149,10 @@ def test_pix2pix_strength_mapping(images):
 
 
 @pytest.mark.parametrize("job,match", [
-    # the Kandinsky ControlNet (its depth hint) waits for the Kandinsky family
-    ({"workflow": "img2img", "model_name": "kandinsky-community/kandinsky-2-2-controlnet-depth",
+    # DeepFloyd IF waits for its slice
+    ({"workflow": "img2img", "model_name": "DeepFloyd/IF-I-XL-v1.0",
       "start_image_uri": "http://h/start.png", "parameters": {"controlnet": {}}},
-     "Kandinsky family is not ported"),
+     "DeepFloyd IF is not ported"),
     ({"workflow": "img2img", "model_name": SDXL, "height": 2048, "width": 512},
      "max image size"),
 ])

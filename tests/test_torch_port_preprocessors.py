@@ -492,6 +492,23 @@ def test_negative_cache_picks_up_weights(env, tmp_path):
     assert det.mlsd() is detector
 
 
+def test_detector_missing_a_tensor_degrades(env, tmp_path):
+    """A DPT state with one tensor deleted is a CheckpointError naming the
+    missing parameter, which the negative cache turns into a degraded
+    (None) detector, as JAX's `_cached_detector` does."""
+    from chiaswarm_tpu_torch.weights import CheckpointError
+
+    state = aux._safetensors_state(env["models"] / DPT_NAME)
+    dropped = sorted(state)[len(state) // 2]
+    del state[dropped]
+    (tmp_path / DPT_NAME).mkdir(parents=True)
+    save_file(state, str(tmp_path / DPT_NAME / "model.safetensors"))
+    where = aux.Detectors("cpu", str(tmp_path), DPT_NAME, POSE_NAME)
+    with pytest.raises(CheckpointError, match="parameters in no file"):
+        aux.DepthEstimator(DPT_NAME, where)
+    assert aux.cached_detector(where, "depth", DPT_NAME, aux.DepthEstimator) is None
+
+
 def test_detectors_load_published_and_folded_forms(env, tmp_path):
     """M-LSD, UperNet and PiDiNet from the published files and from the
     folded state `from_jax_params` gives: the same parameters."""

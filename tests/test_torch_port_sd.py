@@ -121,7 +121,7 @@ def test_formerly_refused_names_are_served(name, match, model_root):
 
 @pytest.mark.parametrize("name,match", [
     ("black-forest-labs/FLUX.1-schnell", "FluxPipeline"),
-    ("kandinsky-community/kandinsky-2-2-decoder", "not ported"),
+    ("kandinsky-community/kandinsky-2-2-decoder", "KandinskyPipeline"),
     ("stabilityai/stable-cascade", "not ported"),
     ("test/tiny-flux", "FluxPipeline"),
 ])

@@ -179,6 +179,12 @@ def test_every_port_module_imports_with_jax_blocked():
         "models.flops")} <= set(modules)
     # and the stage graphs' callbacks
     assert "chiaswarm_tpu_torch.workflows.stages" in modules
+    # and the Kandinsky 2.x slice's: the prior, the decoder UNet, MoVQ,
+    # MCLIP and their pipelines (the tokenizer.json reader is in
+    # models.tokenizer)
+    assert {f"chiaswarm_tpu_torch.models.{m}" for m in (
+        "prior", "unet_kandinsky", "movq", "mclip", "tokenizer")} | {
+        "chiaswarm_tpu_torch.pipelines.kandinsky"} <= set(modules)
     script = (
         "import sys\n"
         "before = set(sys.modules)\n"
@@ -202,7 +208,7 @@ def test_every_port_module_imports_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr[-2000:]
 
 
-REFUSED = ("kandinsky-community/kandinsky-2-2-decoder", "stabilityai/stable-cascade",
+REFUSED = ("kandinsky-community/kandinsky-3", "stabilityai/stable-cascade",
            "cvssp/audioldm-s-full-v2")
 SERVED = ("runwayml/stable-diffusion-v1-5", "stabilityai/stable-diffusion-2-1",
           "stabilityai/stable-diffusion-2-1-base", "stabilityai/stable-diffusion-xl-base-1.0",
@@ -212,7 +218,9 @@ SERVED = ("runwayml/stable-diffusion-v1-5", "stabilityai/stable-diffusion-2-1",
           "test/tiny-sd", "test/tiny-sd-v", "test/tiny-xl", "test/tiny-inpaint",
           "test/tiny-xl-inpaint", "test/tiny-pix2pix", "test/tiny-xl-pix2pix",
           "test/tiny-xl-refiner", "test/tiny-upscaler", "black-forest-labs/FLUX.1-schnell",
-          "black-forest-labs/FLUX.1-dev", "test/tiny-flux", "test/tiny-flux-schnell")
+          "black-forest-labs/FLUX.1-dev", "test/tiny-flux", "test/tiny-flux-schnell",
+          "kandinsky-community/kandinsky-2-2-decoder", "kandinsky-community/kandinsky-2-1",
+          "kandinsky-community/kandinsky-2-2-controlnet-depth", "test/tiny-kandinsky")
 
 
 def test_unconverted_families_gate_the_hive(tmp_path):

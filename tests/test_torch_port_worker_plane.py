@@ -41,6 +41,7 @@ import torch
 
 from chiaswarm_tpu_torch import faults, log_setup, memory_census, telemetry
 from chiaswarm_tpu_torch import outbox as outbox_mod
+from chiaswarm_tpu_torch import programs as programs_mod
 from chiaswarm_tpu_torch import settings as settings_mod
 from chiaswarm_tpu_torch import worker as worker_mod
 from chiaswarm_tpu_torch.fake_hive import FakeHive
@@ -193,6 +194,9 @@ def test_registry_render_is_byte_identical_to_jax():
 
 
 def test_served_worker_is_read_by_metrics_dump_and_swarm_top(hive, root):
+    # the pass ledger is process-wide: another test's tiny-xl pass would
+    # add a second entry for the model
+    programs_mod.reset()
     metrics_dump, swarm_top = _tools()
     port = _free_port()
     worker = _worker(hive, metrics_port=port)
