@@ -46,8 +46,14 @@ FAMILY_PARAMS_GB: dict[str, float] = {
     "kandinsky": 2.5,
     "kandinsky21": 3.5,
     "kandinsky_prior": 3.25,
-    "kandinsky3": 16.0,
-    "cascade": 11.0,
+    # Kandinsky 3 (its UNet, MoVQ and FLAN-UL2's T5 encoder) and Stable
+    # Cascade's decoder (stage B, CLIP-bigG, the Paella VQ) and prior
+    # (stage C, CLIP-bigG), charged apart as the Kandinsky pair: their bf16
+    # parameters are 22.05, 4.23 and 7.98 GiB at the published geometry
+    # (chip_smoke.py serve_kandinsky3_path, serve_cascade_path)
+    "kandinsky3": 22.5,
+    "cascade": 4.5,
+    "cascade_prior": 8.25,
     "deepfloyd_if": 18.0,
 }
 
@@ -63,6 +69,7 @@ FAMILY_ACT_GB_PER_IMAGE: dict[str, float] = {
     "kandinsky_prior": 0.05,
     "kandinsky3": 2.2,
     "cascade": 1.5,
+    "cascade_prior": 0.25,
     "deepfloyd_if": 1.5,
 }
 

@@ -119,7 +119,7 @@ class CLIPTextEncoder(nn.Module):
             nn.Linear(config.hidden_size, config.projection_dim, bias=False)
             if config.projection_dim else None)
 
-    def forward(self, input_ids, extra_embeddings=None):
+    def forward(self, input_ids, extra_embeddings=None, attention_mask=None):
         """input_ids [B, S] -> {"hidden_states": [B, S, D] (per the
         config's index), "pooled": [B, D or projection_dim]} (the final
         norm's state at each row's first EOS).
@@ -128,7 +128,8 @@ class CLIPTextEncoder(nn.Module):
         an id at or past `vocab_size` takes row `id - vocab_size` of it. The
         token table only ever sees ids clamped into the vocabulary, and the
         EOS that pools stays the vocabulary's last id, which no placeholder
-        id equals."""
+        id equals. `attention_mask` [B, S] (1 keep) masks the padded keys
+        on top of the causal mask (Stable Cascade's masked encode)."""
         cfg = self.config
         tm = self.text_model
         b, s = input_ids.shape
@@ -140,6 +141,9 @@ class CLIPTextEncoder(nn.Module):
         hidden = tok + tm.embeddings.position_embedding.weight[None, :s]
         causal = torch.full((s, s), -1e9, dtype=hidden.dtype,
                             device=hidden.device).triu(1)[None, None]
+        if attention_mask is not None:
+            causal = causal + torch.where(attention_mask[:, None, None, :].bool(), 0.0,
+                                          -1e9).to(hidden.dtype)
         collected = []
         for layer in tm.encoder.layers:
             collected.append(hidden)

@@ -1,10 +1,13 @@
 """Model configurations the port serves: SD 1.x, SD 2.x, SDXL base and
 refiner, Flux (its MMDiT transformer, T5-XXL and the 16-channel VAE; its
 CLIP is SD 1.x's CLIP-L), Kandinsky 2.x (the diffusion prior, the
-image-embed decoder UNet, MoVQ and 2.1's MCLIP text tower), and the tiny
-stand-ins of the hermetic tests. Copied from chiaswarm_tpu/models/
-configs.py, flux.py, t5.py, prior.py, unet_kandinsky.py, movq.py,
-mclip.py and clap.py, and pipelines/kandinsky.py's
+image-embed decoder UNet, MoVQ and 2.1's MCLIP text tower), Kandinsky 3
+(its UNet; FLAN-UL2's T5 encoder through `t5_config_from_json`), Stable
+Cascade (stage C and stage B of one UNet class, the Paella VQ decoder),
+and the tiny stand-ins of the hermetic tests. Copied from
+chiaswarm_tpu/models/ configs.py, flux.py, t5.py, prior.py,
+unet_kandinsky.py, unet_kandinsky3.py, cascade_unet.py, paella_vq.py,
+movq.py, mclip.py and clap.py, and pipelines/kandinsky.py's
 `prior_config_with_overrides` (the port imports nothing of the JAX
 package); the other families wait for their slices of the port.
 """
@@ -130,6 +133,17 @@ class T5Config:
 
 # the tiny config keeps every structural feature
 TINY_T5 = T5Config(vocab_size=1000, d_model=32, d_kv=8, num_heads=4, d_ff=64, num_layers=2)
+
+
+def t5_config_from_json(cj: dict | None) -> T5Config:
+    """Geometry from a transformers T5 / UL2 config.json, Flux's T5-XXL
+    where a key is absent. Kandinsky 3 rides FLAN-UL2's encoder: d_model
+    4096, 32 layers, d_ff 16384, 16 heads of 256 (so heads x d_kv need
+    not be d_model)."""
+    cj = cj or {}
+    base = T5Config()
+    return T5Config(**{f.name: type(getattr(base, f.name))(cj.get(f.name, getattr(base, f.name)))
+                       for f in dataclasses.fields(T5Config)})
 
 
 # --- tiny configs for hermetic tests / test_tiny_model jobs ---
@@ -301,6 +315,128 @@ K21_DECODER_UNET = dataclasses.replace(K22_DECODER_UNET, conditioning="text_imag
 TINY_K21_UNET = dataclasses.replace(TINY_K22_UNET, conditioning="text_image",
                                     encoder_hid_dim=TINY_MCLIP.hidden_size,
                                     image_embed_dim=TINY_PRIOR.embed_dim, image_proj_tokens=3)
+
+
+# --- Kandinsky 3 (kandinsky-community/kandinsky-3) ---
+@dataclasses.dataclass(frozen=True)
+class K3UNetConfig:
+    """diffusers' Kandinsky3UNet; serving reads the geometry off the
+    checkpoint (weights.infer_k3_unet_config)."""
+
+    in_channels: int = 4
+    time_embedding_dim: int = 1536
+    groups: int = 32
+    attention_head_dim: int = 64
+    layers_per_block: int = 3
+    block_out_channels: tuple[int, ...] = (384, 768, 1536, 3072)
+    cross_attention_dim: int = 4096
+    encoder_hid_dim: int = 4096
+    add_cross_attention: tuple[bool, ...] = (False, True, True, True)
+    add_self_attention: tuple[bool, ...] = (False, True, True, True)
+    expansion_ratio: int = 4
+    compression_ratio: int = 2
+
+    @property
+    def init_channels(self) -> int:
+        return self.block_out_channels[0] // 2
+
+
+# layers_per_block >= 2: the up blocks' channel plan needs a first and a
+# last pair
+TINY_K3_UNET = K3UNetConfig(
+    time_embedding_dim=32, groups=4, attention_head_dim=8, layers_per_block=2,
+    block_out_channels=(16, 32), cross_attention_dim=32, encoder_hid_dim=32,
+    add_cross_attention=(False, True), add_self_attention=(False, True))
+# google/flan-ul2's encoder, kandinsky-community/kandinsky-3's text_encoder
+FLAN_UL2_T5 = T5Config(vocab_size=32128, d_model=4096, d_kv=256, num_heads=16, d_ff=16384,
+                       num_layers=32)
+
+
+# --- Stable Cascade (stabilityai/stable-cascade-prior and -cascade) ---
+@dataclasses.dataclass(frozen=True)
+class CascadeUNetConfig:
+    """diffusers' StableCascadeUNet, one class for stage C (the prior) and
+    stage B (the decoder); the defaults are stage C's."""
+
+    in_channels: int = 16
+    out_channels: int = 16
+    patch_size: int = 1
+    timestep_ratio_embedding_dim: int = 64
+    conditioning_dim: int = 2048
+    block_out_channels: tuple[int, ...] = (2048, 2048)
+    num_attention_heads: tuple[int, ...] = (32, 32)
+    down_num_layers_per_block: tuple[int, ...] = (8, 24)
+    up_num_layers_per_block: tuple[int, ...] = (24, 8)
+    down_blocks_repeat_mappers: tuple[int, ...] = (1, 1)
+    up_blocks_repeat_mappers: tuple[int, ...] = (1, 1)
+    # per level: whether each layer carries an attention block after its
+    # resnet and timestep block
+    attention: tuple[bool, ...] = (True, True)
+    clip_text_pooled_in_channels: int = 1280
+    clip_text_in_channels: int = 0  # 0: absent (stage B)
+    clip_image_in_channels: int = 0  # 0: absent (stage B)
+    clip_seq: int = 4
+    effnet_in_channels: int = 0  # stage B: 16, stage C's latent channels
+    pixel_mapper_in_channels: int = 0  # stage B: 3
+    kernel_size: int = 3
+    self_attn: bool = True
+    timestep_conditioning_type: tuple[str, ...] = ("sca", "crp")
+    # None: strided-conv scalers (stage B); a tuple: 1x1-conv scalers,
+    # each with a bilinear rescale where True (stage C: (False,))
+    switch_level: tuple[bool, ...] | None = None
+
+    @property
+    def t_embed_total(self) -> int:
+        return self.timestep_ratio_embedding_dim * (1 + len(self.timestep_conditioning_type))
+
+
+# stabilityai/stable-cascade-prior's prior/config.json (about 3.6 B)
+CASCADE_STAGE_C = CascadeUNetConfig(clip_text_in_channels=1280, clip_image_in_channels=768,
+                                    switch_level=(False,))
+# stabilityai/stable-cascade's decoder/config.json (about 1.56 B)
+CASCADE_STAGE_B = CascadeUNetConfig(
+    in_channels=4, out_channels=4, patch_size=2, conditioning_dim=1280,
+    block_out_channels=(320, 640, 1280, 1280), num_attention_heads=(0, 0, 20, 20),
+    down_num_layers_per_block=(2, 6, 28, 6), up_num_layers_per_block=(6, 28, 6, 2),
+    down_blocks_repeat_mappers=(1, 1, 1, 1), up_blocks_repeat_mappers=(3, 3, 2, 2),
+    attention=(False, False, True, True), effnet_in_channels=16, pixel_mapper_in_channels=3,
+    timestep_conditioning_type=("sca",), switch_level=None)
+TINY_CASCADE_C = CascadeUNetConfig(
+    timestep_ratio_embedding_dim=8, conditioning_dim=32, block_out_channels=(32, 32),
+    num_attention_heads=(4, 4), down_num_layers_per_block=(1, 2), up_num_layers_per_block=(2, 1),
+    down_blocks_repeat_mappers=(1, 2), up_blocks_repeat_mappers=(2, 1),
+    clip_text_pooled_in_channels=16, clip_text_in_channels=16, clip_image_in_channels=12,
+    clip_seq=2, switch_level=(False,))
+TINY_CASCADE_B = CascadeUNetConfig(
+    in_channels=4, out_channels=4, patch_size=2, timestep_ratio_embedding_dim=8,
+    conditioning_dim=16, block_out_channels=(16, 32), num_attention_heads=(0, 4),
+    down_num_layers_per_block=(1, 2), up_num_layers_per_block=(2, 1),
+    down_blocks_repeat_mappers=(1, 1), up_blocks_repeat_mappers=(2, 1), attention=(False, True),
+    clip_text_pooled_in_channels=16, effnet_in_channels=16, pixel_mapper_in_channels=3,
+    clip_seq=2, timestep_conditioning_type=("sca",), switch_level=None)
+
+
+@dataclasses.dataclass(frozen=True)
+class PaellaVQConfig:
+    """Stable Cascade's stage A, diffusers' PaellaVQModel (its decoder)."""
+
+    out_channels: int = 3
+    up_down_scale_factor: int = 2
+    levels: int = 2
+    bottleneck_blocks: int = 12
+    embed_dim: int = 384
+    latent_channels: int = 4
+    scale_factor: float = 0.3764
+
+    def c_levels(self) -> tuple[int, ...]:
+        return tuple(self.embed_dim // (2 ** i) for i in reversed(range(self.levels)))
+
+
+TINY_PAELLA_VQ = PaellaVQConfig(levels=2, bottleneck_blocks=2, embed_dim=32, latent_channels=4)
+# Stable Cascade's CLIP-bigG with projection for the tiny stand-ins; its
+# published tower is SDXL_CLIP_2's widths, read from config.json
+TINY_CASCADE_CLIP = CLIPTextConfig(vocab_size=1000, hidden_size=16, num_layers=2, num_heads=4,
+                                   max_positions=77, projection_dim=16, apply_final_norm=False)
 
 
 def model_family(model_name: str) -> str:

@@ -252,8 +252,11 @@ class _Detector:
     def _place(self, factory, where: Detectors, state: dict | None, source: str,
                ignore=None, seed_name: str | None = None) -> None:
         """Build `factory()` on the device without initialising it, then
-        load `state` (or random-initialise from `seed_name`'s seed)."""
-        self.device = resolve_device(where.device)
+        load `state` (or random-initialise from `seed_name`'s seed). On the
+        meta device (the setup CLI's `--check`) the load holds the state's
+        keys and shapes to the module and copies nothing."""
+        self.device = (torch.device("meta") if str(where.device) == "meta"
+                       else resolve_device(where.device))
         self.dtype = serving_dtype(self.device)
         self.source = source
         with torch.device("meta"):

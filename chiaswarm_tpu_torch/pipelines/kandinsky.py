@@ -164,6 +164,24 @@ def mclip_config_from_json(cj: dict | None) -> cfgs.MCLIPConfig:
         layer_norm_eps=float(cj.get("layer_norm_eps", base.layer_norm_eps)))
 
 
+def mclip_files(model_name: str, model_dir: Path | None):
+    """2.1's MCLIP: (its safetensors, its tokenizer, its config); a repo
+    without either raises MissingWeightsError, as JAX's does."""
+    files = sorted((model_dir / "text_encoder").glob("*.safetensors")) if model_dir else []
+    if not files:
+        raise MissingWeightsError(f"{model_name}: text_image checkpoints need the "
+                                  "MCLIP text tower on disk (text_encoder/)")
+    tok_dir = model_dir / "tokenizer"
+    try:
+        tokenizer = load_fast_tokenizer(tok_dir)
+    except Exception as e:
+        raise MissingWeightsError(
+            f"{model_name}: MCLIP tokenizer failed to load from {tok_dir} ({e}); "
+            "XLM-R needs tokenizer/tokenizer.json (a fast tokenizer)") from e
+    cfg = mclip_config_from_json(_config_json(model_dir / "text_encoder" / "config.json"))
+    return files, tokenizer, cfg
+
+
 def _as_f32(value, device) -> torch.Tensor:
     if not isinstance(value, torch.Tensor):
         value = torch.from_numpy(np.array(value, dtype=np.float32))
@@ -384,7 +402,7 @@ class KandinskyPipeline(_Module):
         self.latent_factor = 2 ** (len(movq_cfg.block_out_channels) - 1)
         text_files = tokenizer = None
         if self.text_image and weights is None:
-            text_files, tokenizer, mclip_cfg = self._mclip_files(model_dir)
+            text_files, tokenizer, mclip_cfg = mclip_files(model_name, model_dir)
 
         t0 = time.perf_counter()
         with torch.device("meta"):
@@ -427,23 +445,6 @@ class KandinskyPipeline(_Module):
         logger.info("%s resident on %s in %.1fs (dtype=%s, weights=%s, K2.%s)", model_name,
                     device_label(self.device), time.perf_counter() - t0, self.dtype,
                     self.weights_source, "1" if self.text_image else "2")
-
-    def _mclip_files(self, model_dir: Path | None):
-        """2.1's MCLIP: (its safetensors, its tokenizer, its config); a repo
-        without either raises MissingWeightsError, as JAX's does."""
-        files = sorted((model_dir / "text_encoder").glob("*.safetensors")) if model_dir else []
-        if not files:
-            raise MissingWeightsError(f"{self.model_name}: text_image checkpoints need the "
-                                      "MCLIP text tower on disk (text_encoder/)")
-        tok_dir = model_dir / "tokenizer"
-        try:
-            tokenizer = load_fast_tokenizer(tok_dir)
-        except Exception as e:
-            raise MissingWeightsError(
-                f"{self.model_name}: MCLIP tokenizer failed to load from {tok_dir} ({e}); "
-                "XLM-R needs tokenizer/tokenizer.json (a fast tokenizer)") from e
-        cfg = mclip_config_from_json(_config_json(model_dir / "text_encoder" / "config.json"))
-        return files, tokenizer, cfg
 
     # --- stages ---
 

@@ -110,6 +110,24 @@ def find_upscaler_checkpoint(model_name: str, model_dir: Path | None,
     return files
 
 
+def upscaler_configs(model_dir: Path, files: dict):
+    """(unet_cfg, clip_cfg, vae_cfg) of an upscaler checkpoint: the K-UNet's
+    and the VAE's off their shapes, CLIP ViT-L's from its config.json (the
+    last layer's state before the final LayerNorm), as the JAX loader reads
+    them; serving and the setup CLI's `--check` share it."""
+    unet_cfg = infer_k_upscaler_config(checkpoint_shapes(files["unet"]),
+                                       _config_json(model_dir, "unet"))
+    vae_cfg = infer_vae_config(checkpoint_shapes(files["vae"]), _config_json(model_dir, "vae"))
+    tj = _config_json(model_dir, "text_encoder")
+    clip_cfg = dataclasses.replace(
+        cfgs.SD15_CLIP, vocab_size=int(tj.get("vocab_size", 49408)),
+        hidden_size=int(tj.get("hidden_size", 768)),
+        num_layers=int(tj.get("num_hidden_layers", 12)),
+        num_heads=int(tj.get("num_attention_heads", 12)),
+        hidden_act=str(tj.get("hidden_act", "quick_gelu")), apply_final_norm=False)
+    return unet_cfg, clip_cfg, vae_cfg
+
+
 class LatentUpscalePipeline:
     """The 2x latent upscaler resident on one device."""
 
@@ -129,20 +147,10 @@ class LatentUpscalePipeline:
         self.scheduler_json: dict = {}
         if files is not None:
             try:
-                unet_cfg = infer_k_upscaler_config(checkpoint_shapes(files["unet"]),
-                                                   _config_json(model_dir, "unet"))
-                vae_cfg = infer_vae_config(checkpoint_shapes(files["vae"]),
-                                           _config_json(model_dir, "vae"))
-                tj = _config_json(model_dir, "text_encoder")
+                unet_cfg, clip_cfg, vae_cfg = upscaler_configs(model_dir, files)
             except Exception as e:  # noqa: BLE001 — as the JAX loader: a checkpoint it cannot read
                 raise MissingWeightsError(f"checkpoint under {model_dir} could not be read for "
                                           f"'{model_name}': {e}") from e
-            clip_cfg = dataclasses.replace(
-                cfgs.SD15_CLIP, vocab_size=int(tj.get("vocab_size", 49408)),
-                hidden_size=int(tj.get("hidden_size", 768)),
-                num_layers=int(tj.get("num_hidden_layers", 12)),
-                num_heads=int(tj.get("num_attention_heads", 12)),
-                hidden_act=str(tj.get("hidden_act", "quick_gelu")), apply_final_norm=False)
             path = model_dir / "scheduler" / "scheduler_config.json"
             self.scheduler_json = json.loads(path.read_text()) if path.is_file() else {}
         elif is_test_model(model_name):

@@ -2,7 +2,8 @@
 
 The counterpart of chiaswarm_tpu/registry.py for the families the port
 serves (SD: SD 1.x, SD 2.x, SDXL base and refiner, the edit checkpoints
-and the tiny test models; the SD-x2 upscaler; Flux; Kandinsky 2.x). A
+and the tiny test models; the SD-x2 upscaler; Flux; Kandinsky 2.x and 3;
+Stable Cascade). A
 `Registry` is an object that the worker owns, not process-global state:
 the worker builds it for its device, and a caller may pre-build a
 pipeline into it (chip_smoke.py does, for a
@@ -29,14 +30,17 @@ job's adapters and ControlNets resolve under.
 names for the families the port serves: "sd" and "sdxl" (one resident
 `SDPipeline` serves every name of its model), "sd_upscale" (the SD-x2
 `LatentUpscalePipeline`), "flux" (`FluxPipeline`), "kandinsky" (the
-Kandinsky 2.x decoder, `KandinskyPipeline`) and "kandinsky_prior" (its
+Kandinsky 2.x decoder, `KandinskyPipeline`), "kandinsky_prior" (its
 prior, `KandinskyPriorPipeline`, which a decoder's job builds here as its
-prepipeline). The generic names (`DiffusionPipeline`, `AutoPipeline*`)
-resolve by model name, as the JAX registry's `_auto_family`
-(configs.auto_family; `job_family`). A pipeline is kept under (model
-name, "flux", "upscaler", "kandinsky", "kandinsky_prior" or "sd"), in the
-same LRU. A build never evicts the pipelines its caller names in `keep`:
-the decoder whose job builds its prior is one.
+prepipeline), "kandinsky3" (`Kandinsky3Pipeline`), "cascade" (Stable
+Cascade's decoder, `CascadePipeline`, the combined name too) and
+"cascade_prior" (`CascadePriorPipeline`). The generic names
+(`DiffusionPipeline`, `AutoPipeline*`) resolve by model name, as the JAX
+registry's `_auto_family` (configs.auto_family; `job_family`). A pipeline
+is kept under (model name, its family's key kind, "sd" for the SD family),
+in the same LRU. A build never evicts the pipelines its caller names in
+`keep`: the Kandinsky 2.x decoder whose job builds its prior is one, and
+so is a Cascade prior building its decoder, or a decoder its prior.
 `check_pipeline_type` refuses the names of other families and names that
 no table holds.
 
@@ -58,8 +62,10 @@ from .capacity import free_bytes, resident_bytes
 from .embed_cache import EmbedCache
 from .lora_cache import LoraCache
 from .models.configs import auto_family
+from .pipelines.cascade import CascadePipeline, CascadePriorPipeline
 from .pipelines.flux import FluxPipeline
 from .pipelines.kandinsky import KandinskyPipeline, KandinskyPriorPipeline
+from .pipelines.kandinsky3 import Kandinsky3Pipeline
 from .pipelines.safety import DEFAULT_SAFETY_MODEL, get_checker
 from .pipelines.stable_diffusion import SDPipeline
 from .pipelines.upscale import LatentUpscalePipeline
@@ -94,22 +100,29 @@ PIPELINE_FAMILIES: dict[str, str] = {
     "KandinskyV22ControlnetImg2ImgPipeline": "kandinsky",
     "KandinskyV22PriorPipeline": "kandinsky_prior",
     "KandinskyV22PriorEmb2EmbPipeline": "kandinsky_prior",
+    "Kandinsky3Pipeline": "kandinsky3",
+    "Kandinsky3Img2ImgPipeline": "kandinsky3",
     "AutoPipelineForText2Image": "sd",
+    "StableCascadeDecoderPipeline": "cascade",
+    "StableCascadePriorPipeline": "cascade_prior",
+    "StableCascadeCombinedPipeline": "cascade",
     "FluxPipeline": "flux",
 }
 
 # the families whose pipelines are not SDPipelines, and their registry keys
 _OWN_PIPELINES = {"flux": FluxPipeline, "sd_upscale": LatentUpscalePipeline,
-                  "kandinsky": KandinskyPipeline, "kandinsky_prior": KandinskyPriorPipeline}
+                  "kandinsky": KandinskyPipeline, "kandinsky_prior": KandinskyPriorPipeline,
+                  "kandinsky3": Kandinsky3Pipeline, "cascade": CascadePipeline,
+                  "cascade_prior": CascadePriorPipeline}
 _KEY_KINDS = {"flux": "flux", "sd_upscale": "upscaler", "kandinsky": "kandinsky",
-              "kandinsky_prior": "kandinsky_prior"}
+              "kandinsky_prior": "kandinsky_prior", "kandinsky3": "kandinsky3",
+              "cascade": "cascade", "cascade_prior": "cascade_prior"}
 
 
 # model-name keywords (substrings of a lowercased model name) of each family
 # of the JAX package's table (its family dispatch by model name, and the
 # audio, video and captioning models it serves), for the families that
-# PIPELINE_FAMILIES does not hold yet. Kandinsky 3's are the JAX
-# registry's `_auto_family` words, which no 2.x name holds.
+# PIPELINE_FAMILIES does not hold yet.
 FAMILY_KEYWORDS: dict[str, tuple[str, ...]] = {
     "sd": (), "sdxl": (), "sd_upscale": (),
     "kandinsky": ("kandinsky",), "kandinsky_prior": ("kandinsky",),
@@ -141,8 +154,9 @@ def check_pipeline_type(pipeline_type: str) -> None:
 
 
 def job_family(model_name: str, pipeline_type: str | None = None) -> str:
-    """"flux", "sd_upscale", "kandinsky", "kandinsky_prior" or "sd" (SD,
-    SDXL, and the families not ported yet, which SDPipeline refuses) for a
+    """"flux", "sd_upscale", "kandinsky", "kandinsky_prior", "kandinsky3",
+    "cascade", "cascade_prior" or "sd" (SD, SDXL, and the families not
+    ported yet, which SDPipeline refuses) for a
     job: by its wire name, or, for the generic names (and none), by the
     model's (configs.auto_family, as the JAX registry's `_auto_family`)."""
     if pipeline_type in PIPELINE_FAMILIES and pipeline_type not in (
@@ -175,8 +189,8 @@ class Registry:
     def get_pipeline(self, model_name: str, allow_random_init: bool = False,
                      pipeline_type: str | None = None, keep=()):
         """The resident pipeline for `model_name` (a FluxPipeline, the
-        upscaler, a Kandinsky decoder or prior where `job_family` says so,
-        else an SDPipeline), built on first use. The pipelines in `keep`
+        upscaler, a Kandinsky or Cascade pipeline where `job_family` says
+        so, else an SDPipeline), built on first use. The pipelines in `keep`
         are not evicted to make room for it."""
         family = job_family(model_name, pipeline_type)
         key = (model_name, _KEY_KINDS.get(family, "sd"))

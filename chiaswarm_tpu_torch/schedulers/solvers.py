@@ -413,3 +413,42 @@ class FlowMatchEulerScheduler(BaseScheduler):
     def add_noise(self, schedule, x0, noise, i):
         s = _f32(schedule.sigmas[i])
         return float(_ONE - s) * x0 + float(s) * noise
+
+
+class DDPMWuerstchenScheduler(BaseScheduler):
+    """Stable Cascade's ratio-space DDPM (diffusers'
+    DDPMWuerstchenScheduler), both stages: the timesteps are ratios in [0,
+    1] that the UNet takes as they are, alpha-bar is the squared cosine of
+    the ratio (s = 0.008, clipped to [1e-4, 0.9999]), and the ancestral
+    step is DDPM's in that space, its noise dropped at the last step.
+    `schedule.sigmas` holds the n + 1 ratio boundaries."""
+
+    uses_ancestral_noise = True
+    s = 0.008
+
+    def schedule(self, num_steps: int) -> Schedule:
+        ratios = np.linspace(1.0, 0.0, num_steps + 1).astype(np.float32)
+        return Schedule(ratios[:-1], ratios, 1.0, num_steps)
+
+    def _abar(self, t) -> np.float32:
+        import math
+
+        s = _f32(self.s)
+        norm = _f32(math.cos(self.s / (1 + self.s) * math.pi * 0.5) ** 2)
+        x = (_f32(t) + s) / (_ONE + s) * _f32(np.pi) * _f32(0.5)
+        return np.clip(np.cos(x) ** 2 / norm, _f32(0.0001), _f32(0.9999)).astype(np.float32)
+
+    def step(self, schedule, state, i, sample, model_output, noise=None):
+        t, prev_t = _f32(schedule.sigmas[i]), _f32(schedule.sigmas[i + 1])
+        abar, abar_prev = self._abar(t), self._abar(prev_t)
+        alpha = abar / abar_prev
+        mu = float(_ONE / np.sqrt(alpha)) * (
+            sample - model_output * float((_ONE - alpha) / np.sqrt(_ONE - abar)))
+        if prev_t <= 0:
+            return state, mu
+        std = np.sqrt((_ONE - alpha) * (_ONE - abar_prev) / (_ONE - abar))
+        return state, mu + float(std) * noise
+
+    def add_noise(self, schedule, x0, noise, i):
+        abar = self._abar(schedule.timesteps[i])
+        return float(np.sqrt(abar)) * x0 + float(np.sqrt(_ONE - abar)) * noise

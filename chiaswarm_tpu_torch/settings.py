@@ -172,6 +172,13 @@ def resolve_path(path: str | Path) -> Path:
     return full
 
 
+def save_settings(settings: Settings) -> None:
+    """Write every field to the settings file (the setup CLI)."""
+    path = settings_path()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(dataclasses.asdict(settings), indent=2))
+
+
 def load_settings() -> Settings:
     """The settings file's known fields (a missing or unreadable file
     gives the defaults), then the environment overrides, cast to each

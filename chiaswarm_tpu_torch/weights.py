@@ -73,7 +73,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .models.configs import K22UNetConfig
+from .models.configs import CascadeUNetConfig, K22UNetConfig, K3UNetConfig, PaellaVQConfig
 from .models.k_upscaler import KUpscalerConfig
 from .models.layers import FusedGroupNorm
 from .models.t5 import RMSNorm
@@ -91,6 +91,12 @@ KANDINSKY_DECODER_FOLDERS = ("unet", "movq")
 KANDINSKY_PRIOR_FOLDERS = ("prior", "text_encoder")
 # the prior's whitening stats, which are no parameters of the module
 PRIOR_STATS = ("clip_mean", "clip_std")
+# a Kandinsky 3 directory: the UNet, MoVQ and the FLAN-UL2 T5 encoder
+KANDINSKY3_FOLDERS = ("unet", "movq", "text_encoder")
+# Stable Cascade: a prior repo's stage C and CLIP-bigG, a decoder repo's
+# stage B, CLIP-bigG and the Paella VQ
+CASCADE_PRIOR_FOLDERS = ("prior", "text_encoder")
+CASCADE_DECODER_FOLDERS = ("decoder", "text_encoder", "vqgan")
 
 
 class MissingWeightsError(ValueError):
@@ -193,7 +199,7 @@ def checkpoint_key(key: str, folder: str, text_layers: int | None = None) -> str
     `position_ids` buffers, MCLIP's CLS pooler, MoVQ's codebook, the
     prior's whitening stats (read apart), and text-encoder layers past the
     config's `text_layers` (SD 2.x's OpenCLIP-H files hold 24, the port
-    runs 23).
+    runs 23), and the Paella VQ's encoder and quantizer (`vqgan/`).
     T5's `encoder.embed_tokens` is its tied `shared` table.
     The VAE's legacy attention names (query/key/value/proj_attn) become
     diffusers' (to_q/to_k/to_v/to_out.0)."""
@@ -202,6 +208,8 @@ def checkpoint_key(key: str, folder: str, text_layers: int | None = None) -> str
     if (folder == "movq" and key.startswith("quantize.")) or (
             folder == "prior" and key in PRIOR_STATS):
         return None
+    if folder == "vqgan" and not key.startswith(("up_blocks.", "out_block.")):
+        return None  # the Paella VQ's encoder and quantizer: serving only decodes
     if key == "encoder.embed_tokens.weight":
         return "shared.weight"  # T5's token table, tied to `shared`
     if text_layers is not None:
@@ -262,6 +270,38 @@ def load_checkpoint_(module: nn.Module, files: list[Path], folder: str,
     return sum(path.stat().st_size for path in files)
 
 
+def check_checkpoint(module: nn.Module, files: list[Path], folder: str,
+                     text_layers: int | None = None, optional=None) -> int:
+    """What `load_checkpoint_` would load, held against `module` (on any
+    device, the meta device too) from the files' headers alone: raises
+    CheckpointError naming every key the module lacks, every parameter no
+    file holds and every shape that differs. -> the module's parameter
+    count."""
+    if not files:
+        raise CheckpointError(f"no safetensors for the {folder} module")
+    targets = {k: tuple(v.shape) for k, v in module.state_dict().items()}
+    extra, misshaped, loaded = [], [], set()
+    for key, shape in checkpoint_shapes(files).items():
+        name = checkpoint_key(key, folder, text_layers)
+        if name is None:
+            continue
+        if name not in targets:
+            extra.append(key)
+            continue
+        if (name.endswith(("proj_in.weight", "proj_out.weight")) and len(shape) == 4
+                and tuple(shape[2:]) == (1, 1)):
+            shape = tuple(shape[:2])
+        if tuple(shape) != targets[name]:
+            misshaped.append(f"{key} {tuple(shape)} != {targets[name]}")
+        loaded.add(name)
+    missing = sorted(n for n in set(targets) - loaded if optional is None or not optional(n))
+    if extra or missing or misshaped:
+        raise CheckpointError(
+            f"{files[0].parent}: the {folder} checkpoint does not fit its module: "
+            f"missing {missing}, unexpected {sorted(extra)}, misshaped {misshaped}")
+    return sum(p.numel() for p in module.parameters())
+
+
 def read_tensors(files: list[Path], keys) -> dict[str, torch.Tensor]:
     """The tensors of `keys` that the safetensors files hold (f32, CPU)."""
     from safetensors import SafetensorError, safe_open
@@ -318,6 +358,140 @@ def infer_k22_unet_config(shapes: dict, config_json: dict | None = None) -> K22U
         norm_num_groups=int(cj.get("norm_num_groups", 32)),
         conditioning="text_image" if text_image else "image",
         image_embed_dim=int(image_w[1]) if text_image else 768)
+
+
+def infer_k3_unet_config(shapes: dict, config_json: dict | None = None) -> K3UNetConfig:
+    """The Kandinsky 3 UNet's config from its checkpoint's shapes, as the
+    JAX package infers it: levels and widths from each down level's
+    resnets, self- and cross-attention from the attention indices, the
+    context widths from `encoder_hid_proj`, the compression ratio from
+    level 0's first bottleneck, the expansion from a feed-forward; head
+    width and groups from config.json (64 and 32 unset)."""
+    cj = config_json or {}
+    blocks: dict[int, int] = {}
+    layers = 1
+    self_attn, cross_attn = set(), set()
+    for k in shapes:
+        if m := re.match(r"down_blocks\.(\d+)\.resnets_in\.(\d+)\.resnet_blocks\.3\."
+                         r"projection\.weight", k):
+            blocks[int(m.group(1))] = int(shapes[k][0])
+            layers = max(layers, int(m.group(2)) + 1)
+        if m := re.match(r"down_blocks\.(\d+)\.attentions\.(\d+)\.attention\.", k):
+            (self_attn if m.group(2) == "0" else cross_attn).add(int(m.group(1)))
+    n = max(blocks) + 1
+    block_out = tuple(blocks[i] for i in range(n))
+    hid = shapes["encoder_hid_proj.projection_linear.weight"]
+    h0 = int(shapes["down_blocks.0.resnets_in.0.resnet_blocks.0.projection.weight"][0])
+    first = min(self_attn | cross_attn) if (self_attn or cross_attn) else 0
+    ff = (shapes.get(f"down_blocks.{first}.attentions.0.feed_forward.0.weight")
+          or shapes.get(f"down_blocks.{first}.attentions.1.feed_forward.0.weight"))
+    return K3UNetConfig(
+        in_channels=int(shapes["conv_in.weight"][1]),
+        time_embedding_dim=int(shapes["time_embedding.linear_2.weight"][0]),
+        groups=int(cj.get("groups", 32)),
+        attention_head_dim=int(cj.get("attention_head_dim", 64)),
+        layers_per_block=layers,
+        block_out_channels=block_out,
+        cross_attention_dim=int(hid[0]),
+        encoder_hid_dim=int(hid[1]),
+        add_cross_attention=tuple(i in cross_attn for i in range(n)),
+        add_self_attention=tuple(i in self_attn for i in range(n)),
+        expansion_ratio=int(ff[0] // ff[1]) if ff else 4,
+        compression_ratio=max(1, block_out[0] // h0))
+
+
+def infer_cascade_unet_config(shapes: dict, config_json: dict | None = None
+                              ) -> CascadeUNetConfig:
+    """A Stable Cascade UNet's config from its checkpoint's shapes, as the
+    JAX package infers it; config.json gives what shapes cannot (patch
+    size, head counts, clip_seq, self_attn, switch levels, the
+    conditioning order), with the released configs' values unset."""
+    cj = config_json or {}
+    levels = 1 + max(int(m.group(1)) for k in shapes
+                     if (m := re.match(r"down_blocks\.(\d+)\.", k)))
+    block_out, down_layers, up_layers, attention = [], [], [], []
+    for i in range(levels):
+        res = sorted(int(m.group(1)) for k in shapes
+                     if (m := re.match(rf"down_blocks\.{i}\.(\d+)\.depthwise\.weight$", k)))
+        block_out.append(int(shapes[f"down_blocks.{i}.{res[0]}.depthwise.weight"][0]))
+        down_layers.append(len(res))
+        up_layers.append(sum(1 for k in shapes if re.match(
+            rf"up_blocks\.{levels - 1 - i}\.\d+\.depthwise\.weight$", k)))
+        attention.append(any(re.match(rf"down_blocks\.{i}\.\d+\.attention\.to_q\.", k)
+                             for k in shapes))
+
+    def repeats(prefix):
+        return tuple(1 + len({m.group(1) for k in shapes
+                              if (m := re.match(rf"{prefix}\.{i}\.(\d+)\.weight$", k))})
+                     for i in range(levels))
+
+    t_dim = next((int(v[1]) for k, v in shapes.items() if k.endswith(".mapper.weight")), 64)
+    conds = tuple(cj.get("timestep_conditioning_type", [
+        c for c in ("sca", "crp") if any(k.endswith(f".mapper_{c}.weight") for k in shapes)]))
+    clip_seq = int(cj.get("clip_seq") or 4)
+    ctp = shapes["clip_txt_pooled_mapper.weight"]
+    patch = int(cj.get("patch_size") or 1)
+    heads_cj = cj.get("num_attention_heads")
+    if heads_cj is None:
+        heads = tuple(c // 64 if a else 0 for c, a in zip(block_out, attention))
+    elif isinstance(heads_cj, int):
+        heads = (heads_cj,) * levels
+    else:
+        heads = tuple(int(h or 0) for h in heads_cj)
+    self_attn = cj.get("self_attn", True)
+    if isinstance(self_attn, (list, tuple)):
+        self_attn = bool(self_attn[0])
+    switch = None
+    if any(".blocks." in k for k in shapes if k.startswith(("down_downscalers", "up_upscalers"))):
+        switch = tuple(cj.get("switch_level") or [False] * (levels - 1))
+
+    def width(key, axis=1):
+        return int(shapes[key][axis]) if key in shapes else 0
+
+    dw = next(k for k in shapes if k.endswith(".depthwise.weight"))
+    return CascadeUNetConfig(
+        in_channels=int(shapes["embedding.1.weight"][1]) // patch ** 2,
+        out_channels=int(shapes["clf.1.weight"][0]) // patch ** 2,
+        patch_size=patch,
+        timestep_ratio_embedding_dim=t_dim,
+        conditioning_dim=int(ctp[0]) // clip_seq,
+        block_out_channels=tuple(block_out),
+        num_attention_heads=heads,
+        down_num_layers_per_block=tuple(down_layers),
+        up_num_layers_per_block=tuple(reversed(up_layers)),
+        down_blocks_repeat_mappers=repeats("down_repeat_mappers"),
+        up_blocks_repeat_mappers=repeats("up_repeat_mappers"),
+        attention=tuple(attention),
+        clip_text_pooled_in_channels=int(ctp[1]),
+        clip_text_in_channels=width("clip_txt_mapper.weight"),
+        clip_image_in_channels=width("clip_img_mapper.weight"),
+        clip_seq=clip_seq,
+        effnet_in_channels=width("effnet_mapper.0.weight"),
+        pixel_mapper_in_channels=width("pixels_mapper.0.weight"),
+        kernel_size=int(shapes[dw][-1]),
+        self_attn=bool(self_attn),
+        timestep_conditioning_type=conds,
+        switch_level=switch)
+
+
+def infer_paella_vq_config(shapes: dict, config_json: dict | None = None) -> PaellaVQConfig:
+    """The Paella VQ decoder's config from its `up_blocks.*` / `out_block.*`
+    shapes, as the JAX package infers it (the scale factor from
+    config.json, 0.3764 unset)."""
+    cj = config_json or {}
+    in_w = shapes["up_blocks.0.0.weight"]
+    ct = sorted(int(m.group(1)) for k in shapes
+                if (m := re.match(r"up_blocks\.(\d+)\.weight$", k)))
+    mix = sorted(int(m.group(1)) for k in shapes
+                 if (m := re.match(r"up_blocks\.(\d+)\.gammas$", k)))
+    first_ct = ct[0] if ct else 1 + (mix[-1] if mix else 0)
+    factor = int(cj.get("up_down_scale_factor") or 2)
+    return PaellaVQConfig(
+        out_channels=int(shapes["out_block.0.weight"][0]) // factor ** 2,
+        up_down_scale_factor=factor, levels=len(ct) + 1,
+        bottleneck_blocks=sum(1 for i in mix if i < first_ct),
+        embed_dim=int(in_w[0]), latent_channels=int(in_w[1]),
+        scale_factor=float(cj.get("scale_factor") or 0.3764))
 
 
 def checkpoint_shapes(files: list[Path]) -> dict[str, tuple]:
@@ -689,6 +863,76 @@ def mclip_state_dict(tree: dict) -> dict[str, torch.Tensor]:
     return _state_dict(tree, _mclip_name)
 
 
+def k3_unet_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """The inverse of convert_kandinsky3_unet: the generic names, the 2x2
+    transposed convs' (kh, kw, in, out) kernels back to [in, out, kh, kw]."""
+    out = _state_dict(tree, lambda name: name)
+    for path, leaf, value in _flatten(tree):
+        if leaf == "kernel" and path[-1].endswith("up_sample"):
+            name = ".".join(_split_index(p) for p in path) + ".weight"
+            out[name] = torch.from_numpy(np.array(np.asarray(value).transpose(2, 3, 0, 1),
+                                                  dtype=np.float32))
+    return out
+
+
+def _conv_t_unflipped(value) -> torch.Tensor:
+    """A transposed conv the JAX package stores as a forward conv's kernel
+    (flipped, [kh, kw, in, out]) -> torch's ConvTranspose2d [in, out, kh, kw]."""
+    w = np.flip(np.asarray(value).transpose(2, 3, 0, 1), (2, 3))
+    return torch.from_numpy(np.array(w, dtype=np.float32, order="C"))
+
+
+def _cascade_tree_state(tree: dict, special) -> dict[str, torch.Tensor]:
+    """Every `_N` of a flax name an index again; `special(path, leaf,
+    value)` may give (name, tensor) for a layout of its own."""
+    out = {}
+    for path, leaf, value in _flatten(tree):
+        name = ".".join(re.sub(r"_(\d+)", r".\1", p) for p in path)
+        name = name.replace(".attention_to_", ".attention.to_")
+        got = special(name, leaf, np.asarray(value))
+        if got is not None:
+            out[got[0]] = got[1]
+            continue
+        new_leaf, arr = _tensor(leaf, value)
+        out[f"{name}.{new_leaf}"] = torch.from_numpy(np.array(arr, dtype=np.float32))
+    return out
+
+
+def cascade_unet_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """The inverse of convert_cascade_unet: stage B's transposed-conv
+    upscalers un-flipped; stage C's 1x1 scalers back into their
+    UpDownBlock2d slot (`blocks.0` down, `blocks.1` up)."""
+    # each scaler's port name -> whether it is a 1x1 mapping conv (stage C)
+    mapping = {re.sub(r"_(\d+)", r".\1", key): np.asarray(node["kernel"]).shape[0] == 1
+               for key, node in tree.items()
+               if key.startswith(("down_downscalers", "up_upscalers"))}
+
+    def special(name, leaf, value):
+        if name not in mapping:
+            return None
+        if mapping[name]:
+            slot = "blocks.0" if name.startswith("down") else "blocks.1"
+            new_leaf, arr = _tensor(leaf, value)
+            return f"{name}.{slot}.{new_leaf}", torch.from_numpy(np.array(arr, np.float32))
+        if name.startswith("up_upscalers") and leaf == "kernel":
+            return f"{name}.weight", _conv_t_unflipped(value)
+        return None
+
+    return _cascade_tree_state(tree, special)
+
+
+def paella_vq_state_dict(tree: dict) -> dict[str, torch.Tensor]:
+    """The inverse of convert_paella_vq's decoder tree: the transposed convs
+    between levels un-flipped."""
+
+    def special(name, leaf, value):
+        if re.fullmatch(r"up_blocks\.\d+", name) and leaf == "kernel":
+            return f"{name}.weight", _conv_t_unflipped(value)
+        return None
+
+    return _cascade_tree_state(tree, special)
+
+
 def from_jax_params(tree: dict) -> dict:
     """{"unet": tree, "text": [tree, ...], "vae": tree, "cn": tree,
     "k_unet": tree, "safety": tree, "flux": tree, "t5": tree} (numpy
@@ -710,7 +954,10 @@ def from_jax_params(tree: dict) -> dict:
                "flux": ("flux", flux_state_dict), "t5": ("t5", t5_state_dict),
                "k22_unet": ("k22_unet", k22_unet_state_dict),
                "movq": ("movq", movq_state_dict), "prior": ("prior", prior_state_dict),
-               "mclip": ("mclip", mclip_state_dict)}
+               "mclip": ("mclip", mclip_state_dict),
+               "k3_unet": ("k3_unet", k3_unet_state_dict),
+               "cascade_unet": ("cascade_unet", cascade_unet_state_dict),
+               "paella_vq": ("paella_vq", paella_vq_state_dict)}
     out = {name: fn(tree[key]) for key, (name, fn) in convert.items() if key in tree}
     if "text" in tree:
         out["text"] = [clip_state_dict(t) for t in tree["text"]]

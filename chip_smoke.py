@@ -44,6 +44,13 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
    conditioning tokens ahead of the self tokens) and of a MoVQ decode and
    encode (one head of 512; norms at eps 1e-6 up to (1, 768, 768, 128)),
    at 512^2 and 768^2, in bf16 and f32; bf16 on `wgmma-d64` / `wgmma-d512`.
+   Kandinsky 3's (`kandinsky3_checks`): the GroupNorm of a UNet call at
+   1024^2 (C = 192 in groups of 6 channels) and every call of a MoVQ
+   decode and encode at 1024^2 (one head of 512 over 16384 tokens); Stable
+   Cascade's (`cascade_checks`): every attention call of a stage C call
+   (576 queries over 576 + 85 keys, 32 heads of 64) and a stage B call
+   (1024 and 256 queries over themselves and 4 pooled-text tokens, 20
+   heads of 64) at 1024^2; bf16 and f32, bf16 on the tensor-core routes.
 4. Small-input reference: the tiny SDXL-shaped pipeline in f32 on the card
    (kernels) against the same weights and latents on the CPU (plain
    versions); the decoded uint8 images must agree within 2/255. At 64^2:
@@ -267,7 +274,26 @@ Phases (any failure exits non-zero; nothing is printed as a result then):
    E2E_RATIO x the plain bf16 path's error, and profiled; then dev
    released and black-forest-labs/FLUX.1-schnell built for one 4-step job
    at 256 T5 tokens. Resident and peak bytes are printed.
-6. After the Flux path: each kernel at every shape any path launched it with: again held
+   The Kandinsky 3 path (`serve_kandinsky3_path`) and the Stable Cascade
+   path (`serve_cascade_path`) follow, each in a registry of its own: the
+   published bundles (FLAN-UL2's T5 encoder, the UNet and MoVQ; stage C
+   with CLIP-bigG; stage B with CLIP-bigG and the Paella VQ) on seeded
+   weights written as bf16 diffusers safetensors; the setup CLI (`python3
+   -m chiaswarm_tpu_torch.initialize --silent --check --models ...`) over
+   every tree written, each "ok" with the served modules' parameter
+   counts, and over a copy of the K3 tree with one MoVQ tensor removed
+   (FAILED naming it, exit 1); the bundles built from the files and their
+   folders removed; K3 txt2img and img2img (strength 0.75) at 1024^2, 25
+   DDPM steps at guidance 3.0, a Cascade prior-as-main job with a
+   `decoder` dict and a StableCascadeCombinedPipeline job at 1024^2 (20
+   guided prior steps, 10 unguided decoder steps) through the worker,
+   launches held to the configs' arithmetic (`k3_calls`,
+   `cascade_calls`) in total and shape by shape; the bf16 parameter
+   bytes, job, stage and step times printed; a K3 UNet call, a stage C
+   call and a stage B call in bf16 through the kernels held to f32 on the
+   plain path within E2E_RATIO, and profiled with a MoVQ and a Paella
+   decode.
+6. After the Kandinsky 3 and Stable Cascade paths: each kernel at every shape any path launched it with: again held
    against its plain version, and timed (CUDA events) beside its plain
    version and one PyTorch library call computing the same function, each
    also replayed from a CUDA graph (the device's own time, without the
@@ -1301,7 +1327,11 @@ def tiny_image_checks(device: str = "cuda", size: int = 64, steps: int = 4) -> d
     import numpy as np
 
     from chiaswarm_tpu_torch.pipelines.stable_diffusion import SDPipeline, _mask_to_latent_array
-    from chiaswarm_tpu_torch.schedulers import SCHEDULERS, FlowMatchEulerScheduler
+    from chiaswarm_tpu_torch.schedulers import (
+        SCHEDULERS,
+        DDPMWuerstchenScheduler,
+        FlowMatchEulerScheduler,
+    )
 
     pairs = {}
     for model in ("test/tiny-xl", "test/tiny-xl-inpaint"):
@@ -1329,7 +1359,9 @@ def tiny_image_checks(device: str = "cuda", size: int = 64, steps: int = 4) -> d
              dict(scheduler_type="UniPCMultistepScheduler", mask_image=mask))]
     jobs += [("inpaint", "test/tiny-xl", dict(scheduler_type=name, mask_image=mask,
                                               strength=0.6))
-             for name, cls in SCHEDULERS.items() if cls is not FlowMatchEulerScheduler]
+             # the SD solvers: Flux's and Stable Cascade's schedulers serve their families
+             for name, cls in SCHEDULERS.items()
+             if cls not in (FlowMatchEulerScheduler, DDPMWuerstchenScheduler)]
     captured = {}
 
     def capture(name, fn):
@@ -6436,6 +6468,637 @@ def kandinsky_unet_inputs(pipe, size: int, rows: int = 2, seed: int = 7):
     return x, t, cond
 
 
+# --- Kandinsky 3 and Stable Cascade ---
+
+K3 = "kandinsky-community/kandinsky-3"
+CASCADE_PRIOR = "stabilityai/stable-cascade-prior"
+CASCADE = "stabilityai/stable-cascade"
+K3_STEPS = 25  # Kandinsky3Pipeline's defaults: 25 DDPM steps at guidance 3.0
+K3_GUIDANCE = 3.0
+CASCADE_PRIOR_STEPS = 20
+CASCADE_DECODER_STEPS = 10
+# the published stage C's conditioning tokens: 77 CLIP states, then the
+# image embedding and the pooled text, each mapped to clip_seq tokens
+CASCADE_TEXT_TOKENS = 77
+
+
+def k3_unet_calls(cfg, side: int, rows: int = 2, dtype=torch.bfloat16) -> dict:
+    """Every kernel call of one Kandinsky 3 UNet call on a side^2 latent with
+    `rows` CFG rows, from the config: its conditional group norms and its
+    attention are plain (as in JAX), so the output norm is the one call,
+    GroupNorm at the first level's width (init_channels) with SiLU, eps
+    1e-5."""
+    dt = str(dtype).replace("torch.", "")
+    return {"flash_attention": Counter(),
+            "group_norm": Counter({((rows, side, side, cfg.init_channels), dt, True, 1e-5): 1})}
+
+
+def cascade_unet_calls(cfg, side: int, rows: int, clip_tokens: int,
+                       dtype=torch.bfloat16) -> dict:
+    """Every kernel call of one Stable Cascade UNet call on a side^2 latent
+    with `rows` rows, from the config: an attention block attends the
+    level's tokens over those tokens followed by `clip_tokens` mapped
+    conditioning tokens, at D = width / heads, once a layer of a level that
+    attends, for each of its repeats; a strided level (stage B) halves the
+    side, a switch level (stage C) halves it only where it says so. No
+    GroupNorm: the family's norms are LayerNorms."""
+    calls = {"flash_attention": Counter(), "group_norm": Counter()}
+    levels = len(cfg.block_out_channels)
+    s = side // cfg.patch_size
+    sides = []
+    for i in range(levels):
+        if i and (cfg.switch_level is None or cfg.switch_level[i - 1]):
+            s //= 2
+        sides.append(s)
+    for i in range(levels):
+        if not cfg.attention[i]:
+            continue
+        c, h = cfg.block_out_channels[i], cfg.num_attention_heads[i]
+        n = sides[i] * sides[i]
+        keys = (n if cfg.self_attn else 0) + clip_tokens
+        j = levels - 1 - i
+        count = (cfg.down_num_layers_per_block[i] * cfg.down_blocks_repeat_mappers[i]
+                 + cfg.up_num_layers_per_block[j] * cfg.up_blocks_repeat_mappers[j])
+        calls["flash_attention"][((rows, n, h, c // h), (rows, keys, h, c // h), dtype)] += count
+    return calls
+
+
+def k3_calls(unet_cfg, movq_cfg, size: int, rows: int = 2, dtype=torch.bfloat16) -> dict:
+    """{"unet" | "decode" | "encode": {kernel: Counter}} of a Kandinsky 3 job
+    at size^2."""
+    side = size // 2 ** (len(movq_cfg.block_out_channels) - 1)
+    return {"unet": k3_unet_calls(unet_cfg, side, rows, dtype),
+            "decode": movq_calls(movq_cfg, size, "decode", dtype),
+            "encode": movq_calls(movq_cfg, size, "encode", dtype)}
+
+
+def cascade_calls(prior_cfg, decoder_cfg, size: int, dtype=torch.bfloat16,
+                  tiny: bool = False) -> dict:
+    """{"prior" | "decoder": {kernel: Counter}} of one stage C call (two CFG
+    rows on its grid, with the text states, the image embedding and the
+    pooled text as conditioning) and one stage B call (one row, the pooled
+    text alone) of a size^2 job."""
+    import math
+
+    from chiaswarm_tpu_torch.pipelines.cascade import LATENT_DIM_SCALE, PRIOR_COMPRESSION
+
+    grid = max(4, math.ceil(size / (8.0 if tiny else PRIOR_COMPRESSION)))
+    latent = 2 * (int(grid * (2.0 if tiny else LATENT_DIM_SCALE)) // 2)
+    text = CASCADE_TEXT_TOKENS + prior_cfg.clip_seq * 2
+    return {"prior": cascade_unet_calls(prior_cfg, grid, 2, text, dtype),
+            "decoder": cascade_unet_calls(decoder_cfg, latent, 1, decoder_cfg.clip_seq, dtype)}
+
+
+def kandinsky3_checks(gen) -> None:
+    """Phase 3 at Kandinsky 3's shapes, in bf16 and f32: the GroupNorm of a
+    UNet call at 1024^2 (C = 192 in 32 groups of 6 channels, which straddle
+    every 8-channel vector) and every attention and GroupNorm call of a
+    MoVQ decode and encode at 1024^2 (one head of 512 over 128^2 = 16384
+    tokens, held against the plain version over query chunks); each bf16
+    attention on `wgmma-d512`."""
+    from chiaswarm_tpu_torch.models import configs as cfgs
+
+    _phase3(k3_calls(cfgs.K3UNetConfig(), cfgs.MoVQConfig(), 1024).values(), gen,
+            "Kandinsky 3")
+
+
+def cascade_checks(gen) -> None:
+    """Phase 3 at Stable Cascade's shapes, in bf16 and f32: every attention
+    call of a stage C call (2 CFG rows, 24^2 = 576 queries over 576 + 85
+    keys, 32 heads of 64) and of a stage B call (one row, 32^2 and 16^2
+    tokens over themselves and 4 pooled-text tokens, 20 heads of 64) at
+    1024^2; each bf16 call on `wgmma-d64`."""
+    from chiaswarm_tpu_torch.models import configs as cfgs
+
+    _phase3(cascade_calls(cfgs.CASCADE_STAGE_C, cfgs.CASCADE_STAGE_B, 1024).values(), gen,
+            "Stable Cascade")
+
+
+def _phase3(parts, gen, what: str) -> None:
+    attention, norms = Counter(), {}
+    for part in parts:
+        attention.update(part["flash_attention"])
+        norms.update(dict.fromkeys(part["group_norm"]))
+    for q_shape, k_shape, _ in attention:
+        for dtype in (torch.bfloat16, torch.float32):
+            row = attention_case(q_shape, k_shape, dtype, gen, timed=False)
+            log(f"[check] flash_attention q{q_shape} kv{k_shape} {row['dtype']} route "
+                f"{row['route']} ({what}): max_abs_err {row['max_abs_err']:.3g}"
+                + (f", RMS err {row['rms_err']:.3g}" if "rms_err" in row else "")
+                + f" (bound {row['bound']})")
+            torch.cuda.empty_cache()
+    for x_shape, _, silu, eps in norms:
+        for dtype in (torch.bfloat16, torch.float32):
+            row = gn_case(x_shape, dtype, silu, gen, timed=False, eps=eps)
+            log(f"[check] group_norm x{x_shape} {row['dtype']} silu={silu} eps {eps:g} "
+                f"({what}): max_abs_err {row['max_abs_err']:.3g} (bound {row['bound']})"
+                + (f", on chip: {row['on_chip']}" if "on_chip" in row else ""))
+    torch.cuda.empty_cache()
+
+
+def _save_config(model_dir: Path, folder: str, payload: dict) -> None:
+    (model_dir / folder).mkdir(parents=True, exist_ok=True)
+    (model_dir / folder / "config.json").write_text(json.dumps(payload))
+
+
+def write_kandinsky3(pipe, model_dir: Path, dtype=None) -> int:
+    """A Kandinsky 3 bundle in the published diffusers layout, one
+    safetensors file a folder (in `dtype`, the pipeline's unset): unet/,
+    movq/ and the T5 text_encoder/, with the config.json fields the loader
+    reads. -> bytes written."""
+    u, m, t = pipe.unet_cfg, pipe.movq_cfg, pipe.t5_cfg
+    nbytes = _save(pipe.unet, model_dir / "unet" / "diffusion_pytorch_model.safetensors", dtype)
+    _save_config(model_dir, "unet", {"_class_name": "Kandinsky3UNet",
+                                     "attention_head_dim": u.attention_head_dim,
+                                     "groups": u.groups,
+                                     "block_out_channels": list(u.block_out_channels),
+                                     "layers_per_block": u.layers_per_block})
+    nbytes += _save(pipe.movq, model_dir / "movq" / "diffusion_pytorch_model.safetensors", dtype)
+    _save_config(model_dir, "movq", {"block_out_channels": list(m.block_out_channels),
+                                     "layers_per_block": m.layers_per_block,
+                                     "latent_channels": m.latent_channels,
+                                     "vq_embed_dim": m.vq_embed_dim,
+                                     "norm_num_groups": m.norm_num_groups, "norm_type": "spatial"})
+    nbytes += _save(pipe.text_encoder, model_dir / "text_encoder" / "model.safetensors", dtype)
+    _save_config(model_dir, "text_encoder", {
+        "vocab_size": t.vocab_size, "d_model": t.d_model, "d_kv": t.d_kv,
+        "num_heads": t.num_heads, "d_ff": t.d_ff, "num_layers": t.num_layers,
+        "relative_attention_num_buckets": t.relative_attention_num_buckets,
+        "relative_attention_max_distance": t.relative_attention_max_distance,
+        "layer_norm_epsilon": t.layer_norm_epsilon, "feed_forward_proj": "gated-gelu"})
+    return nbytes
+
+
+def write_cascade(pipe, model_dir: Path, dtype=None) -> int:
+    """A Stable Cascade prior or decoder repo in the published diffusers
+    layout (in `dtype`, the pipeline's unset): prior/ or decoder/ with the
+    config.json fields shapes cannot say, the CLIP-bigG text_encoder/ and
+    a decoder's vqgan/. -> bytes written."""
+    u, c = pipe.unet_cfg, pipe.clip_cfg
+    stage = pipe.stage
+    nbytes = _save(pipe.unet, model_dir / stage / "diffusion_pytorch_model.safetensors", dtype)
+    _save_config(model_dir, stage, {
+        "_class_name": "StableCascadeUNet", "patch_size": u.patch_size,
+        "num_attention_heads": list(u.num_attention_heads), "clip_seq": u.clip_seq,
+        "self_attn": u.self_attn, "timestep_conditioning_type": list(u.timestep_conditioning_type),
+        "switch_level": None if u.switch_level is None else list(u.switch_level),
+        "block_out_channels": list(u.block_out_channels)})
+    nbytes += _save(pipe.text_encoder, model_dir / "text_encoder" / "model.safetensors", dtype)
+    _save_config(model_dir, "text_encoder", {
+        "vocab_size": c.vocab_size, "hidden_size": c.hidden_size,
+        "num_hidden_layers": c.num_layers, "num_attention_heads": c.num_heads,
+        "max_position_embeddings": c.max_positions, "hidden_act": c.hidden_act,
+        "projection_dim": c.projection_dim})
+    if pipe.vqgan is not None:
+        v = pipe.vq_cfg
+        nbytes += _save(pipe.vqgan, model_dir / "vqgan" / "diffusion_pytorch_model.safetensors",
+                        dtype)
+        _save_config(model_dir, "vqgan", {
+            "_class_name": "PaellaVQModel", "levels": v.levels, "embed_dim": v.embed_dim,
+            "bottleneck_blocks": v.bottleneck_blocks, "latent_channels": v.latent_channels,
+            "scale_factor": v.scale_factor, "up_down_scale_factor": v.up_down_scale_factor})
+    return nbytes
+
+
+def _param_counts(modules: dict) -> dict:
+    return {k: sum(p.numel() for p in m.parameters()) for k, m in modules.items()}
+
+
+def _param_gib(modules) -> float:
+    return sum(p.numel() * p.element_size() for m in modules for p in m.parameters()) / 2**30
+
+
+def cli_check(root: Path, names: list, expect_ok: bool = True) -> tuple[int, str]:
+    """`python3 -m chiaswarm_tpu_torch.initialize --silent --check --models
+    ...` against `root`, in a settings root of its own -> (exit code,
+    stdout)."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as settings_root:
+        env = dict(os.environ, SDAAS_ROOT=settings_root, CHIASWARM_MODEL_ROOT_DIR=str(root))
+        proc = subprocess.run([sys.executable, "-m", "chiaswarm_tpu_torch.initialize",
+                               "--silent", "--check", "--models", *names], cwd=str(ROOT),
+                              env=env, capture_output=True, text=True, timeout=300)
+    for line in proc.stdout.splitlines():
+        log(f"[cli] {line}")
+    if expect_ok and proc.returncode:
+        log(proc.stderr[-3000:])
+    return proc.returncode, proc.stdout
+
+
+def check_cli_counts(stdout: str, expected: dict) -> None:
+    """Every name of `expected` {name: {component: parameters}} printed "ok"
+    with exactly those counts."""
+    for name, counts in expected.items():
+        line = next((ln for ln in stdout.splitlines() if ln.startswith(f"check {name}: ")), "")
+        check(": ok (" in line, f"--check {name}: {line or 'no verdict'}")
+        got = json.loads(line[line.index("{"):line.rindex("}") + 1])
+        check(got == counts, f"--check {name}: counts {got} != the served modules' {counts}")
+
+
+def k3_job(job_id: str, model: str, size: int, seed: int, workflow: str = "txt2img",
+           steps: int = K3_STEPS, **extra) -> dict:
+    params = {"pipeline_type": ("Kandinsky3Img2ImgPipeline" if workflow == "img2img"
+                                else "Kandinsky3Pipeline"), "scheduler_type": "DDPMScheduler"}
+    return {"id": job_id, "workflow": workflow, "model_name": model,
+            "prompt": f"{K_PROMPT}, study {seed}", "negative_prompt": "blurry",
+            "height": size, "width": size, "num_inference_steps": steps,
+            "guidance_scale": K3_GUIDANCE, "seed": seed, "content_type": "image/png",
+            "parameters": params, **extra}
+
+
+def _hold_path(name: str, job: dict, cfg: dict, image, launches: dict, shapes: dict,
+               hold: bool) -> dict:
+    """Check one served envelope and hold its launches to `shapes` {kernel:
+    Counter of counter keys}, in total and shape by shape -> the counted
+    totals."""
+    check(image.max() != image.min(), f"{job['id']}: constant image")
+    check(cfg["latents"]["finite"], f"{job['id']}: non-finite latents")
+    predicted = {k: sum(v.values()) for k, v in shapes.items()}
+    counted = {k: v[0] for k, v in launches.items()}
+    if hold:
+        check(counted == predicted, f"{job['id']}: launches {counted} != {predicted}")
+        for k, want in shapes.items():
+            got = Counter({(tuple(key[0]), tuple(key[1]), *key[2:]) if k == "flash_attention"
+                           else (tuple(key[0]), *key[1:]): n
+                           for key, n in launches[k][1].items()})
+            check(got == want, f"{job['id']}: {k} launches by shape differ from the configs' "
+                  f"(counted less predicted {dict(got - want)}, predicted less counted "
+                  f"{dict(want - got)})")
+        for kernel, count in counted.items():
+            check(count > 0 or not predicted[kernel],
+                  f"{kernel} was never launched on the {name} path")
+    return {"counted": counted, "predicted": predicted}
+
+
+def _serve_jobs(registry, jobs, device, files=None):
+    results, launches, wall = serve_group(registry, jobs, device, max_coalesce=1, files=files)
+    out = []
+    for job in jobs:
+        r = results[job["id"]]
+        cfg = r["pipeline_config"]
+        check(not r.get("fatal_error") and "error" not in cfg, f"{job['id']}: {cfg}")
+        image = decode_artifact(r["artifacts"]["primary"])
+        check(image.shape == (job["height"], job["width"], 3),
+              f"{job['id']}: image {image.shape}")
+        out.append((job, cfg, image))
+    return out, launches, wall
+
+
+def _bf16_vs_f32(label: str, module, call, call_f32, around=None) -> dict:
+    """One call of `module` in bf16 through the kernels against the same
+    weights in f32 on the plain path; the plain path in bf16 gives the
+    error bf16 itself makes (bound E2E_RATIO x that). `around(module)` is
+    a context each of the three calls runs in (a LoRA delta's hooks)."""
+    import copy
+
+    around = around or (lambda m: nullcontext())
+    with torch.inference_mode():
+        with around(module):
+            kernels = call(module).float()
+        with plain_path():
+            with around(module):
+                plain = call(module).float()
+            wide = copy.deepcopy(module).float()
+            with around(wide):
+                exact = call_f32(wide).float()
+            del wide
+        torch.cuda.synchronize()
+    scale = rms(exact)
+    row = {"rel_rms_err": rms(kernels - exact) / scale,
+           "plain_bf16_rel_rms_err": rms(plain - exact) / scale,
+           "finite": bool(torch.isfinite(kernels).all())}
+    del kernels, plain, exact
+    torch.cuda.empty_cache()
+    log(f"[e2e] {label}, bf16 through the kernels vs f32 plain path: relative RMS err "
+        f"{row['rel_rms_err']:.4g}; plain path in bf16: {row['plain_bf16_rel_rms_err']:.4g} "
+        f"(bound {E2E_RATIO}x that)")
+    check(row["finite"], f"{label}: non-finite output through the kernels")
+    check(row["rel_rms_err"] <= E2E_RATIO * row["plain_bf16_rel_rms_err"],
+          f"{label}: bf16 kernel path error {row['rel_rms_err']} > {E2E_RATIO} x the plain "
+          f"bf16 path's {row['plain_bf16_rel_rms_err']}")
+    return row
+
+
+def _randn(shape, device, seed: int, dtype=torch.bfloat16):
+    return torch.randn(shape, device=device,
+                       generator=torch.Generator(device=device).manual_seed(seed)).to(dtype)
+
+
+def _timings_line(t: dict) -> str:
+    keys = ("job_s", "prior_s", "text_encode_s", "encode_s", "denoise_s", "unet_step_ms",
+            "decode_s")
+    return ", ".join(f"{k} {t[k]:.4g}" for k in keys if k in t)
+
+
+def serve_kandinsky3_path(smi: str, device: str = "cuda", dtype=None, size: int = SIZE,
+                          steps: int = K3_STEPS, hold: bool = True, tiny: bool = False,
+                          e2e: bool = True) -> tuple[dict, dict]:
+    """Phase 5, the Kandinsky 3 path, in a registry of its own: the
+    published bundle (FLAN-UL2's T5 encoder, the UNet, the 2.2 MoVQ) on
+    seeded weights written as bf16 diffusers safetensors under a temporary
+    root; the setup CLI's `--check` on it (every component "ok" with the
+    served modules' parameter counts) and on a copy with one MoVQ tensor
+    removed (FAILED, exit 1, the tensor named); the bundle built from the
+    files by the registry and its folder removed; txt2img at 1024^2 (25
+    DDPM steps, guidance 3.0) and img2img at strength 0.75 through the
+    worker and the fake hive, each envelope checked and its launches held
+    to `k3_calls` (UNet calls x a call's launches, a decode, an encode for
+    img2img); the bundle's bf16 parameter bytes, the job, stage and UNet
+    step times printed; a bf16 UNet call against f32 on the plain path and
+    profiles of a UNet call and a MoVQ decode. -> ({job kind: (1,
+    launches)}, served). `tiny` rehearses the path on the CPU."""
+    import gc
+    import shutil
+    import tempfile
+
+    from safetensors.torch import load_file, save_file
+
+    from chiaswarm_tpu_torch.capacity import resident_bytes
+    from chiaswarm_tpu_torch.pipelines.kandinsky3 import Kandinsky3Pipeline, k3_checkpoint
+    from chiaswarm_tpu_torch.registry import Registry
+
+    dtype = dtype or (torch.bfloat16 if device == "cuda" else torch.float32)
+    name = "test/tiny-kandinsky3" if tiny else K3
+    size = 64 if tiny else size
+    root = Path(tempfile.mkdtemp(prefix="kandinsky3-models-"))
+    served, paths = {"jobs": {}, "allocated_gib_before": _allocated_gib(device)}, {}
+    try:
+        t0 = time.perf_counter()
+        seeded = Kandinsky3Pipeline(name, device=device, dtype=dtype, allow_random_init=True)
+        counts = _param_counts({"unet": seeded.unet, "movq": seeded.movq,
+                                "text_encoder": seeded.text_encoder})
+        nbytes = write_kandinsky3(seeded, root / name, dtype)
+        del seeded
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        served["written"] = {"bytes": nbytes, "s": time.perf_counter() - t0}
+        log(f"[kandinsky3] {name} seeded and written: {nbytes / 2**30:.2f} GiB in "
+            f"{served['written']['s']:.1f}s")
+        # the setup CLI on the tree, then on a copy with one MoVQ tensor removed
+        t0 = time.perf_counter()
+        rc, out = cli_check(root, [name])
+        check(rc == 0, f"--check exit {rc}")
+        check_cli_counts(out, {name: counts})
+        broken = root / "broken" / name
+        broken.mkdir(parents=True)
+        for folder in ("unet", "text_encoder"):
+            (broken / folder).symlink_to(root / name / folder)
+        movq_file = k3_checkpoint(root / name)["files"]["movq"][0]
+        state = load_file(str(movq_file))
+        dropped = "decoder.conv_out.weight"
+        del state[dropped]
+        (broken / "movq").mkdir()
+        shutil.copy(root / name / "movq" / "config.json", broken / "movq" / "config.json")
+        save_file(state, str(broken / "movq" / movq_file.name))
+        del state
+        rc, out = cli_check(root / "broken", [name], expect_ok=False)
+        check(rc == 1 and f"check {name}: FAILED" in out and dropped in out,
+              f"--check of the copy without {dropped}: exit {rc}, {out!r}")
+        shutil.rmtree(root / "broken")
+        served["cli"] = {"s": time.perf_counter() - t0, "counts": counts}
+        log(f"[kandinsky3] setup CLI --check: ok with the served modules' counts "
+            f"{json.dumps(counts)}; the copy without {dropped}: FAILED, exit 1 "
+            f"({served['cli']['s']:.1f}s for both)")
+
+        registry = Registry(torch.device(device), str(root), safety_checker_model="")
+        before = _allocated_gib(device)
+        t0 = time.perf_counter()
+        pipe = registry.get_pipeline(name, pipeline_type="Kandinsky3Pipeline")
+        check(pipe.weights_source == "checkpoint", f"{name}: {pipe.weights_source}")
+        shutil.rmtree(root / name)  # resident now: its files are not read again
+        params = {"unet": pipe.unet, "movq": pipe.movq, "text_encoder": pipe.text_encoder}
+        served["bundle"] = {
+            "load_s": time.perf_counter() - t0, "read_bytes": pipe.checkpoint["bytes"],
+            "allocated_gib": _allocated_gib(device) - before,
+            "params_gib": {k: _param_gib([m]) for k, m in params.items()},
+            "params_gib_total": _param_gib(params.values()),
+            "reckoned_gib": resident_bytes(device, name) / 2**30}
+        log(f"[kandinsky3] {name} resident in {served['bundle']['load_s']:.1f}s from "
+            f"{pipe.checkpoint['bytes'] / 2**30:.2f} GiB of safetensors: "
+            f"{served['bundle']['allocated_gib']:.2f} GiB allocated, bf16 parameters "
+            f"{json.dumps({k: round(v, 3) for k, v in served['bundle']['params_gib'].items()})}"
+            f" = {served['bundle']['params_gib_total']:.3f} GiB; capacity.resident_bytes "
+            f"reckons {served['bundle']['reckoned_gib']:.3f} GiB with one image")
+        calls = k3_calls(pipe.unet_cfg, pipe.movq_cfg, size, dtype=dtype)
+        jobs = {"k3_txt2img": k3_job("k3-txt2img", name, size, 6101, steps=steps),
+                "k3_img2img": k3_job("k3-img2img", name, size, 6201, workflow="img2img",
+                                     steps=steps, start_image_uri="start", strength=0.75)}
+        for kind, job in jobs.items():
+            img2img = kind == "k3_img2img"
+            files = {"start": image_bytes(start_image(size), "JPEG")} if img2img else None
+            done, launches, wall = _serve_jobs(registry, [job], device, files)
+            job, cfg, image = done[0]
+            unet_calls = cfg["steps"] - (int(cfg["steps"] * 0.25) if img2img else 0)
+            shapes = {}
+            for k, per_call in calls["unet"].items():
+                shapes[k] = Counter({key: unet_calls * n for key, n in per_call.items()})
+                shapes[k].update(calls["decode"][k])
+                if img2img:
+                    shapes[k].update(calls["encode"][k])
+            held = _hold_path("Kandinsky 3", job, cfg, image, launches, shapes, hold)
+            t = cfg["timings"]
+            log(f"[kandinsky3] {job['id']} ({name}, {size}^2, mode {cfg['mode']}, "
+                f"{cfg['steps']} steps on {cfg['scheduler']}, {unet_calls} UNet calls) on {smi}: "
+                f"{_timings_line(t)}; launches counted {json.dumps(held['counted'])}, predicted "
+                f"{json.dumps(held['predicted'])}; pixels {int(image.min())}..{int(image.max())}")
+            served["jobs"][job["id"]] = {"timings": t, **held, "wall_s": wall,
+                                         "latents": cfg["latents"]}
+            paths[kind] = (1, launches)
+        if device == "cuda":
+            lat = size // pipe.latent_factor
+            x = _randn((2, 4, lat, lat), device, 11).contiguous(
+                memory_format=torch.channels_last)
+            tt = torch.full((2,), 500.0, device=device)
+            ctx = _randn((2, 128, pipe.unet_cfg.encoder_hid_dim), device, 12)
+            mask = torch.ones((2, 128), device=device)
+            mask[0, 24:] = 0.0
+            if e2e:
+                served["e2e_unet"] = _bf16_vs_f32(
+                    f"{name} UNet at {size}^2 (2 CFG rows)", pipe.unet,
+                    lambda m: m(x, tt, ctx, mask), lambda m: m(x.float(), tt, ctx.float(), mask))
+            z = _randn((1, 4, lat, lat), device, 13)
+            served["profile"] = profile_fns(name, size, 2, {
+                "unet": (lambda: pipe.unet(x, tt, ctx, mask), 2),
+                "movq_decode": (lambda: pipe.movq.decode(z), 2)}, pipe.device)
+            log_profile(served["profile"], smi)
+            check_one_launch_per_call(served["profile"])
+            del x, ctx, mask, z
+        del pipe, params, registry
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    served["allocated_gib_after"] = _allocated_gib(device)
+    log(f"[kandinsky3] path done: {served['allocated_gib_after']:.2f} GiB allocated after "
+        f"({served['allocated_gib_before']:.2f} before)")
+    if device == "cuda":
+        check(served["allocated_gib_after"] <= served["allocated_gib_before"] + 0.5,
+              f"the Kandinsky 3 path left {served['allocated_gib_after']:.2f} GiB allocated")
+    return paths, served
+
+
+def cascade_job(job_id: str, model: str, size: int, seed: int, pipeline_type: str,
+                steps: int, **extra) -> dict:
+    return {"id": job_id, "workflow": "txt2img", "model_name": model,
+            "prompt": f"{K_PROMPT}, study {seed}", "negative_prompt": "blurry",
+            "height": size, "width": size, "num_inference_steps": steps,
+            "guidance_scale": 4.0, "seed": seed, "content_type": "image/png",
+            "parameters": {"pipeline_type": pipeline_type, **extra}}
+
+
+def serve_cascade_path(smi: str, device: str = "cuda", dtype=None, size: int = SIZE,
+                       prior_steps: int = CASCADE_PRIOR_STEPS, hold: bool = True,
+                       tiny: bool = False, e2e: bool = True) -> tuple[dict, dict]:
+    """Phase 5, the Stable Cascade path, in a registry of its own: the
+    published prior (stage C, 2048 wide, 32 heads; CLIP-bigG) and decoder
+    (stage B at (320, 640, 1280, 1280) with (0, 0, 20, 20) heads; CLIP-bigG;
+    the Paella VQ) on seeded weights written as bf16 diffusers safetensors;
+    the setup CLI's `--check` on both (ok, the served modules' counts);
+    both built from the files and their folders removed; a prior-as-main
+    job at 1024^2 with a `decoder` dict and a StableCascadeCombinedPipeline
+    job (the job's 20 steps and guidance steer the prior, the decoder keeps
+    its 10) through the worker and the fake hive, each envelope checked and
+    its launches held to `cascade_calls` (prior steps x a stage C call's
+    launches + decoder steps x a stage B call's); each bundle's bf16
+    parameter bytes and the stage times printed; a bf16 stage C call and a
+    stage B call against f32 on the plain path, and their profiles. ->
+    ({job kind: (1, launches)}, served)."""
+    import gc
+    import shutil
+    import tempfile
+
+    from chiaswarm_tpu_torch.capacity import resident_bytes
+    from chiaswarm_tpu_torch.pipelines.cascade import CascadePipeline, CascadePriorPipeline
+    from chiaswarm_tpu_torch.registry import Registry
+
+    decoder_steps = CASCADE_DECODER_STEPS
+    dtype = dtype or (torch.bfloat16 if device == "cuda" else torch.float32)
+    prior_name, decoder_name = (("test/tiny-cascade-prior", "test/tiny-cascade") if tiny
+                                else (CASCADE_PRIOR, CASCADE))
+    size = 64 if tiny else size
+    root = Path(tempfile.mkdtemp(prefix="cascade-models-"))
+    served, paths = {"jobs": {}, "allocated_gib_before": _allocated_gib(device)}, {}
+    try:
+        counts = {}
+        for name, cls in ((prior_name, CascadePriorPipeline), (decoder_name, CascadePipeline)):
+            t0 = time.perf_counter()
+            seeded = cls(name, device=device, dtype=dtype, allow_random_init=True)
+            counts[name] = _param_counts({"unet": seeded.unet, "text": seeded.text_encoder,
+                                          **({"vqgan": seeded.vqgan} if seeded.vqgan else {})})
+            nbytes = write_cascade(seeded, root / name, dtype)
+            del seeded
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+            served.setdefault("written", {})[name] = {"bytes": nbytes,
+                                                      "s": time.perf_counter() - t0}
+            log(f"[cascade] {name} seeded and written: {nbytes / 2**30:.2f} GiB in "
+                f"{time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        rc, out = cli_check(root, [prior_name, decoder_name])
+        check(rc == 0, f"--check exit {rc}")
+        check_cli_counts(out, counts)
+        served["cli"] = {"s": time.perf_counter() - t0, "counts": counts}
+        log(f"[cascade] setup CLI --check: ok with the served modules' counts "
+            f"{json.dumps(counts)} ({served['cli']['s']:.1f}s)")
+
+        registry = Registry(torch.device(device), str(root), safety_checker_model="")
+        pipes = {}
+        for name, kind in ((prior_name, "StableCascadePriorPipeline"),
+                           (decoder_name, "StableCascadeDecoderPipeline")):
+            before, t0 = _allocated_gib(device), time.perf_counter()
+            pipe = pipes[name] = registry.get_pipeline(name, pipeline_type=kind)
+            check(pipe.weights_source == "checkpoint", f"{name}: {pipe.weights_source}")
+            shutil.rmtree(root / name)
+            modules = [pipe.unet, pipe.text_encoder] + ([pipe.vqgan] if pipe.vqgan else [])
+            served.setdefault("bundle", {})[name] = {
+                "load_s": time.perf_counter() - t0, "read_bytes": pipe.checkpoint["bytes"],
+                "allocated_gib": _allocated_gib(device) - before,
+                "params_gib": _param_gib(modules),
+                "reckoned_gib": resident_bytes(device, name) / 2**30}
+            b = served["bundle"][name]
+            log(f"[cascade] {name} resident in {b['load_s']:.1f}s: {b['allocated_gib']:.2f} GiB "
+                f"allocated, bf16 parameters {b['params_gib']:.3f} GiB; "
+                f"capacity.resident_bytes reckons {b['reckoned_gib']:.3f} GiB with one image")
+        del pipe, modules  # the registry's and `pipes`' references are the ones released below
+        prior, decoder = pipes[prior_name], pipes[decoder_name]
+        calls = cascade_calls(prior.unet_cfg, decoder.unet_cfg, size, dtype, tiny=tiny)
+        jobs = {"cascade_prior_main": cascade_job(
+                    "cascade-prior", prior_name, size, 7101, "StableCascadePriorPipeline",
+                    prior_steps, decoder={"model_name": decoder_name,
+                                          "pipeline_type": "StableCascadeDecoderPipeline",
+                                          "num_inference_steps": decoder_steps}),
+                "cascade_combined": cascade_job(
+                    "cascade-combined", decoder_name, size, 7201,
+                    "StableCascadeCombinedPipeline", prior_steps)}
+        for kind, job in jobs.items():
+            done, launches, wall = _serve_jobs(registry, [job], device)
+            job, cfg, image = done[0]
+            check(cfg["steps"] == decoder_steps, f"{job['id']}: decoder steps {cfg['steps']}")
+            shapes = {}
+            for k in ("flash_attention", "group_norm"):
+                shapes[k] = Counter({key: prior_steps * n
+                                     for key, n in calls["prior"][k].items()})
+                shapes[k].update({key: decoder_steps * n
+                                  for key, n in calls["decoder"][k].items()})
+            held = _hold_path("Stable Cascade", job, cfg, image, launches, shapes, hold)
+            t = cfg["timings"]
+            log(f"[cascade] {job['id']} ({cfg['pipeline']}, {size}^2, prior {prior_steps} steps "
+                f"guided, decoder {cfg['steps']} unguided) on {smi}: {_timings_line(t)}; "
+                f"launches counted {json.dumps(held['counted'])}, predicted "
+                f"{json.dumps(held['predicted'])}; pixels {int(image.min())}..{int(image.max())}")
+            served["jobs"][job["id"]] = {"timings": t, **held, "wall_s": wall,
+                                         "latents": cfg["latents"]}
+            paths[kind] = (1, launches)
+        if device == "cuda":
+            grid = prior.grid(size, size)
+            c, b = prior.unet_cfg, decoder.unet_cfg
+            xc = _randn((2, c.in_channels, *grid), device, 21).contiguous(
+                memory_format=torch.channels_last)
+            rc_ = torch.full((2,), 0.5, device=device)
+            pooled = _randn((2, 1, c.clip_text_pooled_in_channels), device, 22)
+            text = _randn((2, CASCADE_TEXT_TOKENS, c.clip_text_in_channels), device, 23)
+            img = torch.zeros((2, 1, c.clip_image_in_channels), device=device, dtype=dtype)
+            lat = decoder.latent_grid(*grid)
+            xb = _randn((1, b.in_channels, *lat), device, 24).contiguous(
+                memory_format=torch.channels_last)
+            rb = torch.full((1,), 0.5, device=device)
+            effnet = _randn((1, b.effnet_in_channels, *grid), device, 25)
+            if e2e:
+                served["e2e_stage_c"] = _bf16_vs_f32(
+                    f"{prior_name} stage C at {size}^2 (2 CFG rows)", prior.unet,
+                    lambda m: m(xc, rc_, pooled, clip_text=text, clip_img=img),
+                    lambda m: m(xc.float(), rc_, pooled.float(), clip_text=text.float(),
+                                clip_img=img.float()))
+                served["e2e_stage_b"] = _bf16_vs_f32(
+                    f"{decoder_name} stage B at {size}^2 (1 row)", decoder.unet,
+                    lambda m: m(xb, rb, pooled[:1], effnet=effnet),
+                    lambda m: m(xb.float(), rb, pooled[:1].float(), effnet=effnet.float()))
+            served["profile"] = profile_fns(decoder_name, size, 1, {
+                "stage_c": (lambda: prior.unet(xc, rc_, pooled, clip_text=text, clip_img=img), 2),
+                "stage_b": (lambda: decoder.unet(xb, rb, pooled[:1], effnet=effnet), 2),
+                "paella_decode": (lambda: decoder.vqgan(xb), 2)}, decoder.device)
+            log_profile(served["profile"], smi)
+            del xc, pooled, text, img, xb, effnet
+        del prior, decoder, pipes, registry
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    served["allocated_gib_after"] = _allocated_gib(device)
+    log(f"[cascade] path done: {served['allocated_gib_after']:.2f} GiB allocated after "
+        f"({served['allocated_gib_before']:.2f} before)")
+    if device == "cuda":
+        check(served["allocated_gib_after"] <= served["allocated_gib_before"] + 0.5,
+              f"the Stable Cascade path left {served['allocated_gib_after']:.2f} GiB allocated")
+    return paths, served
+
+
 def measure(paths: dict, main: str = "txt2img") -> tuple[list[dict], dict]:
     """Phase 6 for {job kind: (jobs, {kernel: (launches, {shape key:
     launches})})} counted over `jobs` jobs of each kind: every shape that
@@ -6557,17 +7220,26 @@ def unet_inputs(pipe, size: int = SIZE, dtype=None, seed: int = 2, rows: int = 2
 @contextmanager
 def plain_path():
     """Route the attention of the UNet, the VAE, the K-UNet, the safety
-    checker, DPT and the Flux transformer, and the GroupNorm of the UNet
-    and the VAE, to the plain PyTorch versions, on the card, for the
-    duration."""
-    from chiaswarm_tpu_torch.models import depth, flux, k_upscaler, layers, safety, vae
+    checker, DPT, the Flux transformer and the Stable Cascade UNet, and the
+    GroupNorm of the UNet and the VAE (and of every FusedGroupNorm, the
+    Kandinsky 3 UNet's output norm among them), to the plain PyTorch
+    versions, on the card, for the duration."""
+    from chiaswarm_tpu_torch.models import (
+        cascade_unet,
+        depth,
+        flux,
+        k_upscaler,
+        layers,
+        safety,
+        vae,
+    )
     from chiaswarm_tpu_torch.ops.flash_attention import reference_attention
     from chiaswarm_tpu_torch.ops.group_norm import reference_group_norm
 
     def plain_group_norm(x, scale, bias, *, groups=32, eps=1e-5, act=None):
         return reference_group_norm(x, scale, bias, groups, eps, act == "silu")
 
-    attending = (layers, vae, k_upscaler, safety, depth, flux)
+    attending = (layers, vae, k_upscaler, safety, depth, flux, cascade_unet)
     saved = [m.dot_product_attention for m in attending], layers.group_norm
     for module in attending:
         module.dot_product_attention = reference_attention
@@ -6633,10 +7305,6 @@ def end_to_end_bf16_check(pipe, size: int = SIZE,
     paths, from stacks in each path's dtype. The part "controlnet" is one
     call of `branch` (a ControlNet of `pipe`'s UNet) at the UNet call's
     inputs and a control image, its residuals compared as one tensor."""
-    import copy
-
-    from chiaswarm_tpu_torch.device import synchronize
-
     check(pipe.dtype == torch.bfloat16, f"the main path runs {pipe.dtype}, not bf16")
     lat = size // pipe.latent_factor
     x, t, ctx, added = unet_inputs(pipe, size, rows=rows)
@@ -6659,36 +7327,11 @@ def end_to_end_bf16_check(pipe, size: int = SIZE,
     for name, module, call, call_f32 in calls:
         if name not in parts:
             continue
-        around = delta if name == "unet" else (lambda m: nullcontext())
-        with torch.inference_mode():
-            with around(module):
-                kernels = call(module).float()
-            with plain_path():
-                with around(module):
-                    plain = call(module).float()
-                wide = copy.deepcopy(module).float()
-                with around(wide):
-                    exact = call_f32(wide)
-                del wide
-            synchronize(pipe.device)
-        scale = rms(exact)
-        row = {"rel_rms_err": rms(kernels - exact) / scale,
-               "plain_bf16_rel_rms_err": rms(plain - exact) / scale,
-               "finite": bool(torch.isfinite(kernels).all())}
-        del kernels, plain, exact
-        torch.cuda.empty_cache()
-        result[name] = row
-        log(f"[e2e] {pipe.model_name} {name} at {size}^2"
-            + (f" ({rows} CFG rows)" if name in ("unet", "controlnet") else "")
-            + (", LoRA delta active" if adapter is not None and name == "unet" else "")
-            + ", bf16 through the kernels vs f32 plain "
-            f"path: relative RMS err "
-            f"{row['rel_rms_err']:.4g}; plain path in bf16: {row['plain_bf16_rel_rms_err']:.4g} "
-            f"(bound {E2E_RATIO}x that)")
-        check(row["finite"], f"{name}: non-finite output through the kernels")
-        check(row["rel_rms_err"] <= E2E_RATIO * row["plain_bf16_rel_rms_err"],
-              f"{name}: bf16 kernel path error {row['rel_rms_err']} > {E2E_RATIO} x the plain "
-              f"bf16 path's {row['plain_bf16_rel_rms_err']}")
+        label = (f"{pipe.model_name} {name} at {size}^2"
+                 + (f" ({rows} CFG rows)" if name in ("unet", "controlnet") else "")
+                 + (", LoRA delta active" if adapter is not None and name == "unet" else ""))
+        result[name] = _bf16_vs_f32(label, module, call, call_f32,
+                                    delta if name == "unet" else None)
     return result
 
 
@@ -6990,6 +7633,9 @@ def main(argv=None) -> int:
         mark("phase 3 preprocessor checks")
         kandinsky_checks(torch.Generator(device="cuda").manual_seed(6))
         mark("phase 3 Kandinsky checks")
+        kandinsky3_checks(torch.Generator(device="cuda").manual_seed(7))
+        cascade_checks(torch.Generator(device="cuda").manual_seed(8))
+        mark("phase 3 Kandinsky 3 and Stable Cascade checks")
         tiny_reference_check()
         tiny_sd = tiny_sd_checks()
         tiny_image = tiny_image_checks()
@@ -7079,11 +7725,15 @@ def main(argv=None) -> int:
               f"(alive: {dict(alive)})")
         flux_paths, flux_served = serve_flux_path(smi)
         mark("phase 5 Flux path (with its phases 7 and 8)")
+        k3_paths, k3_served = serve_kandinsky3_path(smi)
+        mark("phase 5 Kandinsky 3 path (with the setup CLI)")
+        cascade_paths, cascade_served = serve_cascade_path(smi)
+        mark("phase 5 Stable Cascade path (with the setup CLI)")
         summary, shapes = measure({"txt2img": (N_JOBS, launches), **image_paths, **sd_paths,
                                    **edit_paths, **checkpoint_paths, **adapter_paths,
                                    **batched_paths, **cn_paths, **up_paths, **pre_paths,
                                    **resume_paths, **plane_paths, **hive_paths,
-                                   **k_paths, **flux_paths})
+                                   **k_paths, **flux_paths, **k3_paths, **cascade_paths})
         mark("phase 6 measure")
         if opts.detail:
             path = Path(opts.detail)
@@ -7101,6 +7751,7 @@ def main(argv=None) -> int:
                  "tiny_flux": tiny_flux, "tiny_kandinsky": tiny_kandinsky,
                  "kandinsky_served": k_served,
                  "flux_beside_sdxl": flux_beside, "flux_served": flux_served,
+                 "kandinsky3_served": k3_served, "cascade_served": cascade_served,
                  "kernels": summary,
                  "shapes": shapes, "end_to_end_bf16": e2e, "profile": profile}, indent=1,
                 default=str))

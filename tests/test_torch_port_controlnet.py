@@ -286,8 +286,8 @@ def test_pipeline_families_match_jax(pipeline_type):
     check_pipeline_type(pipeline_type)
 
 
-@pytest.mark.parametrize("pipeline_type", ["Kandinsky3Pipeline",
-                                           "StableCascadePriorPipeline", "NoSuchPipeline"])
+@pytest.mark.parametrize("pipeline_type", ["IFPipeline", "AudioLDMPipeline",
+                                           "NoSuchPipeline"])
 def test_unported_pipeline_types_are_refused(pipeline_type):
     with pytest.raises(ValueError, match="is not ported to chiaswarm_tpu_torch"):
         check_pipeline_type(pipeline_type)
@@ -652,11 +652,11 @@ def test_refusals(env):
     with pytest.raises(ValueError, match="not supported with instruct-pix2pix"):
         edit.run(prompt="x", num_inference_steps=2, image=control, control_image=control,
                  controlnet_model_name=CN_SD)
-    with pytest.raises(ValueError, match="pipeline type 'Kandinsky3Pipeline'"):
+    with pytest.raises(ValueError, match="pipeline type 'IFPipeline'"):
         from chiaswarm_tpu_torch.workflows.diffusion import diffusion_callback
 
         diffusion_callback("cpu", SD, registry=env["registry"], prompt="x",
-                           pipeline_type="Kandinsky3Pipeline")
+                           pipeline_type="IFPipeline")
 
 
 def test_nine_channel_inpaint_with_a_controlnet(env):

@@ -21,7 +21,7 @@ import torch
 
 from chiaswarm_tpu.schedulers import SCHEDULERS as JAX_SCHEDULERS
 from chiaswarm_tpu.schedulers import get_scheduler as jax_get_scheduler
-from chiaswarm_tpu_torch.schedulers import LATER_SLICE, SCHEDULERS, get_scheduler
+from chiaswarm_tpu_torch.schedulers import SCHEDULERS, get_scheduler
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 SOLVERS = ["DPMSolverMultistepScheduler", "UniPCMultistepScheduler", "EulerDiscreteScheduler",
@@ -106,12 +106,8 @@ def test_add_noise_and_img2img_start_match_jax(name):
 
 def test_registry_covers_every_sd_wire_name():
     for wire, jax_cls in JAX_SCHEDULERS.items():
-        if wire in LATER_SLICE:
-            with pytest.raises(ValueError, match=LATER_SLICE[wire]):
-                get_scheduler(wire)
-            continue
         assert SCHEDULERS[wire].__name__ == jax_cls.__name__, wire
         assert type(get_scheduler(wire)).__name__ == jax_cls.__name__
-    assert set(SCHEDULERS) | set(LATER_SLICE) == set(JAX_SCHEDULERS)
+    assert set(SCHEDULERS) == set(JAX_SCHEDULERS)
     with pytest.raises(ValueError, match="Unknown scheduler type"):
         get_scheduler("NoSuchScheduler")

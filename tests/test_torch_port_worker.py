@@ -185,6 +185,11 @@ def test_every_port_module_imports_with_jax_blocked():
     assert {f"chiaswarm_tpu_torch.models.{m}" for m in (
         "prior", "unet_kandinsky", "movq", "mclip", "tokenizer")} | {
         "chiaswarm_tpu_torch.pipelines.kandinsky"} <= set(modules)
+    # and the Kandinsky 3 and Stable Cascade slice's, with the setup CLI
+    assert {f"chiaswarm_tpu_torch.models.{m}" for m in (
+        "unet_kandinsky3", "cascade_unet", "paella_vq")} | {
+        f"chiaswarm_tpu_torch.pipelines.{m}" for m in ("kandinsky3", "cascade")} | {
+        "chiaswarm_tpu_torch.initialize"} <= set(modules)
     script = (
         "import sys\n"
         "before = set(sys.modules)\n"
@@ -208,8 +213,7 @@ def test_every_port_module_imports_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr[-2000:]
 
 
-REFUSED = ("kandinsky-community/kandinsky-3", "stabilityai/stable-cascade",
-           "cvssp/audioldm-s-full-v2")
+REFUSED = ("suno/bark", "DeepFloyd/IF-I-XL-v1.0", "cvssp/audioldm-s-full-v2")
 SERVED = ("runwayml/stable-diffusion-v1-5", "stabilityai/stable-diffusion-2-1",
           "stabilityai/stable-diffusion-2-1-base", "stabilityai/stable-diffusion-xl-base-1.0",
           "stabilityai/stable-diffusion-xl-refiner-1.0", "runwayml/stable-diffusion-inpainting",
@@ -220,7 +224,10 @@ SERVED = ("runwayml/stable-diffusion-v1-5", "stabilityai/stable-diffusion-2-1",
           "test/tiny-xl-refiner", "test/tiny-upscaler", "black-forest-labs/FLUX.1-schnell",
           "black-forest-labs/FLUX.1-dev", "test/tiny-flux", "test/tiny-flux-schnell",
           "kandinsky-community/kandinsky-2-2-decoder", "kandinsky-community/kandinsky-2-1",
-          "kandinsky-community/kandinsky-2-2-controlnet-depth", "test/tiny-kandinsky")
+          "kandinsky-community/kandinsky-2-2-controlnet-depth", "test/tiny-kandinsky",
+          "kandinsky-community/kandinsky-3", "test/tiny-kandinsky3",
+          "stabilityai/stable-cascade", "stabilityai/stable-cascade-prior",
+          "test/tiny-cascade", "test/tiny-cascade-prior")
 
 
 def test_unconverted_families_gate_the_hive(tmp_path):
