@@ -57,7 +57,12 @@ FAMILY_PARAMS_GB: dict[str, float] = {
     "deepfloyd_if": 18.0,
 }
 
-# transient activations per image, GiB at a 1024² canvas
+# transient activations per image, GiB at a 1024² canvas; Kandinsky 3's
+# and Stable Cascade's are the peak device memory a job or stage held
+# above its bundles on an H100, rounded up to a quarter GiB: 2.04 (K3),
+# 1.03 (the decoder's stage B and Paella decode), 0.11 (the prior's stage
+# C) GiB (chip_smoke.py serve_kandinsky3_path, serve_cascade_path, which
+# hold each reading within resident_bytes)
 FAMILY_ACT_GB_PER_IMAGE: dict[str, float] = {
     "sd15": 1.0,
     "sd21": 1.1,
@@ -67,8 +72,8 @@ FAMILY_ACT_GB_PER_IMAGE: dict[str, float] = {
     "kandinsky": 1.2,
     "kandinsky21": 1.2,
     "kandinsky_prior": 0.05,
-    "kandinsky3": 2.2,
-    "cascade": 1.5,
+    "kandinsky3": 2.25,
+    "cascade": 1.25,
     "cascade_prior": 0.25,
     "deepfloyd_if": 1.5,
 }

@@ -112,22 +112,15 @@ def _dir(root: Path, model_name: str) -> Path:
     return model_dir
 
 
-def _folder(model_dir: Path, folder: str) -> list[Path]:
-    files = sorted((model_dir / folder).glob("*.safetensors"))
-    if not files:
-        raise FileNotFoundError(f"no safetensors under {model_dir / folder}")
-    return files
+def _check(modules: dict, model_dir: Path, folders: dict,
+           text_layers: dict | None = None) -> dict:
+    """{component: parameters} of meta `modules` held to the safetensors of
+    their `folders` {component: folder}."""
+    from .weights import check_checkpoint, checkpoint_files
 
-
-def _check(modules: dict, files: dict, text_layers: dict | None = None,
-           optional: dict | None = None) -> dict:
-    """{component: parameters} of meta `modules` held to `files` {component:
-    (folder, files)}."""
-    from .weights import check_checkpoint
-
-    return {name: check_checkpoint(module, files[name][1], files[name][0],
-                                   text_layers=(text_layers or {}).get(name),
-                                   optional=(optional or {}).get(name))
+    files = checkpoint_files(model_dir, dict.fromkeys(folders.values()))
+    return {name: check_checkpoint(module, files[folders[name]], folders[name],
+                                   text_layers=(text_layers or {}).get(name))
             for name, module in modules.items()}
 
 
@@ -146,7 +139,7 @@ def _verify_sd(model_name: str, root: Path) -> dict:
         for folder, c in zip(TEXT_ENCODER_FOLDERS, clip_cfgs):
             modules[folder] = CLIPTextEncoder(c)
     layers = {f: c.num_layers for f, c in zip(TEXT_ENCODER_FOLDERS, clip_cfgs)}
-    return _check(modules, {f: (f, _folder(model_dir, f)) for f in folders}, layers)
+    return _check(modules, model_dir, {f: f for f in folders}, layers)
 
 
 def _verify_flux(model_name: str, root: Path) -> dict:
@@ -163,54 +156,13 @@ def _verify_flux(model_name: str, root: Path) -> dict:
                    "clip": CLIPTextEncoder(clip_cfg), "vae": AutoencoderKL(vae_cfg)}
     folders = {"flux": "transformer", "t5": "text_encoder_2", "clip": "text_encoder",
                "vae": "vae"}
-    return _check(modules, {k: (f, _folder(model_dir, f)) for k, f in folders.items()},
-                  {"clip": clip_cfg.num_layers})
+    return _check(modules, model_dir, folders, {"clip": clip_cfg.num_layers})
 
 
 def _verify_kandinsky(model_name: str, root: Path) -> dict:
-    """A 2.x prior repo (prior, its CLIP tower, the whitening stats) or
-    decoder repo (UNet with its geometry off the checkpoint, MoVQ, 2.1's
-    MCLIP), as pipelines/kandinsky.py loads them."""
-    from .models import configs as cfgs
-    from .models.clip import CLIPTextEncoder
-    from .models.mclip import MCLIPTextEncoder
-    from .models.movq import MoVQ
-    from .models.prior import DiffusionPrior
-    from .models.unet_kandinsky import K22UNet
-    from .pipelines.kandinsky import (
-        _config_json,
-        decoder_configs,
-        mclip_files,
-        prior_configs,
-    )
-    from .weights import PRIOR_STATS, checkpoint_shapes, infer_k22_unet_config
+    from .pipelines.kandinsky import verify_kandinsky
 
-    model_dir = _dir(root, model_name)
-    if "prior" in model_name.lower():
-        cfg, clip_cfg = prior_configs(model_name)
-        cfg = cfgs.prior_config_with_overrides(cfg, _config_json(model_dir / "prior" /
-                                                                 "config.json"))
-        files = {"prior": ("prior", _folder(model_dir, "prior")),
-                 "text": ("text_encoder", _folder(model_dir, "text_encoder"))}
-        with torch.device("meta"):
-            modules = {"prior": DiffusionPrior(cfg), "text": CLIPTextEncoder(clip_cfg)}
-        report = _check(modules, files, {"text": clip_cfg.num_layers})
-        report["clip_stats"] = set(PRIOR_STATS) <= set(checkpoint_shapes(files["prior"][1]))
-        return report
-    unet_files = _folder(model_dir, "unet")
-    unet_cfg = infer_k22_unet_config(checkpoint_shapes(unet_files),
-                                     _config_json(model_dir / "unet" / "config.json"))
-    movq_cfg = decoder_configs(model_name)[1]
-    if (model_dir / "movq" / "config.json").is_file():
-        movq_cfg = cfgs.movq_config_from_json(_config_json(model_dir / "movq" / "config.json"))
-    files = {"unet": ("unet", unet_files), "movq": ("movq", _folder(model_dir, "movq"))}
-    with torch.device("meta"):
-        modules = {"unet": K22UNet(unet_cfg), "movq": MoVQ(movq_cfg)}
-        if unet_cfg.conditioning == "text_image":
-            text_files, _, mclip_cfg = mclip_files(model_name, model_dir)
-            modules["text"] = MCLIPTextEncoder(mclip_cfg)
-            files["text"] = ("text_encoder", text_files)
-    return _check(modules, files, optional={"movq": lambda n: ".norm_layer." in n})
+    return verify_kandinsky(model_name, _dir(root, model_name))
 
 
 def _verify_kandinsky3(model_name: str, root: Path) -> dict:
@@ -232,14 +184,15 @@ def _verify_upscaler(model_name: str, root: Path) -> dict:
     from .models.k_upscaler import KUpscalerUNet
     from .models.vae import AutoencoderKL
     from .pipelines.upscale import FOLDERS, upscaler_configs
+    from .weights import checkpoint_files
 
     model_dir = _dir(root, model_name)
-    files = {f: (f, _folder(model_dir, f)) for f in FOLDERS}
-    unet_cfg, clip_cfg, vae_cfg = upscaler_configs(model_dir, {f: v[1] for f, v in files.items()})
+    unet_cfg, clip_cfg, vae_cfg = upscaler_configs(model_dir, checkpoint_files(model_dir, FOLDERS))
     with torch.device("meta"):
         modules = {"unet": KUpscalerUNet(unet_cfg), "text_encoder": CLIPTextEncoder(clip_cfg),
                    "vae": AutoencoderKL(vae_cfg)}
-    return _check(modules, files, {"text_encoder": clip_cfg.num_layers})
+    return _check(modules, model_dir, {f: f for f in FOLDERS},
+                  {"text_encoder": clip_cfg.num_layers})
 
 
 def _verify_safety(model_name: str, root: Path) -> dict:

@@ -385,10 +385,6 @@ class CascadeUNetConfig:
     # each with a bilinear rescale where True (stage C: (False,))
     switch_level: tuple[bool, ...] | None = None
 
-    @property
-    def t_embed_total(self) -> int:
-        return self.timestep_ratio_embedding_dim * (1 + len(self.timestep_conditioning_type))
-
 
 # stabilityai/stable-cascade-prior's prior/config.json (about 3.6 B)
 CASCADE_STAGE_C = CascadeUNetConfig(clip_text_in_channels=1280, clip_image_in_channels=768,

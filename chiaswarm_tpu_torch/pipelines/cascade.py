@@ -60,6 +60,7 @@ from ..weights import (
     CASCADE_PRIOR_FOLDERS,
     MissingWeightsError,
     check_checkpoint,
+    checkpoint_files,
     checkpoint_shapes,
     find_checkpoint,
     infer_cascade_unet_config,
@@ -150,11 +151,7 @@ def cascade_checkpoint(model_name: str, model_dir: Path, stage: str | None = Non
     raises FileNotFoundError."""
     found = _repo_stage(model_name, model_dir, stage)
     folders = CASCADE_PRIOR_FOLDERS if found == "prior" else CASCADE_DECODER_FOLDERS
-    if files is None:
-        files = {f: sorted((model_dir / f).glob("*.safetensors")) for f in folders}
-        for folder, got in files.items():
-            if not got:
-                raise FileNotFoundError(f"no safetensors under {model_dir / folder}")
+    files = files or checkpoint_files(model_dir, folders)
     out = {"stage": found, "files": files,
            "unet_cfg": infer_cascade_unet_config(checkpoint_shapes(files[found]),
                                                  _config_json(model_dir / found / "config.json")),

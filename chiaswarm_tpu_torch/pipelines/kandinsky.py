@@ -72,12 +72,16 @@ from ..weights import (
     KANDINSKY_PRIOR_FOLDERS,
     PRIOR_STATS,
     MissingWeightsError,
+    check_checkpoint,
+    checkpoint_files,
     checkpoint_shapes,
     find_checkpoint,
     infer_k22_unet_config,
     is_test_model,
     load_checkpoint_,
+    load_movq_,
     model_seed,
+    movq_optional,
     random_init_,
     read_tensors,
 )
@@ -182,6 +186,70 @@ def mclip_files(model_name: str, model_dir: Path | None):
     return files, tokenizer, cfg
 
 
+def prior_checkpoint(model_name: str, model_dir: Path, files: dict | None = None) -> dict:
+    """The one reading of a 2.x prior directory, for serving and `--check`:
+    {"files": {folder: safetensors}, "prior_cfg" (the name's, with
+    prior/config.json over it), "clip_cfg"}; a folder without safetensors
+    raises FileNotFoundError."""
+    cfg, clip_cfg = prior_configs(model_name)
+    return {"files": files or checkpoint_files(model_dir, KANDINSKY_PRIOR_FOLDERS),
+            "prior_cfg": cfgs.prior_config_with_overrides(
+                cfg, _config_json(model_dir / "prior" / "config.json")),
+            "clip_cfg": clip_cfg}
+
+
+def decoder_checkpoint(model_name: str, model_dir: Path, files: dict | None = None) -> dict:
+    """The one reading of a 2.x decoder directory, for serving and
+    `--check`: {"files": {"unet", "movq"[, "text_encoder"]: safetensors},
+    "unet_cfg" (off the UNet's checkpoint), "movq_cfg" (movq/config.json,
+    else the name's), "mclip_cfg" and "tokenizer" (2.1's MCLIP, else
+    None)}; a folder without safetensors raises FileNotFoundError, a 2.1
+    repo without MCLIP MissingWeightsError."""
+    files = dict(files or checkpoint_files(model_dir, KANDINSKY_DECODER_FOLDERS))
+    movq_cfg = decoder_configs(model_name)[1]
+    if (model_dir / "movq" / "config.json").is_file():
+        movq_cfg = cfgs.movq_config_from_json(_config_json(model_dir / "movq" / "config.json"))
+    out = {"files": files, "movq_cfg": movq_cfg, "mclip_cfg": None, "tokenizer": None,
+           "unet_cfg": infer_k22_unet_config(checkpoint_shapes(files["unet"]),
+                                             _config_json(model_dir / "unet" / "config.json"))}
+    if out["unet_cfg"].conditioning == "text_image":
+        files["text_encoder"], out["tokenizer"], out["mclip_cfg"] = mclip_files(model_name,
+                                                                               model_dir)
+    return out
+
+
+def decoder_modules(unet_cfg, movq_cfg, mclip_cfg=None) -> dict:
+    """{folder: module} of a 2.x decoder (2.1's MCLIP where `mclip_cfg` is
+    given), on the current default device."""
+    modules = {"unet": K22UNet(unet_cfg), "movq": MoVQ(movq_cfg)}
+    if mclip_cfg is not None:
+        modules["text_encoder"] = MCLIPTextEncoder(mclip_cfg)
+    return modules
+
+
+def verify_kandinsky(model_name: str, model_dir: Path) -> dict:
+    """`--check` of a 2.x prior repo (the prior, its CLIP tower, whether
+    the whitening stats are there) or decoder repo (UNet, MoVQ, 2.1's
+    MCLIP) against the modules the worker would load, built on the meta
+    device -> {component: parameters}."""
+    if "prior" in model_name.lower():
+        found = prior_checkpoint(model_name, model_dir)
+        files, clip_cfg = found["files"], found["clip_cfg"]
+        with torch.device("meta"):
+            prior, text = DiffusionPrior(found["prior_cfg"]), CLIPTextEncoder(clip_cfg)
+        return {"prior": check_checkpoint(prior, files["prior"], "prior"),
+                "text": check_checkpoint(text, files["text_encoder"], "text_encoder",
+                                         text_layers=clip_cfg.num_layers),
+                "clip_stats": set(PRIOR_STATS) <= set(checkpoint_shapes(files["prior"]))}
+    found = decoder_checkpoint(model_name, model_dir)
+    with torch.device("meta"):
+        modules = decoder_modules(found["unet_cfg"], found["movq_cfg"], found["mclip_cfg"])
+    names = {"unet": "unet", "movq": "movq", "text_encoder": "text"}
+    return {names[folder]: check_checkpoint(module, found["files"][folder], folder,
+                                            optional=movq_optional if folder == "movq" else None)
+            for folder, module in modules.items()}
+
+
 def _as_f32(value, device) -> torch.Tensor:
     if not isinstance(value, torch.Tensor):
         value = torch.from_numpy(np.array(value, dtype=np.float32))
@@ -228,8 +296,7 @@ class KandinskyPriorPipeline(_Module):
         files = None if weights is not None else find_checkpoint(
             model_name, model_dir, KANDINSKY_PRIOR_FOLDERS, allow_random_init)
         if files is not None:
-            self.config = cfgs.prior_config_with_overrides(
-                self.config, _config_json(model_dir / "prior" / "config.json"))
+            self.config = prior_checkpoint(model_name, model_dir, files)["prior_cfg"]
         t0 = time.perf_counter()
         with torch.device("meta"):
             prior, text = DiffusionPrior(self.config), CLIPTextEncoder(clip_cfg)
@@ -383,59 +450,50 @@ class KandinskyPipeline(_Module):
         model_dir = _model_dir(model_name, model_root_dir)
         files = None if weights is not None else find_checkpoint(
             model_name, model_dir, KANDINSKY_DECODER_FOLDERS, allow_random_init)
-        mclip_cfg = None
+        mclip_cfg = tokenizer = None
         if weights is not None:
             unet_cfg = weights.get("unet_cfg", unet_cfg)
             movq_cfg = weights.get("movq_cfg", movq_cfg)
-            mclip_cfg = weights.get("mclip_cfg")
+            mclip_cfg, tokenizer = weights.get("mclip_cfg"), weights.get("tokenizer")
         elif files is not None:
-            unet_cfg = infer_k22_unet_config(checkpoint_shapes(files["unet"]),
-                                             _config_json(model_dir / "unet" / "config.json"))
-            if (model_dir / "movq" / "config.json").is_file():
-                movq_cfg = cfgs.movq_config_from_json(
-                    _config_json(model_dir / "movq" / "config.json"))
+            found = decoder_checkpoint(model_name, model_dir, files)
+            files, unet_cfg, movq_cfg = found["files"], found["unet_cfg"], found["movq_cfg"]
+            mclip_cfg, tokenizer = found["mclip_cfg"], found["tokenizer"]
+        elif unet_cfg.conditioning == "text_image":
+            _, tokenizer, mclip_cfg = mclip_files(model_name, model_dir)
         self.unet_cfg, self.movq_cfg = unet_cfg, movq_cfg
         self.text_image = unet_cfg.conditioning == "text_image"
         # the hint's channels ride the latent input
         self.controlnet = unet_cfg.in_channels > movq_cfg.latent_channels
         self.latent_channels = movq_cfg.latent_channels
         self.latent_factor = 2 ** (len(movq_cfg.block_out_channels) - 1)
-        text_files = tokenizer = None
-        if self.text_image and weights is None:
-            text_files, tokenizer, mclip_cfg = mclip_files(model_name, model_dir)
 
         t0 = time.perf_counter()
         with torch.device("meta"):
-            unet, movq = K22UNet(unet_cfg), MoVQ(movq_cfg)
-            mclip = MCLIPTextEncoder(mclip_cfg) if self.text_image else None
-        self.unet, self.movq = self._materialise(unet), self._materialise(movq)
-        self.mclip = self._materialise(mclip) if mclip is not None else None
+            modules = decoder_modules(unet_cfg, movq_cfg,
+                                      mclip_cfg if self.text_image else None)
+        modules = {k: self._materialise(m) for k, m in modules.items()}
+        self.unet, self.movq = modules["unet"], modules["movq"]
+        self.mclip = modules.get("text_encoder")
         self.checkpoint = None
         if weights is not None:
             self.unet.load_state_dict(weights["unet"])
             self.movq.load_state_dict(weights["movq"])
             if self.mclip is not None:
                 self.mclip.load_state_dict(weights["mclip"])
-            tokenizer = weights.get("tokenizer")
             self.weights_source = "given"
         elif files is not None:
             t_load = time.perf_counter()
-            nbytes = load_checkpoint_(self.unet, files["unet"], "unet")
-            # a non-affine SpatialNorm's scale and shift stay identity
-            for name, p in self.movq.named_parameters():
-                if ".norm_layer." in name:
-                    p.fill_(1.0 if name.endswith("weight") else 0.0)
-            nbytes += load_checkpoint_(self.movq, files["movq"], "movq",
-                                       optional=lambda n: ".norm_layer." in n)
-            if self.mclip is not None:
-                nbytes += load_checkpoint_(self.mclip, text_files, "text_encoder")
+            nbytes = sum(load_movq_(module, files[folder]) if folder == "movq"
+                         else load_checkpoint_(module, files[folder], folder)
+                         for folder, module in modules.items())
             synchronize(self.device)
             self.checkpoint = {"dir": str(model_dir), "bytes": nbytes,
                                "load_s": time.perf_counter() - t_load}
             self.weights_source = "checkpoint"
         else:
             gen = torch.Generator(device=self.device).manual_seed(model_seed(model_name))
-            for module in (self.unet, self.movq):
+            for module in modules.values():
                 random_init_(module, gen)
             self.weights_source = "random"
         self.mclip_tokenizer = tokenizer

@@ -44,12 +44,15 @@ from ..schedulers import get_scheduler
 from ..weights import (
     KANDINSKY3_FOLDERS,
     check_checkpoint,
+    checkpoint_files,
     checkpoint_shapes,
     find_checkpoint,
     infer_k3_unet_config,
     is_test_model,
     load_checkpoint_,
+    load_movq_,
     model_seed,
+    movq_optional,
     random_init_,
 )
 from .flux import _load_t5_tokenizer
@@ -66,11 +69,6 @@ MAX_TOKENS = 128
 TINY_MAX_TOKENS = 16
 
 
-def _movq_optional(name: str) -> bool:
-    """A non-affine SpatialNorm's scale and shift stay identity."""
-    return ".norm_layer." in name
-
-
 def k3_configs(model_name: str):
     """(unet_cfg, movq_cfg, t5_cfg, default_size) by name, before a
     checkpoint's own geometry replaces them: the tiny stand-ins at 64^2,
@@ -84,11 +82,7 @@ def k3_checkpoint(model_dir: Path, files: dict | None = None) -> dict:
     """The one reading of a Kandinsky 3 directory: {"files": {folder:
     safetensors}, "unet_cfg", "movq_cfg", "t5_cfg"}; a folder without
     safetensors raises FileNotFoundError."""
-    if files is None:
-        files = {f: sorted((model_dir / f).glob("*.safetensors")) for f in KANDINSKY3_FOLDERS}
-        for folder, found in files.items():
-            if not found:
-                raise FileNotFoundError(f"no safetensors under {model_dir / folder}")
+    files = files or checkpoint_files(model_dir, KANDINSKY3_FOLDERS)
     return {"files": files,
             "unet_cfg": infer_k3_unet_config(checkpoint_shapes(files["unet"]),
                                              _config_json(model_dir / "unet" / "config.json")),
@@ -113,7 +107,7 @@ def verify_k3(model_dir: Path) -> dict:
     with torch.device("meta"):
         modules = k3_modules(found["unet_cfg"], found["movq_cfg"], found["t5_cfg"])
     return {folder: check_checkpoint(module, found["files"][folder], folder,
-                                     optional=_movq_optional if folder == "movq" else None)
+                                     optional=movq_optional if folder == "movq" else None)
             for folder, module in modules.items()}
 
 
@@ -161,11 +155,8 @@ class Kandinsky3Pipeline(_Module):
             self.weights_source = "given"
         elif files is not None:
             t_load = time.perf_counter()
-            for name, p in self.movq.named_parameters():
-                if _movq_optional(name):
-                    p.fill_(1.0 if name.endswith("weight") else 0.0)
-            nbytes = sum(load_checkpoint_(module, files[folder], folder,
-                                          optional=_movq_optional if folder == "movq" else None)
+            nbytes = sum(load_movq_(module, files[folder]) if folder == "movq"
+                         else load_checkpoint_(module, files[folder], folder)
                          for folder, module in modules.items())
             synchronize(self.device)
             self.checkpoint = {"dir": str(model_dir), "bytes": nbytes,

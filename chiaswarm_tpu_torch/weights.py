@@ -40,10 +40,9 @@ optionally `zero_image_embed.npy` (`KANDINSKY_DECODER_FOLDERS`,
 `KANDINSKY_PRIOR_FOLDERS`). The loader drops MoVQ's codebook
 (`quantize.*`) and MCLIP's unused CLS pooler; a MoVQ whose SpatialNorm
 group norms are non-affine (no `norm_layer` weights) loads with identity
-ones (`load_checkpoint_`'s `optional`). `infer_k22_unet_config` reads the
-decoder UNet's geometry off its checkpoint, as the JAX package's
-`infer_k22_unet_config`, the ControlNet variant's extra hint channels in
-`conv_in` too.
+ones (`load_movq_`). `infer_k22_unet_config` reads the decoder UNet's
+geometry off its checkpoint, as the JAX package's `infer_k22_unet_config`,
+the ControlNet variant's extra hint channels in `conv_in` too.
 
 `from_jax_params` inverts chiaswarm_tpu/models/conversion.py's
 `convert_unet` (a ControlNet's tree too) / `convert_vae` / `convert_clip`
@@ -189,6 +188,16 @@ def find_checkpoint(model_name: str, model_dir: Path | None, folders,
     return files
 
 
+def checkpoint_files(model_dir: Path, folders) -> dict[str, list[Path]]:
+    """{folder: sorted safetensors files} of a model directory; a folder
+    without any raises FileNotFoundError."""
+    files = {f: sorted((model_dir / f).glob("*.safetensors")) for f in folders}
+    for folder, found in files.items():
+        if not found:
+            raise FileNotFoundError(f"no safetensors under {model_dir / folder}")
+    return files
+
+
 _LEGACY_VAE_ATTENTION = ((".query.", ".to_q."), (".key.", ".to_k."), (".value.", ".to_v."),
                          (".proj_attn.", ".to_out.0."))
 _TEXT_LAYER = re.compile(r"text_model\.encoder\.layers\.(\d+)\.")
@@ -222,13 +231,67 @@ def checkpoint_key(key: str, folder: str, text_layers: int | None = None) -> str
     return key
 
 
+def movq_optional(name: str) -> bool:
+    """MoVQ's parameters that a checkpoint may lack: the SpatialNorm group
+    norms' scale and shift, which a non-affine checkpoint leaves at
+    identity."""
+    return ".norm_layer." in name
+
+
+def checkpoint_shape(name: str, shape) -> tuple:
+    """The shape a checkpoint tensor takes in the port: SD 1.x's
+    transformer `proj_in` / `proj_out` are 1x1 convolutions [C, C, 1, 1]
+    in its files; the port's are Linear [C, C]."""
+    shape = tuple(shape)
+    if (name.endswith(("proj_in.weight", "proj_out.weight")) and len(shape) == 4
+            and shape[2:] == (1, 1)):
+        return shape[:2]
+    return shape
+
+
 def checkpoint_tensor(name: str, tensor: torch.Tensor) -> torch.Tensor:
-    """SD 1.x's transformer `proj_in` / `proj_out` are 1x1 convolutions
-    [C, C, 1, 1] in its files; the port's are Linear [C, C]."""
-    if (name.endswith(("proj_in.weight", "proj_out.weight")) and tensor.ndim == 4
-            and tuple(tensor.shape[2:]) == (1, 1)):
-        return tensor[:, :, 0, 0]
-    return tensor
+    """A checkpoint tensor in the port's shape (`checkpoint_shape`)."""
+    return tensor.reshape(checkpoint_shape(name, tensor.shape))
+
+
+def _checkpoint_headers(files: list[Path]):
+    """(path, key, shape) of every tensor in safetensors files, read from
+    their headers."""
+    from safetensors import SafetensorError, safe_open
+
+    for path in files:
+        try:
+            with safe_open(str(path), framework="pt") as f:
+                entries = [(key, tuple(f.get_slice(key).get_shape())) for key in f.keys()]
+        except (SafetensorError, OSError) as e:
+            raise CheckpointError(f"{path}: unreadable safetensors file ({e})") from e
+        for key, shape in entries:
+            yield path, key, shape
+
+
+def _checkpoint_fit(module: nn.Module, files: list[Path], folder: str,
+                    text_layers: int | None, optional):
+    """How one folder's files fit `module`, from their headers: (the
+    tensors to load [(path, key, name)], the keys the module lacks
+    [(path, key)], the shapes that differ [(path, key, shape, name,
+    module's shape)], the parameters no file holds, save those that
+    `optional(name)` accepts). The one rule of the loader and the check."""
+    targets = {k: tuple(v.shape) for k, v in module.state_dict().items()}
+    plan, extra, misshaped, loaded = [], [], [], set()
+    for path, key, shape in _checkpoint_headers(files):
+        name = checkpoint_key(key, folder, text_layers)
+        if name is None:
+            continue
+        if name not in targets:
+            extra.append((path, key))
+            continue
+        shape = checkpoint_shape(name, shape)
+        if shape != targets[name]:
+            misshaped.append((path, key, shape, name, targets[name]))
+        plan.append((path, key, name))
+        loaded.add(name)
+    missing = sorted(n for n in set(targets) - loaded if optional is None or not optional(n))
+    return plan, extra, misshaped, missing
 
 
 @torch.no_grad()
@@ -236,69 +299,66 @@ def load_checkpoint_(module: nn.Module, files: list[Path], folder: str,
                      text_layers: int | None = None, optional=None) -> int:
     """Copy one folder's safetensors into `module`'s own parameters, cast to
     their dtype, one tensor at a time (no second copy of the module on its
-    device): a strict load, so a key the module lacks, a shape that
-    differs or a parameter that no file holds raises CheckpointError,
-    naming the key and the file; a parameter whose name `optional(name)`
-    accepts may be absent, and keeps its value. -> bytes read."""
+    device): a strict load, held to the files' headers before any tensor
+    is read (`_checkpoint_fit`, the rule `check_checkpoint` holds too), so
+    a key the module lacks, a shape that differs or a parameter that no
+    file holds raises CheckpointError, naming the key and the file; a
+    parameter whose name `optional(name)` accepts may be absent, and keeps
+    its value. -> bytes read."""
     from safetensors import SafetensorError, safe_open
 
-    targets = module.state_dict()  # views of the parameters
-    loaded = set()
-    for path in files:
-        try:
-            with safe_open(str(path), framework="pt") as f:
-                for key in f.keys():
-                    name = checkpoint_key(key, folder, text_layers)
-                    if name is None:
-                        continue
-                    if name not in targets:
-                        raise CheckpointError(f"{path}: unexpected key {key!r} (the {folder} "
-                                              "module has no such parameter)")
-                    tensor = checkpoint_tensor(name, f.get_tensor(key))
-                    if tensor.shape != targets[name].shape:
-                        raise CheckpointError(
-                            f"{path}: {key!r} has shape {tuple(tensor.shape)}, the {folder} "
-                            f"module's {name!r} {tuple(targets[name].shape)}")
-                    targets[name].copy_(tensor)
-                    loaded.add(name)
-        except (SafetensorError, OSError) as e:
-            raise CheckpointError(f"{path}: unreadable safetensors file ({e})") from e
-    missing = sorted(n for n in set(targets) - loaded if optional is None or not optional(n))
+    plan, extra, misshaped, missing = _checkpoint_fit(module, files, folder, text_layers,
+                                                      optional)
+    if extra:
+        path, key = extra[0]
+        raise CheckpointError(f"{path}: unexpected key {key!r} (the {folder} module has no "
+                              "such parameter)")
+    if misshaped:
+        path, key, shape, name, want = misshaped[0]
+        raise CheckpointError(f"{path}: {key!r} has shape {shape}, the {folder} module's "
+                              f"{name!r} {want}")
     if missing:
         raise CheckpointError(f"{files[0].parent}: {len(missing)} {folder} parameters in no "
                               f"file, e.g. {missing[:3]}")
+    targets = module.state_dict()  # views of the parameters
+    for path in files:
+        try:
+            with safe_open(str(path), framework="pt") as f:
+                for _, key, name in (entry for entry in plan if entry[0] == path):
+                    targets[name].copy_(checkpoint_tensor(name, f.get_tensor(key)))
+        except (SafetensorError, OSError) as e:
+            raise CheckpointError(f"{path}: unreadable safetensors file ({e})") from e
     return sum(path.stat().st_size for path in files)
+
+
+@torch.no_grad()
+def load_movq_(movq: nn.Module, files: list[Path]) -> int:
+    """MoVQ's load: the SpatialNorm scale and shift set to identity first,
+    where a non-affine checkpoint leaves them (`movq_optional`). -> bytes
+    read."""
+    for name, p in movq.named_parameters():
+        if movq_optional(name):
+            p.fill_(1.0 if name.endswith("weight") else 0.0)
+    return load_checkpoint_(movq, files, "movq", optional=movq_optional)
 
 
 def check_checkpoint(module: nn.Module, files: list[Path], folder: str,
                      text_layers: int | None = None, optional=None) -> int:
     """What `load_checkpoint_` would load, held against `module` (on any
-    device, the meta device too) from the files' headers alone: raises
+    device, the meta device too) by the loader's own rule
+    (`_checkpoint_fit`), from the files' headers alone: raises
     CheckpointError naming every key the module lacks, every parameter no
     file holds and every shape that differs. -> the module's parameter
     count."""
     if not files:
         raise CheckpointError(f"no safetensors for the {folder} module")
-    targets = {k: tuple(v.shape) for k, v in module.state_dict().items()}
-    extra, misshaped, loaded = [], [], set()
-    for key, shape in checkpoint_shapes(files).items():
-        name = checkpoint_key(key, folder, text_layers)
-        if name is None:
-            continue
-        if name not in targets:
-            extra.append(key)
-            continue
-        if (name.endswith(("proj_in.weight", "proj_out.weight")) and len(shape) == 4
-                and tuple(shape[2:]) == (1, 1)):
-            shape = tuple(shape[:2])
-        if tuple(shape) != targets[name]:
-            misshaped.append(f"{key} {tuple(shape)} != {targets[name]}")
-        loaded.add(name)
-    missing = sorted(n for n in set(targets) - loaded if optional is None or not optional(n))
+    _, extra, misshaped, missing = _checkpoint_fit(module, files, folder, text_layers,
+                                                   optional)
     if extra or missing or misshaped:
         raise CheckpointError(
             f"{files[0].parent}: the {folder} checkpoint does not fit its module: "
-            f"missing {missing}, unexpected {sorted(extra)}, misshaped {misshaped}")
+            f"missing {missing}, unexpected {sorted(key for _, key in extra)}, misshaped "
+            f"{[f'{key} {shape} != {want}' for _, key, shape, _, want in misshaped]}")
     return sum(p.numel() for p in module.parameters())
 
 
@@ -497,17 +557,7 @@ def infer_paella_vq_config(shapes: dict, config_json: dict | None = None) -> Pae
 def checkpoint_shapes(files: list[Path]) -> dict[str, tuple]:
     """{key: shape} of the tensors in safetensors files, read from their
     headers."""
-    from safetensors import SafetensorError, safe_open
-
-    shapes = {}
-    for path in files:
-        try:
-            with safe_open(str(path), framework="pt") as f:
-                for key in f.keys():
-                    shapes[key] = tuple(f.get_slice(key).get_shape())
-        except (SafetensorError, OSError) as e:
-            raise CheckpointError(f"{path}: unreadable safetensors file ({e})") from e
-    return shapes
+    return {key: shape for _, key, shape in _checkpoint_headers(files)}
 
 
 def infer_k_upscaler_config(shapes: dict, config_json: dict | None = None) -> KUpscalerConfig:

@@ -6786,6 +6786,28 @@ def _randn(shape, device, seed: int, dtype=torch.bfloat16):
                        generator=torch.Generator(device=device).manual_seed(seed)).to(dtype)
 
 
+def _peak_above(device: str, fn):
+    """fn() -> (its result, the most device memory it held above what was
+    allocated before it, GiB; 0 off the card): a job's or a stage's
+    activations, which capacity.py's per-image rows reckon."""
+    if device != "cuda":
+        return fn(), 0.0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def _check_reckoned(label: str, allocated_gib: float, peak_gib: float, reckoned_gib: float):
+    """The bundle's device memory and its job's peak above it within what
+    capacity.resident_bytes reckons for the model, on the card."""
+    check(allocated_gib + peak_gib <= reckoned_gib,
+          f"{label}: {allocated_gib:.3f} GiB resident + {peak_gib:.3f} GiB at its peak > "
+          f"the {reckoned_gib:.3f} GiB capacity.resident_bytes reckons")
+
+
 def _timings_line(t: dict) -> str:
     keys = ("job_s", "prior_s", "text_encode_s", "encode_s", "denoise_s", "unet_step_ms",
             "decode_s")
@@ -6793,8 +6815,8 @@ def _timings_line(t: dict) -> str:
 
 
 def serve_kandinsky3_path(smi: str, device: str = "cuda", dtype=None, size: int = SIZE,
-                          steps: int = K3_STEPS, hold: bool = True, tiny: bool = False,
-                          e2e: bool = True) -> tuple[dict, dict]:
+                          steps: int = K3_STEPS, hold: bool = True,
+                          tiny: bool = False) -> tuple[dict, dict]:
     """Phase 5, the Kandinsky 3 path, in a registry of its own: the
     published bundle (FLAN-UL2's T5 encoder, the UNet, the 2.2 MoVQ) on
     seeded weights written as bf16 diffusers safetensors under a temporary
@@ -6805,8 +6827,10 @@ def serve_kandinsky3_path(smi: str, device: str = "cuda", dtype=None, size: int 
     DDPM steps, guidance 3.0) and img2img at strength 0.75 through the
     worker and the fake hive, each envelope checked and its launches held
     to `k3_calls` (UNet calls x a call's launches, a decode, an encode for
-    img2img); the bundle's bf16 parameter bytes, the job, stage and UNet
-    step times printed; a bf16 UNet call against f32 on the plain path and
+    img2img); the bundle's bf16 parameter bytes, each job's peak device
+    memory above the bundle (held, with the bundle's, within
+    capacity.resident_bytes), the job, stage and UNet step times printed;
+    a bf16 UNet call against f32 on the plain path and
     profiles of a UNet call and a MoVQ decode. -> ({job kind: (1,
     launches)}, served). `tiny` rehearses the path on the CPU."""
     import gc
@@ -6889,7 +6913,8 @@ def serve_kandinsky3_path(smi: str, device: str = "cuda", dtype=None, size: int 
         for kind, job in jobs.items():
             img2img = kind == "k3_img2img"
             files = {"start": image_bytes(start_image(size), "JPEG")} if img2img else None
-            done, launches, wall = _serve_jobs(registry, [job], device, files)
+            (done, launches, wall), peak = _peak_above(
+                device, lambda: _serve_jobs(registry, [job], device, files))
             job, cfg, image = done[0]
             unet_calls = cfg["steps"] - (int(cfg["steps"] * 0.25) if img2img else 0)
             shapes = {}
@@ -6903,10 +6928,16 @@ def serve_kandinsky3_path(smi: str, device: str = "cuda", dtype=None, size: int 
             log(f"[kandinsky3] {job['id']} ({name}, {size}^2, mode {cfg['mode']}, "
                 f"{cfg['steps']} steps on {cfg['scheduler']}, {unet_calls} UNet calls) on {smi}: "
                 f"{_timings_line(t)}; launches counted {json.dumps(held['counted'])}, predicted "
-                f"{json.dumps(held['predicted'])}; pixels {int(image.min())}..{int(image.max())}")
+                f"{json.dumps(held['predicted'])}; pixels {int(image.min())}..{int(image.max())}; "
+                f"peak {peak:.3f} GiB above the resident "
+                f"{served['bundle']['allocated_gib']:.3f} GiB (reckoned in all "
+                f"{served['bundle']['reckoned_gib']:.3f} GiB)")
             served["jobs"][job["id"]] = {"timings": t, **held, "wall_s": wall,
-                                         "latents": cfg["latents"]}
+                                         "latents": cfg["latents"], "peak_act_gib": peak}
             paths[kind] = (1, launches)
+            if device == "cuda":
+                _check_reckoned(f"{name} {kind}", served["bundle"]["allocated_gib"], peak,
+                                served["bundle"]["reckoned_gib"])
         if device == "cuda":
             lat = size // pipe.latent_factor
             x = _randn((2, 4, lat, lat), device, 11).contiguous(
@@ -6915,10 +6946,9 @@ def serve_kandinsky3_path(smi: str, device: str = "cuda", dtype=None, size: int 
             ctx = _randn((2, 128, pipe.unet_cfg.encoder_hid_dim), device, 12)
             mask = torch.ones((2, 128), device=device)
             mask[0, 24:] = 0.0
-            if e2e:
-                served["e2e_unet"] = _bf16_vs_f32(
-                    f"{name} UNet at {size}^2 (2 CFG rows)", pipe.unet,
-                    lambda m: m(x, tt, ctx, mask), lambda m: m(x.float(), tt, ctx.float(), mask))
+            served["e2e_unet"] = _bf16_vs_f32(
+                f"{name} UNet at {size}^2 (2 CFG rows)", pipe.unet,
+                lambda m: m(x, tt, ctx, mask), lambda m: m(x.float(), tt, ctx.float(), mask))
             z = _randn((1, 4, lat, lat), device, 13)
             served["profile"] = profile_fns(name, size, 2, {
                 "unet": (lambda: pipe.unet(x, tt, ctx, mask), 2),
@@ -6952,7 +6982,7 @@ def cascade_job(job_id: str, model: str, size: int, seed: int, pipeline_type: st
 
 def serve_cascade_path(smi: str, device: str = "cuda", dtype=None, size: int = SIZE,
                        prior_steps: int = CASCADE_PRIOR_STEPS, hold: bool = True,
-                       tiny: bool = False, e2e: bool = True) -> tuple[dict, dict]:
+                       tiny: bool = False) -> tuple[dict, dict]:
     """Phase 5, the Stable Cascade path, in a registry of its own: the
     published prior (stage C, 2048 wide, 32 heads; CLIP-bigG) and decoder
     (stage B at (320, 640, 1280, 1280) with (0, 0, 20, 20) heads; CLIP-bigG;
@@ -6964,9 +6994,12 @@ def serve_cascade_path(smi: str, device: str = "cuda", dtype=None, size: int = S
     its 10) through the worker and the fake hive, each envelope checked and
     its launches held to `cascade_calls` (prior steps x a stage C call's
     launches + decoder steps x a stage B call's); each bundle's bf16
-    parameter bytes and the stage times printed; a bf16 stage C call and a
-    stage B call against f32 on the plain path, and their profiles. ->
-    ({job kind: (1, launches)}, served)."""
+    parameter bytes and the stage times printed; on the card, each stage's
+    peak device memory above the bundles (the prior's generate, then the
+    decoder's run on its embeddings, 2 steps each: a step's peak repeats),
+    held with its bundle within capacity.resident_bytes; a bf16 stage C
+    call and a stage B call against f32 on the plain path, and their
+    profiles. -> ({job kind: (1, launches)}, served)."""
     import gc
     import shutil
     import tempfile
@@ -7055,6 +7088,19 @@ def serve_cascade_path(smi: str, device: str = "cuda", dtype=None, size: int = S
                                          "latents": cfg["latents"]}
             paths[kind] = (1, launches)
         if device == "cuda":
+            embeds, peak_c = _peak_above(device, lambda: prior.generate(
+                K_PROMPT, "blurry", 1, 2, 4.0, size, size))
+            _, peak_b = _peak_above(device, lambda: decoder.run(
+                K_PROMPT, image_embeddings=embeds, num_inference_steps=2, height=size,
+                width=size))
+            del embeds
+            for name, peak in ((prior_name, peak_c), (decoder_name, peak_b)):
+                b = served["bundle"][name]
+                b["peak_act_gib"] = peak
+                log(f"[cascade] {name}'s stage at {size}^2 on {smi}: peak {peak:.3f} GiB above "
+                    f"the resident bundles ({b['allocated_gib']:.3f} GiB its own; reckoned in "
+                    f"all {b['reckoned_gib']:.3f} GiB)")
+                _check_reckoned(f"{name}'s stage", b["allocated_gib"], peak, b["reckoned_gib"])
             grid = prior.grid(size, size)
             c, b = prior.unet_cfg, decoder.unet_cfg
             xc = _randn((2, c.in_channels, *grid), device, 21).contiguous(
@@ -7068,16 +7114,15 @@ def serve_cascade_path(smi: str, device: str = "cuda", dtype=None, size: int = S
                 memory_format=torch.channels_last)
             rb = torch.full((1,), 0.5, device=device)
             effnet = _randn((1, b.effnet_in_channels, *grid), device, 25)
-            if e2e:
-                served["e2e_stage_c"] = _bf16_vs_f32(
-                    f"{prior_name} stage C at {size}^2 (2 CFG rows)", prior.unet,
-                    lambda m: m(xc, rc_, pooled, clip_text=text, clip_img=img),
-                    lambda m: m(xc.float(), rc_, pooled.float(), clip_text=text.float(),
-                                clip_img=img.float()))
-                served["e2e_stage_b"] = _bf16_vs_f32(
-                    f"{decoder_name} stage B at {size}^2 (1 row)", decoder.unet,
-                    lambda m: m(xb, rb, pooled[:1], effnet=effnet),
-                    lambda m: m(xb.float(), rb, pooled[:1].float(), effnet=effnet.float()))
+            served["e2e_stage_c"] = _bf16_vs_f32(
+                f"{prior_name} stage C at {size}^2 (2 CFG rows)", prior.unet,
+                lambda m: m(xc, rc_, pooled, clip_text=text, clip_img=img),
+                lambda m: m(xc.float(), rc_, pooled.float(), clip_text=text.float(),
+                            clip_img=img.float()))
+            served["e2e_stage_b"] = _bf16_vs_f32(
+                f"{decoder_name} stage B at {size}^2 (1 row)", decoder.unet,
+                lambda m: m(xb, rb, pooled[:1], effnet=effnet),
+                lambda m: m(xb.float(), rb, pooled[:1].float(), effnet=effnet.float()))
             served["profile"] = profile_fns(decoder_name, size, 1, {
                 "stage_c": (lambda: prior.unet(xc, rc_, pooled, clip_text=text, clip_img=img), 2),
                 "stage_b": (lambda: decoder.unet(xb, rb, pooled[:1], effnet=effnet), 2),

@@ -221,6 +221,33 @@ def test_broken_file_raises_naming_it(kind, tmp_path):
         assert str(path) in str(err.value)
 
 
+@pytest.mark.parametrize("kind", ["whole", "shape", "unknown", "missing", "unreadable"])
+def test_check_holds_the_loaders_rule(kind, tmp_path):
+    """`check_checkpoint` (the setup CLI's `--check`, on the meta device)
+    refuses from the headers exactly what `load_checkpoint_` refuses, and
+    names the key; a whole file passes both, with the module's count."""
+    state, _ = (_vae_state(), None) if kind == "whole" else _broken(kind, _vae_state())
+    path = tmp_path / "vae.safetensors"
+    if state is None:
+        path.write_bytes(b"not a safetensors file")
+    else:
+        save_file(state, str(path))
+    with torch.device("meta"):
+        meta = AutoencoderKL(cfgs.TINY_VAE)
+    if kind == "whole":
+        n = weights.check_checkpoint(meta, [path], "vae")
+        assert n == sum(p.numel() for p in meta.parameters())
+        weights.load_checkpoint_(AutoencoderKL(cfgs.TINY_VAE), [path], "vae")
+        return
+    with pytest.raises(weights.CheckpointError) as err:
+        weights.check_checkpoint(meta, [path], "vae")
+    named = {"shape": "decoder.conv_in.weight", "unknown": "decoder.mystery.weight",
+             "missing": "decoder.conv_in.weight", "unreadable": str(path)}[kind]
+    assert named in str(err.value)
+    with pytest.raises(weights.CheckpointError):
+        weights.load_checkpoint_(AutoencoderKL(cfgs.TINY_VAE), [path], "vae")
+
+
 def _chip_smoke():
     import importlib.util
     from pathlib import Path

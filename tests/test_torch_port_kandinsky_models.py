@@ -200,11 +200,7 @@ def test_movq_fills_non_affine_spatial_norm(tmp_path, movq):
     state["quantize.embedding.weight"] = _randn(16, 4)
     save_file(state, str(tmp_path / "movq.safetensors"))
     fresh = MoVQ(cfgs.TINY_MOVQ)
-    for name, p in fresh.named_parameters():
-        if ".norm_layer." in name:
-            p.data.fill_(1.0 if name.endswith("weight") else 0.0)
-    weights.load_checkpoint_(fresh, [tmp_path / "movq.safetensors"], "movq",
-                             optional=lambda n: ".norm_layer." in n)
+    weights.load_movq_(fresh, [tmp_path / "movq.safetensors"])
     want = jax_conv.convert_movq(state)
     _trees_equal(jax_conv.convert_movq(_numpy_state(fresh.state_dict())), want)
     with pytest.raises(weights.CheckpointError, match="parameters in no file"):
